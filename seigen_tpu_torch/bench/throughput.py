@@ -1,0 +1,189 @@
+"""Throughput benchmark: DOF-updates/s on one GPU, 3D explosive source.
+
+Port of ``seigen_tpu/bench/throughput.py`` for the merged LF4 runner.  A
+"DOF update" is one field coefficient advanced one full LF timestep; the
+per-step DOF count is E * n_p * (dim + n_sig).  The timed region is
+``MergedLaneRunner.run_lm`` over ``n_steps`` steps, best of 3 after one
+warm-up run, each ending in ``torch.cuda.synchronize()``.
+
+    python -m seigen_tpu_torch.bench.throughput            # n=24, P3, 100 steps
+    python -m seigen_tpu_torch.bench.throughput --kernel-impl reference
+
+prints one JSON line.  The measurement needs a CUDA device and refuses to
+run without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+from dataclasses import dataclass
+
+import torch
+
+from ..mesh import box_mesh, build_discrete
+from ..ops import Material, build_params, n_sig_for
+from ..ops.structured_exchange import detect_structured
+from ..solver.damping import absorbing_bc_fn, sponge_mask
+from ..solver.lane_merged import MergedLaneRunner
+from ..solver.source import PointSource, build_sources
+from ..solver.timestep import State, cfl_dt
+
+# ONE material for the whole bench surface (the JAX bench's BENCH_MAT)
+BENCH_MAT = Material(rho=1.0, vp=2.0, vs=1.0)
+
+
+@dataclass
+class BenchResult:
+    dof_updates_per_sec: float
+    steps_per_sec: float
+    n_elements: int
+    n_dof: int
+    degree: int
+    n_steps: int
+    seconds: float
+
+
+def setup_case(
+    n: int = 24,
+    degree: int = 3,
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str = "cpu",
+):
+    """3D explosive-source case: unit box, free top, absorbing elsewhere.
+
+    Returns (dm, p, src, damp, dt, state0) like the JAX ``setup_case``.
+    """
+    dim = 3
+    absorb = [(0, "lo"), (0, "hi"), (1, "lo"), (1, "hi"), (2, "lo")]
+    bc_fn = absorbing_bc_fn(((0.0, 1.0),) * dim, free_sides=[(2, "hi")])
+    dm = build_discrete(box_mesh(n, n, n), degree, bc_fn=bc_fn)
+    p = build_params(dm, BENCH_MAT, dtype=dtype, device=device)
+    h_elem = float(dm.h.min())
+    src = build_sources(
+        dm,
+        [PointSource(position=(0.5, 0.5, 0.8), f0=0.25 / h_elem,
+                     radius=2 * h_elem)],
+        dtype=dtype, device=device,
+    )
+    damp = torch.as_tensor(
+        sponge_mask(dm, absorb, width=0.15), device=device).to(dtype)
+    dt = cfl_dt(h_elem, 2.0, degree, cfl=0.4)
+    E, n_p = dm.num_elements, dm.re.n_p
+    state0 = State(
+        u=torch.zeros((E, n_p, dim), dtype=dtype, device=device),
+        s=torch.zeros((E, n_p, n_sig_for(dim)), dtype=dtype, device=device),
+    )
+    return dm, p, src, damp, dt, state0
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def measure(p, src, damp, dt, state0, dm, n_steps: int = 50,
+            impl: str = "merged", kernel_impl: str | None = None
+            ) -> BenchResult:
+    """Time ``n_steps`` of the merged runner, best of 3 after a warm-up.
+
+    kernel_impl: "kernel" (CUDA kernels) or "reference" (their plain
+    PyTorch versions); default by device.
+    """
+    if impl != "merged":
+        raise ValueError(f"only impl='merged' is ported, not {impl!r}")
+    ex = detect_structured(dm)
+    if ex is None:
+        raise ValueError("merged impl requires a structured mesh")
+    runner = MergedLaneRunner(p, ex, dt, src=src, damp=damp,
+                              impl=kernel_impl)
+    ulm, slm = runner.to_lm_state(state0)
+    runner.run_lm(ulm, slm, n_steps)  # warm-up
+    _sync(p.device)
+    dt_wall = float("inf")
+    for _ in range(3):
+        _sync(p.device)
+        t0 = time.perf_counter()
+        runner.run_lm(ulm, slm, n_steps)
+        _sync(p.device)
+        dt_wall = min(dt_wall, time.perf_counter() - t0)
+    dim = p.dim
+    E, n_p = state0.u.shape[0], state0.u.shape[1]
+    n_dof = E * n_p * (dim + n_sig_for(dim))
+    return BenchResult(
+        dof_updates_per_sec=n_dof * n_steps / dt_wall,
+        steps_per_sec=n_steps / dt_wall,
+        n_elements=E,
+        n_dof=n_dof,
+        degree=p.degree,
+        n_steps=n_steps,
+        seconds=dt_wall,
+    )
+
+
+def gpu_name_and_power_limit(device_index: int = 0):
+    """(name, power limit) as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", f"--id={device_index}"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    name, limit = (x.strip() for x in out.split(",", 1))
+    return name, limit
+
+
+def report(res: BenchResult, impl: str, kernel_impl: str,
+           device: torch.device | str = "cuda") -> dict:
+    """The JSON line: the JAX bench's metric and detail keys, plus the
+    GPU's name and power limit and which operator implementation ran."""
+    dev = torch.device(device)
+    name, limit = gpu_name_and_power_limit(dev.index or 0)
+    return {
+        "metric": "dof_updates_per_sec_per_chip_3d_explosive",
+        "value": res.dof_updates_per_sec,
+        "unit": "DOF-updates/s/chip",
+        "vs_baseline": None,
+        "detail": {
+            "elements": res.n_elements,
+            "dof": res.n_dof,
+            "degree": res.degree,
+            "steps": res.n_steps,
+            "seconds": res.seconds,
+            "steps_per_sec": res.steps_per_sec,
+            "backend": "cuda",
+            "impl": impl,
+            "gpu": name,
+            "power_limit": limit,
+            "kernel_impl": kernel_impl,
+        },
+    }
+
+
+def main(n: int = 24, degree: int = 3, n_steps: int = 100,
+         impl: str = "merged", device: str = "cuda",
+         kernel_impl: str = "kernel", case=None) -> dict:
+    """Measure the merged runner on the CUDA device; returns the JSON
+    record.  ``case``: a ``setup_case`` result to reuse."""
+    if torch.device(device).type != "cuda" or not torch.cuda.is_available():
+        raise RuntimeError("the throughput bench measures a CUDA device; "
+                           "none is available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dm, p, src, damp, dt, state0 = case or setup_case(
+        n=n, degree=degree, device=device)
+    res = measure(p, src, damp, dt, state0, dm, n_steps=n_steps, impl=impl,
+                  kernel_impl=kernel_impl)
+    return report(res, impl, kernel_impl, device)
+
+
+if __name__ == "__main__":
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=24)
+    ap.add_argument("--degree", type=int, default=3)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--kernel-impl", default="kernel",
+                    choices=("kernel", "reference"))
+    a = ap.parse_args()
+    print(json.dumps(main(n=a.n, degree=a.degree, n_steps=a.steps,
+                          kernel_impl=a.kernel_impl)))

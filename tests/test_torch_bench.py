@@ -1,0 +1,76 @@
+"""The port's throughput bench on the CPU, and the port's import guard.
+
+``setup_case`` must build the JAX bench's case (same mesh, parameters,
+source, sponge, dt); ``measure`` runs end to end on the CPU through the
+plain operator versions; ``main`` refuses to measure without a CUDA device;
+and importing the port never imports JAX.
+"""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from seigen_tpu.bench import throughput as jbench
+from seigen_tpu_torch.bench import throughput as tbench
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def cases():
+    return (jbench.setup_case(n=2, degree=2, dtype=jnp.float64),
+            tbench.setup_case(n=2, degree=2, dtype=torch.float64))
+
+
+def test_setup_case_matches_jax(cases):
+    (dm_j, p_j, src_j, damp_j, dt_j, st_j), (dm_t, p_t, src_t, damp_t,
+                                            dt_t, st_t) = cases
+    assert dt_t == pytest.approx(dt_j, rel=1e-15)
+    assert dm_t.num_elements == dm_j.num_elements
+    np.testing.assert_array_equal(dm_t.bc, dm_j.bc)
+    for name in ("Ginv", "Fscale", "normals", "inv_rho", "lam", "mu",
+                 "beta_t", "delta_u"):
+        np.testing.assert_allclose(getattr(p_t, name).numpy(),
+                                   np.asarray(getattr(p_j, name)),
+                                   rtol=1e-13, atol=1e-15, err_msg=name)
+    np.testing.assert_array_equal(src_t.elems.numpy(),
+                                  np.asarray(src_j.elems))
+    for name in ("vec_u", "vec_s", "f0", "t0", "amp"):
+        np.testing.assert_allclose(getattr(src_t, name).numpy(),
+                                   np.asarray(getattr(src_j, name)),
+                                   rtol=1e-12, atol=1e-14, err_msg=name)
+    np.testing.assert_allclose(damp_t.numpy(), np.asarray(damp_j),
+                               rtol=1e-13)
+    assert st_t.u.shape == st_j.u.shape and st_t.s.shape == st_j.s.shape
+
+
+def test_measure_reference_on_cpu(cases):
+    dm, p, src, damp, dt, st = cases[1]
+    res = tbench.measure(p, src, damp, dt, st, dm, n_steps=2,
+                         kernel_impl="reference")
+    assert res.n_dof == dm.num_elements * dm.re.n_p * 9
+    assert np.isfinite(res.dof_updates_per_sec)
+    assert res.dof_updates_per_sec > 0 and res.seconds > 0
+
+
+def test_main_refuses_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tbench.main(n=2, degree=2, n_steps=1)
+
+
+def test_port_never_imports_jax():
+    code = ("import sys, seigen_tpu_torch.bench.throughput, "
+            "seigen_tpu_torch.solver.lane_merged, "
+            "seigen_tpu_torch.ops.merged_kernels; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'seigen_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert json.loads(out.stdout.strip().replace("'", '"')) == []

@@ -1,0 +1,124 @@
+"""The CUDA merged operators against their plain versions, on the card.
+
+Every variant of K1 (merged_vel) and K2 (merged_stress) against
+vel_merged_ref / stress_merged_ref in float32 on box_mesh(4, 4, 4) at P2
+and P3, and the kernel runner against the plain runner for a few steps.
+These tests need a CUDA device and nvcc; elsewhere they skip.  On the GPU
+machine (which has no JAX, so the suite's conftest is not loaded):
+
+    python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest
+
+Tolerance: |k - p| <= 2e-4*|p| + 2e-5*max|p| — float32 rounding of the
+operator's large terms sets the absolute floor relative to the output's
+scale (see chip_smoke.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from seigen_tpu_torch.mesh import box_mesh, build_discrete
+from seigen_tpu_torch.ops import Material, build_params
+from seigen_tpu_torch.ops import merged_kernels as mk
+from seigen_tpu_torch.ops.structured_exchange import detect_structured
+from seigen_tpu_torch.solver.damping import absorbing_bc_fn, sponge_mask
+from seigen_tpu_torch.solver.lane_merged import MergedLaneRunner
+from seigen_tpu_torch.solver.source import PointSource, build_sources
+from seigen_tpu_torch.solver.timestep import State
+
+pytestmark = pytest.mark.cuda
+
+RTOL, ATOL = 2e-4, 2e-5
+SIDES = [(0, "lo"), (0, "hi"), (1, "lo"), (1, "hi"), (2, "lo")]
+VARIANTS = ["plain", "axpy", "inject1", "inject2"]
+
+
+def _assert_close(got, ref):
+    bound = RTOL * ref.abs() + ATOL * ref.abs().max()
+    assert torch.isfinite(got).all()
+    assert bool(((got - ref).abs() <= bound).all()), (
+        (got - ref).abs().max().item())
+
+
+@pytest.fixture(scope="module")
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture(scope="module", params=[2, 3], ids=["P2", "P3"])
+def case(request, device):
+    ext = ((0.0, 1.0),) * 3
+    dm = build_discrete(box_mesh(4, 4, 4), request.param,
+                        bc_fn=absorbing_bc_fn(ext, free_sides=[(2, "hi")]))
+    p = build_params(dm, Material(1.0, 2.0, 1.0), device=device)
+    damp = torch.as_tensor(sponge_mask(dm, SIDES, width=0.3),
+                           device=device).float()
+    src = build_sources(dm, [PointSource(position=(0.5, 0.5, 0.7), f0=4.0,
+                                         radius=0.25)], device=device)
+    runner = MergedLaneRunner(p, detect_structured(dm), 0.01, src=src,
+                              damp=damp, impl="kernel")
+    d, plan = runner.d, runner.plan
+    rng = np.random.default_rng(request.param)
+
+    def field(C, used, rows, n):
+        a = rng.standard_normal((n, C, rows, plan.Ls)).astype(np.float32)
+        a[:, :, used:] = 0.0
+        return torch.as_tensor(a.reshape(n, C * rows, plan.Ls),
+                               device=device)
+
+    data = {"vel": (field(d.n_sig, d.n_p, d.npp, 1)[0],
+                    field(d.dim, d.n_p, d.npp, 4)),
+            "stress": (field(d.dim, d.n_p, d.npp, 1)[0],
+                       field(d.n_sig, d.n_p, d.npp, 4)),
+            "trs": field(d.nf, d.dim * d.n_fp, plan.rtf, 1)[0]}
+    return dm, p, src, damp, runner, data
+
+
+@pytest.mark.parametrize("op", ["vel", "stress"])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_kernel_matches_plain(case, op, variant):
+    *_, runner, data = case
+    x, y = data[op]  # operator input; output-shaped operands
+    kw = {}
+    if variant == "axpy":
+        dt = float(runner.dt)
+        kw = dict(axpy=(y[0], y[1]), dt=dt, c3=dt**3 / 24.0)
+    elif variant.startswith("inject"):
+        kw = dict(inject=[(y[2 + g], (0.7, -1.3)[g])
+                          for g in range(int(variant[-1]))])
+    fused, plain, kernel = ((mk.vel_merged, mk.vel_merged_ref,
+                             mk.VEL_KERNEL) if op == "vel" else
+                            (mk.stress_merged, mk.stress_merged_ref,
+                             mk.STRESS_KERNEL))
+    args = (runner.plan, runner.d, x, data["trs"], runner.mask)
+    n0 = kernel.launches
+    got = fused(*args, **kw)  # dispatches to the kernel for CUDA tensors
+    ref = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 1
+    for g, r in zip(got, ref):
+        _assert_close(g, r)
+
+
+def test_runner_kernels_match_plain(case, device):
+    dm, p, src, damp, runner, _ = case
+    plain = MergedLaneRunner(p, runner.ex, 0.01, src=src, damp=damp,
+                             impl="reference")
+    rng = np.random.default_rng(5)
+    E, n_p = dm.num_elements, dm.re.n_p
+    st = State(u=torch.as_tensor(rng.standard_normal((E, n_p, 3)),
+                                 device=device).float(),
+               s=torch.as_tensor(rng.standard_normal((E, n_p, 6)),
+                                 device=device).float())
+    n_vel, n_stress = mk.VEL_KERNEL.launches, mk.STRESS_KERNEL.launches
+    out_k, _ = runner.run(st, 4)
+    out_r, _ = plain.run(st, 4)
+    assert mk.VEL_KERNEL.launches - n_vel == 12
+    assert mk.STRESS_KERNEL.launches - n_stress == 12
+    for a, b in ((out_k.u, out_r.u), (out_k.s, out_r.s)):
+        assert torch.isfinite(a).all()
+        assert ((a - b).norm() / b.norm()).item() < 1e-5
