@@ -6,19 +6,34 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device   - require a CUDA device; print nvidia-smi's name and power limit.
-2. build    - compile the merged operator kernels (K1 merged_vel, K2
-              merged_stress) from seigen_tpu_torch/csrc with nvcc.
-3. kernels  - every kernel variant (vel plain/axpy/inject with 1 and 2
+2. build    - compile every kernel library from seigen_tpu_torch/csrc with
+              nvcc, one nvcc per source, all at once: merged_kernels.cu
+              (K1 merged_vel, K2 merged_stress) and upwind_kernels.cu (K3
+              upwind_rhs); print ptxas's registers, stack and spills.
+3. kernels  - every K1/K2 variant (vel plain/axpy/inject with 1 and 2
               groups; stress plain/axpy+damp/inject with 1 and 2 groups)
               against its plain PyTorch version on the card in float32, on
               box_mesh(4, 4, 4) at P3 and P2.
-4. runner   - the main path: MergedLaneRunner on the n=24 P3 explosive-
+4. runner   - the LF4 main path: MergedLaneRunner on the n=24 P3 explosive-
               source case (E = 82 944) for 10 steps from a numpy-seeded
               random state, kernels vs plain versions; launch counts,
               finiteness; then every variant again at these shapes, with
               each kernel's time beside its plain version's.
-5. bench    - seigen_tpu_torch.bench.throughput.main (100 steps) with the
-              kernels and with the plain versions on the same case.
+5. bench    - seigen_tpu_torch.bench.throughput.main (100 steps, impl
+              "merged") with the kernels and with the plain versions.
+6. upwind   - the upwind-RK4 lane path.  Every K3 variant (plain, 1 and 2
+              source groups, an acoustic vs = 0 half) against
+              upwind_rhs_merged_ref on box_mesh(4, 4, 4) at P3 and P2;
+              UpwindLaneRunner on the n=24 P3 case for 10 steps, kernel vs
+              plain, elastic (blob source on the dense-group path, sponge)
+              and viscoelastic (Q = 30/20, L = 3, scatter-source path):
+              relative L2, launch counts (4 per step), finiteness; K3's
+              variants and times at these shapes; the bench (impl
+              "upwind_lane", 100 steps) with the kernel and the plain
+              version; the upwind eigenmode on periodic box_mesh(N, N, N),
+              N = 4 and 8, P2, float64 through the einsum run_rk4 (the
+              merged plan refuses periodic meshes): L2(u) per N and the
+              observed order, which must exceed 2.8.
 
 Tolerance of a kernel against its plain version: |k - p| <= rtol*|p| +
 atol*max|p| with rtol = 2e-4, atol = 2e-5.  The absolute floor is taken
@@ -27,14 +42,20 @@ the ~1e3-1e4-sized operator terms leaves absolute errors of ~1e-4 in
 outputs that happen to be near zero, for the plain version as much as for
 the kernel.
 
-Output: the JSON lines of phase 5, then the nvidia-smi line, one JSON line
-describing the kernels, and as the last line
+Each kernel's bound is the larger of its compulsory bytes (inputs read
+once, outputs written once, from the main path's shapes) over the H100's
+published 3.35 TB/s and its matrix-product FLOPs over the published 67
+TFLOP/s FP32 rate.
+
+Output: the JSON lines of the bench phases, then the nvidia-smi line, one
+JSON line describing the kernels, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -43,8 +64,18 @@ RTOL, ATOL = 2e-4, 2e-5
 RUNNER_STEPS = 10
 BENCH_STEPS = 100
 TIMING_REPS = 20
+EIGEN_MIN_ORDER = 2.8
 SIDES = [(0, "lo"), (0, "hi"), (1, "lo"), (1, "hi"), (2, "lo")]
-KERNEL_SOURCE = "seigen_tpu_torch/csrc/merged_kernels.cu"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peaks
+FP32_FLOPS_PER_S = 67e12
+KERNELS = {  # name -> (source, replaced TPU kernel)
+    "merged_vel": ("seigen_tpu_torch/csrc/merged_kernels.cu",
+                   "seigen_tpu/ops/merged_kernels.py:542"),
+    "merged_stress": ("seigen_tpu_torch/csrc/merged_kernels.cu",
+                      "seigen_tpu/ops/merged_kernels.py:582"),
+    "upwind_rhs": ("seigen_tpu_torch/csrc/upwind_kernels.cu",
+                   "seigen_tpu/ops/upwind_kernels.py:231"),
+}
 
 
 def log(msg: str):
@@ -186,6 +217,247 @@ def time_ms(fn, reps=TIMING_REPS):
     return start.elapsed_time(stop) / reps
 
 
+def bound(d, plan, kname):
+    """(bound_ms, "bytes" | "operations") of one plain launch of a kernel
+    at these shapes: compulsory bytes (state rows n_p per component, the
+    neighbour payload rows, the geo/impedance/mask rows the operator reads;
+    the full output and trace arrays written) over the memory rate, and
+    the Dr and LIFT matrix-product FLOPs over the FP32 rate."""
+    dim, n_p, nf, nfp, npp = d.dim, d.n_p, d.nf, d.n_fp, d.npp
+    nft = nf * nfp
+    geo = dim * dim + dim * nf  # Ginv, normals
+    if kname == "merged_vel":  # sigma in, u out; scb, bfs, 1/rho
+        c_in, c_out, geo = d.n_sig, dim, geo + 2 * nf + 1
+    elif kname == "merged_stress":  # u in, sigma out; scb, dfs, lam, mu
+        c_in, c_out, geo = dim, d.n_sig, geo + 2 * nf + 2
+    else:  # u, sigma in and out; scb, 1/rho, lam, mu; 4*nf + 2 uwg rows
+        c_in = c_out = dim + d.n_sig
+        geo += nf + 3 + 4 * nf + 2
+    rows = c_in * n_p + plan.pay * nft + geo + nf + c_out * npp \
+        + nf * plan.rtf
+    flops = 2 * (c_out * dim * n_p * n_p + c_out * n_p * nft)
+    t_bytes = 4.0 * rows * plan.Ls / HBM_BYTES_PER_S * 1e3
+    t_ops = float(flops) * plan.Ls / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def small_upwind_runner(degree, device, acoustic):
+    """K3 runner on a free-top box_mesh(4, 4, 4): the bench material, or
+    vs = 0 where x < 0.5 (the acoustic guard of the Riemann states)."""
+    import numpy as np
+
+    from seigen_tpu_torch.mesh import box_mesh, build_discrete
+    from seigen_tpu_torch.ops import Material, build_params, \
+        build_upwind_data
+    from seigen_tpu_torch.ops.structured_exchange import detect_structured
+    from seigen_tpu_torch.solver.damping import absorbing_bc_fn
+    from seigen_tpu_torch.solver.lane_upwind import UpwindLaneRunner
+
+    ext = ((0.0, 1.0),) * 3
+    dm = build_discrete(box_mesh(4, 4, 4), degree,
+                        bc_fn=absorbing_bc_fn(ext, free_sides=[(2, "hi")]))
+    vs = np.where(dm.coords.mean(axis=1)[:, 0] < 0.5, 0.0, 1.0) \
+        if acoustic else 1.0
+    mat = Material(1.0, 2.0, vs)
+    return UpwindLaneRunner(
+        build_params(dm, mat, device=device), detect_structured(dm),
+        build_upwind_data(dm, mat, device=device), 0.01, impl="kernel")
+
+
+def upwind_inputs(runner, seed):
+    """numpy-seeded float32 K3 operands in the runner's lane layout."""
+    import numpy as np
+    import torch
+
+    d, plan = runner.d, runner.plan
+    rng = np.random.default_rng(seed)
+
+    def field(C, used, rows):
+        a = rng.standard_normal((C, rows, plan.Ls)).astype(np.float32)
+        a[:, used:] = 0.0
+        return torch.as_tensor(a.reshape(C * rows, plan.Ls),
+                               device=runner.device)
+
+    return {"u": field(d.dim, d.n_p, d.npp),
+            "s": field(d.n_sig, d.n_p, d.npp),
+            "trs": field(d.nf, 2 * d.dim * d.n_fp, plan.rtf),
+            "inj": [(field(d.dim, d.n_p, d.npp),
+                     field(d.n_sig, d.n_p, d.npp), (0.7, -1.3)[g])
+                    for g in range(2)]}
+
+
+def upwind_args(runner, x):
+    return (runner.plan, runner.d, runner.uwg, x["u"], x["s"], x["trs"],
+            runner.mask)
+
+
+def compare_upwind(runner, check, tag, seed, variants):
+    """K3 variants ("plainN": N dense source groups) vs the plain version."""
+    import torch
+
+    from seigen_tpu_torch.ops import upwind_kernels as uk
+
+    x = upwind_inputs(runner, seed)
+    for variant in variants:
+        inj = x["inj"][: int(variant[-1])]
+        got = uk.UPWIND_KERNEL(*upwind_args(runner, x), inject=inj)
+        ref = uk.upwind_rhs_merged_ref(*upwind_args(runner, x), inject=inj)
+        torch.cuda.synchronize()
+        for part, g, r in zip(("du", "ds", "traces"), got, ref):
+            check("upwind_rhs", f"{tag} {variant} {part}", g, r)
+    return x
+
+
+def upwind_runner(case, impl, visco=False):
+    """The bench's UpwindLaneRunner; visco: Q = 30/20, L = 3 over the band
+    of scripts/explosive_source.py (0.25 f0 .. 2.5 f0)."""
+    from seigen_tpu_torch.bench.throughput import make_runner
+    from seigen_tpu_torch.ops import build_visco
+
+    dm, p, src, damp, dt, _ = case
+    f0 = src.f0[0].item()
+    v = build_visco(p, 30.0, 20.0, 0.25 * f0, 2.5 * f0, L=3) if visco \
+        else None
+    return make_runner("upwind_lane", dm, p, src, damp, dt, impl, visco=v)
+
+
+def reset_counts():
+    from seigen_tpu_torch.ops import merged_kernels as mk
+    from seigen_tpu_torch.ops import upwind_kernels as uk
+
+    for k in (mk.VEL_KERNEL, mk.STRESS_KERNEL, uk.UPWIND_KERNEL):
+        k.launches = 0
+
+
+def read_counts():
+    from seigen_tpu_torch.ops import merged_kernels as mk
+    from seigen_tpu_torch.ops import upwind_kernels as uk
+
+    return {"merged_vel": mk.VEL_KERNEL.launches,
+            "merged_stress": mk.STRESS_KERNEL.launches,
+            "upwind_rhs": uk.UPWIND_KERNEL.launches}
+
+
+def compare_states(tag, out_k, out_r):
+    import torch
+
+    for name in ("u", "s"):
+        a, b = getattr(out_k, name), getattr(out_r, name)
+        rel = ((a - b).norm() / b.norm()).item()
+        finite = bool(torch.isfinite(a).all())
+        nrm = a.norm().item()
+        log(f"[{tag}] {name}: rel L2 kernel vs plain {rel:.3e}, norm "
+            f"{nrm:.4e}, finite {finite}")
+        if not (finite and nrm > 0 and rel < 1e-4):
+            raise AssertionError(f"{tag} state {name} off: rel {rel}")
+
+
+def eigenmode_order(dev):
+    """Upwind RK4 on a travelling S wave over half a period, periodic
+    box_mesh(N, N, N) P2, float64 on the card: (errors, order)."""
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.mesh import box_mesh, build_discrete
+    from seigen_tpu_torch.ops import Material, build_params, \
+        build_upwind_data
+    from seigen_tpu_torch.solver import PlaneWave, State, cfl_dt, \
+        interpolate, l2_error, run_rk4
+
+    mat = Material(1.0, 2.0, 1.0)
+    pw = PlaneWave(mat=mat, k=2 * np.pi * np.array([1.0, 1.0, 0.0]),
+                   mode="S", polarization=np.array([0.0, 0.0, 1.0]))
+    T = 0.5 * pw.period
+    errs = []
+    for N in (4, 8):
+        dm = build_discrete(box_mesh(N, N, N, periodic=(0, 1, 2)), 2)
+        p = build_params(dm, mat, dtype=torch.float64, device=dev)
+        w = build_upwind_data(dm, mat, dtype=torch.float64, device=dev)
+        n = int(np.ceil(T / cfl_dt(dm.h.min(), 2.0, 2, 0.7)))
+        st = State(*(torch.as_tensor(interpolate(dm, f, 0.0), device=dev)
+                     for f in (pw.u, pw.sigma)))
+        fin, _ = run_rk4(p, w, st, T / n, n)
+        errs.append(l2_error(dm, fin.u, pw.u, T))
+        log(f"[eigenmode] N={N} P2: E {dm.num_elements}, {n} steps, "
+            f"L2(u) {errs[-1]:.6e}")
+    return errs, math.log2(errs[0] / errs[1])
+
+
+def phase_upwind(dev, case, st, check):
+    """Phase 6 (see the module docstring); returns (K3 launches on the
+    elastic main-path run, (kernel ms, plain ms), bound)."""
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.bench import throughput
+    from seigen_tpu_torch.ops import upwind_kernels as uk
+
+    t0 = time.perf_counter()
+    variants = ("plain0", "inject1", "inject2")
+    for degree in (3, 2):
+        small = small_upwind_runner(degree, dev, acoustic=False)
+        log(f"[upwind] box_mesh(4,4,4) P{degree}: Ls {small.plan.Ls}, "
+            f"rtf {small.plan.rtf}")
+        compare_upwind(small, check, f"P{degree}", seed=10 + degree,
+                       variants=variants)
+        compare_upwind(small_upwind_runner(degree, dev, acoustic=True),
+                       check, f"P{degree} acoustic", seed=20 + degree,
+                       variants=("plain0",))
+    log(f"[upwind] all small-mesh variants agree "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    for visco in (False, True):
+        tag = "upwind visco" if visco else "upwind"
+        t1 = time.perf_counter()
+        up_k = upwind_runner(case, "kernel", visco)
+        up_r = upwind_runner(case, "reference", visco)
+        log(f"[{tag}] n=24 P3: pay {up_k.plan.pay}, rtf {up_k.plan.rtf}, "
+            f"dense source groups "
+            f"{0 if up_k.src_dense is None else len(up_k.src_dense)}; "
+            f"setup {time.perf_counter() - t1:.1f} s")
+        reset_counts()
+        out_k, _ = up_k.run(st, RUNNER_STEPS)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        out_r, _ = up_r.run(st, RUNNER_STEPS)
+        torch.cuda.synchronize()
+        log(f"[{tag}] {RUNNER_STEPS} steps: launches {counts}")
+        expect = {"merged_vel": 0, "merged_stress": 0,
+                  "upwind_rhs": 4 * RUNNER_STEPS}
+        if counts != expect:
+            raise AssertionError(f"{tag} launches {counts}, expected "
+                                 f"{expect}")
+        compare_states(tag, out_k, out_r)
+        if not visco:
+            launches = counts["upwind_rhs"]
+
+    run_k = upwind_runner(case, "kernel")
+    x = compare_upwind(run_k, check, "n=24 P3", seed=31, variants=variants)
+    args = upwind_args(run_k, x)
+    times = (time_ms(lambda: uk.UPWIND_KERNEL(*args)),
+             time_ms(lambda: uk.upwind_rhs_merged_ref(*args)))
+    bnd = bound(run_k.d, run_k.plan, "upwind_rhs")
+    log(f"[upwind] upwind_rhs (plain) at n=24 P3: kernel {times[0]:.4f} "
+        f"ms, plain {times[1]:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+    del run_k, up_k, up_r
+
+    for impl in ("kernel", "reference"):
+        rec = throughput.main(n=24, degree=3, n_steps=BENCH_STEPS,
+                              impl="upwind_lane", kernel_impl=impl,
+                              case=case)
+        if not (np.isfinite(rec["value"]) and rec["value"] > 0):
+            raise AssertionError(f"upwind bench {impl}: bad rate "
+                                 f"{rec['value']}")
+        print(json.dumps(rec), flush=True)
+
+    errs, order = eigenmode_order(dev)
+    log(f"[eigenmode] observed order {order:.3f} (bar {EIGEN_MIN_ORDER})")
+    if not (order > EIGEN_MIN_ORDER):
+        raise AssertionError(f"upwind eigenmode order {order} <= "
+                             f"{EIGEN_MIN_ORDER}: errors {errs}")
+    return launches, times, bnd
+
+
 def main() -> int:
     try:
         import torch
@@ -201,6 +473,8 @@ def main() -> int:
 
         from seigen_tpu_torch.bench import throughput
         from seigen_tpu_torch.ops import merged_kernels as mk
+        from seigen_tpu_torch.ops import upwind_kernels as uk
+        from seigen_tpu_torch.ops.cuda_build import build_all
         from seigen_tpu_torch.solver.timestep import State
     except ImportError as e:
         print(f"chip_smoke: the seigen_tpu_torch package is missing ({e}); "
@@ -216,15 +490,17 @@ def main() -> int:
     log(f"[device] {smi}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; {torch.cuda.device_count()} device(s)")
 
-    # 2. build
-    t0 = time.perf_counter()
-    secs = mk.VEL_KERNEL.build()
-    mk.STRESS_KERNEL.build()
-    log(f"[build] {KERNEL_SOURCE}: nvcc {secs:.1f} s "
-        f"(phase {time.perf_counter() - t0:.1f} s)")
-    for ln in mk.LIBRARY.ptxas_report().splitlines():
-        if "registers" in ln or "spill" in ln:
-            log(f"  ptxas: {ln.strip()}")
+    # 2. build: one nvcc per source, all at once
+    wall = build_all([mk.LIBRARY, uk.LIBRARY])
+    for k in (mk.VEL_KERNEL, mk.STRESS_KERNEL, uk.UPWIND_KERNEL):
+        k.build()  # load the symbols, check the argument structs
+    for lib in (mk.LIBRARY, uk.LIBRARY):
+        log(f"[build] {lib.sources[0].name}: nvcc "
+            f"{lib.build_seconds:.1f} s")
+        for ln in lib.ptxas_report().splitlines():
+            if "registers" in ln or "spill" in ln or "Compiling" in ln:
+                log(f"  ptxas: {ln.strip()}")
+    log(f"[build] phase {wall:.1f} s")
 
     # 3. kernels vs plain versions on small meshes
     check = Check()
@@ -255,39 +531,32 @@ def main() -> int:
                              impl="reference")
     log(f"[runner] n=24 P3: E {E}, Ls {run_k.plan.Ls}, dense source groups "
         f"{len(run_k.src_dense)}; setup {time.perf_counter() - t0:.1f} s")
-    mk.VEL_KERNEL.launches = mk.STRESS_KERNEL.launches = 0
+    reset_counts()
     out_k, _ = run_k.run(st, RUNNER_STEPS)
     torch.cuda.synchronize()
-    launches = {"merged_vel": mk.VEL_KERNEL.launches,
-                "merged_stress": mk.STRESS_KERNEL.launches}
+    launches = read_counts()
     out_r, _ = run_r.run(st, RUNNER_STEPS)
     torch.cuda.synchronize()
     log(f"[runner] {RUNNER_STEPS} steps: launches {launches}")
-    for name, n in launches.items():
-        if n != 3 * RUNNER_STEPS:
-            raise AssertionError(f"{name} launched {n} times in "
-                                 f"{RUNNER_STEPS} steps, expected "
-                                 f"{3 * RUNNER_STEPS}")
-    for name in ("u", "s"):
-        a, b = getattr(out_k, name), getattr(out_r, name)
-        rel = ((a - b).norm() / b.norm()).item()
-        finite = bool(torch.isfinite(a).all())
-        nrm = a.norm().item()
-        log(f"[runner] {name}: rel L2 kernel vs plain {rel:.3e}, norm "
-            f"{nrm:.4e}, finite {finite}")
-        if not (finite and nrm > 0 and rel < 1e-4):
-            raise AssertionError(f"runner state {name} off: rel {rel}")
+    expect = {"merged_vel": 3 * RUNNER_STEPS,
+              "merged_stress": 3 * RUNNER_STEPS, "upwind_rhs": 0}
+    if launches != expect:
+        raise AssertionError(f"LF4 path launches {launches}, expected "
+                             f"{expect}")
+    compare_states("runner", out_k, out_r)
 
     # every variant at the main path's shapes, with kernel and plain times
     x = compare_variants(run_k, check, "n=24 P3", seed=24)
-    times = {}
+    times, bounds = {}, {}
     for op, variant in (("vel", "plain"), ("stress", "plain")):
         kern, plain, args, kw = variant_call(run_k, x, op, variant)
         kname = "merged_vel" if op == "vel" else "merged_stress"
         times[kname] = (time_ms(lambda: kern(*args, **kw)),
                         time_ms(lambda: plain(*args, **kw)))
+        bounds[kname] = bound(run_k.d, run_k.plan, kname)
         log(f"[runner] {kname} ({variant}) at n=24 P3: kernel "
-            f"{times[kname][0]:.4f} ms, plain {times[kname][1]:.4f} ms")
+            f"{times[kname][0]:.4f} ms, plain {times[kname][1]:.4f} ms, "
+            f"bound {bounds[kname][0]:.4f} ms ({bounds[kname][1]})")
     log(f"[runner] phase {time.perf_counter() - t0:.1f} s")
 
     # 5. bench: kernels and plain versions on the same case
@@ -298,15 +567,21 @@ def main() -> int:
         if not (np.isfinite(rec["value"]) and rec["value"] > 0):
             raise AssertionError(f"bench {impl}: bad rate {rec['value']}")
         print(json.dumps(rec), flush=True)
-    log(f"[bench] phase {time.perf_counter() - t0:.1f} s; total "
+    log(f"[bench] phase {time.perf_counter() - t0:.1f} s")
+
+    # 6. upwind: the upwind-RK4 lane path
+    t0 = time.perf_counter()
+    launches["upwind_rhs"], times["upwind_rhs"], bounds["upwind_rhs"] = \
+        phase_upwind(dev, case, st, check)
+    log(f"[upwind] phase {time.perf_counter() - t0:.1f} s; total "
         f"{time.perf_counter() - t_all:.1f} s")
 
-    replaces = {"merged_vel": "seigen_tpu/ops/merged_kernels.py:542",
-                "merged_stress": "seigen_tpu/ops/merged_kernels.py:582"}
-    kernels = [{"name": k, "route": "cuda", "source": KERNEL_SOURCE,
-                "replaces": replaces[k], "launches": launches[k],
+    kernels = [{"name": k, "route": "cuda", "source": KERNELS[k][0],
+                "replaces": KERNELS[k][1], "launches": launches[k],
                 "max_abs_err": check.worst[k], "ms": times[k][0],
-                "plain_ms": times[k][1]} for k in replaces]
+                "plain_ms": times[k][1], "bound_ms": bounds[k][0],
+                "bound_by": bounds[k][1], "library_ms": None}
+               for k in KERNELS]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

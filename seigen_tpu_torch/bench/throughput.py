@@ -1,12 +1,14 @@
 """Throughput benchmark: DOF-updates/s on one GPU, 3D explosive source.
 
-Port of ``seigen_tpu/bench/throughput.py`` for the merged LF4 runner.  A
-"DOF update" is one field coefficient advanced one full LF timestep; the
-per-step DOF count is E * n_p * (dim + n_sig).  The timed region is
-``MergedLaneRunner.run_lm`` over ``n_steps`` steps, best of 3 after one
-warm-up run, each ending in ``torch.cuda.synchronize()``.
+Port of ``seigen_tpu/bench/throughput.py`` for the merged LF4 runner
+(impl "merged") and the upwind-RK4 lane runner (impl "upwind_lane").  A
+"DOF update" is one field coefficient advanced one full timestep; the
+per-step DOF count is E * n_p * (dim + n_sig).  The timed region is the
+runner's ``run_lm`` over ``n_steps`` steps, best of 3 after one warm-up
+run, each ending in ``torch.cuda.synchronize()``.
 
     python -m seigen_tpu_torch.bench.throughput            # n=24, P3, 100 steps
+    python -m seigen_tpu_torch.bench.throughput --impl upwind_lane
     python -m seigen_tpu_torch.bench.throughput --kernel-impl reference
 
 prints one JSON line.  The measurement needs a CUDA device and refuses to
@@ -24,15 +26,18 @@ from dataclasses import dataclass
 import torch
 
 from ..mesh import box_mesh, build_discrete
-from ..ops import Material, build_params, n_sig_for
+from ..ops import Material, build_params, build_upwind_data, n_sig_for
 from ..ops.structured_exchange import detect_structured
 from ..solver.damping import absorbing_bc_fn, sponge_mask
 from ..solver.lane_merged import MergedLaneRunner
+from ..solver.lane_upwind import UpwindLaneRunner
 from ..solver.source import PointSource, build_sources
 from ..solver.timestep import State, cfl_dt
 
-# ONE material for the whole bench surface (the JAX bench's BENCH_MAT)
+# ONE material for the whole bench surface (the JAX bench's BENCH_MAT): the
+# elastic parameters and the Godunov impedances stay consistent
 BENCH_MAT = Material(rho=1.0, vp=2.0, vs=1.0)
+IMPLS = ("merged", "upwind_lane")
 
 
 @dataclass
@@ -50,7 +55,7 @@ def setup_case(
     n: int = 24,
     degree: int = 3,
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ):
     """3D explosive-source case: unit box, free top, absorbing elsewhere.
 
@@ -84,21 +89,31 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def make_runner(impl, dm, p, src, damp, dt, kernel_impl=None, visco=None):
+    """The bench's lane runner: "merged" (LF4, MergedLaneRunner) or
+    "upwind_lane" (Godunov RK4, UpwindLaneRunner with the bench material's
+    impedances; ``visco``: optional ViscoData).  kernel_impl: "kernel"
+    (CUDA kernels) or "reference" (their plain PyTorch versions); default
+    by device."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, not {impl!r}")
+    ex = detect_structured(dm)
+    if ex is None:
+        raise ValueError(f"{impl} impl requires a structured mesh")
+    if impl == "merged":
+        return MergedLaneRunner(p, ex, dt, src=src, damp=damp,
+                                impl=kernel_impl)
+    w = build_upwind_data(dm, BENCH_MAT, dtype=p.dtype, device=p.device)
+    return UpwindLaneRunner(p, ex, w, dt, src=src, damp=damp,
+                            impl=kernel_impl, visco=visco)
+
+
 def measure(p, src, damp, dt, state0, dm, n_steps: int = 50,
             impl: str = "merged", kernel_impl: str | None = None
             ) -> BenchResult:
-    """Time ``n_steps`` of the merged runner, best of 3 after a warm-up.
-
-    kernel_impl: "kernel" (CUDA kernels) or "reference" (their plain
-    PyTorch versions); default by device.
-    """
-    if impl != "merged":
-        raise ValueError(f"only impl='merged' is ported, not {impl!r}")
-    ex = detect_structured(dm)
-    if ex is None:
-        raise ValueError("merged impl requires a structured mesh")
-    runner = MergedLaneRunner(p, ex, dt, src=src, damp=damp,
-                              impl=kernel_impl)
+    """Time ``n_steps`` of a lane runner (see make_runner), best of 3 after
+    a warm-up."""
+    runner = make_runner(impl, dm, p, src, damp, dt, kernel_impl)
     ulm, slm = runner.to_lm_state(state0)
     runner.run_lm(ulm, slm, n_steps)  # warm-up
     _sync(p.device)
@@ -163,8 +178,8 @@ def report(res: BenchResult, impl: str, kernel_impl: str,
 def main(n: int = 24, degree: int = 3, n_steps: int = 100,
          impl: str = "merged", device: str = "cuda",
          kernel_impl: str = "kernel", case=None) -> dict:
-    """Measure the merged runner on the CUDA device; returns the JSON
-    record.  ``case``: a ``setup_case`` result to reuse."""
+    """Measure a lane runner (``impl``, see measure) on the CUDA device;
+    returns the JSON record.  ``case``: a ``setup_case`` result to reuse."""
     if torch.device(device).type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError("the throughput bench measures a CUDA device; "
                            "none is available")
@@ -182,8 +197,9 @@ if __name__ == "__main__":
     ap.add_argument("--n", type=int, default=24)
     ap.add_argument("--degree", type=int, default=3)
     ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--impl", default="merged", choices=IMPLS)
     ap.add_argument("--kernel-impl", default="kernel",
                     choices=("kernel", "reference"))
     a = ap.parse_args()
     print(json.dumps(main(n=a.n, degree=a.degree, n_steps=a.steps,
-                          kernel_impl=a.kernel_impl)))
+                          impl=a.impl, kernel_impl=a.kernel_impl)))

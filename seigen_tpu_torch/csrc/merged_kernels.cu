@@ -32,6 +32,8 @@
 
 #include <cuda_runtime.h>
 
+#include "merged_common.cuh"
+
 // Kernel arguments; mirrored field by field by the ctypes Structure
 // MergedArgs in seigen_tpu_torch/ops/merged_kernels.py.
 struct MergedArgs {
@@ -63,69 +65,7 @@ struct MergedArgs {
 
 namespace {
 
-constexpr int kThreads = 128;
-
-// Voigt index of tensor entry (c, d): 2D [xx, yy, xy]; 3D [xx, yy, zz, yz,
-// xz, xy].
-template <int DIM>
-__device__ __forceinline__ constexpr int voigt(int c, int d) {
-  return c == d ? c : (DIM == 2 ? 2 : 6 - c - d);
-}
-
-// The two tensor indices (a, b) of an off-diagonal Voigt component k.
-template <int DIM>
-__device__ __forceinline__ constexpr int shear_a(int k) {
-  return DIM == 2 ? 0 : (k == 3 ? 1 : 0);
-}
-template <int DIM>
-__device__ __forceinline__ constexpr int shear_b(int k) {
-  return DIM == 2 ? 1 : (k == 5 ? 1 : 2);
-}
-
-template <int DIM, int NP, int NFP>
-struct Shape {
-  static constexpr int NF = DIM + 1;
-  static constexpr int NFT = NF * NFP;
-  static constexpr int NSIG = DIM == 2 ? 3 : 6;
-};
-
-// Tables into shared memory, once per block.
-template <int DIM, int NP, int NFP>
-__device__ __forceinline__ void load_tables(const MergedArgs& a, float* s_dr,
-                                            float* s_lift, int* s_fn) {
-  constexpr int NFT = Shape<DIM, NP, NFP>::NFT;
-  for (int i = threadIdx.x; i < DIM * NP * NP; i += blockDim.x) s_dr[i] = a.dr[i];
-  for (int i = threadIdx.x; i < NP * NFT; i += blockDim.x) s_lift[i] = a.lift[i];
-  for (int i = threadIdx.x; i < NFT; i += blockDim.x) s_fn[i] = a.fnodes[i];
-  __syncthreads();
-}
-
-// Per-face exchange data of one lane: own-trace select, producer face,
-// node permutation and neighbour lane (clamped into the producer class).
-template <int NF>
-struct FaceLinks {
-  bool own_only[NF];
-  int f2[NF];
-  const int* pi[NF];
-  long long lane[NF];
-};
-
-template <int NF, int NFP>
-__device__ __forceinline__ void face_links(const MergedArgs& a, long long L,
-                                           FaceLinks<NF>& fl) {
-  const int t = (int)(L / a.NC);
-  const int j = (int)(L - (long long)t * a.NC);
-#pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    const int* pe = a.plan + (t * NF + f) * (3 + NFP);
-    fl.own_only[f] = a.mask[f * a.Ls + L] != 0.f;
-    fl.f2[f] = pe[1];
-    fl.pi[f] = pe + 3;
-    int jn = j + pe[2];
-    jn = jn < 0 ? 0 : (jn >= a.NC ? a.NC - 1 : jn);
-    fl.lane[f] = (long long)pe[0] * a.NC + jn;
-  }
-}
+using namespace seigen;
 
 // Epilogue shared by both operators: axpy / damp / inject on one row, then
 // the store.
@@ -256,24 +196,6 @@ merged_vel_kernel(const MergedArgs a) {
 // with A the isotropic Hooke tensor (lambda, mu) in Voigt row k and
 // du*_c = scb * u+_c + dfs * u-_c (u+ = producer velocity trace, u- on
 // boundary faces).  Emits the traction traces n . sigma of the output.
-template <int DIM>
-__device__ __forceinline__ void hooke_row(int k, float lam, float mu,
-                                          const float* v /*[DIM]*/,
-                                          float* w /*[DIM]*/) {
-  // w[c] = sum_d A_k[d,c] v[d]
-#pragma unroll
-  for (int c = 0; c < DIM; ++c) w[c] = 0.f;
-  if (k < DIM) {
-#pragma unroll
-    for (int c = 0; c < DIM; ++c) w[c] = lam * v[c];
-    w[k] += 2.f * mu * v[k];
-  } else {
-    const int sa = shear_a<DIM>(k), sb = shear_b<DIM>(k);
-    w[sb] = mu * v[sa];
-    w[sa] = mu * v[sb];
-  }
-}
-
 template <int DIM, int NP, int NFP>
 __global__ void __launch_bounds__(kThreads)
 merged_stress_kernel(const MergedArgs a) {
@@ -409,22 +331,13 @@ int launch(int op, const MergedArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// (dim, n_p, n_fp) of P1-P4 triangles and tetrahedra.
+// Every (dim, n_p, n_fp) of SEIGEN_DISPATCH_SHAPES; -1 for another shape.
 int dispatch(int op, const MergedArgs* a, int dim, int n_p, int n_fp,
              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int key = dim * 10000 + n_p * 100 + n_fp;
-  switch (key) {
-    case 20302: return launch<2, 3, 2>(op, *a, s);
-    case 20603: return launch<2, 6, 3>(op, *a, s);
-    case 21004: return launch<2, 10, 4>(op, *a, s);
-    case 21505: return launch<2, 15, 5>(op, *a, s);
-    case 30403: return launch<3, 4, 3>(op, *a, s);
-    case 31006: return launch<3, 10, 6>(op, *a, s);
-    case 32010: return launch<3, 20, 10>(op, *a, s);
-    case 33515: return launch<3, 35, 15>(op, *a, s);
-    default: return -1;  // element not instantiated
-  }
+#define SEIGEN_LAUNCH(D, P, F) return launch<D, P, F>(op, *a, s)
+  SEIGEN_DISPATCH_SHAPES(dim, n_p, n_fp, SEIGEN_LAUNCH)
+#undef SEIGEN_LAUNCH
 }
 
 }  // namespace

@@ -8,6 +8,13 @@ from .elastic import (
     params_from_numpy,
     voigt_map,
 )
+from .upwind import (
+    UpwindData,
+    apply_coupled_upwind,
+    build_upwind_data,
+    upwind_data_from_numpy,
+)
+from .viscoelastic import ViscoData, build_visco, visco_from_numpy
 
 __all__ = [
     "ElasticParams",
@@ -18,4 +25,11 @@ __all__ = [
     "n_sig_for",
     "params_from_numpy",
     "voigt_map",
+    "UpwindData",
+    "apply_coupled_upwind",
+    "build_upwind_data",
+    "upwind_data_from_numpy",
+    "ViscoData",
+    "build_visco",
+    "visco_from_numpy",
 ]

@@ -3,8 +3,10 @@
 Each library under ``seigen_tpu_torch/csrc/`` is compiled at first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC`` into ``seigen_tpu_torch/_build/`` (git-ignored) and loaded
-with ctypes.  The output name carries a hash of the sources and flags, so a
-changed source rebuilds and an unchanged one loads the existing library.
+with ctypes.  The output name carries a hash of the sources, the shared
+headers (``csrc/*.cuh``) and the flags, so a changed source rebuilds and an
+unchanged one loads the existing library.  ``build_all`` runs one nvcc per
+library, all at once.
 ptxas's register/spill report is kept beside the library as ``*.ptxas.txt``.
 
 Nothing is compiled at import: the CPU tests import every module, and a
@@ -19,6 +21,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[1]
@@ -61,7 +64,7 @@ class CudaLibrary:
 
     def _digest(self) -> str:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for s in self.sources:
+        for s in (*self.sources, *sorted(CSRC_DIR.glob("*.cuh"))):
             h.update(s.read_bytes())
         return h.hexdigest()[:16]
 
@@ -101,3 +104,13 @@ class CudaLibrary:
         return "\n".join(
             ln for ln in log.read_text().splitlines()
             if "registers" in ln or "spill" in ln or "Compiling" in ln)
+
+
+def build_all(libraries) -> float:
+    """Build/load every CudaLibrary at once (one nvcc each, in parallel
+    threads); returns the wall seconds."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(libraries)) as pool:
+        for f in [pool.submit(lib.load) for lib in libraries]:
+            f.result()
+    return time.perf_counter() - t0

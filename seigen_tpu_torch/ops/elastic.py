@@ -146,7 +146,7 @@ def build_params(
     dm: DiscreteMesh,
     mat: Material,
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
     flux: str = "central",
 ) -> ElasticParams:
     """Assemble device operator data from the discrete mesh + material.

@@ -51,7 +51,8 @@ class MergedPlan:
     nf: int
     n_fp: int
     NC: int
-    rtf: int  # trace rows per face = roundup(dim*n_fp, 8)
+    pay: int  # payload components per face (LF: dim; upwind: 2*dim)
+    rtf: int  # trace rows per face = roundup(pay*n_fp, 8)
     table: torch.Tensor  # (m, nf, 3 + n_fp) int32
     gather: torch.Tensor  # (nf*n_fp, Ls) int64 into the flat trace array
     dr: torch.Tensor  # (dim, n_p, n_p) kernel tables, float32
@@ -63,11 +64,13 @@ class MergedPlan:
         return self.m * self.NC
 
 
-def build_merged_plan(ex: StructuredExchange,
-                      d: FusedOpData) -> MergedPlan | None:
+def build_merged_plan(ex: StructuredExchange, d: FusedOpData,
+                      pay: int | None = None) -> MergedPlan | None:
     """The merged-operator plan, or None when the mesh's neighbour lanes
     are not a fixed flat shift per (class, face) (periodic meshes, ambiguous
-    wrap shifts)."""
+    wrap shifts).  ``pay``: trace payload components per face (default
+    d.dim, the LF operators; the upwind Riemann operator carries 2*dim,
+    velocity AND traction rows)."""
     from ..solver.lane_fused import _canonical_shift, _flat_strides, \
         derive_pairing
 
@@ -76,7 +79,8 @@ def build_merged_plan(ex: StructuredExchange,
     m, nf, nfp = ex.m, ex.n_faces, ex.n_fp
     NC = int(np.prod(ex.grid))
     Ls = m * NC
-    rtf = _rup(d.dim * nfp, 8)
+    pay = d.dim if pay is None else pay
+    rtf = _rup(pay * nfp, 8)
     strides = _flat_strides(ex.grid)
 
     f2, pi = derive_pairing(ex)
@@ -103,7 +107,7 @@ def build_merged_plan(ex: StructuredExchange,
     n_p = d.n_p
     dr = d.drr[: d.dim * d.npp].reshape(d.dim, d.npp, d.npp)[:, :n_p, :n_p]
     return MergedPlan(
-        m=m, nf=nf, n_fp=nfp, NC=NC, rtf=rtf,
+        m=m, nf=nf, n_fp=nfp, NC=NC, pay=pay, rtf=rtf,
         table=torch.as_tensor(table, device=dev).to(torch.int32).contiguous(),
         gather=torch.as_tensor(gather.reshape(nf * nfp, Ls), device=dev),
         dr=dr.to(torch.float32).contiguous(),
@@ -127,13 +131,14 @@ def _own_mask(d: FusedOpData, mask):
     return _face_rows(d, mask, 0) != 0.0
 
 
-def _neighbour(plan: MergedPlan, trs, sign, own, sel):
-    """Consumer-ordered neighbour traces (dim, ftp, Ls): sign * producer
-    rows at the neighbour lanes; own rows where ``sel`` (boundary)."""
+def _neighbour(plan: MergedPlan, trs, signs, own, sel):
+    """Consumer-ordered neighbour traces (C, ftp, Ls) of payload components
+    0..C-1: signs[c] * producer rows at the neighbour lanes; own rows where
+    ``sel`` (boundary)."""
     flat = trs.reshape(-1)
-    nb = torch.stack([flat[plan.gather + c * plan.n_fp * plan.Ls]
+    nb = torch.stack([signs[c] * flat[plan.gather + c * plan.n_fp * plan.Ls]
                       for c in range(own.shape[0])])
-    return torch.where(sel, own, sign * nb)
+    return torch.where(sel, own, nb)
 
 
 def _restrict(d: FusedOpData, x):
@@ -143,12 +148,13 @@ def _restrict(d: FusedOpData, x):
 
 
 def _emit(plan: MergedPlan, d: FusedOpData, tr):
-    """(dim, ftp, Ls) component traces -> (nf*rtf, Ls) face-major, pad 0."""
-    Ls = tr.shape[-1]
+    """(C, ftp, L) component traces -> (nf*rtf, L) face-major rows
+    f*rtf + c*n_fp + k, pad rows 0 (C <= plan.pay)."""
+    C, Ls = tr.shape[0], tr.shape[-1]
     out = torch.zeros((plan.nf, plan.rtf, Ls), dtype=tr.dtype,
                       device=tr.device)
-    blk = tr.reshape(d.dim, d.nf, d.n_fp, Ls).transpose(0, 1)
-    out[:, : d.dim * d.n_fp] = blk.reshape(d.nf, d.dim * d.n_fp, Ls)
+    blk = tr.reshape(C, d.nf, d.n_fp, Ls).transpose(0, 1)
+    out[:, : C * d.n_fp] = blk.reshape(d.nf, C * d.n_fp, Ls)
     return out.reshape(plan.nf * plan.rtf, Ls)
 
 
@@ -184,7 +190,7 @@ def vel_merged_ref(plan: MergedPlan, d: FusedOpData, sig_lm, trs, mask,
     scb, bfs = _face_rows(d, geo, o_scb), _face_rows(d, geo, o_bfs)
     t_own = torch.stack([sum(nrm[k] * own[V[c, k]] for k in range(dim))
                          for c in range(dim)])
-    t_nb = _neighbour(plan, trs, -1.0, t_own, _own_mask(d, mask))
+    t_nb = _neighbour(plan, trs, (-1.0,) * dim, t_own, _own_mask(d, mask))
     flux = scb * t_nb + bfs * t_own
     surf = torch.matmul(d.lift[:, : d.ftp], flux)  # (dim, npp, Ls)
     div = torch.stack([
@@ -228,7 +234,7 @@ def stress_merged_ref(plan: MergedPlan, d: FusedOpData, u_lm, trs, mask,
         return sum(geo[o_ginv + r * dim + k] * der[r, c] for r in range(dim))
 
     vol = torch.stack(_hooke(dim, lam, mu, lambda c, k: grad(k, c)))
-    u_nb = _neighbour(plan, trs, 1.0, own, _own_mask(d, mask))
+    u_nb = _neighbour(plan, trs, (1.0,) * dim, own, _own_mask(d, mask))
     jump = scb * u_nb + dfs * own
     face = torch.stack(_hooke(dim, lam, mu, lambda c, k: nrm[k] * jump[c]))
     res = vol + torch.matmul(d.lift[:, : d.ftp], face)
@@ -258,6 +264,18 @@ class MergedArgs(ctypes.Structure):
             "NC", "npp", "rtf", "o_ginv", "o_nrm", "o_scb", "o_bfs", "o_dfs",
             "o_mat", "axpy", "n_inj")] + [(n, ctypes.c_float) for n in (
                 "dt", "c3", "r0", "r1")]
+
+
+def check_operands(name, dev, Ls, checks):
+    """Raise unless every (tensor, rows) operand is a contiguous float32
+    (rows, Ls) tensor on dev (rows None: any row count)."""
+    for x, rows in checks:
+        if x.device != dev or x.dtype != torch.float32:
+            raise ValueError(f"{name}: expects float32 tensors on {dev}, "
+                             f"got {x.dtype} on {x.device}")
+        if not x.is_contiguous() or x.dim() != 2 or x.shape[1] != Ls \
+                or (rows is not None and x.shape[0] != rows):
+            raise ValueError(f"{name}: bad operand {tuple(x.shape)}")
 
 
 class MergedKernel:
@@ -307,13 +325,7 @@ class MergedKernel:
         checks += [(x, C_out * d.npp) for x in (axpy or ())]
         checks += [(damp, d.npp)] if damp is not None else []
         checks += [(s_g, C_out * d.npp) for s_g, _ in inject]
-        for x, rows in checks:
-            if x.device != dev or x.dtype != torch.float32:
-                raise ValueError(f"{self.name}: expects float32 tensors on "
-                                 f"{dev}, got {x.dtype} on {x.device}")
-            if not x.is_contiguous() or x.dim() != 2 or x.shape[1] != Ls \
-                    or (rows is not None and x.shape[0] != rows):
-                raise ValueError(f"{self.name}: bad operand {tuple(x.shape)}")
+        check_operands(self.name, dev, Ls, checks)
         out = torch.empty((C_out * d.npp, Ls), dtype=field.dtype, device=dev)
         trout = torch.empty((plan.nf * plan.rtf, Ls), dtype=field.dtype,
                             device=dev)

@@ -37,6 +37,20 @@ from .timestep import State, compose_lf_step_traced, inject_columns, \
     numpy_dtype
 
 
+def resolve_impl(impl: str | None, device: torch.device) -> str:
+    """The runner's operator implementation: "kernel" (CUDA kernels, CUDA
+    tensors only) or "reference" (plain versions); None follows the
+    device."""
+    if impl is None:
+        impl = "kernel" if device.type == "cuda" else "reference"
+    if impl not in ("kernel", "reference"):
+        raise ValueError(f"impl must be 'kernel' or 'reference': {impl!r}")
+    if impl == "kernel" and device.type != "cuda":
+        raise ValueError("impl='kernel' needs CUDA tensors; the plain "
+                         "version runs with impl='reference'")
+    return impl
+
+
 class MergedLaneRunner:
     """Exchange-in-kernel lane-major runner (LF4, structured meshes)."""
 
@@ -50,14 +64,7 @@ class MergedLaneRunner:
         receivers: ReceiverData | None = None,
         impl: str | None = None,
     ):
-        if impl is None:
-            impl = "kernel" if p.device.type == "cuda" else "reference"
-        if impl not in ("kernel", "reference"):
-            raise ValueError(f"impl must be 'kernel' or 'reference': {impl!r}")
-        if impl == "kernel" and p.device.type != "cuda":
-            raise ValueError("impl='kernel' needs CUDA tensors; the plain "
-                             "version runs with impl='reference'")
-        self.impl = impl
+        self.impl = impl = resolve_impl(impl, p.device)
         self._vel_op = vel_merged if impl == "kernel" else vel_merged_ref
         self._stress_op = (stress_merged if impl == "kernel"
                            else stress_merged_ref)
@@ -68,9 +75,10 @@ class MergedLaneRunner:
         self._build_receivers(receivers)
         self._lf = self._compose_step()
 
-    def _setup_core(self, p, ex, dt, damp=None):
+    def _setup_core(self, p, ex, dt, damp=None, pay=None):
         """Class-major permutation, merged plan, placed geo/mask, face-node
-        normal expansion + restriction matrix."""
+        normal expansion + restriction matrix (also used by the upwind RK4
+        runner).  pay: trace payload components per face (default dim)."""
         self.p = p
         self.ex = ex
         self.device = p.device
@@ -89,7 +97,7 @@ class MergedLaneRunner:
         # lanes are class-major elements: permute the geo columns (damp was
         # permuted above)
         self.d = d = dataclasses.replace(d, geo=d.geo[:, perm].contiguous())
-        self.plan = plan = build_merged_plan(ex, d)
+        self.plan = plan = build_merged_plan(ex, d, pay=pay)
         if plan is None:
             raise ValueError("mesh does not satisfy the merged-operator "
                              "constraints (see build_merged_plan)")

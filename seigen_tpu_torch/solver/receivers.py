@@ -23,7 +23,7 @@ class ReceiverData:
 
 def build_receivers(
     dm: DiscreteMesh, points: np.ndarray, dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> ReceiverData | None:
     if points is None or len(points) == 0:
         return None

@@ -76,7 +76,7 @@ def build_sources(
     sources: list[PointSource],
     dtype: torch.dtype = torch.float32,
     mat=None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> SourceData | None:
     """Project point sources onto the DG space (host-side setup).
 

@@ -3,9 +3,11 @@
 ``setup_case`` must build the JAX bench's case (same mesh, parameters,
 source, sponge, dt); ``measure`` runs end to end on the CPU through the
 plain operator versions; ``main`` refuses to measure without a CUDA device;
-and importing the port never imports JAX.
+the entry points default to the card; and importing the port never
+imports JAX.
 """
 
+import inspect
 import json
 import subprocess
 import sys
@@ -25,7 +27,8 @@ REPO = Path(__file__).resolve().parents[1]
 @pytest.fixture(scope="module")
 def cases():
     return (jbench.setup_case(n=2, degree=2, dtype=jnp.float64),
-            tbench.setup_case(n=2, degree=2, dtype=torch.float64))
+            tbench.setup_case(n=2, degree=2, dtype=torch.float64,
+                              device="cpu"))
 
 
 def test_setup_case_matches_jax(cases):
@@ -65,10 +68,43 @@ def test_main_refuses_without_cuda(monkeypatch):
         tbench.main(n=2, degree=2, n_steps=1)
 
 
+def test_profile_groups_kernels_and_needs_cuda(monkeypatch):
+    from seigen_tpu_torch.bench import profile_step as ps
+
+    names = {
+        "void (anonymous namespace)::upwind_rhs_kernel<3, 20, 10>"
+        "(UpwindArgs)": "upwind_rhs",
+        "void (anonymous namespace)::merged_vel_kernel<3, 20, 10>"
+        "(MergedArgs)": "merged_vel",
+        "void at::native::vectorized_elementwise_kernel<4, "
+        "at::native::CUDAFunctor_add<float>>": "pytorch elementwise",
+        "sm80_xmma_gemm_f32f32_f32f32_f32_nn_n": "pytorch matmul",
+        "CatArrayBatchedCopy_vectorized": "pytorch copy/cat",
+        "memset": "other"}
+    assert {n: ps.kernel_group(n) for n in names} == names
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ps.profile(n=2, degree=2)
+
+
+def test_entry_points_default_to_the_card():
+    """The port's entry points run on the card unless the caller asks for
+    the CPU (the tests pass device="cpu")."""
+    from seigen_tpu_torch.ops import build_params, build_upwind_data
+    from seigen_tpu_torch.solver import build_receivers, build_sources
+
+    for fn in (build_params, build_sources, build_receivers,
+               tbench.setup_case, build_upwind_data):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
 def test_port_never_imports_jax():
     code = ("import sys, seigen_tpu_torch.bench.throughput, "
             "seigen_tpu_torch.solver.lane_merged, "
-            "seigen_tpu_torch.ops.merged_kernels; "
+            "seigen_tpu_torch.solver.lane_upwind, "
+            "seigen_tpu_torch.solver.rk4, "
+            "seigen_tpu_torch.ops.merged_kernels, "
+            "seigen_tpu_torch.ops.upwind_kernels; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'seigen_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -1,8 +1,11 @@
 """The CUDA merged operators against their plain versions, on the card.
 
 Every variant of K1 (merged_vel) and K2 (merged_stress) against
-vel_merged_ref / stress_merged_ref in float32 on box_mesh(4, 4, 4) at P2
-and P3, and the kernel runner against the plain runner for a few steps.
+vel_merged_ref / stress_merged_ref, and of K3 (upwind_rhs: plain, 1 and 2
+source groups, an acoustic vs = 0 half) against upwind_rhs_merged_ref, in
+float32 on box_mesh(4, 4, 4) at P2 and P3; the kernel runners (LF4 and
+upwind RK4, elastic and viscoelastic) against the plain runners for a few
+steps, with their launch counts.
 These tests need a CUDA device and nvcc; elsewhere they skip.  On the GPU
 machine (which has no JAX, so the suite's conftest is not loaded):
 
@@ -18,11 +21,18 @@ import pytest
 import torch
 
 from seigen_tpu_torch.mesh import box_mesh, build_discrete
-from seigen_tpu_torch.ops import Material, build_params
+from seigen_tpu_torch.ops import (
+    Material,
+    build_params,
+    build_upwind_data,
+    build_visco,
+)
 from seigen_tpu_torch.ops import merged_kernels as mk
+from seigen_tpu_torch.ops import upwind_kernels as uk
 from seigen_tpu_torch.ops.structured_exchange import detect_structured
 from seigen_tpu_torch.solver.damping import absorbing_bc_fn, sponge_mask
 from seigen_tpu_torch.solver.lane_merged import MergedLaneRunner
+from seigen_tpu_torch.solver.lane_upwind import UpwindLaneRunner
 from seigen_tpu_torch.solver.source import PointSource, build_sources
 from seigen_tpu_torch.solver.timestep import State
 
@@ -119,6 +129,85 @@ def test_runner_kernels_match_plain(case, device):
     out_r, _ = plain.run(st, 4)
     assert mk.VEL_KERNEL.launches - n_vel == 12
     assert mk.STRESS_KERNEL.launches - n_stress == 12
+    for a, b in ((out_k.u, out_r.u), (out_k.s, out_r.s)):
+        assert torch.isfinite(a).all()
+        assert ((a - b).norm() / b.norm()).item() < 1e-5
+
+
+UPWIND_VARIANTS = ["plain", "inject1", "inject2", "acoustic"]
+
+
+@pytest.fixture(scope="module", params=[2, 3], ids=["P2", "P3"])
+def upwind_case(request, device):
+    """Upwind kernel runners on box_mesh(4, 4, 4): the bench material, and
+    one with vs = 0 where x < 0.5 (the acoustic guard)."""
+    ext = ((0.0, 1.0),) * 3
+    dm = build_discrete(box_mesh(4, 4, 4), request.param,
+                        bc_fn=absorbing_bc_fn(ext, free_sides=[(2, "hi")]))
+    vs = np.where(dm.coords.mean(axis=1)[:, 0] < 0.5, 0.0, 1.0)
+    runners = {}
+    for name, mat in (("elastic", Material(1.0, 2.0, 1.0)),
+                      ("acoustic", Material(1.0, 2.0, vs))):
+        p = build_params(dm, mat, device=device)
+        w = build_upwind_data(dm, mat, device=device)
+        runners[name] = UpwindLaneRunner(p, detect_structured(dm), w, 0.01,
+                                         impl="kernel")
+    d, plan = runners["elastic"].d, runners["elastic"].plan
+    rng = np.random.default_rng(10 + request.param)
+
+    def field(C, used, rows):
+        a = rng.standard_normal((C, rows, plan.Ls)).astype(np.float32)
+        a[:, used:] = 0.0
+        return torch.as_tensor(a.reshape(C * rows, plan.Ls), device=device)
+
+    data = {"u": field(d.dim, d.n_p, d.npp),
+            "s": field(d.n_sig, d.n_p, d.npp),
+            "trs": field(d.nf, 2 * d.dim * d.n_fp, plan.rtf),
+            "inj": [(field(d.dim, d.n_p, d.npp), field(d.n_sig, d.n_p, d.npp),
+                     (0.7, -1.3)[g]) for g in range(2)]}
+    return dm, runners, data
+
+
+@pytest.mark.parametrize("variant", UPWIND_VARIANTS)
+def test_upwind_kernel_matches_plain(upwind_case, variant):
+    _, runners, x = upwind_case
+    r = runners["acoustic" if variant == "acoustic" else "elastic"]
+    n_inj = int(variant[-1]) if variant.startswith("inject") else 0
+    args = (r.plan, r.d, r.uwg, x["u"], x["s"], x["trs"], r.mask)
+    n0 = uk.UPWIND_KERNEL.launches
+    got = uk.upwind_rhs_merged(*args, inject=x["inj"][:n_inj])
+    ref = uk.upwind_rhs_merged_ref(*args, inject=x["inj"][:n_inj])
+    torch.cuda.synchronize()
+    assert uk.UPWIND_KERNEL.launches == n0 + 1
+    for g, r_ in zip(got, ref):  # du, ds, payload traces
+        _assert_close(g, r_)
+
+
+@pytest.mark.parametrize("visco", [False, True], ids=["elastic", "visco"])
+def test_upwind_runner_kernel_matches_plain(upwind_case, device, visco):
+    """Dense-group injection (elastic) and the scatter path (visco)."""
+    dm, runners, _ = upwind_case
+    r = runners["elastic"]
+    src = build_sources(dm, [PointSource(position=(0.5, 0.5, 0.7), f0=4.0,
+                                         radius=0.25)], device=device)
+    damp = torch.as_tensor(sponge_mask(dm, SIDES, width=0.3),
+                           device=device).float()
+    w = build_upwind_data(dm, Material(1.0, 2.0, 1.0), device=device)
+    v = build_visco(r.p, 30.0, 20.0, 1.0, 8.0, L=3) if visco else None
+    kern, plain = (UpwindLaneRunner(r.p, r.ex, w, 0.01, src=src, damp=damp,
+                                    visco=v, impl=impl)
+                   for impl in ("kernel", "reference"))
+    assert (kern.src_dense is None) == visco
+    rng = np.random.default_rng(6)
+    E, n_p = dm.num_elements, dm.re.n_p
+    st = State(u=torch.as_tensor(rng.standard_normal((E, n_p, 3)),
+                                 device=device).float(),
+               s=torch.as_tensor(rng.standard_normal((E, n_p, 6)),
+                                 device=device).float())
+    n0 = uk.UPWIND_KERNEL.launches
+    out_k, _ = kern.run(st, 3)
+    assert uk.UPWIND_KERNEL.launches - n0 == 12
+    out_r, _ = plain.run(st, 3)
     for a, b in ((out_k.u, out_r.u), (out_k.s, out_r.s)):
         assert torch.isfinite(a).all()
         assert ((a - b).norm() / b.norm()).item() < 1e-5

@@ -38,7 +38,7 @@ def _case(dim):
     dm_j = jmesh.build_discrete(topo_j, 2, bc_fn=bc)
     dm_t = tmesh.build_discrete(topo_t, 2, bc_fn=bc)
     p_j = jops.build_params(dm_j, MAT, dtype=jnp.float64)
-    p_t = tops.build_params(dm_t, TMAT, dtype=torch.float64)
+    p_t = tops.build_params(dm_t, TMAT, dtype=torch.float64, device="cpu")
     return dm_j, p_j, p_t
 
 

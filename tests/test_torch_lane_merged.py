@@ -43,11 +43,11 @@ def torch_case():
         tmesh.box_mesh(3, 3, 3), 2,
         bc_fn=tsol.absorbing_bc_fn(EXT, free_sides=[(2, "hi")]))
     p = tops.build_params(dm, tops.Material(1.0, 2.0, 1.0),
-                          dtype=torch.float64)
+                          dtype=torch.float64, device="cpu")
     damp = tsol.sponge_mask(dm, SIDES, width=0.3)
     rcv = tsol.build_receivers(
         dm, tsol.line((0.2, 0.5, 0.9), (0.8, 0.5, 0.9), 3),
-        dtype=torch.float64)
+        dtype=torch.float64, device="cpu")
     dt = tsol.cfl_dt(dm.h.min(), 2.0, 2, 0.4)
     u0, s0 = _state(dm.num_elements, p.n_p, 3, 6)
     st = tsol.State(u=torch.as_tensor(u0), s=torch.as_tensor(s0))
@@ -72,7 +72,8 @@ def test_runner_matches_jax_merged_runner(torch_case):
                    interpret=True)
     src_t = tsol.build_sources(
         dm_t, [tsol.PointSource(position=(0.5, 0.5, 0.7), f0=4.0,
-                                radius=0.25)], dtype=torch.float64)
+                                radius=0.25)], dtype=torch.float64,
+        device="cpu")
     tr = MergedLaneRunner(p_t, tdetect(dm_t), dt, src=src_t, damp=damp,
                           receivers=rcv_t)
     assert tr.impl == "reference"
@@ -99,7 +100,7 @@ def test_runner_matches_einsum_run(torch_case, n_groups):
     pos = [(0.5, 0.5, 0.7), (0.3, 0.6, 0.5), (0.6, 0.4, 0.3)]
     src = tsol.build_sources(
         dm, [tsol.PointSource(position=pos[g], f0=4.0 + g, radius=0.25)
-             for g in range(n_groups)], dtype=torch.float64)
+             for g in range(n_groups)], dtype=torch.float64, device="cpu")
     tr = MergedLaneRunner(p, tdetect(dm), dt, src=src, damp=damp,
                           receivers=rcv)
     assert (tr.src_dense is None) == (n_groups > 2)

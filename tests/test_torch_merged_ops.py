@@ -46,7 +46,7 @@ def case():
     p_j = jops.build_params(dm_j, jops.Material(1.0, 2.0, 1.0),
                             dtype=jnp.float64)
     p_t = tops.build_params(dm_t, tops.Material(1.0, 2.0, 1.0),
-                            dtype=torch.float64)
+                            dtype=torch.float64, device="cpu")
     jr = JaxRunner(p_j, jdetect(dm_j), DT, block=27, interpret=True,
                    damp=jnp.asarray(damp))
     tr = MergedLaneRunner(p_t, tdetect(dm_t), DT, damp=damp)
