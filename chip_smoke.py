@@ -8,8 +8,9 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. device   - require a CUDA device; print nvidia-smi's name and power limit.
 2. build    - compile every kernel library from seigen_tpu_torch/csrc with
               nvcc, one nvcc per source, all at once: merged_kernels.cu
-              (K1 merged_vel, K2 merged_stress) and upwind_kernels.cu (K3
-              upwind_rhs); print ptxas's registers, stack and spills.
+              (K1 merged_vel, K2 merged_stress), upwind_kernels.cu (K3
+              upwind_rhs) and lane_kernels.cu (K4 lane_vel, K5
+              lane_stress); print ptxas's registers, stack and spills.
 3. kernels  - every K1/K2 variant (vel plain/axpy/inject with 1 and 2
               groups; stress plain/axpy+damp/inject with 1 and 2 groups)
               against its plain PyTorch version on the card in float32, on
@@ -34,6 +35,20 @@ Phases, each printing its own lines; any failure exits non-zero:
               N = 4 and 8, P2, float64 through the einsum run_rk4 (the
               merged plan refuses periodic meshes): L2(u) per N and the
               observed order, which must exceed 2.8.
+7. lane     - the v1 lane-major LF engine.  Every K4 mode (SIG, TRAC, SEL)
+              and K5 mode (TR, SEL) against its plain version: SIG/TR on
+              box_mesh(4, 4, 4), TRAC/SEL on its scrambled copy, at P3 and
+              P2, and all five on rect_mesh(8, 8) P2; LaneMajorRunner on
+              the n=24 P3 case, LF2, and UnstructuredLaneRunner on its
+              scrambled copy, LF4, with fused_select True and False, each
+              for 10 steps kernel vs plain (relative L2, launch counts of
+              1 K4 + 1 K5 per LF2 step and 3 + 3 per LF4 step,
+              finiteness); each mode's time beside its plain version's
+              and its bound at n=24 P3; the bench (impl "lane" at LF2 and
+              "lane_u" at LF4, 100 steps) with the kernels and the plain
+              versions; the LF4 eigenmode through the kernels on periodic
+              box_mesh(N, N, N), N = 4 and 8, P2, float32: L2(u) per N
+              and the observed order, which must exceed 2.8.
 
 Tolerance of a kernel against its plain version: |k - p| <= rtol*|p| +
 atol*max|p| with rtol = 2e-4, atol = 2e-5.  The absolute floor is taken
@@ -75,6 +90,10 @@ KERNELS = {  # name -> (source, replaced TPU kernel)
                       "seigen_tpu/ops/merged_kernels.py:582"),
     "upwind_rhs": ("seigen_tpu_torch/csrc/upwind_kernels.cu",
                    "seigen_tpu/ops/upwind_kernels.py:231"),
+    "lane_vel": ("seigen_tpu_torch/csrc/lane_kernels.cu",
+                 "seigen_tpu/ops/pallas_kernels.py:942"),
+    "lane_stress": ("seigen_tpu_torch/csrc/lane_kernels.cu",
+                    "seigen_tpu/ops/pallas_kernels.py:982"),
 }
 
 
@@ -321,21 +340,32 @@ def upwind_runner(case, impl, visco=False):
     return make_runner("upwind_lane", dm, p, src, damp, dt, impl, visco=v)
 
 
-def reset_counts():
+def all_kernels():
+    """name -> kernel binding (each with its ``launches`` count)."""
+    from seigen_tpu_torch.ops import lane_kernels as lk
     from seigen_tpu_torch.ops import merged_kernels as mk
     from seigen_tpu_torch.ops import upwind_kernels as uk
 
-    for k in (mk.VEL_KERNEL, mk.STRESS_KERNEL, uk.UPWIND_KERNEL):
+    return {"merged_vel": mk.VEL_KERNEL, "merged_stress": mk.STRESS_KERNEL,
+            "upwind_rhs": uk.UPWIND_KERNEL, "lane_vel": lk.LANE_VEL,
+            "lane_stress": lk.LANE_STRESS}
+
+
+def reset_counts():
+    for k in all_kernels().values():
         k.launches = 0
 
 
 def read_counts():
-    from seigen_tpu_torch.ops import merged_kernels as mk
-    from seigen_tpu_torch.ops import upwind_kernels as uk
+    return {name: k.launches for name, k in all_kernels().items()}
 
-    return {"merged_vel": mk.VEL_KERNEL.launches,
-            "merged_stress": mk.STRESS_KERNEL.launches,
-            "upwind_rhs": uk.UPWIND_KERNEL.launches}
+
+def expect_counts(tag, counts, **nonzero):
+    """Fail unless the kernels of ``nonzero`` launched exactly that often
+    and every other kernel not at all."""
+    expect = {name: nonzero.get(name, 0) for name in KERNELS}
+    if counts != expect:
+        raise AssertionError(f"{tag} launches {counts}, expected {expect}")
 
 
 def compare_states(tag, out_k, out_r):
@@ -422,11 +452,7 @@ def phase_upwind(dev, case, st, check):
         out_r, _ = up_r.run(st, RUNNER_STEPS)
         torch.cuda.synchronize()
         log(f"[{tag}] {RUNNER_STEPS} steps: launches {counts}")
-        expect = {"merged_vel": 0, "merged_stress": 0,
-                  "upwind_rhs": 4 * RUNNER_STEPS}
-        if counts != expect:
-            raise AssertionError(f"{tag} launches {counts}, expected "
-                                 f"{expect}")
+        expect_counts(tag, counts, upwind_rhs=4 * RUNNER_STEPS)
         compare_states(tag, out_k, out_r)
         if not visco:
             launches = counts["upwind_rhs"]
@@ -458,6 +484,282 @@ def phase_upwind(dev, case, st, check):
     return launches, times, bnd
 
 
+LANE_MODES = {  # mode -> (kernel name, lane_kernels mode constant name)
+    "SIG": ("lane_vel", "VEL_SIG"), "TRAC": ("lane_vel", "VEL_TRAC"),
+    "SEL vel": ("lane_vel", "VEL_SEL"), "TR": ("lane_stress", "STRESS_TR"),
+    "SEL stress": ("lane_stress", "STRESS_SEL")}
+
+
+def small_lane_runners(dim, degree, dev):
+    """(LaneMajorRunner, UnstructuredLaneRunner on a scrambled copy) kernel
+    runners on a free-top box_mesh(4, 4, 4) (3D) or rect_mesh(8, 8) (2D)."""
+    import dataclasses
+
+    import numpy as np
+
+    from seigen_tpu_torch.mesh import box_mesh, build_discrete, rect_mesh
+    from seigen_tpu_torch.ops import Material, build_params
+    from seigen_tpu_torch.ops.structured_exchange import detect_structured
+    from seigen_tpu_torch.solver.damping import absorbing_bc_fn
+    from seigen_tpu_torch.solver.lane_major import LaneMajorRunner
+    from seigen_tpu_torch.solver.lane_unstructured import \
+        UnstructuredLaneRunner
+
+    topo = box_mesh(4, 4, 4) if dim == 3 else rect_mesh(8, 8)
+    bc = absorbing_bc_fn(((0.0, 1.0),) * dim, free_sides=[(dim - 1, "hi")])
+    mat = Material(1.0, 2.0, 1.0)
+    dm = build_discrete(topo, degree, bc_fn=bc)
+    lane = LaneMajorRunner(build_params(dm, mat, device=dev),
+                           detect_structured(dm), 0.01, impl="kernel")
+    perm = np.random.default_rng(0).permutation(topo.num_cells)
+    dm = build_discrete(dataclasses.replace(
+        topo, cells=topo.cells[perm], structure=None), degree, bc_fn=bc)
+    lane_u = UnstructuredLaneRunner(build_params(dm, mat, device=dev), 0.01,
+                                    centroids=dm.coords.mean(axis=1),
+                                    impl="kernel")
+    return lane, lane_u
+
+
+def lane_inputs(runner, seed):
+    """numpy-seeded float32 K4/K5 operands in the runner's lane layout."""
+    import numpy as np
+    import torch
+
+    d = runner.d
+    rng = np.random.default_rng(seed)
+
+    def rows(C, used, pad):
+        a = rng.standard_normal((C, pad, d.E)).astype(np.float32)
+        a[:, used:] = 0.0
+        return torch.as_tensor(a.reshape(C * pad, d.E), device=runner.device)
+
+    rows_pad = (d.dim * d.ftp + 7) // 8 * 8  # panel rows per face
+    return {"sig": rows(d.n_sig, d.n_p, d.npp), "u": rows(d.dim, d.n_p, d.npp),
+            "tr_sig": rows(d.n_sig, d.ftp, d.ftpp),
+            "tr_u": rows(d.dim, d.ftp, d.ftpp),
+            "panels": rows(d.nf, d.dim * d.ftp, rows_pad)}
+
+
+def lane_call(runner, x, mode):
+    """(kernel fn, plain fn) of one K4/K5 mode on the runner's data."""
+    from seigen_tpu_torch.ops import lane_kernels as lk
+
+    d = runner.d
+    kname, const = LANE_MODES[mode]
+    kern = lk.LANE_VEL if kname == "lane_vel" else lk.LANE_STRESS
+    m = getattr(lk, const)
+    if mode == "SIG":
+        args, plain = (x["sig"], x["tr_sig"]), lk.vel_op_lm_ref
+    elif mode == "TRAC":
+        args, plain = (x["sig"], x["tr_u"]), lk.vel_op_lm_trac_ref
+    elif mode == "TR":
+        args, plain = (x["u"], x["tr_u"]), lk.stress_op_lm_ref
+    elif mode == "SEL vel":
+        _, combo, sign, cfg = runner._pg_t
+        return (lambda: kern(d, x["sig"], x["panels"], m, combo=combo,
+                             sign=sign, selcfg=cfg),
+                lambda: lk.vel_op_lm_trac_sel_ref(d, x["sig"], x["panels"],
+                                                  combo, sign, cfg))
+    else:
+        _, combo, _, cfg = runner._pg_u
+        return (lambda: kern(d, x["u"], x["panels"], m, combo=combo,
+                             selcfg=cfg),
+                lambda: lk.stress_op_lm_sel_ref(d, x["u"], x["panels"],
+                                                combo, cfg))
+    return (lambda: kern(d, *args, m)), (lambda: plain(d, *args))
+
+
+def compare_lane(runner, check, tag, seed, modes):
+    import torch
+
+    x = lane_inputs(runner, seed)
+    for mode in modes:
+        kern, plain = lane_call(runner, x, mode)
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        check(LANE_MODES[mode][0], f"{tag} {mode}", got, ref)
+    return x
+
+
+def lane_bound(d, mode):
+    """(bound_ms, "bytes" | "operations") of one launch of a K4/K5 mode:
+    compulsory bytes (state rows n_p per component, the neighbour payload
+    rows the mode reads — for SEL the selected panel rows, the combo and
+    the sign rows —, the geometry counted per face as in ``bound`` (Ginv,
+    normals, Fscale, beta or delta; the kernel reads them expanded to face
+    nodes) and the material rows, the output written at npp rows) over
+    the memory rate, and the Dr and LIFT FLOPs over the FP32 rate."""
+    dim, n_p, ftp, npp, n_sig = d.dim, d.n_p, d.ftp, d.npp, d.n_sig
+    nf = d.nf
+    vel = LANE_MODES[mode][0] == "lane_vel"
+    c_in, c_out = (n_sig, dim) if vel else (dim, n_sig)
+    payload = {"SIG": n_sig * ftp, "TRAC": dim * ftp, "TR": dim * ftp,
+               "SEL vel": dim * ftp + 2 * nf,
+               "SEL stress": dim * ftp + nf}[mode]
+    geo = dim * dim + dim * nf + 2 * nf + (1 if vel else 2)
+    rows = c_in * n_p + payload + geo + c_out * npp
+    flops = 2 * (c_out * dim * n_p * n_p + c_out * n_p * ftp)
+    t_bytes = 4.0 * rows * d.E / HBM_BYTES_PER_S * 1e3
+    t_ops = float(flops) * d.E / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def lane_eigenmode_order(dev):
+    """LF4 through K4/K5 (LaneMajorRunner) on the travelling S wave of
+    tests/test_eigenmode.py over half a period, periodic box_mesh(N, N, N)
+    P2, float32 on the card: (errors, order)."""
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.mesh import box_mesh, build_discrete
+    from seigen_tpu_torch.ops import Material, build_params
+    from seigen_tpu_torch.ops.structured_exchange import detect_structured
+    from seigen_tpu_torch.solver import PlaneWave, State, cfl_dt, \
+        interpolate, l2_error
+    from seigen_tpu_torch.solver.lane_major import LaneMajorRunner
+
+    mat = Material(1.0, 2.0, 1.0)
+    pw = PlaneWave(mat=mat, k=2 * np.pi * np.array([1.0, 1.0, 0.0]),
+                   mode="S", polarization=np.array([0.0, 0.0, 1.0]))
+    T = 0.5 * pw.period
+    errs = []
+    for N in (4, 8):
+        dm = build_discrete(box_mesh(N, N, N, periodic=(0, 1, 2)), 2)
+        p = build_params(dm, mat, dtype=torch.float32, device=dev)
+        n = max(int(np.ceil(T / cfl_dt(dm.h.min(), 2.0, 2, 0.4))), 1)
+        dt = T / n
+        st = State(*(torch.as_tensor(interpolate(dm, f, t), device=dev
+                                     ).float()
+                     for f, t in ((pw.u, 0.0), (pw.sigma, 0.5 * dt))))
+        runner = LaneMajorRunner(p, detect_structured(dm), dt, order=4,
+                                 impl="kernel")
+        reset_counts()
+        fin, _ = runner.run(st, n)
+        torch.cuda.synchronize()
+        expect_counts(f"eigenmode N={N}", read_counts(), lane_vel=3 * n,
+                      lane_stress=3 * n)
+        errs.append(l2_error(dm, fin.u.cpu().numpy(), pw.u, n * dt))
+        log(f"[lane eigenmode] N={N} P2 LF4 float32: E {dm.num_elements}, "
+            f"{n} steps, L2(u) {errs[-1]:.6e}")
+    return errs, math.log2(errs[0] / errs[1])
+
+
+def phase_lane(dev, case, st, check, n=24):
+    """Phase 7 (see the module docstring); returns ({kernel: launches on
+    the LF2 main-path run}, {kernel: (kernel ms, plain ms)} and {kernel:
+    bound} of the main path's modes SIG and TR)."""
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.bench import throughput
+    from seigen_tpu_torch.solver.lane_unstructured import \
+        UnstructuredLaneRunner
+    from seigen_tpu_torch.solver.timestep import State
+
+    t0 = time.perf_counter()
+    for dim, degree in ((3, 3), (3, 2), (2, 2)):
+        lane, lane_u = small_lane_runners(dim, degree, dev)
+        tag = f"{dim}D P{degree}"
+        log(f"[lane] {tag}: E {lane.E}; scrambled copy: "
+            f"{len(lane_u._pg_u[3][7])} orientation groups")
+        scrambled = (tuple(LANE_MODES) if dim == 2  # all five in 2D
+                     else ("TRAC", "SEL vel", "SEL stress"))
+        compare_lane(lane, check, f"{tag}", 30 + degree, ("SIG", "TR"))
+        compare_lane(lane_u, check, f"{tag} scrambled", 40 + degree,
+                     scrambled)
+    log(f"[lane] all small-mesh modes agree "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # LF2 main path: LaneMajorRunner on the bench case
+    dm, p, src, damp, dt, _ = case
+    lane_k, lane_r = (throughput.make_runner("lane", dm, p, src, damp, dt,
+                                             impl, order=2)
+                      for impl in ("kernel", "reference"))
+    reset_counts()
+    out_k, _ = lane_k.run(st, RUNNER_STEPS)
+    torch.cuda.synchronize()
+    main_counts = read_counts()
+    out_r, _ = lane_r.run(st, RUNNER_STEPS)
+    torch.cuda.synchronize()
+    log(f"[lane LF2] n={n} P3, {RUNNER_STEPS} steps: launches {main_counts}")
+    expect_counts("lane LF2", main_counts, lane_vel=RUNNER_STEPS,
+                  lane_stress=RUNNER_STEPS)
+    compare_states("lane LF2", out_k, out_r)
+    del lane_r
+
+    # LF4 on the scrambled case, both select paths
+    t1 = time.perf_counter()
+    scase = throughput.setup_case(n=n, degree=3, device=dev, scramble=True)
+    sdm, sp, ssrc, sdamp, sdt, _ = scase
+    E, n_p = sdm.num_elements, sdm.re.n_p
+    rng = np.random.default_rng(8)
+    sst = State(
+        u=torch.as_tensor(rng.standard_normal((E, n_p, 3)), device=dev
+                          ).float(),
+        s=torch.as_tensor(rng.standard_normal((E, n_p, 6)), device=dev
+                          ).float())
+    log(f"[lane_u] scrambled n={n} P3 case: setup "
+        f"{time.perf_counter() - t1:.1f} s")
+    for fused in (True, False):
+        tag = f"lane_u LF4 fused_select={fused}"
+        t1 = time.perf_counter()
+        k, r = (UnstructuredLaneRunner(
+            sp, sdt, order=4, src=ssrc, damp=sdamp, impl=impl,
+            centroids=sdm.coords.mean(axis=1), fused_select=fused)
+            for impl in ("kernel", "reference"))
+        log(f"[{tag}] runner setup {time.perf_counter() - t1:.1f} s")
+        reset_counts()
+        out_k, _ = k.run(sst, RUNNER_STEPS)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        out_r, _ = r.run(sst, RUNNER_STEPS)
+        torch.cuda.synchronize()
+        log(f"[{tag}] {RUNNER_STEPS} steps: launches {counts}")
+        expect_counts(tag, counts, lane_vel=3 * RUNNER_STEPS,
+                      lane_stress=3 * RUNNER_STEPS)
+        compare_states(tag, out_k, out_r)
+        if fused:
+            lane_uk = k
+        del r
+
+    # every mode at n=24 P3: check, kernel and plain times, bound
+    times, bounds = {}, {}
+    for runner, modes, seed in ((lane_k, ("SIG", "TR"), 50),
+                                (lane_uk, ("TRAC", "SEL vel", "SEL stress"),
+                                 51)):
+        x = compare_lane(runner, check, f"n={n} P3", seed, modes)
+        for mode in modes:
+            kern, plain = lane_call(runner, x, mode)
+            t = (time_ms(kern), time_ms(plain))
+            b = lane_bound(runner.d, mode)
+            log(f"[lane] {LANE_MODES[mode][0]} ({mode}) at n={n} P3: kernel "
+                f"{t[0]:.4f} ms, plain {t[1]:.4f} ms, bound {b[0]:.4f} ms "
+                f"({b[1]})")
+            if mode in ("SIG", "TR"):  # the LF2 main path's modes
+                times[LANE_MODES[mode][0]] = t
+                bounds[LANE_MODES[mode][0]] = b
+    del lane_k, lane_uk
+
+    for impl, order, c in (("lane", 2, case), ("lane_u", 4, scase)):
+        for kimpl in ("kernel", "reference"):
+            rec = throughput.main(n=n, degree=3, n_steps=BENCH_STEPS,
+                                  impl=impl, order=order, kernel_impl=kimpl,
+                                  case=c)
+            if not (np.isfinite(rec["value"]) and rec["value"] > 0):
+                raise AssertionError(f"{impl} bench {kimpl}: bad rate "
+                                     f"{rec['value']}")
+            print(json.dumps(rec), flush=True)
+
+    errs, order = lane_eigenmode_order(dev)
+    log(f"[lane eigenmode] observed order {order:.3f} (bar "
+        f"{EIGEN_MIN_ORDER})")
+    if not (order > EIGEN_MIN_ORDER):
+        raise AssertionError(f"LF4 kernel eigenmode order {order} <= "
+                             f"{EIGEN_MIN_ORDER}: errors {errs}")
+    launches = {k: main_counts[k] for k in ("lane_vel", "lane_stress")}
+    return launches, times, bounds
+
+
 def main() -> int:
     try:
         import torch
@@ -472,6 +774,7 @@ def main() -> int:
         import numpy as np
 
         from seigen_tpu_torch.bench import throughput
+        from seigen_tpu_torch.ops import lane_kernels as lk
         from seigen_tpu_torch.ops import merged_kernels as mk
         from seigen_tpu_torch.ops import upwind_kernels as uk
         from seigen_tpu_torch.ops.cuda_build import build_all
@@ -491,10 +794,11 @@ def main() -> int:
         f"{torch.version.cuda}; {torch.cuda.device_count()} device(s)")
 
     # 2. build: one nvcc per source, all at once
-    wall = build_all([mk.LIBRARY, uk.LIBRARY])
-    for k in (mk.VEL_KERNEL, mk.STRESS_KERNEL, uk.UPWIND_KERNEL):
+    libraries = (mk.LIBRARY, uk.LIBRARY, lk.LIBRARY)
+    wall = build_all(libraries)
+    for k in all_kernels().values():
         k.build()  # load the symbols, check the argument structs
-    for lib in (mk.LIBRARY, uk.LIBRARY):
+    for lib in libraries:
         log(f"[build] {lib.sources[0].name}: nvcc "
             f"{lib.build_seconds:.1f} s")
         for ln in lib.ptxas_report().splitlines():
@@ -538,11 +842,8 @@ def main() -> int:
     out_r, _ = run_r.run(st, RUNNER_STEPS)
     torch.cuda.synchronize()
     log(f"[runner] {RUNNER_STEPS} steps: launches {launches}")
-    expect = {"merged_vel": 3 * RUNNER_STEPS,
-              "merged_stress": 3 * RUNNER_STEPS, "upwind_rhs": 0}
-    if launches != expect:
-        raise AssertionError(f"LF4 path launches {launches}, expected "
-                             f"{expect}")
+    expect_counts("LF4 path", launches, merged_vel=3 * RUNNER_STEPS,
+                  merged_stress=3 * RUNNER_STEPS)
     compare_states("runner", out_k, out_r)
 
     # every variant at the main path's shapes, with kernel and plain times
@@ -573,7 +874,15 @@ def main() -> int:
     t0 = time.perf_counter()
     launches["upwind_rhs"], times["upwind_rhs"], bounds["upwind_rhs"] = \
         phase_upwind(dev, case, st, check)
-    log(f"[upwind] phase {time.perf_counter() - t0:.1f} s; total "
+    log(f"[upwind] phase {time.perf_counter() - t0:.1f} s")
+
+    # 7. lane: the v1 lane-major LF engine (LF2 lane, LF4 lane_u)
+    t0 = time.perf_counter()
+    lane_launches, lane_times, lane_bounds = phase_lane(dev, case, st, check)
+    launches.update(lane_launches)
+    times.update(lane_times)
+    bounds.update(lane_bounds)
+    log(f"[lane] phase {time.perf_counter() - t0:.1f} s; total "
         f"{time.perf_counter() - t_all:.1f} s")
 
     kernels = [{"name": k, "route": "cuda", "source": KERNELS[k][0],

@@ -2,10 +2,13 @@
 
     python -m seigen_tpu_torch.bench.profile_step --impl upwind_lane
     python -m seigen_tpu_torch.bench.profile_step --impl merged
+    python -m seigen_tpu_torch.bench.profile_step --impl lane --order 2
+    python -m seigen_tpu_torch.bench.profile_step --impl lane_u
     python -m seigen_tpu_torch.bench.profile_step --kernel-impl reference
 
-On the bench case (``throughput.setup_case``, n=24 P3 by default), from a
-zero state with the blob source and sponge:
+On the bench case (``throughput.setup_case``, n=24 P3 by default; impl
+"lane_u" on its scrambled variant), from a zero state with the blob source
+and sponge:
 
 - wall per step: host clock over ``--steps`` steps ending in
   ``torch.cuda.synchronize()``;
@@ -13,7 +16,8 @@ zero state with the blob source and sponge:
   synchronize (few enough launches that the launch queue never blocks);
 - device busy per step, device idle share of the profiled device span and
   device time by kernel group (the port's operator kernels by name;
-  PyTorch's elementwise, copy/cat and matmul kernels as groups):
+  PyTorch's gather/index, elementwise, copy/cat and matmul kernels as
+  groups):
   ``torch.profiler`` over ``--profile-steps`` steps;
 - peak device memory of one run (``max_memory_allocated``);
 - copy bandwidth: a 1 GiB device-to-device copy, read + write bytes.
@@ -55,15 +59,19 @@ def copy_bandwidth(device, n_bytes=1 << 30, reps=10) -> float:
 
 
 OPERATOR_KERNELS = ("merged_vel_kernel", "merged_stress_kernel",
-                    "upwind_rhs_kernel")
+                    "upwind_rhs_kernel", "lane_vel_kernel",
+                    "lane_stress_kernel")
 
 
 def kernel_group(name: str) -> str:
-    """The port's operator kernels by name; PyTorch's elementwise, copy
-    and matmul kernels as groups; anything else as "other"."""
+    """The port's operator kernels by name; PyTorch's gather/index (the
+    lane runners' trace exchanges), elementwise, copy and matmul kernels
+    as groups; anything else as "other"."""
     for k in OPERATOR_KERNELS:
         if k in name:
             return k.removesuffix("_kernel")
+    if "gather" in name or "index" in name.lower():
+        return "pytorch gather/index"
     if "elementwise_kernel" in name:
         return "pytorch elementwise"
     if "copy" in name.lower():
@@ -83,15 +91,16 @@ def _device_events(prof):
 
 
 def profile(impl="upwind_lane", kernel_impl="kernel", n=24, degree=3,
-            steps=50, profile_steps=10, device="cuda") -> dict:
+            steps=50, profile_steps=10, device="cuda", order=4) -> dict:
     if torch.device(device).type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError("the step profile measures a CUDA device; none "
                            "is available")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dm, p, src, damp, dt, state0 = setup_case(n=n, degree=degree,
-                                              device=device)
-    runner = make_runner(impl, dm, p, src, damp, dt, kernel_impl)
+    dm, p, src, damp, dt, state0 = setup_case(
+        n=n, degree=degree, device=device, scramble=(impl == "lane_u"))
+    runner = make_runner(impl, dm, p, src, damp, dt, kernel_impl,
+                         order=order)
     ulm, slm = runner.to_lm_state(state0)
 
     def sync():
@@ -140,6 +149,7 @@ def profile(impl="upwind_lane", kernel_impl="kernel", n=24, degree=3,
     return {
         "impl": impl,
         "kernel_impl": kernel_impl,
+        "scheme": "RK4" if impl == "upwind_lane" else f"LF{order}",
         "case": {"n": n, "degree": degree, "elements": dm.num_elements},
         "gpu": name,
         "power_limit": limit,
@@ -165,6 +175,8 @@ if __name__ == "__main__":
     ap.add_argument("--degree", type=int, default=3)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--profile-steps", type=int, default=10)
+    ap.add_argument("--order", type=int, default=4, choices=(2, 4),
+                    help="LF order of the lane and lane_u runners")
     a = ap.parse_args()
     print(json.dumps(profile(a.impl, a.kernel_impl, a.n, a.degree, a.steps,
-                             a.profile_steps)))
+                             a.profile_steps, order=a.order)))

@@ -1,13 +1,18 @@
 """Throughput benchmark: DOF-updates/s on one GPU, 3D explosive source.
 
-Port of ``seigen_tpu/bench/throughput.py`` for the merged LF4 runner
-(impl "merged") and the upwind-RK4 lane runner (impl "upwind_lane").  A
-"DOF update" is one field coefficient advanced one full timestep; the
-per-step DOF count is E * n_p * (dim + n_sig).  The timed region is the
-runner's ``run_lm`` over ``n_steps`` steps, best of 3 after one warm-up
-run, each ending in ``torch.cuda.synchronize()``.
+Port of ``seigen_tpu/bench/throughput.py`` for the lane runners: the
+merged LF4 runner (impl "merged"), the v1 lane-major LF2/LF4 runner (impl
+"lane", ``--order``), the unstructured lane runner (impl "lane_u", on the
+scrambled case: cells randomly permuted, structure dropped, Morton order
+from the cell centroids) and the upwind-RK4 lane runner (impl
+"upwind_lane").  A "DOF update" is one field coefficient advanced one full
+timestep; the per-step DOF count is E * n_p * (dim + n_sig).  The timed
+region is the runner's ``run_lm`` over ``n_steps`` steps, best of 3 after
+one warm-up run, each ending in ``torch.cuda.synchronize()``.
 
     python -m seigen_tpu_torch.bench.throughput            # n=24, P3, 100 steps
+    python -m seigen_tpu_torch.bench.throughput --impl lane --order 2
+    python -m seigen_tpu_torch.bench.throughput --impl lane_u
     python -m seigen_tpu_torch.bench.throughput --impl upwind_lane
     python -m seigen_tpu_torch.bench.throughput --kernel-impl reference
 
@@ -21,15 +26,18 @@ import argparse
 import json
 import subprocess
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
+import numpy as np
 import torch
 
 from ..mesh import box_mesh, build_discrete
 from ..ops import Material, build_params, build_upwind_data, n_sig_for
 from ..ops.structured_exchange import detect_structured
 from ..solver.damping import absorbing_bc_fn, sponge_mask
+from ..solver.lane_major import LaneMajorRunner
 from ..solver.lane_merged import MergedLaneRunner
+from ..solver.lane_unstructured import UnstructuredLaneRunner
 from ..solver.lane_upwind import UpwindLaneRunner
 from ..solver.source import PointSource, build_sources
 from ..solver.timestep import State, cfl_dt
@@ -37,7 +45,7 @@ from ..solver.timestep import State, cfl_dt
 # ONE material for the whole bench surface (the JAX bench's BENCH_MAT): the
 # elastic parameters and the Godunov impedances stay consistent
 BENCH_MAT = Material(rho=1.0, vp=2.0, vs=1.0)
-IMPLS = ("merged", "upwind_lane")
+IMPLS = ("merged", "upwind_lane", "lane", "lane_u")
 
 
 @dataclass
@@ -56,15 +64,26 @@ def setup_case(
     degree: int = 3,
     dtype: torch.dtype = torch.float32,
     device: torch.device | str = "cuda",
+    scramble: bool = False,
 ):
     """3D explosive-source case: unit box, free top, absorbing elsewhere.
 
+    ``scramble`` randomly permutes the cell order (``default_rng(0)``) and
+    drops the structure metadata, as the JAX ``setup_case`` does: the
+    stand-in for a Gmsh unstructured import of the same geometry and
+    physics (the ``lane_u`` case).
     Returns (dm, p, src, damp, dt, state0) like the JAX ``setup_case``.
     """
     dim = 3
     absorb = [(0, "lo"), (0, "hi"), (1, "lo"), (1, "hi"), (2, "lo")]
     bc_fn = absorbing_bc_fn(((0.0, 1.0),) * dim, free_sides=[(2, "hi")])
-    dm = build_discrete(box_mesh(n, n, n), degree, bc_fn=bc_fn)
+    topo = box_mesh(n, n, n)
+    if scramble:
+        rng = np.random.default_rng(0)
+        topo = replace(
+            topo, cells=topo.cells[rng.permutation(topo.num_cells)],
+            structure=None)
+    dm = build_discrete(topo, degree, bc_fn=bc_fn)
     p = build_params(dm, BENCH_MAT, dtype=dtype, device=device)
     h_elem = float(dm.h.min())
     src = build_sources(
@@ -89,31 +108,44 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def make_runner(impl, dm, p, src, damp, dt, kernel_impl=None, visco=None):
-    """The bench's lane runner: "merged" (LF4, MergedLaneRunner) or
+def make_runner(impl, dm, p, src, damp, dt, kernel_impl=None, visco=None,
+                order=4):
+    """The bench's lane runner: "merged" (LF4, MergedLaneRunner), "lane"
+    (LF ``order``, LaneMajorRunner), "lane_u" (LF ``order``,
+    UnstructuredLaneRunner in Morton order of the cell centroids) or
     "upwind_lane" (Godunov RK4, UpwindLaneRunner with the bench material's
-    impedances; ``visco``: optional ViscoData).  kernel_impl: "kernel"
-    (CUDA kernels) or "reference" (their plain PyTorch versions); default
-    by device."""
+    impedances; ``visco``: optional ViscoData; ``order`` does not apply).
+    kernel_impl: "kernel" (CUDA kernels) or "reference" (their plain
+    PyTorch versions); default by device."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, not {impl!r}")
+    if impl == "merged" and order != 4:
+        raise ValueError("the merged runner is LF4 only")
+    if impl == "lane_u":
+        return UnstructuredLaneRunner(
+            p, dt, order=order, src=src, damp=damp, impl=kernel_impl,
+            centroids=dm.coords.mean(axis=1))
     ex = detect_structured(dm)
     if ex is None:
         raise ValueError(f"{impl} impl requires a structured mesh")
     if impl == "merged":
         return MergedLaneRunner(p, ex, dt, src=src, damp=damp,
                                 impl=kernel_impl)
+    if impl == "lane":
+        return LaneMajorRunner(p, ex, dt, order=order, src=src, damp=damp,
+                               impl=kernel_impl)
     w = build_upwind_data(dm, BENCH_MAT, dtype=p.dtype, device=p.device)
     return UpwindLaneRunner(p, ex, w, dt, src=src, damp=damp,
                             impl=kernel_impl, visco=visco)
 
 
 def measure(p, src, damp, dt, state0, dm, n_steps: int = 50,
-            impl: str = "merged", kernel_impl: str | None = None
-            ) -> BenchResult:
+            impl: str = "merged", kernel_impl: str | None = None,
+            order: int = 4) -> BenchResult:
     """Time ``n_steps`` of a lane runner (see make_runner), best of 3 after
     a warm-up."""
-    runner = make_runner(impl, dm, p, src, damp, dt, kernel_impl)
+    runner = make_runner(impl, dm, p, src, damp, dt, kernel_impl,
+                         order=order)
     ulm, slm = runner.to_lm_state(state0)
     runner.run_lm(ulm, slm, n_steps)  # warm-up
     _sync(p.device)
@@ -149,7 +181,7 @@ def gpu_name_and_power_limit(device_index: int = 0):
 
 
 def report(res: BenchResult, impl: str, kernel_impl: str,
-           device: torch.device | str = "cuda") -> dict:
+           device: torch.device | str = "cuda", order: int = 4) -> dict:
     """The JSON line: the JAX bench's metric and detail keys, plus the
     GPU's name and power limit and which operator implementation ran."""
     dev = torch.device(device)
@@ -168,6 +200,7 @@ def report(res: BenchResult, impl: str, kernel_impl: str,
             "steps_per_sec": res.steps_per_sec,
             "backend": "cuda",
             "impl": impl,
+            "scheme": "RK4" if impl == "upwind_lane" else f"LF{order}",
             "gpu": name,
             "power_limit": limit,
             "kernel_impl": kernel_impl,
@@ -177,19 +210,20 @@ def report(res: BenchResult, impl: str, kernel_impl: str,
 
 def main(n: int = 24, degree: int = 3, n_steps: int = 100,
          impl: str = "merged", device: str = "cuda",
-         kernel_impl: str = "kernel", case=None) -> dict:
+         kernel_impl: str = "kernel", case=None, order: int = 4) -> dict:
     """Measure a lane runner (``impl``, see measure) on the CUDA device;
-    returns the JSON record.  ``case``: a ``setup_case`` result to reuse."""
+    returns the JSON record.  ``case``: a ``setup_case`` result to reuse
+    (impl "lane_u" builds the scrambled case)."""
     if torch.device(device).type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError("the throughput bench measures a CUDA device; "
                            "none is available")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dm, p, src, damp, dt, state0 = case or setup_case(
-        n=n, degree=degree, device=device)
+        n=n, degree=degree, device=device, scramble=(impl == "lane_u"))
     res = measure(p, src, damp, dt, state0, dm, n_steps=n_steps, impl=impl,
-                  kernel_impl=kernel_impl)
-    return report(res, impl, kernel_impl, device)
+                  kernel_impl=kernel_impl, order=order)
+    return report(res, impl, kernel_impl, device, order)
 
 
 if __name__ == "__main__":
@@ -200,6 +234,9 @@ if __name__ == "__main__":
     ap.add_argument("--impl", default="merged", choices=IMPLS)
     ap.add_argument("--kernel-impl", default="kernel",
                     choices=("kernel", "reference"))
+    ap.add_argument("--order", type=int, default=4, choices=(2, 4),
+                    help="LF order of the lane and lane_u runners")
     a = ap.parse_args()
     print(json.dumps(main(n=a.n, degree=a.degree, n_steps=a.steps,
-                          impl=a.impl, kernel_impl=a.kernel_impl)))
+                          impl=a.impl, kernel_impl=a.kernel_impl,
+                          order=a.order)))

@@ -30,25 +30,11 @@ from ..ops.merged_kernels import (
     vel_merged_ref,
 )
 from ..ops.structured_exchange import StructuredExchange
-from .lane_major import class_major_perm
+from .lane_major import class_major_perm, from_lm, resolve_impl, to_lm
 from .receivers import ReceiverData
 from .source import SourceData, ricker
 from .timestep import State, compose_lf_step_traced, inject_columns, \
     numpy_dtype
-
-
-def resolve_impl(impl: str | None, device: torch.device) -> str:
-    """The runner's operator implementation: "kernel" (CUDA kernels, CUDA
-    tensors only) or "reference" (plain versions); None follows the
-    device."""
-    if impl is None:
-        impl = "kernel" if device.type == "cuda" else "reference"
-    if impl not in ("kernel", "reference"):
-        raise ValueError(f"impl must be 'kernel' or 'reference': {impl!r}")
-    if impl == "kernel" and device.type != "cuda":
-        raise ValueError("impl='kernel' needs CUDA tensors; the plain "
-                         "version runs with impl='reference'")
-    return impl
 
 
 class MergedLaneRunner:
@@ -197,24 +183,17 @@ class MergedLaneRunner:
         self.src_amp = src.amp.cpu().numpy().astype(npdt)
 
     # --- state conversion ---
-    def _to_lm(self, x, C):
+    def _to_lm(self, x):
         """(E, n_p, C) standard -> (C*npp, Ls) class-major lanes."""
-        d = self.d
         perm = torch.as_tensor(self._old_of_new, device=x.device)
-        out = torch.zeros((C, d.npp, self.plan.Ls), dtype=x.dtype,
-                          device=x.device)
-        out[:, : d.n_p] = x[perm].permute(2, 1, 0)
-        return out.reshape(C * d.npp, self.plan.Ls)
+        return to_lm(x[perm], self.d.npp)
 
     def _from_lm(self, y, C):
-        d = self.d
         inv = torch.as_tensor(self._new_of_old, device=y.device)
-        x = y.reshape(C, d.npp, -1)[:, : d.n_p].permute(2, 1, 0)
-        return x[inv].contiguous()
+        return from_lm(y, self.d.n_p, self.d.npp, C)[inv]
 
     def to_lm_state(self, state: State):
-        return self._to_lm(state.u, self.d.dim), self._to_lm(
-            state.s, self.d.n_sig)
+        return self._to_lm(state.u), self._to_lm(state.s)
 
     def from_lm_state(self, ulm, slm) -> State:
         return State(u=self._from_lm(ulm, self.d.dim),

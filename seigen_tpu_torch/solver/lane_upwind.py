@@ -290,7 +290,7 @@ class UpwindLaneRunner(MergedLaneRunner):
     # --- xi layout round-trip (checkpoint/resume chunks) ---------------
     def xi_to_lm(self, xi_std):
         """(E, n_p, n_sig, L) standard -> (L, n_sig*npp, Ls)."""
-        return torch.stack([self._to_lm(xi_std[..., l], self.d.n_sig)
+        return torch.stack([self._to_lm(xi_std[..., l])
                             for l in range(self.visco.L)])
 
     def xi_from_lm(self, xi_lm):

@@ -1,10 +1,11 @@
 """The port's throughput bench on the CPU, and the port's import guard.
 
 ``setup_case`` must build the JAX bench's case (same mesh, parameters,
-source, sponge, dt); ``measure`` runs end to end on the CPU through the
-plain operator versions; ``main`` refuses to measure without a CUDA device;
-the entry points default to the card; and importing the port never
-imports JAX.
+source, sponge, dt; with ``scramble=True`` the same cell permutation);
+``measure`` runs end to end on the CPU through the plain operator versions,
+for the lane runners at LF2 and LF4 too; ``main`` refuses to measure
+without a CUDA device; the entry points default to the card; and importing
+the port never imports JAX.
 """
 
 import inspect
@@ -62,6 +63,33 @@ def test_measure_reference_on_cpu(cases):
     assert res.dof_updates_per_sec > 0 and res.seconds > 0
 
 
+@pytest.mark.parametrize("impl,order", [("lane", 2), ("lane_u", 4)])
+def test_measure_lane_runners_on_cpu(impl, order):
+    dm, p, src, damp, dt, st = tbench.setup_case(
+        n=2, degree=1, dtype=torch.float64, device="cpu",
+        scramble=(impl == "lane_u"))
+    runner = tbench.make_runner(impl, dm, p, src, damp, dt, "reference",
+                                order=order)
+    assert runner.order == order and runner.impl == "reference"
+    res = tbench.measure(p, src, damp, dt, st, dm, n_steps=2, impl=impl,
+                         kernel_impl="reference", order=order)
+    assert res.n_dof == dm.num_elements * dm.re.n_p * 9
+    assert np.isfinite(res.dof_updates_per_sec) and res.seconds > 0
+    with pytest.raises(ValueError, match="LF4"):
+        tbench.make_runner("merged", dm, p, src, damp, dt, "reference",
+                           order=2)
+
+
+def test_scrambled_case_matches_jax():
+    dm_j = jbench.setup_case(n=2, degree=1, dtype=jnp.float64,
+                             scramble=True)[0]
+    dm_t = tbench.setup_case(n=2, degree=1, dtype=torch.float64,
+                             device="cpu", scramble=True)[0]
+    assert dm_t.topology.structure is None
+    np.testing.assert_array_equal(dm_t.topology.cells, dm_j.topology.cells)
+    np.testing.assert_array_equal(dm_t.bc, dm_j.bc)
+
+
 def test_main_refuses_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -76,6 +104,12 @@ def test_profile_groups_kernels_and_needs_cuda(monkeypatch):
         "(UpwindArgs)": "upwind_rhs",
         "void (anonymous namespace)::merged_vel_kernel<3, 20, 10>"
         "(MergedArgs)": "merged_vel",
+        "void (anonymous namespace)::lane_stress_kernel<3, 20, 10>"
+        "(LaneArgs)": "lane_stress",
+        "void at::native::_scatter_gather_elementwise_kernel<128, 4>":
+        "pytorch gather/index",
+        "void at::native::indexSelectLargeIndex<float, long>":
+        "pytorch gather/index",
         "void at::native::vectorized_elementwise_kernel<4, "
         "at::native::CUDAFunctor_add<float>>": "pytorch elementwise",
         "sm80_xmma_gemm_f32f32_f32f32_f32_nn_n": "pytorch matmul",
@@ -103,6 +137,9 @@ def test_port_never_imports_jax():
             "seigen_tpu_torch.solver.lane_merged, "
             "seigen_tpu_torch.solver.lane_upwind, "
             "seigen_tpu_torch.solver.rk4, "
+            "seigen_tpu_torch.solver.lane_unstructured, "
+            "seigen_tpu_torch.mesh.gmsh_io, seigen_tpu_torch.mesh.recover, "
+            "seigen_tpu_torch.ops.lane_kernels, "
             "seigen_tpu_torch.ops.merged_kernels, "
             "seigen_tpu_torch.ops.upwind_kernels; "
             "print(sorted(m for m in sys.modules "

@@ -3,9 +3,12 @@
 Every variant of K1 (merged_vel) and K2 (merged_stress) against
 vel_merged_ref / stress_merged_ref, and of K3 (upwind_rhs: plain, 1 and 2
 source groups, an acoustic vs = 0 half) against upwind_rhs_merged_ref, in
-float32 on box_mesh(4, 4, 4) at P2 and P3; the kernel runners (LF4 and
-upwind RK4, elastic and viscoelastic) against the plain runners for a few
-steps, with their launch counts.
+float32 on box_mesh(4, 4, 4) at P2 and P3; every mode of K4 (lane_vel:
+SIG, TRAC, SEL) and K5 (lane_stress: TR, SEL) against its plain version on
+box_mesh(4, 4, 4) and its scrambled copy at P2 and P3; the kernel runners
+(merged LF4, upwind RK4 elastic and viscoelastic, lane LF2, lane_u LF4
+with both select paths) against the plain runners for a few steps, with
+their launch counts.
 These tests need a CUDA device and nvcc; elsewhere they skip.  On the GPU
 machine (which has no JAX, so the suite's conftest is not loaded):
 
@@ -27,11 +30,15 @@ from seigen_tpu_torch.ops import (
     build_upwind_data,
     build_visco,
 )
+from seigen_tpu_torch.ops import lane_kernels as lk
 from seigen_tpu_torch.ops import merged_kernels as mk
 from seigen_tpu_torch.ops import upwind_kernels as uk
 from seigen_tpu_torch.ops.structured_exchange import detect_structured
 from seigen_tpu_torch.solver.damping import absorbing_bc_fn, sponge_mask
+from seigen_tpu_torch.solver.lane_major import LaneMajorRunner
 from seigen_tpu_torch.solver.lane_merged import MergedLaneRunner
+from seigen_tpu_torch.solver.lane_unstructured import \
+    UnstructuredLaneRunner
 from seigen_tpu_torch.solver.lane_upwind import UpwindLaneRunner
 from seigen_tpu_torch.solver.source import PointSource, build_sources
 from seigen_tpu_torch.solver.timestep import State
@@ -207,6 +214,107 @@ def test_upwind_runner_kernel_matches_plain(upwind_case, device, visco):
     n0 = uk.UPWIND_KERNEL.launches
     out_k, _ = kern.run(st, 3)
     assert uk.UPWIND_KERNEL.launches - n0 == 12
+    out_r, _ = plain.run(st, 3)
+    for a, b in ((out_k.u, out_r.u), (out_k.s, out_r.s)):
+        assert torch.isfinite(a).all()
+        assert ((a - b).norm() / b.norm()).item() < 1e-5
+
+
+@pytest.fixture(scope="module", params=[2, 3], ids=["P2", "P3"])
+def lane_case(request, device):
+    """Lane kernel runners on box_mesh(4, 4, 4) (structured, LF2) and on a
+    scrambled copy (unstructured, LF4), each with a blob source and a
+    sponge, plus numpy-seeded operator inputs."""
+    import dataclasses
+
+    ext = ((0.0, 1.0),) * 3
+    bc = absorbing_bc_fn(ext, free_sides=[(2, "hi")])
+    topo = box_mesh(4, 4, 4)
+    perm = np.random.default_rng(0).permutation(topo.num_cells)
+    runners = {}
+    for name, t in (("lane", topo), ("lane_u", dataclasses.replace(
+            topo, cells=topo.cells[perm], structure=None))):
+        dm = build_discrete(t, request.param, bc_fn=bc)
+        p = build_params(dm, Material(1.0, 2.0, 1.0), device=device)
+        kw = dict(
+            src=build_sources(dm, [PointSource(position=(0.5, 0.5, 0.7),
+                                               f0=4.0, radius=0.25)],
+                              device=device),
+            damp=torch.as_tensor(sponge_mask(dm, SIDES, width=0.3),
+                                 device=device).float())
+        if name == "lane":
+            runners[name] = (dm, lambda impl, fused, p=p, dm=dm, kw=kw:
+                             LaneMajorRunner(p, detect_structured(dm), 0.01,
+                                             order=2, impl=impl, **kw))
+        else:
+            runners[name] = (dm, lambda impl, fused, p=p, dm=dm, kw=kw:
+                             UnstructuredLaneRunner(
+                                 p, 0.01, order=4, impl=impl,
+                                 centroids=dm.coords.mean(axis=1),
+                                 fused_select=fused, **kw))
+    d = runners["lane"][1]("kernel", True).d
+    rng = np.random.default_rng(20 + request.param)
+
+    def rows(C, used, pad):
+        a = rng.standard_normal((C, pad, d.E)).astype(np.float32)
+        a[:, used:] = 0.0
+        return torch.as_tensor(a.reshape(C * pad, d.E), device=device)
+
+    data = {"sig": rows(d.n_sig, d.n_p, d.npp), "u": rows(d.dim, d.n_p, d.npp),
+            "tr_sig": rows(d.n_sig, d.ftp, d.ftpp),
+            "tr_u": rows(d.dim, d.ftp, d.ftpp),
+            "panels": rows(d.nf, d.dim * d.ftp, (d.dim * d.ftp + 7) // 8 * 8)}
+    return runners, data
+
+
+LANE_MODES = ["SIG", "TRAC", "SEL_vel", "TR", "SEL_stress"]
+
+
+@pytest.mark.parametrize("mode", LANE_MODES)
+def test_lane_kernel_matches_plain(lane_case, mode):
+    runners, x = lane_case
+    r = runners["lane_u"][1]("kernel", True)
+    d = r.d
+    _, combo_u, _, cfg_u = r._pg_u
+    _, combo_t, sign_t, cfg_t = r._pg_t
+    fused, plain, kernel = {
+        "SIG": (lk.vel_op_lm, lk.vel_op_lm_ref, lk.LANE_VEL),
+        "TRAC": (lk.vel_op_lm_trac, lk.vel_op_lm_trac_ref, lk.LANE_VEL),
+        "SEL_vel": (lk.vel_op_lm_trac_sel, lk.vel_op_lm_trac_sel_ref,
+                    lk.LANE_VEL),
+        "TR": (lk.stress_op_lm, lk.stress_op_lm_ref, lk.LANE_STRESS),
+        "SEL_stress": (lk.stress_op_lm_sel, lk.stress_op_lm_sel_ref,
+                       lk.LANE_STRESS)}[mode]
+    args = {"SIG": (x["sig"], x["tr_sig"]), "TRAC": (x["sig"], x["tr_u"]),
+            "SEL_vel": (x["sig"], x["panels"], combo_t, sign_t, cfg_t),
+            "TR": (x["u"], x["tr_u"]),
+            "SEL_stress": (x["u"], x["panels"], combo_u, cfg_u)}[mode]
+    n0 = kernel.launches
+    got = fused(d, *args)  # dispatches to the kernel for CUDA tensors
+    ref = plain(d, *args)
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 1
+    _assert_close(got, ref)
+
+
+@pytest.mark.parametrize("name,fused,per_step", [
+    ("lane", True, 1), ("lane_u", True, 3), ("lane_u", False, 3)],
+    ids=["lane-LF2", "lane_u-LF4-sel", "lane_u-LF4-trac"])
+def test_lane_runner_kernels_match_plain(lane_case, device, name, fused,
+                                         per_step):
+    runners, _ = lane_case
+    dm, make = runners[name]
+    kern, plain = make("kernel", fused), make("reference", fused)
+    rng = np.random.default_rng(7)
+    E, n_p = dm.num_elements, dm.re.n_p
+    st = State(u=torch.as_tensor(rng.standard_normal((E, n_p, 3)),
+                                 device=device).float(),
+               s=torch.as_tensor(rng.standard_normal((E, n_p, 6)),
+                                 device=device).float())
+    n_vel, n_stress = lk.LANE_VEL.launches, lk.LANE_STRESS.launches
+    out_k, _ = kern.run(st, 3)
+    assert lk.LANE_VEL.launches - n_vel == 3 * per_step
+    assert lk.LANE_STRESS.launches - n_stress == 3 * per_step
     out_r, _ = plain.run(st, 3)
     for a, b in ((out_k.u, out_r.u), (out_k.s, out_r.s)):
         assert torch.isfinite(a).all()
