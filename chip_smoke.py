@@ -9,8 +9,10 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build    - compile every kernel library from seigen_tpu_torch/csrc with
               nvcc, one nvcc per source, all at once: merged_kernels.cu
               (K1 merged_vel, K2 merged_stress), upwind_kernels.cu (K3
-              upwind_rhs) and lane_kernels.cu (K4 lane_vel, K5
-              lane_stress); print ptxas's registers, stack and spills.
+              upwind_rhs), lane_kernels.cu (K4 lane_vel, K5 lane_stress)
+              and lane_upwind_kernels.cu (K6 lane_upwind_rhs, K7
+              lane_upwind_axpy); print ptxas's registers, stack and
+              spills.
 3. kernels  - every K1/K2 variant (vel plain/axpy/inject with 1 and 2
               groups; stress plain/axpy+damp/inject with 1 and 2 groups)
               against its plain PyTorch version on the card in float32, on
@@ -49,6 +51,23 @@ Phases, each printing its own lines; any failure exits non-zero:
               versions; the LF4 eigenmode through the kernels on periodic
               box_mesh(N, N, N), N = 4 and 8, P2, float32: L2(u) per N
               and the observed order, which must exceed 2.8.
+8. upwind_u - the unstructured upwind-RK4 path.  K6 and every K7 mode
+              (stage, final, final + sponge row, 1 and 2 dense source
+              groups, panel emission in stage and final mode) against the
+              plain versions on scrambled box_mesh(4, 4, 4) at P3 and P2,
+              on scrambled rect_mesh(8, 8) P2 (where the gathered and the
+              emitted panel layouts differ: ftp 9, ftpp 16) and on an
+              acoustic vs = 0 half; UnstructuredUpwindRunner on the
+              scrambled n=24 P3 case for 10 steps, kernel vs plain, with
+              the default (fused-epilogue) stepper, panel_emit=True,
+              fused_axpy=False and viscoelastic Q = 30/20: relative L2,
+              launch counts (4 K7 and no K6 a step on the fused steppers,
+              4 K6 and no K7 on the glue and viscoelastic ones),
+              finiteness; every mode's time beside its plain version's
+              and its bound at these shapes; the bench (impl
+              "upwind_lane_u", 100 steps) with panel_emit, with
+              fused_axpy=False, with the default stepper and with the
+              plain versions.
 
 Tolerance of a kernel against its plain version: |k - p| <= rtol*|p| +
 atol*max|p| with rtol = 2e-4, atol = 2e-5.  The absolute floor is taken
@@ -94,6 +113,10 @@ KERNELS = {  # name -> (source, replaced TPU kernel)
                  "seigen_tpu/ops/pallas_kernels.py:942"),
     "lane_stress": ("seigen_tpu_torch/csrc/lane_kernels.cu",
                     "seigen_tpu/ops/pallas_kernels.py:982"),
+    "lane_upwind_rhs": ("seigen_tpu_torch/csrc/lane_upwind_kernels.cu",
+                        "seigen_tpu/ops/pallas_kernels.py:848"),
+    "lane_upwind_axpy": ("seigen_tpu_torch/csrc/lane_upwind_kernels.cu",
+                         "seigen_tpu/ops/pallas_kernels.py:791"),
 }
 
 
@@ -343,12 +366,15 @@ def upwind_runner(case, impl, visco=False):
 def all_kernels():
     """name -> kernel binding (each with its ``launches`` count)."""
     from seigen_tpu_torch.ops import lane_kernels as lk
+    from seigen_tpu_torch.ops import lane_upwind_kernels as luk
     from seigen_tpu_torch.ops import merged_kernels as mk
     from seigen_tpu_torch.ops import upwind_kernels as uk
 
     return {"merged_vel": mk.VEL_KERNEL, "merged_stress": mk.STRESS_KERNEL,
             "upwind_rhs": uk.UPWIND_KERNEL, "lane_vel": lk.LANE_VEL,
-            "lane_stress": lk.LANE_STRESS}
+            "lane_stress": lk.LANE_STRESS,
+            "lane_upwind_rhs": luk.LANE_UPWIND_RHS,
+            "lane_upwind_axpy": luk.LANE_UPWIND_AXPY}
 
 
 def reset_counts():
@@ -647,7 +673,8 @@ def lane_eigenmode_order(dev):
 def phase_lane(dev, case, st, check, n=24):
     """Phase 7 (see the module docstring); returns ({kernel: launches on
     the LF2 main-path run}, {kernel: (kernel ms, plain ms)} and {kernel:
-    bound} of the main path's modes SIG and TR)."""
+    bound} of the main path's modes SIG and TR, and the scrambled case
+    with its random state)."""
     import numpy as np
     import torch
 
@@ -757,6 +784,223 @@ def phase_lane(dev, case, st, check, n=24):
         raise AssertionError(f"LF4 kernel eigenmode order {order} <= "
                              f"{EIGEN_MIN_ORDER}: errors {errs}")
     launches = {k: main_counts[k] for k in ("lane_vel", "lane_stress")}
+    return launches, times, bounds, (scase, sst)
+
+
+UPWIND_U_MODES = {  # mode -> None (K6) or K7's (stage, damp, groups, emit)
+    "rhs": None,
+    "stage": (True, False, 0, False),
+    "final": (False, False, 0, False),
+    "final damp": (False, True, 0, False),
+    "stage inject1": (True, False, 1, False),
+    "final damp inject2": (False, True, 2, False),
+    "stage emit": (True, False, 0, True),
+    "final damp emit": (False, True, 0, True)}
+UPWIND_U_MAIN = {"lane_upwind_rhs": "rhs",  # the bench steppers' modes
+                 "lane_upwind_axpy": "stage inject1"}
+
+
+def upwind_u_kernel_name(mode):
+    return "lane_upwind_rhs" if mode == "rhs" else "lane_upwind_axpy"
+
+
+def small_upwind_u_runner(dim, degree, dev, acoustic=False):
+    """K6/K7 runner with a sponge on a scrambled free-top box_mesh(4, 4, 4)
+    (3D) or rect_mesh(8, 8) (2D): the bench material, or vs = 0 where
+    x < 0.5."""
+    import dataclasses
+
+    import numpy as np
+
+    from seigen_tpu_torch.mesh import box_mesh, build_discrete, rect_mesh
+    from seigen_tpu_torch.ops import Material, build_params, \
+        build_upwind_data
+    from seigen_tpu_torch.solver.damping import absorbing_bc_fn, sponge_mask
+    from seigen_tpu_torch.solver.lane_upwind_u import \
+        UnstructuredUpwindRunner
+
+    topo = box_mesh(4, 4, 4) if dim == 3 else rect_mesh(8, 8)
+    perm = np.random.default_rng(0).permutation(topo.num_cells)
+    dm = build_discrete(
+        dataclasses.replace(topo, cells=topo.cells[perm], structure=None),
+        degree, bc_fn=absorbing_bc_fn(((0.0, 1.0),) * dim,
+                                      free_sides=[(dim - 1, "hi")]))
+    cent = dm.coords.mean(axis=1)
+    mat = Material(1.0, 2.0,
+                   np.where(cent[:, 0] < 0.5, 0.0, 1.0) if acoustic else 1.0)
+    return UnstructuredUpwindRunner(
+        build_params(dm, mat, device=dev),
+        build_upwind_data(dm, mat, device=dev), 0.01, centroids=cent,
+        damp=sponge_mask(dm, [(0, "lo")], width=0.3), impl="kernel")
+
+
+def upwind_u_inputs(runner, seed):
+    """numpy-seeded float32 K6/K7 operands in the runner's lane layout:
+    panels in the gathered (pu, pt) and in the emitted (pu_e, pt_e)
+    layout."""
+    import numpy as np
+    import torch
+
+    d = runner.d
+    rng = np.random.default_rng(seed)
+
+    def rows(C, used, pad):
+        a = rng.standard_normal((C, pad, d.E)).astype(np.float32)
+        a[:, used:] = 0.0
+        return torch.as_tensor(a.reshape(C * pad, d.E), device=runner.device)
+
+    def state(n=1):
+        return [(rows(d.dim, d.n_p, d.npp), rows(d.n_sig, d.n_p, d.npp))
+                for _ in range(n)]
+
+    rows_pad = runner.selcfg[5]
+    (u, s), base, acc = state(3)
+    return {"u": u, "s": s, "base": base, "acc": acc, "S": state(2),
+            "pu": rows(d.nf, d.dim * d.ftp, rows_pad),
+            "pt": rows(d.nf, d.dim * d.ftp, rows_pad),
+            "pu_e": rows(d.nf * d.dim, d.ftp, d.ftpp),
+            "pt_e": rows(d.nf * d.dim, d.ftp, d.ftpp)}
+
+
+def upwind_u_call(runner, x, mode):
+    """(kernel fn, plain fn) of K6 or one K7 mode on the runner's data."""
+    from seigen_tpu_torch.ops import lane_upwind_kernels as luk
+
+    d = runner.d
+    spec = UPWIND_U_MODES[mode]
+    emit = spec is not None and spec[3]
+    pu, pt = (x["pu_e"], x["pt_e"]) if emit else (x["pu"], x["pt"])
+    cfg = luk.emitted_selcfg(runner.selcfg) if emit else runner.selcfg
+    args = (d, runner.uw, x["u"], x["s"], pu, pt, runner.combo,
+            runner.sign_u, runner.sign_t, cfg)
+    if spec is None:
+        return (lambda: luk.LANE_UPWIND_RHS(*args),
+                lambda: luk.upwind_rhs_lm_sel_ref(*args))
+    stage, damp, n_inj, _ = spec
+    args += (*x["acc"], 0.21)
+    kw = dict(base_u=x["base"][0] if stage else None,
+              base_s=x["base"][1] if stage else None,
+              cs=0.37 if stage else None,
+              inject=[(*x["S"][g], (0.7, -1.3)[g]) for g in range(n_inj)],
+              damp_row=runner.damp_u[: d.npp] if damp else None, emit=emit)
+    return (lambda: luk.LANE_UPWIND_AXPY(*args, **kw),
+            lambda: luk.upwind_rhs_lm_sel_axpy_ref(*args, **kw))
+
+
+def compare_upwind_u(runner, check, tag, seed, modes=tuple(UPWIND_U_MODES)):
+    import torch
+
+    x = upwind_u_inputs(runner, seed)
+    for mode in modes:
+        kern, plain = upwind_u_call(runner, x, mode)
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        check(upwind_u_kernel_name(mode), f"{tag} {mode}", got, ref)
+    return x
+
+
+def upwind_u_bound(d, mode):
+    """(bound_ms, "bytes" | "operations") of one launch of K6 or a K7
+    mode: compulsory bytes (u and sigma, and for K7 the accumulator, the
+    base state, the sponge row and the dense patterns the mode reads, at
+    n_p rows per component; the selected rows of both panels; the geometry
+    counted per face as in ``lane_bound`` — Ginv, normals, Fscale, the
+    neighbour impedances, the combo and both sign rows — and the material
+    and own-impedance rows; the output, with the emitted panels, as
+    written) over the memory rate, and the Dr and LIFT FLOPs over the FP32
+    rate."""
+    dim, n_p, ftp, npp, nf = d.dim, d.n_p, d.ftp, d.npp, d.nf
+    c = dim + d.n_sig
+    spec = UPWIND_U_MODES[mode] or (False, False, 0, False)
+    stage, damp, n_inj, emit = spec
+    axpy = UPWIND_U_MODES[mode] is not None
+    state_in = c * n_p * (1 + axpy + stage + n_inj) + (n_p if damp else 0)
+    geo = dim * dim + dim * nf + nf + 3 + 2 * nf + 2 + 3 * nf
+    out = c * npp * (2 if stage else 1) + (2 * dim * d.ftpp if emit else 0)
+    rows = state_in + 2 * dim * ftp + geo + out
+    flops = 2 * (c * dim * n_p * n_p + c * n_p * ftp)
+    t_bytes = 4.0 * rows * d.E / HBM_BYTES_PER_S * 1e3
+    t_ops = float(flops) * d.E / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_upwind_u(dev, scase, sst, check, n=24):
+    """Phase 8 (see the module docstring); returns ({kernel: launches on
+    its main-path run}, {kernel: (kernel ms, plain ms)} and {kernel:
+    bound} of the bench steppers' modes)."""
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.bench import throughput
+    from seigen_tpu_torch.ops import build_visco
+
+    t0 = time.perf_counter()
+    for dim, degree, acoustic in ((3, 3, False), (3, 2, False),
+                                  (2, 2, False), (3, 2, True)):
+        small = small_upwind_u_runner(dim, degree, dev, acoustic)
+        tag = f"{dim}D P{degree}" + (" acoustic" if acoustic else "")
+        log(f"[upwind_u] {tag}: E {small.E}, ftp {small.d.ftp}, ftpp "
+            f"{small.d.ftpp}, {len(small.selcfg[7])} orientation groups")
+        compare_upwind_u(small, check, tag, 60 + 10 * dim + degree)
+    log(f"[upwind_u] all small-mesh modes agree "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # the runner at full width: the four steppers, kernel vs plain
+    dm, p, src, damp, dt, _ = scase
+    f0 = src.f0[0].item()
+    visco = build_visco(p, 30.0, 20.0, 0.25 * f0, 2.5 * f0, L=3)
+    launches = {}
+    for tag, opts, kname in (
+            ("fused", {}, "lane_upwind_axpy"),
+            ("panel_emit", {"panel_emit": True}, "lane_upwind_axpy"),
+            ("glue", {"fused_axpy": False}, "lane_upwind_rhs"),
+            ("visco", {"visco": visco}, "lane_upwind_rhs")):
+        tag = f"upwind_u {tag}"
+        t1 = time.perf_counter()
+        k, r = (throughput.make_runner("upwind_lane_u", dm, p, src, damp,
+                                       dt, impl, **opts)
+                for impl in ("kernel", "reference"))
+        log(f"[{tag}] scrambled n={n} P3: dense source groups "
+            f"{0 if k.src_dense is None else len(k.src_dense)}; runner "
+            f"setup {time.perf_counter() - t1:.1f} s")
+        reset_counts()
+        out_k, _ = k.run(sst, RUNNER_STEPS)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        out_r, _ = r.run(sst, RUNNER_STEPS)
+        torch.cuda.synchronize()
+        log(f"[{tag}] {RUNNER_STEPS} steps: launches {counts}")
+        expect_counts(tag, counts, **{kname: 4 * RUNNER_STEPS})
+        compare_states(tag, out_k, out_r)
+        launches.setdefault(kname, counts[kname])  # fused and glue runs
+        if not opts:
+            run_k = k
+        del r
+
+    # every mode at n=24 P3: check, kernel and plain times, bound
+    times, bounds = {}, {}
+    x = compare_upwind_u(run_k, check, f"n={n} P3", 71)
+    for mode in UPWIND_U_MODES:
+        kern, plain = upwind_u_call(run_k, x, mode)
+        t = (time_ms(kern), time_ms(plain))
+        b = upwind_u_bound(run_k.d, mode)
+        kname = upwind_u_kernel_name(mode)
+        log(f"[upwind_u] {kname} ({mode}) at n={n} P3: kernel {t[0]:.4f} "
+            f"ms, plain {t[1]:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+        if UPWIND_U_MAIN[kname] == mode:
+            times[kname], bounds[kname] = t, b
+    del run_k, k, x
+
+    for kimpl, opts in (("kernel", {"panel_emit": True}),
+                        ("kernel", {"fused_axpy": False}),
+                        ("kernel", {}), ("reference", {})):
+        rec = throughput.main(n=n, degree=3, n_steps=BENCH_STEPS,
+                              impl="upwind_lane_u", kernel_impl=kimpl,
+                              case=scase, **opts)
+        if not (np.isfinite(rec["value"]) and rec["value"] > 0):
+            raise AssertionError(f"upwind_lane_u bench {kimpl} {opts}: bad "
+                                 f"rate {rec['value']}")
+        print(json.dumps(rec), flush=True)
     return launches, times, bounds
 
 
@@ -775,6 +1019,7 @@ def main() -> int:
 
         from seigen_tpu_torch.bench import throughput
         from seigen_tpu_torch.ops import lane_kernels as lk
+        from seigen_tpu_torch.ops import lane_upwind_kernels as luk
         from seigen_tpu_torch.ops import merged_kernels as mk
         from seigen_tpu_torch.ops import upwind_kernels as uk
         from seigen_tpu_torch.ops.cuda_build import build_all
@@ -794,7 +1039,7 @@ def main() -> int:
         f"{torch.version.cuda}; {torch.cuda.device_count()} device(s)")
 
     # 2. build: one nvcc per source, all at once
-    libraries = (mk.LIBRARY, uk.LIBRARY, lk.LIBRARY)
+    libraries = (mk.LIBRARY, uk.LIBRARY, lk.LIBRARY, luk.LIBRARY)
     wall = build_all(libraries)
     for k in all_kernels().values():
         k.build()  # load the symbols, check the argument structs
@@ -878,11 +1123,19 @@ def main() -> int:
 
     # 7. lane: the v1 lane-major LF engine (LF2 lane, LF4 lane_u)
     t0 = time.perf_counter()
-    lane_launches, lane_times, lane_bounds = phase_lane(dev, case, st, check)
+    lane_launches, lane_times, lane_bounds, (scase, sst) = phase_lane(
+        dev, case, st, check)
     launches.update(lane_launches)
     times.update(lane_times)
     bounds.update(lane_bounds)
-    log(f"[lane] phase {time.perf_counter() - t0:.1f} s; total "
+    log(f"[lane] phase {time.perf_counter() - t0:.1f} s")
+
+    # 8. upwind_u: the unstructured upwind-RK4 path
+    t0 = time.perf_counter()
+    for have, new in zip((launches, times, bounds),
+                         phase_upwind_u(dev, scase, sst, check)):
+        have.update(new)
+    log(f"[upwind_u] phase {time.perf_counter() - t0:.1f} s; total "
         f"{time.perf_counter() - t_all:.1f} s")
 
     kernels = [{"name": k, "route": "cuda", "source": KERNELS[k][0],

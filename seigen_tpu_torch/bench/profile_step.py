@@ -4,11 +4,14 @@
     python -m seigen_tpu_torch.bench.profile_step --impl merged
     python -m seigen_tpu_torch.bench.profile_step --impl lane --order 2
     python -m seigen_tpu_torch.bench.profile_step --impl lane_u
+    python -m seigen_tpu_torch.bench.profile_step --impl upwind_lane_u
+    python -m seigen_tpu_torch.bench.profile_step --impl upwind_lane_u \
+        --panel-emit          # or --no-fused-axpy: the glue stepper
     python -m seigen_tpu_torch.bench.profile_step --kernel-impl reference
 
-On the bench case (``throughput.setup_case``, n=24 P3 by default; impl
-"lane_u" on its scrambled variant), from a zero state with the blob source
-and sponge:
+On the bench case (``throughput.setup_case``, n=24 P3 by default; impls
+"lane_u" and "upwind_lane_u" on its scrambled variant), from a zero state
+with the blob source and sponge:
 
 - wall per step: host clock over ``--steps`` steps ending in
   ``torch.cuda.synchronize()``;
@@ -36,9 +39,13 @@ import torch
 
 from .throughput import (
     IMPLS,
+    SCRAMBLED_IMPLS,
+    add_upwind_u_arguments,
     gpu_name_and_power_limit,
     make_runner,
+    scheme_name,
     setup_case,
+    upwind_u_options,
 )
 
 
@@ -59,8 +66,8 @@ def copy_bandwidth(device, n_bytes=1 << 30, reps=10) -> float:
 
 
 OPERATOR_KERNELS = ("merged_vel_kernel", "merged_stress_kernel",
-                    "upwind_rhs_kernel", "lane_vel_kernel",
-                    "lane_stress_kernel")
+                    "lane_upwind_kernel", "upwind_rhs_kernel",
+                    "lane_vel_kernel", "lane_stress_kernel")
 
 
 def kernel_group(name: str) -> str:
@@ -69,6 +76,9 @@ def kernel_group(name: str) -> str:
     as groups; anything else as "other"."""
     for k in OPERATOR_KERNELS:
         if k in name:
+            if k == "lane_upwind_kernel":  # K7 is its AXPY = true instance
+                axpy = "true>" in name or "(bool)1>" in name
+                return "lane_upwind_axpy" if axpy else "lane_upwind_rhs"
             return k.removesuffix("_kernel")
     if "gather" in name or "index" in name.lower():
         return "pytorch gather/index"
@@ -91,16 +101,18 @@ def _device_events(prof):
 
 
 def profile(impl="upwind_lane", kernel_impl="kernel", n=24, degree=3,
-            steps=50, profile_steps=10, device="cuda", order=4) -> dict:
+            steps=50, profile_steps=10, device="cuda", order=4,
+            **upwind_u) -> dict:
     if torch.device(device).type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError("the step profile measures a CUDA device; none "
                            "is available")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dm, p, src, damp, dt, state0 = setup_case(
-        n=n, degree=degree, device=device, scramble=(impl == "lane_u"))
+        n=n, degree=degree, device=device,
+        scramble=(impl in SCRAMBLED_IMPLS))
     runner = make_runner(impl, dm, p, src, damp, dt, kernel_impl,
-                         order=order)
+                         order=order, **upwind_u)
     ulm, slm = runner.to_lm_state(state0)
 
     def sync():
@@ -149,7 +161,8 @@ def profile(impl="upwind_lane", kernel_impl="kernel", n=24, degree=3,
     return {
         "impl": impl,
         "kernel_impl": kernel_impl,
-        "scheme": "RK4" if impl == "upwind_lane" else f"LF{order}",
+        "scheme": scheme_name(impl, order),
+        **upwind_u,
         "case": {"n": n, "degree": degree, "elements": dm.num_elements},
         "gpu": name,
         "power_limit": limit,
@@ -177,6 +190,8 @@ if __name__ == "__main__":
     ap.add_argument("--profile-steps", type=int, default=10)
     ap.add_argument("--order", type=int, default=4, choices=(2, 4),
                     help="LF order of the lane and lane_u runners")
+    add_upwind_u_arguments(ap)
     a = ap.parse_args()
+    opts = upwind_u_options(a)
     print(json.dumps(profile(a.impl, a.kernel_impl, a.n, a.degree, a.steps,
-                             a.profile_steps, order=a.order)))
+                             a.profile_steps, order=a.order, **opts)))

@@ -4,16 +4,20 @@ Port of ``seigen_tpu/bench/throughput.py`` for the lane runners: the
 merged LF4 runner (impl "merged"), the v1 lane-major LF2/LF4 runner (impl
 "lane", ``--order``), the unstructured lane runner (impl "lane_u", on the
 scrambled case: cells randomly permuted, structure dropped, Morton order
-from the cell centroids) and the upwind-RK4 lane runner (impl
-"upwind_lane").  A "DOF update" is one field coefficient advanced one full
-timestep; the per-step DOF count is E * n_p * (dim + n_sig).  The timed
-region is the runner's ``run_lm`` over ``n_steps`` steps, best of 3 after
-one warm-up run, each ending in ``torch.cuda.synchronize()``.
+from the cell centroids), the upwind-RK4 lane runner (impl "upwind_lane")
+and the unstructured upwind-RK4 runner (impl "upwind_lane_u", on the
+scrambled case; ``--panel-emit`` and ``--no-fused-axpy`` select its
+panel-emission and glue steppers).  A "DOF update" is one field
+coefficient advanced one full timestep; the per-step DOF count is
+E * n_p * (dim + n_sig).  The timed region is the runner's ``run_lm`` over
+``n_steps`` steps, best of 3 after one warm-up run, each ending in
+``torch.cuda.synchronize()``.
 
     python -m seigen_tpu_torch.bench.throughput            # n=24, P3, 100 steps
     python -m seigen_tpu_torch.bench.throughput --impl lane --order 2
     python -m seigen_tpu_torch.bench.throughput --impl lane_u
     python -m seigen_tpu_torch.bench.throughput --impl upwind_lane
+    python -m seigen_tpu_torch.bench.throughput --impl upwind_lane_u
     python -m seigen_tpu_torch.bench.throughput --kernel-impl reference
 
 prints one JSON line.  The measurement needs a CUDA device and refuses to
@@ -39,13 +43,20 @@ from ..solver.lane_major import LaneMajorRunner
 from ..solver.lane_merged import MergedLaneRunner
 from ..solver.lane_unstructured import UnstructuredLaneRunner
 from ..solver.lane_upwind import UpwindLaneRunner
+from ..solver.lane_upwind_u import UnstructuredUpwindRunner
 from ..solver.source import PointSource, build_sources
 from ..solver.timestep import State, cfl_dt
 
 # ONE material for the whole bench surface (the JAX bench's BENCH_MAT): the
 # elastic parameters and the Godunov impedances stay consistent
 BENCH_MAT = Material(rho=1.0, vp=2.0, vs=1.0)
-IMPLS = ("merged", "upwind_lane", "lane", "lane_u")
+IMPLS = ("merged", "upwind_lane", "lane", "lane_u", "upwind_lane_u")
+SCRAMBLED_IMPLS = ("lane_u", "upwind_lane_u")  # run on the scrambled case
+RK4_IMPLS = ("upwind_lane", "upwind_lane_u")
+
+
+def scheme_name(impl: str, order: int) -> str:
+    return "RK4" if impl in RK4_IMPLS else f"LF{order}"
 
 
 @dataclass
@@ -71,7 +82,7 @@ def setup_case(
     ``scramble`` randomly permutes the cell order (``default_rng(0)``) and
     drops the structure metadata, as the JAX ``setup_case`` does: the
     stand-in for a Gmsh unstructured import of the same geometry and
-    physics (the ``lane_u`` case).
+    physics (the ``lane_u`` and ``upwind_lane_u`` case).
     Returns (dm, p, src, damp, dt, state0) like the JAX ``setup_case``.
     """
     dim = 3
@@ -109,14 +120,16 @@ def _sync(device):
 
 
 def make_runner(impl, dm, p, src, damp, dt, kernel_impl=None, visco=None,
-                order=4):
+                order=4, **upwind_u):
     """The bench's lane runner: "merged" (LF4, MergedLaneRunner), "lane"
     (LF ``order``, LaneMajorRunner), "lane_u" (LF ``order``,
-    UnstructuredLaneRunner in Morton order of the cell centroids) or
-    "upwind_lane" (Godunov RK4, UpwindLaneRunner with the bench material's
-    impedances; ``visco``: optional ViscoData; ``order`` does not apply).
-    kernel_impl: "kernel" (CUDA kernels) or "reference" (their plain
-    PyTorch versions); default by device."""
+    UnstructuredLaneRunner in Morton order of the cell centroids),
+    "upwind_lane" (Godunov RK4, UpwindLaneRunner) or "upwind_lane_u"
+    (Godunov RK4, UnstructuredUpwindRunner in Morton order; ``upwind_u``:
+    its ``fused_axpy``/``panel_emit``).  The upwind runners take the bench
+    material's impedances and ``visco`` (optional ViscoData); ``order``
+    does not apply to them.  kernel_impl: "kernel" (CUDA kernels) or
+    "reference" (their plain PyTorch versions); default by device."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, not {impl!r}")
     if impl == "merged" and order != 4:
@@ -125,6 +138,11 @@ def make_runner(impl, dm, p, src, damp, dt, kernel_impl=None, visco=None,
         return UnstructuredLaneRunner(
             p, dt, order=order, src=src, damp=damp, impl=kernel_impl,
             centroids=dm.coords.mean(axis=1))
+    if impl == "upwind_lane_u":
+        w = build_upwind_data(dm, BENCH_MAT, dtype=p.dtype, device=p.device)
+        return UnstructuredUpwindRunner(
+            p, w, dt, src=src, damp=damp, impl=kernel_impl, visco=visco,
+            centroids=dm.coords.mean(axis=1), **upwind_u)
     ex = detect_structured(dm)
     if ex is None:
         raise ValueError(f"{impl} impl requires a structured mesh")
@@ -141,11 +159,11 @@ def make_runner(impl, dm, p, src, damp, dt, kernel_impl=None, visco=None,
 
 def measure(p, src, damp, dt, state0, dm, n_steps: int = 50,
             impl: str = "merged", kernel_impl: str | None = None,
-            order: int = 4) -> BenchResult:
+            order: int = 4, **upwind_u) -> BenchResult:
     """Time ``n_steps`` of a lane runner (see make_runner), best of 3 after
     a warm-up."""
     runner = make_runner(impl, dm, p, src, damp, dt, kernel_impl,
-                         order=order)
+                         order=order, **upwind_u)
     ulm, slm = runner.to_lm_state(state0)
     runner.run_lm(ulm, slm, n_steps)  # warm-up
     _sync(p.device)
@@ -181,9 +199,11 @@ def gpu_name_and_power_limit(device_index: int = 0):
 
 
 def report(res: BenchResult, impl: str, kernel_impl: str,
-           device: torch.device | str = "cuda", order: int = 4) -> dict:
+           device: torch.device | str = "cuda", order: int = 4,
+           **upwind_u) -> dict:
     """The JSON line: the JAX bench's metric and detail keys, plus the
-    GPU's name and power limit and which operator implementation ran."""
+    GPU's name and power limit, which operator implementation ran and the
+    ``upwind_lane_u`` stepper options that were set."""
     dev = torch.device(device)
     name, limit = gpu_name_and_power_limit(dev.index or 0)
     return {
@@ -200,30 +220,51 @@ def report(res: BenchResult, impl: str, kernel_impl: str,
             "steps_per_sec": res.steps_per_sec,
             "backend": "cuda",
             "impl": impl,
-            "scheme": "RK4" if impl == "upwind_lane" else f"LF{order}",
+            "scheme": scheme_name(impl, order),
             "gpu": name,
             "power_limit": limit,
             "kernel_impl": kernel_impl,
+            **upwind_u,
         },
     }
 
 
+def add_upwind_u_arguments(ap) -> None:
+    """The command-line switches of the ``upwind_lane_u`` steppers."""
+    ap.add_argument("--panel-emit", action="store_true",
+                    help="upwind_lane_u: the panel-emission stepper")
+    ap.add_argument("--no-fused-axpy", action="store_true",
+                    help="upwind_lane_u: the glue stepper (K6 + PyTorch "
+                    "stage arithmetic)")
+
+
+def upwind_u_options(a) -> dict:
+    """Parsed switches -> the runner options that differ from the default
+    stepper's (they also label the JSON line)."""
+    opts = {"panel_emit": True} if a.panel_emit else {}
+    if a.no_fused_axpy:
+        opts["fused_axpy"] = False
+    return opts
+
+
 def main(n: int = 24, degree: int = 3, n_steps: int = 100,
          impl: str = "merged", device: str = "cuda",
-         kernel_impl: str = "kernel", case=None, order: int = 4) -> dict:
+         kernel_impl: str = "kernel", case=None, order: int = 4,
+         **upwind_u) -> dict:
     """Measure a lane runner (``impl``, see measure) on the CUDA device;
     returns the JSON record.  ``case``: a ``setup_case`` result to reuse
-    (impl "lane_u" builds the scrambled case)."""
+    (impls "lane_u" and "upwind_lane_u" build the scrambled case)."""
     if torch.device(device).type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError("the throughput bench measures a CUDA device; "
                            "none is available")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dm, p, src, damp, dt, state0 = case or setup_case(
-        n=n, degree=degree, device=device, scramble=(impl == "lane_u"))
+        n=n, degree=degree, device=device,
+        scramble=(impl in SCRAMBLED_IMPLS))
     res = measure(p, src, damp, dt, state0, dm, n_steps=n_steps, impl=impl,
-                  kernel_impl=kernel_impl, order=order)
-    return report(res, impl, kernel_impl, device, order)
+                  kernel_impl=kernel_impl, order=order, **upwind_u)
+    return report(res, impl, kernel_impl, device, order, **upwind_u)
 
 
 if __name__ == "__main__":
@@ -236,7 +277,9 @@ if __name__ == "__main__":
                     choices=("kernel", "reference"))
     ap.add_argument("--order", type=int, default=4, choices=(2, 4),
                     help="LF order of the lane and lane_u runners")
+    add_upwind_u_arguments(ap)
     a = ap.parse_args()
+    opts = upwind_u_options(a)
     print(json.dumps(main(n=a.n, degree=a.degree, n_steps=a.steps,
                           impl=a.impl, kernel_impl=a.kernel_impl,
-                          order=a.order)))
+                          order=a.order, **opts)))

@@ -35,6 +35,7 @@
 
 #include <cuda_runtime.h>
 
+#include "lane_select.cuh"
 #include "merged_common.cuh"
 
 // Kernel arguments; mirrored field by field by the ctypes Structure
@@ -61,6 +62,7 @@ struct LaneArgs {
   int npp;             // node rows per component (n_p rounded up to 8)
   int ftpp;            // trace rows per component (nf*n_fp rounded up to 8)
   int rows_pad;        // SEL: panel rows per face; else 0
+  int cstride;         // SEL: panel rows per component; else 0
   int G;               // SEL: orientation groups (<= kMaxPerms); else 0
   int mode;            // K4: 0 SIG, 1 TRAC, 2 SEL; K5: 0 TR, 1 SEL
 };
@@ -69,28 +71,8 @@ namespace {
 
 using namespace seigen;
 
-constexpr int kMaxPerms = 16;  // = lane_kernels.py MAX_PERMS
 enum { kVelSig = 0, kVelTrac = 1, kVelSel = 2 };
 enum { kStressTr = 0, kStressSel = 1 };
-
-// SEL: panel row base of face f for this lane (row of component 0, node
-// slot 0 of the producer face g) and its node permutation.
-template <int NFP>
-__device__ __forceinline__ long long sel_face(const LaneArgs& a, const int* s_perm,
-                                              int f, long long L,
-                                              const int** perm) {
-  const int code = a.combo[f * a.E + L];
-  const int g = code / a.G;
-  *perm = s_perm + (code - g * a.G) * NFP;
-  return (long long)f * a.rows_pad + g * NFP;
-}
-
-template <int NFP>
-__device__ __forceinline__ void load_perms(const LaneArgs& a, int* s_perm) {
-  if (a.perms != nullptr)
-    for (int i = threadIdx.x; i < a.G * NFP; i += blockDim.x) s_perm[i] = a.perms[i];
-  // load_tables' __syncthreads() publishes these too
-}
 
 // ---------------------------------------------------------------- K4 ---
 // du_c = (1/rho) (sum_{r,d} Ginv[r,d] Dr_r sigma_{V[c,d]}
@@ -158,7 +140,7 @@ lane_vel_kernel(const LaneArgs a) {
         } else if (a.mode == kVelTrac) {
           nb = row(a.tr, c * ftpp + q);
         } else {
-          nb = sgn * row(a.tr, pbase + c * NFT + perm[k]);
+          nb = sgn * row(a.tr, pbase + c * a.cstride + perm[k]);
         }
         flux[c][q] = (0.5f * nb + beta * own) * fs;
       }
@@ -249,7 +231,7 @@ lane_stress_kernel(const LaneArgs a) {
         const float own = row(a.field, c * npp + node);
         const float nb = a.mode == kStressTr
                              ? row(a.tr, c * ftpp + q)
-                             : row(a.tr, pbase + c * NFT + perm[k]);
+                             : row(a.tr, pbase + c * a.cstride + perm[k]);
         du[c] = 0.5f * nb + delta * own;
       }
 #pragma unroll
@@ -318,10 +300,10 @@ int launch(int op, const LaneArgs& a, cudaStream_t stream) {
 // tables.
 int dispatch(int op, const LaneArgs* a, int dim, int n_p, int n_fp,
              void* stream) {
-  const int sel = op == 0 ? kVelSel : kStressSel;
+  const int sel = op == 0 ? (int)kVelSel : (int)kStressSel;
   if (a->mode < 0 || a->mode > sel) return -2;
   if (a->mode == sel && (a->combo == nullptr || a->perms == nullptr ||
-                         a->G < 1 || a->G > kMaxPerms ||
+                         a->G < 1 || a->G > kMaxPerms || a->cstride < 1 ||
                          (op == 0 && a->sign == nullptr)))
     return -2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

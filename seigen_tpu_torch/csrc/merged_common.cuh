@@ -1,11 +1,13 @@
-// Helpers shared by the merged exchange-in-kernel operators
-// (merged_kernels.cu: K1/K2, upwind_kernels.cu: K3).
+// Helpers shared by the operator kernels (merged_kernels.cu: K1/K2,
+// upwind_kernels.cu: K3, lane_kernels.cu: K4/K5, lane_upwind_kernels.cu:
+// K6/K7).
 //
-// Every operator owns one lane (element) per thread and reads its
-// neighbour's face-major trace rows f2*rtf + c*n_fp + pi[k] at lane
-// t2*NC + clamp(j + s) through the (m, nf, 3 + n_fp) int32 plan table.
-// The helpers are templated on the kernel's argument struct, which must
-// carry: plan, mask, dr, lift, fnodes, Ls, NC.
+// Every operator owns one lane (element) per thread.  The merged operators
+// (K1-K3) read their neighbour's face-major trace rows f2*rtf + c*n_fp +
+// pi[k] at lane t2*NC + clamp(j + s) through the (m, nf, 3 + n_fp) int32
+// plan table; face_links is templated on their argument struct, which must
+// carry: plan, mask, Ls, NC.  load_tables needs dr, lift, fnodes.  The
+// Godunov operators (K3, K6/K7) share the Riemann states below.
 
 #pragma once
 
@@ -93,6 +95,62 @@ __device__ __forceinline__ void hooke_row(int k, float lam, float mu,
     const int sa = shear_a<DIM>(k), sb = shear_b<DIM>(k);
     w[sb] = mu * v[sa];
     w[sa] = mu * v[sb];
+  }
+}
+
+// Impedances of one face's Riemann problem: own side (m), neighbour side
+// (p), their sums, and whether the pair carries shear at all.
+struct FaceImpedance {
+  float zp_m, zp_p, zs_m, zs_p, zp_sum, zs_sum;
+  bool has_shear;
+};
+
+__device__ __forceinline__ FaceImpedance face_impedance(float zp_m, float zs_m,
+                                                        float zp_p, float zs_p) {
+  FaceImpedance z;
+  z.zp_m = zp_m, z.zp_p = zp_p, z.zs_m = zs_m, z.zs_p = zs_p;
+  z.zp_sum = zp_m + zp_p;
+  z.zs_sum = zs_m + zs_p;
+  z.has_shear = z.zs_sum > 0.f;
+  return z;
+}
+
+// Godunov corrections at one face node, scaled by Fscale:
+//   dt[c] = fsc (t*_c - t-_c),  du[c] = fsc (u*_c - u-_c)
+// from the own (um, tm) and ghosted neighbour (up, tp) velocity and
+// traction, split into normal and tangential parts (ops/upwind.py).  A
+// face with Zs- + Zs+ = 0 (acoustic on both sides) takes the average of
+// the two tangential states instead of dividing by zero.
+template <int DIM>
+__device__ __forceinline__ void riemann_corrections(
+    const FaceImpedance& z, float fsc, const float* n /*[DIM]*/,
+    const float* um, const float* tm, const float* up, const float* tp,
+    float* dt /*[DIM]*/, float* du /*[DIM]*/) {
+  float uNm = 0.f, uNp = 0.f, tNm = 0.f, tNp = 0.f;
+#pragma unroll
+  for (int d = 0; d < DIM; ++d) {
+    uNm += n[d] * um[d];
+    uNp += n[d] * up[d];
+    tNm += n[d] * tm[d];
+    tNp += n[d] * tp[d];
+  }
+  const float tsN =
+      (z.zp_p * tNm + z.zp_m * tNp + z.zp_m * z.zp_p * (uNp - uNm)) / z.zp_sum;
+  const float usN = (z.zp_m * uNm + z.zp_p * uNp + (tNp - tNm)) / z.zp_sum;
+#pragma unroll
+  for (int c = 0; c < DIM; ++c) {
+    const float tTm = tm[c] - tNm * n[c], tTp = tp[c] - tNp * n[c];
+    const float uTm = um[c] - uNm * n[c], uTp = up[c] - uNp * n[c];
+    float tT, uT;
+    if (z.has_shear) {
+      tT = (z.zs_p * tTm + z.zs_m * tTp + z.zs_m * z.zs_p * (uTp - uTm)) / z.zs_sum;
+      uT = (z.zs_m * uTm + z.zs_p * uTp + (tTp - tTm)) / z.zs_sum;
+    } else {
+      tT = 0.5f * (tTm + tTp);
+      uT = 0.5f * (uTm + uTp);
+    }
+    dt[c] = fsc * (tsN * n[c] + tT - tm[c]);
+    du[c] = fsc * (usN * n[c] + uT - um[c]);
   }
 }
 

@@ -130,10 +130,9 @@ upwind_rhs_kernel(const UpwindArgs a) {
 #pragma unroll
     for (int d = 0; d < DIM; ++d) n[d] = geo(a.o_nrm + 8 * d + f);
     const float fsc = 2.f * geo(a.o_scb + f);  // scb = 0.5 Fscale
-    const float zp_p = uwg(kZpNbr + f), zs_p = uwg(kZsNbr + f);
+    const FaceImpedance z =
+        face_impedance(zp_m, zs_m, uwg(kZpNbr + f), uwg(kZsNbr + f));
     const float gu = uwg(kGhostU + f), gt = uwg(kGhostT + f);
-    const float zp_sum = zp_m + zp_p, zs_sum = zs_m + zs_p;
-    const bool has_shear = zs_sum > 0.f;
     const float* nb = a.trs + (long long)fl.f2[f] * a.rtf * Ls + fl.lane[f];
 #pragma unroll 1
     for (int k = 0; k < NFP; ++k) {
@@ -163,31 +162,13 @@ upwind_rhs_kernel(const UpwindArgs a) {
           tp[c] = gt * -nb[(long long)((DIM + c) * NFP + pk) * Ls];
         }
       }
-      float uNm = 0.f, uNp = 0.f, tNm = 0.f, tNp = 0.f;
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) {
-        uNm += n[d] * um[d];
-        uNp += n[d] * up[d];
-        tNm += n[d] * tm[d];
-        tNp += n[d] * tp[d];
-      }
-      const float tsN = (zp_p * tNm + zp_m * tNp + zp_m * zp_p * (uNp - uNm)) / zp_sum;
-      const float usN = (zp_m * uNm + zp_p * uNp + (tNp - tNm)) / zp_sum;
+      float dt[DIM], du[DIM];
+      riemann_corrections<DIM>(z, fsc, n, um, tm, up, tp, dt, du);
       const int q = f * NFP + k;
 #pragma unroll
       for (int c = 0; c < DIM; ++c) {
-        const float tTm = tm[c] - tNm * n[c], tTp = tp[c] - tNp * n[c];
-        const float uTm = um[c] - uNm * n[c], uTp = up[c] - uNp * n[c];
-        float tT, uT;
-        if (has_shear) {
-          tT = (zs_p * tTm + zs_m * tTp + zs_m * zs_p * (uTp - uTm)) / zs_sum;
-          uT = (zs_m * uTm + zs_p * uTp + (tTp - tTm)) / zs_sum;
-        } else {
-          tT = 0.5f * (tTm + tTp);
-          uT = 0.5f * (uTm + uTp);
-        }
-        dtf[c][q] = fsc * (tsN * n[c] + tT - tm[c]);
-        duf[c][q] = fsc * (usN * n[c] + uT - um[c]);
+        dtf[c][q] = dt[c];
+        duf[c][q] = du[c];
       }
     }
   }

@@ -200,15 +200,20 @@ def vel_op_lm_trac_ref(d: LaneOpData, sig_lm, tr_lm):
 
 def _select_tiles(panels, combo, sign, selcfg):
     """Consumer traces (C*ftpp, E) from raw per-face panels: lane L of
-    face f reads rows c*ftp + g*n_fp + perms[pi][k] of its panel, with
-    (g, pi) = divmod(combo[f, L], G), times sign[f, L] when given."""
-    C, nf, nfp, ftp, ftpp, rows_pad, _, perms = selcfg
+    face f reads rows c*cstride + g*n_fp + perms[pi][k] of its panel, with
+    (g, pi) = divmod(combo[f, L], G), times sign[f, L] when given.
+
+    selcfg = (C, nf, n_fp, cstride, ftpp, rows_pad, face_combos, perms);
+    ``cstride`` is the panels' component stride: nf*n_fp for gathered
+    panels (``make_panel_gather``), ftpp for panels an operator emitted
+    (ops/lane_upwind_kernels.py, ``emit=True``)."""
+    C, nf, nfp, cstride, ftpp, rows_pad, _, perms = selcfg
     G = len(perms)
     E = panels.shape[1]
     dev = panels.device
     P = panels.reshape(nf, rows_pad, E)
     perm_t = torch.as_tensor(perms, device=dev)  # (G, nfp)
-    cbase = (torch.arange(C, device=dev) * ftp)[:, None, None]
+    cbase = (torch.arange(C, device=dev) * cstride)[:, None, None]
     out = panels.new_zeros((C, ftpp, E))
     for f in range(nf):
         code = combo[f].long()
@@ -278,13 +283,33 @@ class LaneArgs(ctypes.Structure):
         "field", "tr", "combo", "sign", "perms", "ginv", "nrm", "fsc",
         "coef", "mat0", "mat1", "dr", "lift", "fnodes", "out")] + [
         ("E", ctypes.c_longlong)] + [(n, ctypes.c_int) for n in (
-            "npp", "ftpp", "rows_pad", "G", "mode")]
+            "npp", "ftpp", "rows_pad", "cstride", "G", "mode")]
 
 
 @functools.lru_cache(maxsize=16)
 def _perm_table(perms: tuple, device: torch.device) -> torch.Tensor:
     """(G, n_fp) int32 device copy of a selcfg's node permutations."""
     return torch.as_tensor(perms, dtype=torch.int32, device=device)
+
+
+def check_select(name, d: LaneOpData, selcfg, combo):
+    """Validate a select plan against the operator data and return
+    (rows_pad, cstride, (G, n_fp) int32 device table of the permutations)
+    for a kernel launch."""
+    C, nf, nfp, cstride, ftpp, rows_pad, _, perms = selcfg
+    if (C, nf, nfp, ftpp) != (d.dim, d.nf, d.n_fp, d.ftpp) \
+            or cstride < d.ftp or rows_pad < C * cstride:
+        raise ValueError(f"{name}: selcfg does not match the operator "
+                         f"data: {selcfg[:6]}")
+    if len(perms) > MAX_PERMS:
+        raise ValueError(f"{name}: {len(perms)} orientation groups, the "
+                         f"kernel holds {MAX_PERMS}")
+    dev = d.ginv.device
+    if combo.dtype != torch.int32 or combo.shape != (8, d.E) \
+            or not combo.is_contiguous() or combo.device != dev:
+        raise ValueError(f"{name}: combo must be a contiguous int32 "
+                         f"(8, {d.E}) tensor on {dev}")
+    return rows_pad, cstride, _perm_table(perms, dev)
 
 
 class LaneKernel:
@@ -329,22 +354,11 @@ class LaneKernel:
         sel = mode == (VEL_SEL if self.vel else STRESS_SEL)
         C_in, C_out = ((d.n_sig, d.dim) if self.vel else (d.dim, d.n_sig))
         if sel:
-            C, nf, nfp, ftp, ftpp, rows_pad, _, perms = selcfg
-            if (C, nf, nfp, ftp, ftpp) != (d.dim, d.nf, d.n_fp, d.ftp,
-                                           d.ftpp):
-                raise ValueError(f"{self.name}: selcfg does not match the "
-                                 f"operator data: {selcfg[:5]}")
-            if len(perms) > MAX_PERMS:
-                raise ValueError(f"{self.name}: {len(perms)} orientation "
-                                 f"groups, the kernel holds {MAX_PERMS}")
-            if combo.dtype != torch.int32 or combo.shape != (8, E) \
-                    or not combo.is_contiguous() or combo.device != dev:
-                raise ValueError(f"{self.name}: combo must be a contiguous "
-                                 f"int32 (8, {E}) tensor on {dev}")
-            perm_t = _perm_table(perms, dev)
-            tr_rows = nf * rows_pad
+            rows_pad, cstride, perm_t = check_select(self.name, d, selcfg,
+                                                     combo)
+            tr_rows = d.nf * rows_pad
         else:
-            rows_pad, perm_t = 0, None
+            rows_pad, cstride, perm_t = 0, 0, None
             sig = self.vel and mode == VEL_SIG
             tr_rows = (d.n_sig if sig else d.dim) * d.ftpp
         checks = [(field, C_in * d.npp), (tr, tr_rows),
@@ -370,7 +384,7 @@ class LaneKernel:
             mat0=ptr(d.irho if self.vel else d.lam),
             mat1=None if self.vel else ptr(d.mu),
             dr=ptr(d.kdr), lift=ptr(d.klift), fnodes=ptr(d.kfn), out=ptr(out),
-            E=E, npp=d.npp, ftpp=d.ftpp, rows_pad=rows_pad,
+            E=E, npp=d.npp, ftpp=d.ftpp, rows_pad=rows_pad, cstride=cstride,
             G=0 if perm_t is None else perm_t.shape[0], mode=mode,
         )
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -221,7 +221,9 @@ def make_panel_gather(
     in the operator.
 
     Returns (panels_fn: field_lm -> (nf*rows_pad, E), combo (8, E) int32,
-    sign (8, E) in nrm_lm's dtype or None, selcfg).
+    sign (8, E) in nrm_lm's dtype or None, selcfg).  ``panels_fn`` carries
+    its two halves as attributes: ``own_rows_fn`` (field -> own-face rows)
+    and ``takes_fn`` (own-face rows -> panels).
     """
     nf, nfp = pr.n_faces, pr.n_fp
     ftp = nf * nfp
@@ -248,19 +250,30 @@ def make_panel_gather(
         s[:nf] = _boundary_sign(pr).T
         sign = torch.as_tensor(s, device=device).to(nrm_lm.dtype)
 
-    def panels_fn(f_lm: torch.Tensor) -> torch.Tensor:
-        # own-face rows (+ the traction contraction on the sigma side) ...
+    def own_rows_fn(f_lm: torch.Tensor) -> torch.Tensor:
+        """Own-face rows (rows_pad, E): the row-index restriction (+ the
+        traction contraction on the sigma side) — the half an operator
+        can emit itself (ops/lane_upwind_kernels.py, ``emit=True``)."""
         T = _own_rows(f_lm, fn_idx, Cin, npp)  # (Cin, ftp, E)
         if nrm_lm is not None:
             T = _contract(T, nrm_lm, voigt, C, ftpp, ftp)
         T = T.reshape(C * ftp, E)
         if rows_pad != C * ftp:
             T = torch.nn.functional.pad(T, (0, 0, 0, rows_pad - C * ftp))
-        # ... then the nf neighbour lane takes in consumer order
-        panels = torch.empty((nf, rows_pad, E), dtype=T.dtype,
+        return T
+
+    def takes_fn(T: torch.Tensor) -> torch.Tensor:
+        """The nf neighbour lane takes of own-face rows T (rows, E), in
+        consumer order -> (nf*rows, E)."""
+        panels = torch.empty((nf,) + tuple(T.shape), dtype=T.dtype,
                              device=T.device)
         for f in range(nf):
             torch.index_select(T, 1, take_e2[f], out=panels[f])
-        return panels.reshape(nf * rows_pad, E)
+        return panels.reshape(nf * T.shape[0], E)
 
+    def panels_fn(f_lm: torch.Tensor) -> torch.Tensor:
+        return takes_fn(own_rows_fn(f_lm))
+
+    panels_fn.own_rows_fn = own_rows_fn
+    panels_fn.takes_fn = takes_fn
     return panels_fn, combo, sign, selcfg

@@ -44,6 +44,7 @@ from ..ops.upwind_kernels import (
 from ..ops.viscoelastic import ViscoData, anelastic_rates_lm
 from .lane_merged import MergedLaneRunner, resolve_impl
 from .receivers import ReceiverData
+from .rk4 import rk4_update
 from .source import SourceData, ricker
 from .timestep import State, inject_columns
 
@@ -226,20 +227,7 @@ class UpwindLaneRunner(MergedLaneRunner):
     def step_with(self, carry, t):
         """One RK4 step on the carry (ulm, slm, payload traces, xi or
         None) starting at time t."""
-        h = self.dt
-        h2 = 0.5 * h
-
-        def stage(a, k):
-            return [None if x is None else x + a * kx
-                    for x, kx in zip(carry, k)]
-
-        k1 = self._rhs(*carry, t)
-        k2 = self._rhs(*stage(h2, k1), t + h2)
-        k3 = self._rhs(*stage(h2, k2), t + h2)
-        k4 = self._rhs(*stage(h, k3), t + h)
-        w = h / 6.0
-        new = [None if x is None else x + w * (a + 2 * b + 2 * c + e)
-               for x, a, b, c, e in zip(carry, k1, k2, k3, k4)]
+        new = rk4_update(self._rhs, carry, t, self.dt)
         if self.damp_n is not None:
             d = self.d
             u, s, tr, xi = new

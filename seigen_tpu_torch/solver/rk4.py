@@ -36,6 +36,25 @@ def _add_sources(src: SourceData | None, du, ds, t):
             ds.index_add(0, src.elems, src.vec_s * r[:, None, None]))
 
 
+def rk4_update(rhs, carry, t, h):
+    """One classic RK4 update of ``carry`` from time t over a step h:
+    ``rhs(*carry, t)`` returns the rates of the carry's entries; None
+    entries (of the carry) pass through.  The stage ladder of the lane
+    upwind runners (solver/lane_upwind.py, solver/lane_upwind_u.py)."""
+    h2 = 0.5 * h
+
+    def stage(a, k):
+        return [None if x is None else x + a * kx for x, kx in zip(carry, k)]
+
+    k1 = rhs(*carry, t)
+    k2 = rhs(*stage(h2, k1), t + h2)
+    k3 = rhs(*stage(h2, k2), t + h2)
+    k4 = rhs(*stage(h, k3), t + h)
+    w = h / 6.0
+    return [None if x is None else x + w * (a + 2 * b + 2 * c + e)
+            for x, a, b, c, e in zip(carry, k1, k2, k3, k4)]
+
+
 def make_rk4_step(p: ElasticParams, w: UpwindData, dt: float,
                   src: SourceData | None = None,
                   damp: torch.Tensor | None = None):

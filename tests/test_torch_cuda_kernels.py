@@ -5,10 +5,14 @@ vel_merged_ref / stress_merged_ref, and of K3 (upwind_rhs: plain, 1 and 2
 source groups, an acoustic vs = 0 half) against upwind_rhs_merged_ref, in
 float32 on box_mesh(4, 4, 4) at P2 and P3; every mode of K4 (lane_vel:
 SIG, TRAC, SEL) and K5 (lane_stress: TR, SEL) against its plain version on
-box_mesh(4, 4, 4) and its scrambled copy at P2 and P3; the kernel runners
-(merged LF4, upwind RK4 elastic and viscoelastic, lane LF2, lane_u LF4
-with both select paths) against the plain runners for a few steps, with
-their launch counts.
+box_mesh(4, 4, 4) and its scrambled copy at P2 and P3; K6
+(lane_upwind_rhs) and every mode of K7 (lane_upwind_axpy: stage, final,
+sponge row, 1 and 2 dense groups, panel emission) on scrambled
+box_mesh(4, 4, 4) at P2 and P3 and scrambled rect_mesh(8, 8) P2; the
+kernel runners (merged LF4, upwind RK4 elastic and viscoelastic, lane LF2,
+lane_u LF4 with both select paths, upwind_lane_u with its three steppers
+and viscoelastic) against the plain runners for a few steps, with their
+launch counts.
 These tests need a CUDA device and nvcc; elsewhere they skip.  On the GPU
 machine (which has no JAX, so the suite's conftest is not loaded):
 
@@ -23,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from seigen_tpu_torch.mesh import box_mesh, build_discrete
+from seigen_tpu_torch.mesh import box_mesh, build_discrete, rect_mesh
 from seigen_tpu_torch.ops import (
     Material,
     build_params,
@@ -31,6 +35,7 @@ from seigen_tpu_torch.ops import (
     build_visco,
 )
 from seigen_tpu_torch.ops import lane_kernels as lk
+from seigen_tpu_torch.ops import lane_upwind_kernels as luk
 from seigen_tpu_torch.ops import merged_kernels as mk
 from seigen_tpu_torch.ops import upwind_kernels as uk
 from seigen_tpu_torch.ops.structured_exchange import detect_structured
@@ -40,6 +45,7 @@ from seigen_tpu_torch.solver.lane_merged import MergedLaneRunner
 from seigen_tpu_torch.solver.lane_unstructured import \
     UnstructuredLaneRunner
 from seigen_tpu_torch.solver.lane_upwind import UpwindLaneRunner
+from seigen_tpu_torch.solver.lane_upwind_u import UnstructuredUpwindRunner
 from seigen_tpu_torch.solver.source import PointSource, build_sources
 from seigen_tpu_torch.solver.timestep import State
 
@@ -315,6 +321,122 @@ def test_lane_runner_kernels_match_plain(lane_case, device, name, fused,
     out_k, _ = kern.run(st, 3)
     assert lk.LANE_VEL.launches - n_vel == 3 * per_step
     assert lk.LANE_STRESS.launches - n_stress == 3 * per_step
+    out_r, _ = plain.run(st, 3)
+    for a, b in ((out_k.u, out_r.u), (out_k.s, out_r.s)):
+        assert torch.isfinite(a).all()
+        assert ((a - b).norm() / b.norm()).item() < 1e-5
+
+
+@pytest.fixture(scope="module", params=[(3, 2), (3, 3), (2, 2)],
+                ids=["3d-P2", "3d-P3", "2d-P2"])
+def upwind_u_case(request, device):
+    """upwind_lane_u kernel runner factory on a scrambled free-top
+    box_mesh(4, 4, 4) or rect_mesh(8, 8) with a blob source and a sponge,
+    plus numpy-seeded K6/K7 operands (panels in both layouts)."""
+    import dataclasses
+
+    dim, degree = request.param
+    topo = box_mesh(4, 4, 4) if dim == 3 else rect_mesh(8, 8)
+    perm = np.random.default_rng(0).permutation(topo.num_cells)
+    dm = build_discrete(
+        dataclasses.replace(topo, cells=topo.cells[perm], structure=None),
+        degree, bc_fn=absorbing_bc_fn(((0.0, 1.0),) * dim,
+                                      free_sides=[(dim - 1, "hi")]))
+    mat = Material(1.0, 2.0, 1.0)
+    p = build_params(dm, mat, device=device)
+    w = build_upwind_data(dm, mat, device=device)
+    src = build_sources(dm, [PointSource(position=(0.5, 0.5, 0.7)[:dim],
+                                         f0=4.0, radius=0.25)],
+                        device=device)
+    damp = sponge_mask(dm, [(0, "lo")], width=0.3)
+
+    def make(impl, **opts):
+        return UnstructuredUpwindRunner(
+            p, w, 0.01, src=src, damp=damp, impl=impl,
+            centroids=dm.coords.mean(axis=1), **opts)
+
+    d = make("kernel").d
+    rng = np.random.default_rng(30 + degree)
+
+    def rows(C, used, pad):
+        a = rng.standard_normal((C, pad, d.E)).astype(np.float32)
+        a[:, used:] = 0.0
+        return torch.as_tensor(a.reshape(C * pad, d.E), device=device)
+
+    def state():
+        return rows(d.dim, d.n_p, d.npp), rows(d.n_sig, d.n_p, d.npp)
+
+    rows_pad = (d.dim * d.ftp + 7) // 8 * 8
+    data = {"x": state(), "base": state(), "acc": state(),
+            "S": [state(), state()],
+            "p": [rows(d.nf, d.dim * d.ftp, rows_pad) for _ in range(2)],
+            "p_e": [rows(d.nf * d.dim, d.ftp, d.ftpp) for _ in range(2)]}
+    return dm, p, make, data
+
+
+UPWIND_U_MODES = {  # mode -> None (K6) or K7's (stage, damp, groups, emit)
+    "rhs": None, "stage": (True, False, 0, False),
+    "final": (False, False, 0, False), "final_damp": (False, True, 0, False),
+    "stage_inject1": (True, False, 1, False),
+    "final_damp_inject2": (False, True, 2, False),
+    "stage_emit": (True, False, 0, True),
+    "final_damp_emit": (False, True, 0, True)}
+
+
+@pytest.mark.parametrize("mode", list(UPWIND_U_MODES))
+def test_lane_upwind_kernel_matches_plain(upwind_u_case, mode):
+    *_, make, x = upwind_u_case
+    r = make("kernel")
+    d = r.d
+    spec = UPWIND_U_MODES[mode]
+    emit = spec is not None and spec[3]
+    args = (d, r.uw, *x["x"], *(x["p_e"] if emit else x["p"]), r.combo,
+            r.sign_u, r.sign_t,
+            luk.emitted_selcfg(r.selcfg) if emit else r.selcfg)
+    if spec is None:
+        fused, plain, kernel, kw = (luk.upwind_rhs_lm_sel,
+                                    luk.upwind_rhs_lm_sel_ref,
+                                    luk.LANE_UPWIND_RHS, {})
+    else:
+        stage, damp, n_inj, _ = spec
+        fused, plain, kernel = (luk.upwind_rhs_lm_sel_axpy,
+                                luk.upwind_rhs_lm_sel_axpy_ref,
+                                luk.LANE_UPWIND_AXPY)
+        args += (*x["acc"], 0.21)
+        kw = dict(base_u=x["base"][0] if stage else None,
+                  base_s=x["base"][1] if stage else None,
+                  cs=0.37 if stage else None,
+                  inject=[(*x["S"][g], (0.7, -1.3)[g])
+                          for g in range(n_inj)],
+                  damp_row=r.damp_u[: d.npp] if damp else None, emit=emit)
+    n0 = kernel.launches
+    got = fused(*args, **kw)  # dispatches to the kernel for CUDA tensors
+    ref = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 1
+    _assert_close(got, ref)
+
+
+@pytest.mark.parametrize("name,opts,axpy", [
+    ("fused", {}, True), ("emit", {"panel_emit": True}, True),
+    ("glue", {"fused_axpy": False}, False), ("visco", {}, False)])
+def test_upwind_u_runner_kernels_match_plain(upwind_u_case, device, name,
+                                             opts, axpy):
+    dm, p, make, _ = upwind_u_case
+    if name == "visco":
+        opts = {"visco": build_visco(p, 30.0, 20.0, 1.0, 8.0, L=3)}
+    kern, plain = make("kernel", **opts), make("reference", **opts)
+    assert kern.fused_axpy == axpy
+    rng = np.random.default_rng(9)
+    E, n_p = dm.num_elements, dm.re.n_p
+    st = State(u=torch.as_tensor(rng.standard_normal((E, n_p, p.dim)),
+                                 device=device).float(),
+               s=torch.as_tensor(rng.standard_normal((E, n_p, p.n_sig)),
+                                 device=device).float())
+    n6, n7 = luk.LANE_UPWIND_RHS.launches, luk.LANE_UPWIND_AXPY.launches
+    out_k, _ = kern.run(st, 3)
+    assert luk.LANE_UPWIND_AXPY.launches - n7 == (12 if axpy else 0)
+    assert luk.LANE_UPWIND_RHS.launches - n6 == (0 if axpy else 12)
     out_r, _ = plain.run(st, 3)
     for a, b in ((out_k.u, out_r.u), (out_k.s, out_r.s)):
         assert torch.isfinite(a).all()

@@ -172,4 +172,4 @@ def test_bench_measures_upwind_lane_on_cpu():
     assert res.n_dof == dm.num_elements * dm.re.n_p * 9
     assert np.isfinite(res.dof_updates_per_sec) and res.seconds > 0
     with pytest.raises(ValueError, match="impl"):
-        tbench.measure(p, src, damp, dt, st, dm, impl="upwind_lane_u")
+        tbench.measure(p, src, damp, dt, st, dm, impl="upwind_lane_x")
