@@ -68,6 +68,27 @@ Phases, each printing its own lines; any failure exits non-zero:
               "upwind_lane_u", 100 steps) with panel_emit, with
               fused_axpy=False, with the default stepper and with the
               plain versions.
+9. aniso    - the anisotropic (Voigt stiffness) path: the general Hooke
+              law of K2 and K5 (their ANISO instantiations, counted by
+              ``launches_c``).  With a per-element NON-symmetric random C:
+              K2 plain / axpy / axpy + damp / 1 and 2 source groups on
+              box_mesh(4, 4, 4) at P3 and P2 and rect_mesh(8, 8) P2, K5
+              modes TR and SEL on the same meshes and their scrambled
+              copies, each against its plain version.  With the bench's VTI
+              stiffness at n=24 P3: MergedLaneRunner, LaneMajorRunner (LF4)
+              and UnstructuredLaneRunner (scrambled case, fused_select True
+              and False) for 10 steps kernel vs plain (relative L2,
+              finiteness; 3 general-law stress launches a step and no
+              isotropic one); each mode's time beside its plain version's
+              and its bound; the ``vti`` benches (merged, lane LF4 beside
+              its isotropic twin, lane_u).  An SH plane wave on periodic
+              box_mesh(8, 2, 2) P3 in a VTI medium (gamma = 0.3) through
+              LaneMajorRunner(stiffness=) in float32: back in phase after
+              the period of sqrt(C66/rho) (error < 0.02) and not after the
+              isotropic one.  The ElasticSimulation facade on the card
+              (rect_mesh(8, 8) P2, source, receivers): impl "auto" runs the
+              lane kernels, ``stiffness=`` the einsum path.  Phases 4-8
+              must launch no general-law kernel.
 
 Tolerance of a kernel against its plain version: |k - p| <= rtol*|p| +
 atol*max|p| with rtol = 2e-4, atol = 2e-5.  The absolute floor is taken
@@ -88,6 +109,7 @@ JSON line describing the kernels, and as the last line
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -99,6 +121,7 @@ RUNNER_STEPS = 10
 BENCH_STEPS = 100
 TIMING_REPS = 20
 EIGEN_MIN_ORDER = 2.8
+SH_WAVE_MAX_ERR = 0.02
 SIDES = [(0, "lo"), (0, "hi"), (1, "lo"), (1, "hi"), (2, "lo")]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peaks
 FP32_FLOPS_PER_S = 67e12
@@ -118,6 +141,15 @@ KERNELS = {  # name -> (source, replaced TPU kernel)
     "lane_upwind_axpy": ("seigen_tpu_torch/csrc/lane_upwind_kernels.cu",
                          "seigen_tpu/ops/pallas_kernels.py:791"),
 }
+ANISO_MODES = {  # general-Hooke-law mode -> (kernel, replaced TPU kernel)
+    "merged_stress[C]": ("merged_stress",
+                         "seigen_tpu/ops/fused_kernels.py:546"),
+    "lane_stress[C,TR]": ("lane_stress",
+                          "seigen_tpu/ops/pallas_kernels.py:497"),
+    "lane_stress[C,SEL]": ("lane_stress",
+                           "seigen_tpu/ops/pallas_kernels.py:527"),
+}
+C_COUNTS = ("merged_stress_c", "lane_stress_c")  # the launches_c counts
 
 
 def log(msg: str):
@@ -207,6 +239,8 @@ def variant_call(runner, x, op, variant):
     from seigen_tpu_torch.ops import merged_kernels as mk
 
     d = runner.d
+    if variant == "axpy" and op == "stress":  # the update without a sponge
+        d = dataclasses.replace(d, damp=None)
     field = x["sig"][0] if op == "vel" else x["u"][0]
     pair = x["u"] if op == "vel" else x["sig"]
     S = x["Su"] if op == "vel" else x["Ss"]
@@ -259,19 +293,21 @@ def time_ms(fn, reps=TIMING_REPS):
     return start.elapsed_time(stop) / reps
 
 
-def bound(d, plan, kname):
+def bound(d, plan, kname, aniso=False):
     """(bound_ms, "bytes" | "operations") of one plain launch of a kernel
     at these shapes: compulsory bytes (state rows n_p per component, the
     neighbour payload rows, the geo/impedance/mask rows the operator reads;
     the full output and trace arrays written) over the memory rate, and
-    the Dr and LIFT matrix-product FLOPs over the FP32 rate."""
+    the Dr and LIFT matrix-product FLOPs over the FP32 rate.  aniso: K2
+    reads the n_sig^2 stiffness rows instead of lambda and mu."""
     dim, n_p, nf, nfp, npp = d.dim, d.n_p, d.nf, d.n_fp, d.npp
     nft = nf * nfp
     geo = dim * dim + dim * nf  # Ginv, normals
     if kname == "merged_vel":  # sigma in, u out; scb, bfs, 1/rho
         c_in, c_out, geo = d.n_sig, dim, geo + 2 * nf + 1
     elif kname == "merged_stress":  # u in, sigma out; scb, dfs, lam, mu
-        c_in, c_out, geo = dim, d.n_sig, geo + 2 * nf + 2
+        c_in, c_out = dim, d.n_sig
+        geo += 2 * nf + (d.n_sig * d.n_sig if aniso else 2)
     else:  # u, sigma in and out; scb, 1/rho, lam, mu; 4*nf + 2 uwg rows
         c_in = c_out = dim + d.n_sig
         geo += nf + 3 + 4 * nf + 2
@@ -380,16 +416,24 @@ def all_kernels():
 def reset_counts():
     for k in all_kernels().values():
         k.launches = 0
+        if hasattr(k, "launches_c"):
+            k.launches_c = 0
 
 
 def read_counts():
-    return {name: k.launches for name, k in all_kernels().items()}
+    """Launches per kernel, and under C_COUNTS those of K2 and K5 that ran
+    the general Hooke law."""
+    kernels = all_kernels()
+    counts = {name: k.launches for name, k in kernels.items()}
+    for name in C_COUNTS:
+        counts[name] = kernels[name[:-2]].launches_c
+    return counts
 
 
 def expect_counts(tag, counts, **nonzero):
-    """Fail unless the kernels of ``nonzero`` launched exactly that often
-    and every other kernel not at all."""
-    expect = {name: nonzero.get(name, 0) for name in KERNELS}
+    """Fail unless the kernels (and general-law counts) of ``nonzero``
+    launched exactly that often and every other one not at all."""
+    expect = {name: nonzero.get(name, 0) for name in (*KERNELS, *C_COUNTS)}
     if counts != expect:
         raise AssertionError(f"{tag} launches {counts}, expected {expect}")
 
@@ -566,8 +610,9 @@ def lane_inputs(runner, seed):
             "panels": rows(d.nf, d.dim * d.ftp, rows_pad)}
 
 
-def lane_call(runner, x, mode):
-    """(kernel fn, plain fn) of one K4/K5 mode on the runner's data."""
+def lane_call(runner, x, mode, cmat=None):
+    """(kernel fn, plain fn) of one K4/K5 mode on the runner's data; cmat:
+    the stiffness rows of the stress modes' general Hooke law."""
     from seigen_tpu_torch.ops import lane_kernels as lk
 
     d = runner.d
@@ -579,7 +624,8 @@ def lane_call(runner, x, mode):
     elif mode == "TRAC":
         args, plain = (x["sig"], x["tr_u"]), lk.vel_op_lm_trac_ref
     elif mode == "TR":
-        args, plain = (x["u"], x["tr_u"]), lk.stress_op_lm_ref
+        return (lambda: kern(d, x["u"], x["tr_u"], m, cmat=cmat),
+                lambda: lk.stress_op_lm_ref(d, x["u"], x["tr_u"], cmat=cmat))
     elif mode == "SEL vel":
         _, combo, sign, cfg = runner._pg_t
         return (lambda: kern(d, x["sig"], x["panels"], m, combo=combo,
@@ -589,9 +635,9 @@ def lane_call(runner, x, mode):
     else:
         _, combo, _, cfg = runner._pg_u
         return (lambda: kern(d, x["u"], x["panels"], m, combo=combo,
-                             selcfg=cfg),
+                             selcfg=cfg, cmat=cmat),
                 lambda: lk.stress_op_lm_sel_ref(d, x["u"], x["panels"],
-                                                combo, cfg))
+                                                combo, cfg, cmat=cmat))
     return (lambda: kern(d, *args, m)), (lambda: plain(d, *args))
 
 
@@ -607,14 +653,16 @@ def compare_lane(runner, check, tag, seed, modes):
     return x
 
 
-def lane_bound(d, mode):
+def lane_bound(d, mode, aniso=False):
     """(bound_ms, "bytes" | "operations") of one launch of a K4/K5 mode:
     compulsory bytes (state rows n_p per component, the neighbour payload
     rows the mode reads — for SEL the selected panel rows, the combo and
     the sign rows —, the geometry counted per face as in ``bound`` (Ginv,
     normals, Fscale, beta or delta; the kernel reads them expanded to face
     nodes) and the material rows, the output written at npp rows) over
-    the memory rate, and the Dr and LIFT FLOPs over the FP32 rate."""
+    the memory rate, and the Dr and LIFT FLOPs over the FP32 rate.  aniso:
+    a stress mode reads the n_sig^2 stiffness rows instead of lambda and
+    mu."""
     dim, n_p, ftp, npp, n_sig = d.dim, d.n_p, d.ftp, d.npp, d.n_sig
     nf = d.nf
     vel = LANE_MODES[mode][0] == "lane_vel"
@@ -622,7 +670,8 @@ def lane_bound(d, mode):
     payload = {"SIG": n_sig * ftp, "TRAC": dim * ftp, "TR": dim * ftp,
                "SEL vel": dim * ftp + 2 * nf,
                "SEL stress": dim * ftp + nf}[mode]
-    geo = dim * dim + dim * nf + 2 * nf + (1 if vel else 2)
+    geo = dim * dim + dim * nf + 2 * nf + (
+        1 if vel else n_sig * n_sig if aniso else 2)
     rows = c_in * n_p + payload + geo + c_out * npp
     flops = 2 * (c_out * dim * n_p * n_p + c_out * n_p * ftp)
     t_bytes = 4.0 * rows * d.E / HBM_BYTES_PER_S * 1e3
@@ -1004,6 +1053,335 @@ def phase_upwind_u(dev, scase, sst, check, n=24):
     return launches, times, bounds
 
 
+def random_stiffness(E, n_sig, seed):
+    """Per-element NON-symmetric matrices: a C[c, k] / C[k, c] swap or a
+    transposed strain index hides behind a symmetric one."""
+    import numpy as np
+
+    return np.random.default_rng(seed).standard_normal((E, n_sig, n_sig))
+
+
+def small_aniso_runners(dim, degree, dev):
+    """Kernel runners with a per-element random stiffness on a free-top,
+    sponge-damped box_mesh(4, 4, 4) (3D) or rect_mesh(8, 8) (2D):
+    (MergedLaneRunner, UnstructuredLaneRunner on the same mesh,
+    UnstructuredLaneRunner on a scrambled copy)."""
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.mesh import box_mesh, build_discrete, rect_mesh
+    from seigen_tpu_torch.ops import Material, build_params
+    from seigen_tpu_torch.ops.structured_exchange import detect_structured
+    from seigen_tpu_torch.solver.damping import absorbing_bc_fn, sponge_mask
+    from seigen_tpu_torch.solver.lane_merged import MergedLaneRunner
+    from seigen_tpu_torch.solver.lane_unstructured import \
+        UnstructuredLaneRunner
+
+    topo = box_mesh(4, 4, 4) if dim == 3 else rect_mesh(8, 8)
+    bc = absorbing_bc_fn(((0.0, 1.0),) * dim, free_sides=[(dim - 1, "hi")])
+    mat = Material(1.0, 2.0, 1.0)
+    perm = np.random.default_rng(0).permutation(topo.num_cells)
+    scrambled = dataclasses.replace(topo, cells=topo.cells[perm],
+                                    structure=None)
+    out = []
+    for i, t in enumerate((topo, scrambled)):
+        dm = build_discrete(t, degree, bc_fn=bc)
+        p = build_params(dm, mat, device=dev)
+        C = random_stiffness(dm.num_elements, p.n_sig, 90 + i)
+        if i == 0:
+            damp = torch.as_tensor(
+                sponge_mask(dm, [(0, "lo"), (0, "hi")], width=0.3),
+                device=dev).float()
+            out.append(MergedLaneRunner(p, detect_structured(dm), 0.01,
+                                        damp=damp, impl="kernel",
+                                        stiffness=C))
+        out.append(UnstructuredLaneRunner(
+            p, 0.01, centroids=dm.coords.mean(axis=1), impl="kernel",
+            stiffness=C))
+    return out
+
+
+STRESS_VARIANTS = ("plain", "axpy", "axpy_damp", "inject1", "inject2")
+
+
+def compare_merged_aniso(runner, check, tag, seed):
+    """Every K2 variant on operator data with a C section vs the plain
+    version; returns the operands."""
+    import torch
+
+    from seigen_tpu_torch.ops import merged_kernels as mk
+
+    if runner.d.off[6] < 0:
+        raise AssertionError(f"{tag}: the operator data has no C section")
+    x = variant_inputs(runner, seed)
+    for variant in STRESS_VARIANTS:
+        kern, plain, args, kw = variant_call(runner, x, "stress", variant)
+        n0, c0 = mk.STRESS_KERNEL.launches, mk.STRESS_KERNEL.launches_c
+        got = kern(*args, **kw)
+        ref = plain(*args, **kw)
+        torch.cuda.synchronize()
+        if (mk.STRESS_KERNEL.launches, mk.STRESS_KERNEL.launches_c) != (
+                n0 + 1, c0 + 1):
+            raise AssertionError(f"{tag} {variant}: not one general-law "
+                                 "launch of merged_stress")
+        check("merged_stress[C]", f"{tag} C stress {variant} out", got[0],
+              ref[0])
+        check("merged_stress[C]", f"{tag} C stress {variant} traces", got[1],
+              ref[1])
+    return x
+
+
+def compare_lane_aniso(runner, check, tag, seed):
+    """K5 modes TR and SEL with the runner's cmat vs the plain versions
+    (and not equal to the isotropic launch); returns the operands."""
+    import torch
+
+    from seigen_tpu_torch.ops import lane_kernels as lk
+
+    x = lane_inputs(runner, seed)
+    for mode, name in (("TR", "lane_stress[C,TR]"),
+                       ("SEL stress", "lane_stress[C,SEL]")):
+        kern, plain = lane_call(runner, x, mode, cmat=runner.cmat)
+        n0, c0 = lk.LANE_STRESS.launches, lk.LANE_STRESS.launches_c
+        got, ref = kern(), plain()
+        iso = lane_call(runner, x, mode)[0]()
+        torch.cuda.synchronize()
+        if (lk.LANE_STRESS.launches, lk.LANE_STRESS.launches_c) != (
+                n0 + 2, c0 + 1):
+            raise AssertionError(f"{tag} {mode}: not one general-law and "
+                                 "one isotropic launch of lane_stress")
+        check(name, f"{tag} C {mode}", got, ref)
+        if torch.allclose(got, iso):
+            raise AssertionError(f"{tag} {mode}: cmat changed nothing")
+    return x
+
+
+def sh_wave_errors(dev):
+    """An SH plane wave (x-propagating, y-polarized) in a VTI medium
+    (gamma = 0.3) on periodic box_mesh(8, 2, 2) P3, LF4 through K4/K5 with
+    the stiffness (LaneMajorRunner, float32): relative L2 misfit of u_y
+    against the initial wave after the period of sqrt(C66/rho) and after
+    the isotropic one, and the phase error expected of the latter."""
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.mesh import box_mesh, build_discrete
+    from seigen_tpu_torch.ops import Material, build_params
+    from seigen_tpu_torch.ops.anisotropic import max_wavespeed, vti_stiffness
+    from seigen_tpu_torch.ops.structured_exchange import detect_structured
+    from seigen_tpu_torch.solver import State, cfl_dt
+    from seigen_tpu_torch.solver.lane_major import LaneMajorRunner
+
+    vp, vs, rho, gam = 2.0, 1.0, 1.0, 0.3
+    C = vti_stiffness(vp, vs, rho, gamma=gam)
+    c_sh = np.sqrt(C[5, 5] / rho)
+    dm = build_discrete(box_mesh(8, 2, 2, periodic=(0, 1, 2)), 3)
+    p = build_params(dm, Material(rho=rho, vp=vp, vs=vs),
+                     dtype=torch.float32, device=dev)
+    ex = detect_structured(dm)
+    E, n_p = dm.num_elements, dm.re.n_p
+    k = 2 * np.pi
+    dt = cfl_dt(dm.h.min(), max_wavespeed(C, rho), 3, 0.4)
+    x = np.asarray(dm.coords)[:, :, 0]
+    u0 = np.cos(k * x)
+
+    def run_T(T):
+        n = int(np.ceil(T / dt))
+        dtp = T / n
+        u = np.zeros((E, n_p, 3))
+        u[:, :, 1] = u0
+        s = np.zeros((E, n_p, 6))
+        # right-going SH wave: sigma_xy = -Z v with Z = rho c_sh
+        s[:, :, 5] = -rho * c_sh * np.cos(k * (x - c_sh * 0.5 * dtp))
+        runner = LaneMajorRunner(p, ex, dtp, order=4, impl="kernel",
+                                 stiffness=C)
+        reset_counts()
+        fin, _ = runner.run(State(u=torch.as_tensor(u, device=dev).float(),
+                                  s=torch.as_tensor(s, device=dev).float()),
+                            n)
+        torch.cuda.synchronize()
+        expect_counts("SH wave", read_counts(), lane_vel=3 * n,
+                      lane_stress=3 * n, lane_stress_c=3 * n)
+        u1 = fin.u[:, :, 1].double().cpu().numpy()
+        return np.sqrt(((u1 - u0) ** 2).mean()) / np.sqrt((u0**2).mean())
+
+    e_good = run_T(2 * np.pi / (k * c_sh))
+    e_iso = run_T(2 * np.pi / (k * vs))
+    return e_good, e_iso, 2 * abs(np.sin(np.pi * (c_sh / vs - 1.0)))
+
+
+def facade_runs(dev):
+    """ElasticSimulation on the card, rect_mesh(8, 8) P2 with a source, a
+    sponge and receivers: impl "auto" must run the lane kernels, and
+    ``stiffness=`` the einsum anisotropic path."""
+    import numpy as np
+
+    from seigen_tpu_torch.mesh import rect_mesh
+    from seigen_tpu_torch.ops import Material
+    from seigen_tpu_torch.ops.anisotropic import iso_stiffness
+    from seigen_tpu_torch.solver import ElasticSimulation, PointSource, \
+        SimConfig, line
+
+    mat = Material(rho=1.0, vp=2.0, vs=1.0)
+    cfg = SimConfig(degree=2, order=4, impl="auto", free_sides=((1, "hi"),),
+                    absorbing_sides=((0, "lo"), (0, "hi"), (1, "lo")),
+                    sponge_width=0.2)
+    kw = dict(sources=[PointSource(position=(0.5, 0.6), f0=6.0, radius=0.15)],
+              receiver_points=line((0.3, 0.9), (0.7, 0.9), 4), device=dev)
+    for tag, stiffness, impl in (
+            ("auto", None, "lane"),
+            ("stiffness", iso_stiffness(float(mat.lam), float(mat.mu), 2),
+             "einsum")):
+        sim = ElasticSimulation(rect_mesh(8, 8), mat, cfg,
+                                stiffness=stiffness, **kw)
+        if sim._impl != impl:
+            raise AssertionError(f"facade {tag}: impl {sim._impl!r}, "
+                                 f"expected {impl!r}")
+        reset_counts()
+        fin, seis = sim.run(0.1)
+        counts = read_counts()
+        n = len(seis)
+        ok = (np.isfinite(seis).all() and np.abs(seis).max() > 0
+              and seis.shape[1:] == (4, 2) and fin.u.device.type == "cuda"
+              and bool(fin.u.isfinite().all()))
+        log(f"[facade {tag}] impl {sim._impl}, {n} steps of dt {sim.dt:.5f}:"
+            f" max |seismogram| {np.abs(seis).max():.4e}, launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if not ok:
+            raise AssertionError(f"facade {tag}: bad result")
+        if impl == "lane":
+            expect_counts(f"facade {tag}", counts, lane_vel=3 * n,
+                          lane_stress=3 * n)
+        else:
+            expect_counts(f"facade {tag}", counts)
+
+
+def phase_aniso(dev, case, st, scase, sst, check, n=24):
+    """Phase 9 (see the module docstring); returns ({mode: launches on its
+    main-path run}, {mode: (kernel ms, plain ms)}, {mode: bound}) keyed by
+    ANISO_MODES."""
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.bench import throughput
+    from seigen_tpu_torch.solver.lane_unstructured import \
+        UnstructuredLaneRunner
+
+    t0 = time.perf_counter()
+    for dim, degree in ((3, 3), (3, 2), (2, 2)):
+        merged, lane_u, lane_us = small_aniso_runners(dim, degree, dev)
+        tag = f"{dim}D P{degree}"
+        log(f"[aniso] {tag}: E {lane_u.E}, C section at geo row "
+            f"{merged.d.off[6]} of {merged.d.off[7]}")
+        compare_merged_aniso(merged, check, tag, 80 + degree)
+        compare_lane_aniso(lane_u, check, tag, 82 + degree)
+        compare_lane_aniso(lane_us, check, f"{tag} scrambled", 84 + degree)
+    log(f"[aniso] all small-mesh general-law modes agree "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # the runners at full width with the bench's VTI stiffness
+    dm, p, src, damp, dt, _ = case
+    sdm, sp, ssrc, sdamp, sdt, _ = scase
+    S = RUNNER_STEPS
+    launches, keep = {}, {}
+
+    def lane_u_pair(fused):
+        C = throughput.bench_stiffness("lane_u", sdm.num_elements)
+        return (UnstructuredLaneRunner(
+            sp, sdt, order=4, src=ssrc, damp=sdamp, impl=impl,
+            centroids=sdm.coords.mean(axis=1), fused_select=fused,
+            stiffness=C) for impl in ("kernel", "reference"))
+
+    for tag, mode, make, state, expect in (
+            ("merged vti", "merged_stress[C]",
+             lambda: (throughput.make_runner("merged", dm, p, src, damp, dt,
+                                             impl, vti=True)
+                      for impl in ("kernel", "reference")), st,
+             dict(merged_vel=3 * S, merged_stress=3 * S,
+                  merged_stress_c=3 * S)),
+            ("lane LF4 vti", "lane_stress[C,TR]",
+             lambda: (throughput.make_runner("lane", dm, p, src, damp, dt,
+                                             impl, order=4, vti=True)
+                      for impl in ("kernel", "reference")), st,
+             dict(lane_vel=3 * S, lane_stress=3 * S, lane_stress_c=3 * S)),
+            ("lane_u LF4 vti fused_select=True", "lane_stress[C,SEL]",
+             lambda: lane_u_pair(True), sst,
+             dict(lane_vel=3 * S, lane_stress=3 * S, lane_stress_c=3 * S)),
+            ("lane_u LF4 vti fused_select=False", None,
+             lambda: lane_u_pair(False), sst,
+             dict(lane_vel=3 * S, lane_stress=3 * S, lane_stress_c=3 * S))):
+        t1 = time.perf_counter()
+        k, r = make()
+        log(f"[{tag}] n={n} P3 runner setup {time.perf_counter() - t1:.1f} s")
+        reset_counts()
+        out_k, _ = k.run(state, S)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        out_r, _ = r.run(state, S)
+        torch.cuda.synchronize()
+        log(f"[{tag}] {S} steps: launches {counts}")
+        expect_counts(tag, counts, **expect)  # no isotropic stress launch
+        compare_states(tag, out_k, out_r)
+        if mode is not None:
+            launches[mode] = counts[C_COUNTS[mode.startswith("lane")]]
+            keep[mode] = k
+        del r, out_k, out_r
+
+    # every general-law mode at n=24 P3: check, kernel and plain times, bound
+    times, bounds = {}, {}
+    run_k = keep["merged_stress[C]"]
+    x = compare_merged_aniso(run_k, check, f"n={n} P3", 86)
+    kern, plain, args, kw = variant_call(run_k, x, "stress", "plain")
+    times["merged_stress[C]"] = (time_ms(lambda: kern(*args, **kw)),
+                                 time_ms(lambda: plain(*args, **kw)))
+    bounds["merged_stress[C]"] = bound(run_k.d, run_k.plan, "merged_stress",
+                                       aniso=True)
+    del run_k, x, args, kw
+    for name, mode in (("lane_stress[C,TR]", "TR"),
+                       ("lane_stress[C,SEL]", "SEL stress")):
+        runner = keep[name]
+        x = lane_inputs(runner, 87)
+        kern, plain = lane_call(runner, x, mode, cmat=runner.cmat)
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        check(name, f"n={n} P3 C {mode}", got, ref)
+        times[name] = (time_ms(kern), time_ms(plain))
+        bounds[name] = lane_bound(runner.d, mode, aniso=True)
+        del x, got, ref
+    for name in ANISO_MODES:
+        t, b = times[name], bounds[name]
+        log(f"[aniso] {name} at n={n} P3: kernel {t[0]:.4f} ms, plain "
+            f"{t[1]:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+    keep.clear()
+    del runner, kern, plain
+
+    for impl, c, vti in (("merged", case, True), ("lane", case, False),
+                         ("lane", case, True), ("lane_u", scase, True)):
+        reset_counts()
+        rec = throughput.main(n=n, degree=3, n_steps=BENCH_STEPS, impl=impl,
+                              order=4, kernel_impl="kernel", case=c, vti=vti)
+        counts = read_counts()
+        stress = "merged_stress" if impl == "merged" else "lane_stress"
+        if not (np.isfinite(rec["value"]) and rec["value"] > 0
+                and rec["detail"]["vti"] is vti
+                and counts[stress + "_c"] == (counts[stress] if vti else 0)):
+            raise AssertionError(f"{impl} bench vti={vti}: rate "
+                                 f"{rec['value']}, launches {counts}")
+        print(json.dumps(rec), flush=True)
+
+    e_good, e_iso, phase_err = sh_wave_errors(dev)
+    log(f"[aniso SH wave] box_mesh(8,2,2) periodic P3 float32, VTI gamma "
+        f"0.3: misfit after the anisotropic period {e_good:.6f} (bar "
+        f"{SH_WAVE_MAX_ERR}), after the isotropic period {e_iso:.4f} "
+        f"(expected phase error {phase_err:.4f})")
+    if not (e_good < SH_WAVE_MAX_ERR and e_iso > 0.5 * phase_err):
+        raise AssertionError(f"SH wave: {e_good} after the anisotropic "
+                             f"period, {e_iso} after the isotropic one")
+
+    facade_runs(dev)
+    return launches, times, bounds
+
+
 def main() -> int:
     try:
         import torch
@@ -1135,15 +1513,25 @@ def main() -> int:
     for have, new in zip((launches, times, bounds),
                          phase_upwind_u(dev, scase, sst, check)):
         have.update(new)
-    log(f"[upwind_u] phase {time.perf_counter() - t0:.1f} s; total "
+    log(f"[upwind_u] phase {time.perf_counter() - t0:.1f} s")
+
+    # 9. aniso: the general Hooke law of K2 and K5
+    t0 = time.perf_counter()
+    for have, new in zip((launches, times, bounds),
+                         phase_aniso(dev, case, st, scase, sst, check)):
+        have.update(new)
+    log(f"[aniso] phase {time.perf_counter() - t0:.1f} s; total "
         f"{time.perf_counter() - t_all:.1f} s")
 
-    kernels = [{"name": k, "route": "cuda", "source": KERNELS[k][0],
-                "replaces": KERNELS[k][1], "launches": launches[k],
+    sources = dict(KERNELS)
+    sources.update({m: (KERNELS[k][0], replaces)
+                    for m, (k, replaces) in ANISO_MODES.items()})
+    kernels = [{"name": k, "route": "cuda", "source": src_file,
+                "replaces": replaces, "launches": launches[k],
                 "max_abs_err": check.worst[k], "ms": times[k][0],
                 "plain_ms": times[k][1], "bound_ms": bounds[k][0],
                 "bound_by": bounds[k][1], "library_ms": None}
-               for k in KERNELS]
+               for k, (src_file, replaces) in sources.items()]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

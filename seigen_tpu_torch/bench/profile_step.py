@@ -4,6 +4,7 @@
     python -m seigen_tpu_torch.bench.profile_step --impl merged
     python -m seigen_tpu_torch.bench.profile_step --impl lane --order 2
     python -m seigen_tpu_torch.bench.profile_step --impl lane_u
+    python -m seigen_tpu_torch.bench.profile_step --impl merged --vti
     python -m seigen_tpu_torch.bench.profile_step --impl upwind_lane_u
     python -m seigen_tpu_torch.bench.profile_step --impl upwind_lane_u \
         --panel-emit          # or --no-fused-axpy: the glue stepper
@@ -41,6 +42,7 @@ from .throughput import (
     IMPLS,
     SCRAMBLED_IMPLS,
     add_upwind_u_arguments,
+    add_vti_argument,
     gpu_name_and_power_limit,
     make_runner,
     scheme_name,
@@ -101,7 +103,7 @@ def _device_events(prof):
 
 
 def profile(impl="upwind_lane", kernel_impl="kernel", n=24, degree=3,
-            steps=50, profile_steps=10, device="cuda", order=4,
+            steps=50, profile_steps=10, device="cuda", order=4, vti=False,
             **upwind_u) -> dict:
     if torch.device(device).type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError("the step profile measures a CUDA device; none "
@@ -112,7 +114,7 @@ def profile(impl="upwind_lane", kernel_impl="kernel", n=24, degree=3,
         n=n, degree=degree, device=device,
         scramble=(impl in SCRAMBLED_IMPLS))
     runner = make_runner(impl, dm, p, src, damp, dt, kernel_impl,
-                         order=order, **upwind_u)
+                         order=order, vti=vti, **upwind_u)
     ulm, slm = runner.to_lm_state(state0)
 
     def sync():
@@ -162,6 +164,7 @@ def profile(impl="upwind_lane", kernel_impl="kernel", n=24, degree=3,
         "impl": impl,
         "kernel_impl": kernel_impl,
         "scheme": scheme_name(impl, order),
+        "vti": bool(vti),
         **upwind_u,
         "case": {"n": n, "degree": degree, "elements": dm.num_elements},
         "gpu": name,
@@ -190,8 +193,10 @@ if __name__ == "__main__":
     ap.add_argument("--profile-steps", type=int, default=10)
     ap.add_argument("--order", type=int, default=4, choices=(2, 4),
                     help="LF order of the lane and lane_u runners")
+    add_vti_argument(ap)
     add_upwind_u_arguments(ap)
     a = ap.parse_args()
     opts = upwind_u_options(a)
     print(json.dumps(profile(a.impl, a.kernel_impl, a.n, a.degree, a.steps,
-                             a.profile_steps, order=a.order, **opts)))
+                             a.profile_steps, order=a.order, vti=a.vti,
+                             **opts)))

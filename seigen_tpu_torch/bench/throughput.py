@@ -7,8 +7,11 @@ scrambled case: cells randomly permuted, structure dropped, Morton order
 from the cell centroids), the upwind-RK4 lane runner (impl "upwind_lane")
 and the unstructured upwind-RK4 runner (impl "upwind_lane_u", on the
 scrambled case; ``--panel-emit`` and ``--no-fused-axpy`` select its
-panel-emission and glue steppers).  A "DOF update" is one field
-coefficient advanced one full timestep; the per-step DOF count is
+panel-emission and glue steppers).  ``--vti`` hands the central-flux
+runners (merged, lane, lane_u) a per-element VTI Voigt stiffness, so their
+stress kernels run the general Hooke law; any other impl refuses rather
+than time isotropic physics under a row labelled vti.  A "DOF update" is
+one field coefficient advanced one full timestep; the per-step DOF count is
 E * n_p * (dim + n_sig).  The timed region is the runner's ``run_lm`` over
 ``n_steps`` steps, best of 3 after one warm-up run, each ending in
 ``torch.cuda.synchronize()``.
@@ -16,6 +19,7 @@ E * n_p * (dim + n_sig).  The timed region is the runner's ``run_lm`` over
     python -m seigen_tpu_torch.bench.throughput            # n=24, P3, 100 steps
     python -m seigen_tpu_torch.bench.throughput --impl lane --order 2
     python -m seigen_tpu_torch.bench.throughput --impl lane_u
+    python -m seigen_tpu_torch.bench.throughput --impl lane_u --vti
     python -m seigen_tpu_torch.bench.throughput --impl upwind_lane
     python -m seigen_tpu_torch.bench.throughput --impl upwind_lane_u
     python -m seigen_tpu_torch.bench.throughput --kernel-impl reference
@@ -37,6 +41,7 @@ import torch
 
 from ..mesh import box_mesh, build_discrete
 from ..ops import Material, build_params, build_upwind_data, n_sig_for
+from ..ops.anisotropic import vti_stiffness
 from ..ops.structured_exchange import detect_structured
 from ..solver.damping import absorbing_bc_fn, sponge_mask
 from ..solver.lane_major import LaneMajorRunner
@@ -53,6 +58,7 @@ BENCH_MAT = Material(rho=1.0, vp=2.0, vs=1.0)
 IMPLS = ("merged", "upwind_lane", "lane", "lane_u", "upwind_lane_u")
 SCRAMBLED_IMPLS = ("lane_u", "upwind_lane_u")  # run on the scrambled case
 RK4_IMPLS = ("upwind_lane", "upwind_lane_u")
+VTI_IMPLS = ("merged", "lane", "lane_u")  # central flux: take a stiffness
 
 
 def scheme_name(impl: str, order: int) -> str:
@@ -114,13 +120,25 @@ def setup_case(
     return dm, p, src, damp, dt, state0
 
 
+def bench_stiffness(impl: str, n_elements: int) -> np.ndarray:
+    """The bench's (E, 6, 6) VTI stiffness (the JAX bench's Thomsen
+    parameters on the bench material).  Refuses the impls that cannot run
+    it: the upwind Riemann solver is isotropy-specific."""
+    if impl not in VTI_IMPLS:
+        raise ValueError(
+            f"vti=True needs a central-flux lane runner {VTI_IMPLS}; "
+            f"{impl!r} would time isotropic physics under a row labelled vti")
+    C = vti_stiffness(2.0, 1.0, 1.0, epsilon=0.15, delta=0.05, gamma=0.1)
+    return np.broadcast_to(C, (n_elements, 6, 6)).copy()
+
+
 def _sync(device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
 
 
 def make_runner(impl, dm, p, src, damp, dt, kernel_impl=None, visco=None,
-                order=4, **upwind_u):
+                order=4, vti=False, **upwind_u):
     """The bench's lane runner: "merged" (LF4, MergedLaneRunner), "lane"
     (LF ``order``, LaneMajorRunner), "lane_u" (LF ``order``,
     UnstructuredLaneRunner in Morton order of the cell centroids),
@@ -128,16 +146,19 @@ def make_runner(impl, dm, p, src, damp, dt, kernel_impl=None, visco=None,
     (Godunov RK4, UnstructuredUpwindRunner in Morton order; ``upwind_u``:
     its ``fused_axpy``/``panel_emit``).  The upwind runners take the bench
     material's impedances and ``visco`` (optional ViscoData); ``order``
-    does not apply to them.  kernel_impl: "kernel" (CUDA kernels) or
-    "reference" (their plain PyTorch versions); default by device."""
+    does not apply to them.  ``vti``: the stress operators of the three
+    LF runners take ``bench_stiffness``.  kernel_impl: "kernel" (CUDA
+    kernels) or "reference" (their plain PyTorch versions); default by
+    device."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, not {impl!r}")
+    stiffness = bench_stiffness(impl, dm.num_elements) if vti else None
     if impl == "merged" and order != 4:
         raise ValueError("the merged runner is LF4 only")
     if impl == "lane_u":
         return UnstructuredLaneRunner(
             p, dt, order=order, src=src, damp=damp, impl=kernel_impl,
-            centroids=dm.coords.mean(axis=1))
+            centroids=dm.coords.mean(axis=1), stiffness=stiffness)
     if impl == "upwind_lane_u":
         w = build_upwind_data(dm, BENCH_MAT, dtype=p.dtype, device=p.device)
         return UnstructuredUpwindRunner(
@@ -148,10 +169,10 @@ def make_runner(impl, dm, p, src, damp, dt, kernel_impl=None, visco=None,
         raise ValueError(f"{impl} impl requires a structured mesh")
     if impl == "merged":
         return MergedLaneRunner(p, ex, dt, src=src, damp=damp,
-                                impl=kernel_impl)
+                                impl=kernel_impl, stiffness=stiffness)
     if impl == "lane":
         return LaneMajorRunner(p, ex, dt, order=order, src=src, damp=damp,
-                               impl=kernel_impl)
+                               impl=kernel_impl, stiffness=stiffness)
     w = build_upwind_data(dm, BENCH_MAT, dtype=p.dtype, device=p.device)
     return UpwindLaneRunner(p, ex, w, dt, src=src, damp=damp,
                             impl=kernel_impl, visco=visco)
@@ -159,11 +180,11 @@ def make_runner(impl, dm, p, src, damp, dt, kernel_impl=None, visco=None,
 
 def measure(p, src, damp, dt, state0, dm, n_steps: int = 50,
             impl: str = "merged", kernel_impl: str | None = None,
-            order: int = 4, **upwind_u) -> BenchResult:
+            order: int = 4, vti: bool = False, **upwind_u) -> BenchResult:
     """Time ``n_steps`` of a lane runner (see make_runner), best of 3 after
     a warm-up."""
     runner = make_runner(impl, dm, p, src, damp, dt, kernel_impl,
-                         order=order, **upwind_u)
+                         order=order, vti=vti, **upwind_u)
     ulm, slm = runner.to_lm_state(state0)
     runner.run_lm(ulm, slm, n_steps)  # warm-up
     _sync(p.device)
@@ -200,10 +221,11 @@ def gpu_name_and_power_limit(device_index: int = 0):
 
 def report(res: BenchResult, impl: str, kernel_impl: str,
            device: torch.device | str = "cuda", order: int = 4,
-           **upwind_u) -> dict:
+           vti: bool = False, **upwind_u) -> dict:
     """The JSON line: the JAX bench's metric and detail keys, plus the
-    GPU's name and power limit, which operator implementation ran and the
-    ``upwind_lane_u`` stepper options that were set."""
+    GPU's name and power limit, which operator implementation ran, whether
+    the VTI stiffness was on and the ``upwind_lane_u`` stepper options that
+    were set."""
     dev = torch.device(device)
     name, limit = gpu_name_and_power_limit(dev.index or 0)
     return {
@@ -224,9 +246,16 @@ def report(res: BenchResult, impl: str, kernel_impl: str,
             "gpu": name,
             "power_limit": limit,
             "kernel_impl": kernel_impl,
+            "vti": bool(vti),
             **upwind_u,
         },
     }
+
+
+def add_vti_argument(ap) -> None:
+    ap.add_argument("--vti", action="store_true",
+                    help="merged, lane, lane_u: a per-element VTI stiffness "
+                    "(general Hooke law in the stress kernels)")
 
 
 def add_upwind_u_arguments(ap) -> None:
@@ -250,7 +279,7 @@ def upwind_u_options(a) -> dict:
 def main(n: int = 24, degree: int = 3, n_steps: int = 100,
          impl: str = "merged", device: str = "cuda",
          kernel_impl: str = "kernel", case=None, order: int = 4,
-         **upwind_u) -> dict:
+         vti: bool = False, **upwind_u) -> dict:
     """Measure a lane runner (``impl``, see measure) on the CUDA device;
     returns the JSON record.  ``case``: a ``setup_case`` result to reuse
     (impls "lane_u" and "upwind_lane_u" build the scrambled case)."""
@@ -263,8 +292,8 @@ def main(n: int = 24, degree: int = 3, n_steps: int = 100,
         n=n, degree=degree, device=device,
         scramble=(impl in SCRAMBLED_IMPLS))
     res = measure(p, src, damp, dt, state0, dm, n_steps=n_steps, impl=impl,
-                  kernel_impl=kernel_impl, order=order, **upwind_u)
-    return report(res, impl, kernel_impl, device, order, **upwind_u)
+                  kernel_impl=kernel_impl, order=order, vti=vti, **upwind_u)
+    return report(res, impl, kernel_impl, device, order, vti=vti, **upwind_u)
 
 
 if __name__ == "__main__":
@@ -277,9 +306,10 @@ if __name__ == "__main__":
                     choices=("kernel", "reference"))
     ap.add_argument("--order", type=int, default=4, choices=(2, 4),
                     help="LF order of the lane and lane_u runners")
+    add_vti_argument(ap)
     add_upwind_u_arguments(ap)
     a = ap.parse_args()
     opts = upwind_u_options(a)
     print(json.dumps(main(n=a.n, degree=a.degree, n_steps=a.steps,
                           impl=a.impl, kernel_impl=a.kernel_impl,
-                          order=a.order, **opts)))
+                          order=a.order, vti=a.vti, **opts)))

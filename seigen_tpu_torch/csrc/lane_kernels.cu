@@ -7,7 +7,9 @@
 //                   mode SEL  <- _vel_kernel_trac_sel  (vel_op_lm_trac_sel)
 //   K5 lane_stress  mode TR   <- _stress_kernel        (stress_op_lm)
 //                   mode SEL  <- _stress_kernel_sel    (stress_op_lm_sel)
-// The anisotropic _stress_kernel_c / _stress_kernel_sel_c are not ported.
+//                   and, with a per-lane Voigt stiffness (cmat), the general
+//                   Hooke law of _stress_kernel_c / _stress_kernel_sel_c in
+//                   the same two modes (the ANISO instantiation)
 // The physics is the JAX kernels' (central flux: velocity jump
 // 1/2 t+ + beta t-, stress jump 1/2 u+ + delta u-, then LIFT (Fscale .) and
 // the 1/rho or Hooke scaling); the TPU layout devices (lane blocks, MXU
@@ -54,6 +56,8 @@ struct LaneArgs {
   const float* coef;   // (ftpp, E) beta (K4) or delta (K5)
   const float* mat0;   // (8, E) row 0: 1/rho (K4) or lambda (K5)
   const float* mat1;   // (8, E) row 0: mu (K5); null for K4
+  const float* cmat;   // K5: (n_sig*8, E) row c*8+k = Voigt C[c,k] (general
+                       // Hooke law; mat0/mat1 unused); null: isotropic
   const float* dr;     // (dim, n_p, n_p) reference derivative matrices
   const float* lift;   // (n_p, nf*n_fp) LIFT
   const int* fnodes;   // (nf, n_fp) volume node of each face node
@@ -184,9 +188,16 @@ lane_vel_kernel(const LaneArgs a) {
 
 // ---------------------------------------------------------------- K5 ---
 // ds_k = sum_{d,c} A_k[d,c] (du_c/dx_d) + LIFT(Fscale sum_{d,c} A_k[d,c] n_d du*_c)
-// with A the isotropic Hooke tensor (lambda, mu) in Voigt row k and
-// du*_c = 1/2 u+_c + delta u-_c (u+ from the mode: TR traces, SEL panels).
-template <int DIM, int NP, int NFP>
+// with A the Hooke tensor in Voigt row k — isotropic (lambda, mu), or with
+// ANISO the lane's general Voigt stiffness, A_k[d,c] = C[k][voigt(c,d)] —
+// and du*_c = 1/2 u+_c + delta u-_c (u+ from the mode: TR traces, SEL
+// panels).  The face pass needs every C[k][m] at every face node: it forms
+// the node's engineering strains of n (x) du* once and reads the
+// coefficient rows through L1 instead of holding n_sig^2 of them in
+// registers; the volume pass loads row k inside its k loop.  ANISO is a
+// template parameter so that the isotropic instantiation keeps its
+// registers.
+template <int DIM, int NP, int NFP, bool ANISO>
 __global__ void __launch_bounds__(kThreads)
 lane_stress_kernel(const LaneArgs a) {
   using S = Shape<DIM, NP, NFP>;
@@ -209,7 +220,8 @@ lane_stress_kernel(const LaneArgs a) {
   for (int r = 0; r < DIM; ++r)
 #pragma unroll
     for (int d = 0; d < DIM; ++d) g[r][d] = row(a.ginv, r * DIM + d);
-  const float lam = row(a.mat0, 0), mu = row(a.mat1, 0);
+  float lam = 0.f, mu = 0.f;
+  if constexpr (!ANISO) lam = row(a.mat0, 0), mu = row(a.mat1, 0);
 
   // scaled face Hooke rows Fscale * A_k (n (x) du*) per Voigt k, face node
   float face[NSIG][NFT];
@@ -234,14 +246,33 @@ lane_stress_kernel(const LaneArgs a) {
                              : row(a.tr, pbase + c * a.cstride + perm[k]);
         du[c] = 0.5f * nb + delta * own;
       }
+      if constexpr (ANISO) {
+        // engineering strains of n (x) du*: slot voigt(c, d) sums n_d du*_c
+        float epsf[NSIG];
 #pragma unroll
-      for (int kk = 0; kk < NSIG; ++kk) {
-        float F[DIM];
-        hooke_row<DIM>(kk, lam, mu, n, F);
-        float fq = 0.f;
+        for (int m = 0; m < NSIG; ++m) epsf[m] = 0.f;
 #pragma unroll
-        for (int c = 0; c < DIM; ++c) fq += F[c] * du[c];
-        face[kk][q] = fs * fq;
+        for (int c = 0; c < DIM; ++c)
+#pragma unroll
+          for (int d = 0; d < DIM; ++d) epsf[voigt<DIM>(c, d)] += n[d] * du[c];
+#pragma unroll
+        for (int kk = 0; kk < NSIG; ++kk) {
+          float fq = 0.f;
+#pragma unroll
+          for (int m = 0; m < NSIG; ++m)
+            fq += row(a.cmat, 8 * kk + m) * epsf[m];
+          face[kk][q] = fs * fq;
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < NSIG; ++kk) {
+          float F[DIM];
+          hooke_row<DIM>(kk, lam, mu, n, F);
+          float fq = 0.f;
+#pragma unroll
+          for (int c = 0; c < DIM; ++c) fq += F[c] * du[c];
+          face[kk][q] = fs * fq;
+        }
       }
     }
   }
@@ -251,8 +282,16 @@ lane_stress_kernel(const LaneArgs a) {
     // B[r][c] = sum_d A_k[d,c] Ginv[r,d]: volume term = sum_r Dr_r @ w_r,
     // w_r = sum_c B[r][c] u_c
     float B[DIM][DIM];
+    if constexpr (ANISO) {
+      float Ck[NSIG];
 #pragma unroll
-    for (int r = 0; r < DIM; ++r) hooke_row<DIM>(k, lam, mu, g[r], B[r]);
+      for (int m = 0; m < NSIG; ++m) Ck[m] = row(a.cmat, 8 * k + m);
+#pragma unroll
+      for (int r = 0; r < DIM; ++r) voigt_row<DIM>(Ck, g[r], B[r]);
+    } else {
+#pragma unroll
+      for (int r = 0; r < DIM; ++r) hooke_row<DIM>(k, lam, mu, g[r], B[r]);
+    }
     float acc[NP];
 #pragma unroll
     for (int i = 0; i < NP; ++i) acc[i] = 0.f;
@@ -290,14 +329,18 @@ int launch(int op, const LaneArgs& a, cudaStream_t stream) {
   const unsigned blocks = (unsigned)((a.E + kThreads - 1) / kThreads);
   if (op == 0)
     lane_vel_kernel<DIM, NP, NFP><<<blocks, kThreads, 0, stream>>>(a);
+  else if (a.cmat != nullptr)
+    lane_stress_kernel<DIM, NP, NFP, true>
+        <<<blocks, kThreads, 0, stream>>>(a);
   else
-    lane_stress_kernel<DIM, NP, NFP><<<blocks, kThreads, 0, stream>>>(a);
+    lane_stress_kernel<DIM, NP, NFP, false>
+        <<<blocks, kThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // Every (dim, n_p, n_fp) of SEIGEN_DISPATCH_SHAPES; -1 for another shape,
-// -2 for a mode the operator does not have or a SEL launch without its
-// tables.
+// -2 for a mode the operator does not have, a SEL launch without its
+// tables, K4 with a stiffness or isotropic K5 without its material rows.
 int dispatch(int op, const LaneArgs* a, int dim, int n_p, int n_fp,
              void* stream) {
   const int sel = op == 0 ? (int)kVelSel : (int)kStressSel;
@@ -305,6 +348,9 @@ int dispatch(int op, const LaneArgs* a, int dim, int n_p, int n_fp,
   if (a->mode == sel && (a->combo == nullptr || a->perms == nullptr ||
                          a->G < 1 || a->G > kMaxPerms || a->cstride < 1 ||
                          (op == 0 && a->sign == nullptr)))
+    return -2;
+  const bool iso_rows = a->mat0 != nullptr && a->mat1 != nullptr;
+  if (op == 0 ? a->cmat != nullptr : (a->cmat == nullptr && !iso_rows))
     return -2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SEIGEN_LAUNCH(D, P, F) return launch<D, P, F>(op, *a, s)
@@ -326,7 +372,8 @@ int seigen_lane_vel(const LaneArgs* a, int dim, int n_p, int n_fp,
   return dispatch(0, a, dim, n_p, n_fp, stream);
 }
 
-// K5. Same contract as seigen_lane_vel.
+// K5. Same contract as seigen_lane_vel; a->cmat != null launches the general
+// Hooke law.
 int seigen_lane_stress(const LaneArgs* a, int dim, int n_p, int n_fp,
                        void* stream) {
   return dispatch(1, a, dim, n_p, n_fp, stream);

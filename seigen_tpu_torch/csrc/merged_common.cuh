@@ -98,6 +98,23 @@ __device__ __forceinline__ void hooke_row(int k, float lam, float mu,
   }
 }
 
+// The same map for a general Voigt stiffness (engineering shear strains):
+// Ck[m] = C[k][m] is row k of the element's matrix, and the strain slot of
+// (velocity component c, direction d) is voigt(c, d), so
+// A_k[d,c] = C[k][voigt(c,d)] and w[c] = sum_d Ck[voigt(c,d)] v[d].
+template <int DIM>
+__device__ __forceinline__ void voigt_row(const float* Ck /*[NSIG]*/,
+                                          const float* v /*[DIM]*/,
+                                          float* w /*[DIM]*/) {
+#pragma unroll
+  for (int c = 0; c < DIM; ++c) {
+    float s = 0.f;
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) s += Ck[voigt<DIM>(c, d)] * v[d];
+    w[c] = s;
+  }
+}
+
 // Impedances of one face's Riemann problem: own side (m), neighbour side
 // (p), their sums, and whether the pair carries shear at all.
 struct FaceImpedance {

@@ -5,6 +5,8 @@
 // _class_call_multi through
 //   K1  vel_merged    -> _vel_body_adapter    -> fused_kernels.py:_vel2_body
 //   K2  stress_merged -> _stress_body_adapter -> fused_kernels.py:_stress2_body
+//       (both Hooke laws: isotropic lambda/mu, and the general Voigt
+//       stiffness of its C branch — the ANISO instantiation below)
 // The physics is the same; the TPU layout devices (per-class pallas_calls,
 // lane blocks and their windows, one-hot MXU permutation and expansion
 // matmuls, bf16 three-pass dots) are gone.  One launch covers all classes,
@@ -57,6 +59,8 @@ struct MergedArgs {
   int npp;             // node rows per component (n_p rounded up to 8)
   int rtf;             // trace rows per face (roundup(dim*n_fp, 8))
   int o_ginv, o_nrm, o_scb, o_bfs, o_dfs, o_mat;
+  int o_C;             // K2: first row of the stiffness section (n_sig
+                       // sections of 8 rows, row c*8+k = C[c,k]); -1: none
   int axpy;            // 1: LF4 update epilogue
   int n_inj;           // 0, 1 or 2 dense source groups
   float dt, c3;        // axpy coefficients
@@ -193,10 +197,14 @@ merged_vel_kernel(const MergedArgs a) {
 
 // ---------------------------------------------------------------- K2 ---
 // ds_k = sum_{d,c} A_k[d,c] (du_c/dx_d) + LIFT(sum_{d,c} A_k[d,c] n_d du*_c)
-// with A the isotropic Hooke tensor (lambda, mu) in Voigt row k and
+// with A the Hooke tensor in Voigt row k — isotropic (lambda, mu), or with
+// ANISO the element's general Voigt stiffness, A_k[d,c] = C[k][voigt(c,d)],
+// whose row k is loaded from the geo C section inside the k loop — and
 // du*_c = scb * u+_c + dfs * u-_c (u+ = producer velocity trace, u- on
 // boundary faces).  Emits the traction traces n . sigma of the output.
-template <int DIM, int NP, int NFP>
+// ANISO is a template parameter so that the isotropic instantiation keeps
+// its registers.
+template <int DIM, int NP, int NFP, bool ANISO>
 __global__ void __launch_bounds__(kThreads)
 merged_stress_kernel(const MergedArgs a) {
   using S = Shape<DIM, NP, NFP>;
@@ -218,7 +226,8 @@ merged_stress_kernel(const MergedArgs a) {
   for (int r = 0; r < DIM; ++r)
 #pragma unroll
     for (int d = 0; d < DIM; ++d) g[r][d] = geo(a.o_ginv + r * DIM + d);
-  const float lam = geo(a.o_mat + 1), mu = geo(a.o_mat + 2);
+  float lam = 0.f, mu = 0.f;
+  if constexpr (!ANISO) lam = geo(a.o_mat + 1), mu = geo(a.o_mat + 2);
 
   FaceLinks<NF> fl;
   face_links<NF, NFP>(a, L, fl);
@@ -247,9 +256,20 @@ merged_stress_kernel(const MergedArgs a) {
   for (int k = 0; k < NSIG; ++k) {
     // B[r][c] = sum_d A_k[d,c] Ginv[r,d]: volume term = sum_r Dr_r @ w_r,
     // w_r = sum_c B[r][c] u_c
+    float Ck[NSIG];
+    if constexpr (ANISO) {
+#pragma unroll
+      for (int m = 0; m < NSIG; ++m) Ck[m] = geo(a.o_C + 8 * k + m);
+    }
+    auto hooke = [&](const float* v, float* w) {
+      if constexpr (ANISO)
+        voigt_row<DIM>(Ck, v, w);
+      else
+        hooke_row<DIM>(k, lam, mu, v, w);
+    };
     float B[DIM][DIM];
 #pragma unroll
-    for (int r = 0; r < DIM; ++r) hooke_row<DIM>(k, lam, mu, g[r], B[r]);
+    for (int r = 0; r < DIM; ++r) hooke(g[r], B[r]);
     float acc[NP];
 #pragma unroll
     for (int i = 0; i < NP; ++i) acc[i] = 0.f;
@@ -274,7 +294,7 @@ merged_stress_kernel(const MergedArgs a) {
       float n[DIM], F[DIM];
 #pragma unroll
       for (int d = 0; d < DIM; ++d) n[d] = geo(a.o_nrm + 8 * d + f);
-      hooke_row<DIM>(k, lam, mu, n, F);
+      hooke(n, F);
 #pragma unroll 1
       for (int kk = 0; kk < NFP; ++kk) {
         const int q = f * NFP + kk;
@@ -326,8 +346,12 @@ int launch(int op, const MergedArgs& a, cudaStream_t stream) {
   const unsigned blocks = (unsigned)((a.Ls + kThreads - 1) / kThreads);
   if (op == 0)
     merged_vel_kernel<DIM, NP, NFP><<<blocks, kThreads, 0, stream>>>(a);
+  else if (a.o_C >= 0)
+    merged_stress_kernel<DIM, NP, NFP, true>
+        <<<blocks, kThreads, 0, stream>>>(a);
   else
-    merged_stress_kernel<DIM, NP, NFP><<<blocks, kThreads, 0, stream>>>(a);
+    merged_stress_kernel<DIM, NP, NFP, false>
+        <<<blocks, kThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -354,7 +378,8 @@ int seigen_merged_vel(const MergedArgs* a, int dim, int n_p, int n_fp,
   return dispatch(0, a, dim, n_p, n_fp, stream);
 }
 
-// K2. Same contract as seigen_merged_vel.
+// K2. Same contract as seigen_merged_vel; a->o_C >= 0 launches the general
+// Hooke law over the geo C section.
 int seigen_merged_stress(const MergedArgs* a, int dim, int n_p, int n_fp,
                          void* stream) {
   return dispatch(1, a, dim, n_p, n_fp, stream);

@@ -1,7 +1,7 @@
 """Operator data for the trace-carrying lane-major operators.
 
 Port of ``seigen_tpu/ops/fused_kernels.py:FusedOpData`` / ``build_fused_data``
-(unpacked, isotropic).  The tables keep the JAX package's row layout, so
+(unpacked).  The tables keep the JAX package's row layout, so
 ``geo``, ``drr`` and ``lift`` compare row for row with the reference:
 
   geo row layout (8-aligned sections; offsets in ``off``):
@@ -11,6 +11,8 @@ Port of ``seigen_tpu/ops/fused_kernels.py:FusedOpData`` / ``build_fused_data``
     bfs   beta_t * Fscale
     dfs   delta_u * Fscale
     mat   row 0 = 1/rho, row 1 = lambda, row 2 = mu
+    C     (only with ``stiffness``) n_sig sections of 8 rows each, row
+          c*8 + k = Voigt C[c, k], rows n_sig..7 of a section zero
 
   drr   (dim*npp + ftpp, npp): [Dr stack; own-face restriction R]
   lift  (npp, ftpp)
@@ -20,7 +22,7 @@ beta/delta*own with Fscale folded: scb = 0.5*Fscale, bfs = beta_t*Fscale,
 dfs = delta_u*Fscale).
 
 Not ported yet: the P1 two-elements-per-lane layout
-(``build_packed_fused_data``) and the anisotropic ``C`` stiffness section.
+(``build_packed_fused_data``).
 The CUDA kernels compute in plain FP32 FFMA, so the JAX package's bf16
 three-pass in-kernel matmul scheme has no counterpart here.
 """
@@ -37,6 +39,15 @@ from .elastic import ElasticParams
 
 def _rup(x, m=8):
     return ((x + m - 1) // m) * m
+
+
+def stiffness_array(stiffness, E: int, n_sig: int) -> np.ndarray:
+    """(E, n_sig, n_sig) float64 host view of a Voigt stiffness given as
+    one matrix or one per element (numpy or tensor)."""
+    if isinstance(stiffness, torch.Tensor):
+        stiffness = stiffness.detach().cpu().numpy()
+    return np.broadcast_to(np.asarray(stiffness, dtype=np.float64),
+                           (E, n_sig, n_sig))
 
 
 @dataclass(frozen=True)
@@ -56,19 +67,20 @@ class FusedOpData:
     E: int
     nf: int
     n_fp: int
-    off: tuple  # (ginv, nrm, scb, bfs, dfs, mat, C(=-1), total)
+    off: tuple  # (ginv, nrm, scb, bfs, dfs, mat, C or -1, total)
     fnodes: tuple  # ((...face0 node ids...), ...)
 
 
 def build_fused_data(p: ElasticParams, damp=None, stiffness=None,
                      packed: bool = False) -> FusedOpData:
     """Fused operator data on p's device and dtype, columns in p's element
-    order.  ``damp``: optional (E, n_p) sponge factors (numpy or tensor)."""
+    order.  ``damp``: optional (E, n_p) sponge factors (numpy or tensor).
+    ``stiffness``: optional (E, n_sig, n_sig) (or broadcastable) per-element
+    Voigt stiffness (engineering strains, ops/anisotropic.py conventions)
+    in the SAME element order as p — adds the ``C`` section, which switches
+    the stress operators to the general Hooke law."""
     if packed:
         raise NotImplementedError("the packed P1 layout is not ported yet")
-    if stiffness is not None:
-        raise NotImplementedError(
-            "the anisotropic stiffness section is not ported yet")
     dim, n_p = p.dim, p.n_p
     npp = _rup(n_p)
     nf, n_fp = p.n_faces, p.n_fp
@@ -95,7 +107,9 @@ def build_fused_data(p: ElasticParams, damp=None, stiffness=None,
     o_bfs = o_scb + 8
     o_dfs = o_bfs + 8
     o_mat = o_dfs + 8
-    total = o_mat + 8
+    n_sig = p.n_sig
+    o_C = o_mat + 8 if stiffness is not None else -1
+    total = o_mat + 8 + (n_sig * 8 if stiffness is not None else 0)
     geo = np.zeros((total, E), dtype=np.float64)
     geo[: dim * dim] = host(p.Ginv).transpose(1, 2, 0).reshape(dim * dim, E)
     fsc = host(p.Fscale)  # (E, nf)
@@ -108,6 +122,10 @@ def build_fused_data(p: ElasticParams, damp=None, stiffness=None,
     geo[o_mat + 0] = host(p.inv_rho)
     geo[o_mat + 1] = host(p.lam)
     geo[o_mat + 2] = host(p.mu)
+    if stiffness is not None:
+        C = stiffness_array(stiffness, E, n_sig)
+        for c in range(n_sig):
+            geo[o_C + c * 8 : o_C + c * 8 + n_sig] = C[:, c, :].T
 
     def dev(a):
         return torch.as_tensor(a, device=p.device).to(p.dtype)
@@ -134,6 +152,6 @@ def build_fused_data(p: ElasticParams, damp=None, stiffness=None,
         E=E,
         nf=nf,
         n_fp=n_fp,
-        off=(o_ginv, o_nrm, o_scb, o_bfs, o_dfs, o_mat, -1, total),
+        off=(o_ginv, o_nrm, o_scb, o_bfs, o_dfs, o_mat, o_C, total),
         fnodes=p.fnodes,
     )

@@ -23,8 +23,10 @@ The public operators launch the CUDA kernels of csrc/lane_kernels.cu for
 CUDA tensors — K4 ``lane_vel`` (modes SIG, TRAC, SEL) and K5
 ``lane_stress`` (modes TR, SEL) — and run the plain PyTorch versions
 (``*_ref``) for CPU tensors.  Each kernel keeps a launch count
-(``LANE_VEL.launches``, ``LANE_STRESS.launches``).  The anisotropic
-``cmat`` Hooke law is not ported yet.
+(``LANE_VEL.launches``, ``LANE_STRESS.launches``).  The stress operators
+take an optional ``cmat`` (n_sig*8, E), row c*8 + k = Voigt C[c, k] of the
+lane's element (ops/anisotropic.py conventions): the general Hooke law,
+computed inside K5 (``LANE_STRESS.launches_c`` counts those launches).
 """
 
 from __future__ import annotations
@@ -39,8 +41,8 @@ import torch
 
 from .cuda_build import CudaLibrary
 from .elastic import ElasticParams, voigt_map
-from .fused_kernels import _rup
-from .merged_kernels import _hooke, check_operands
+from .fused_kernels import _rup, stiffness_array
+from .merged_kernels import check_operands, hooke_rows
 
 # trace-source modes of the kernels (run-time flag, csrc/lane_kernels.cu)
 VEL_SIG, VEL_TRAC, VEL_SEL = 0, 1, 2
@@ -233,15 +235,36 @@ def vel_op_lm_trac_sel_ref(d: LaneOpData, sig_lm, panels, combo, sign,
                               _select_tiles(panels, combo, sign, selcfg))
 
 
-def _no_cmat(cmat):
-    if cmat is not None:
-        raise NotImplementedError(
-            "the anisotropic lane stress operator (cmat) is not ported yet")
+def build_cmat(stiffness, d: LaneOpData, old_of_new=None) -> torch.Tensor:
+    """(n_sig*8, E) stiffness rows of the lane stress operators on d's
+    device and dtype: row c*8 + k = C[e, c, k] of the element e =
+    old_of_new[lane] (identity when None); rows n_sig..7 of each section
+    are zero.  ``stiffness``: (n_sig, n_sig) or (E, n_sig, n_sig)."""
+    n_sig, E = d.n_sig, d.E
+    C = stiffness_array(stiffness, E, n_sig)
+    if old_of_new is not None:
+        C = C[np.asarray(old_of_new)]
+    cm = np.zeros((n_sig * 8, E), dtype=np.float64)
+    for c in range(n_sig):
+        cm[c * 8 : c * 8 + n_sig] = C[:, c, :].T
+    return torch.as_tensor(cm, device=d.ginv.device).to(d.ginv.dtype)
+
+
+def check_cmat(name, d: LaneOpData, cmat):
+    """Raise unless cmat is a (n_sig*8, E) tensor of d's dtype and device."""
+    if not isinstance(cmat, torch.Tensor) \
+            or cmat.shape != (d.n_sig * 8, d.E) \
+            or cmat.dtype != d.ginv.dtype or cmat.device != d.ginv.device:
+        got = tuple(cmat.shape) if isinstance(cmat, torch.Tensor) else cmat
+        raise ValueError(
+            f"{name}: cmat must be a ({d.n_sig * 8}, {d.E}) {d.ginv.dtype} "
+            f"tensor on {d.ginv.device}, got {got!r}")
 
 
 def stress_op_lm_ref(d: LaneOpData, u_lm, tr_lm, cmat=None):
     """Plain version of K5 mode TR (see stress_op_lm)."""
-    _no_cmat(cmat)
+    if cmat is not None:
+        check_cmat("stress_op_lm_ref", d, cmat)
     dim, ftpp = d.dim, d.ftpp
     E = u_lm.shape[1]
     der, own = _derivs_own(d, u_lm, dim)
@@ -254,8 +277,8 @@ def stress_op_lm_ref(d: LaneOpData, u_lm, tr_lm, cmat=None):
 
     du = [0.5 * nbr[c] + d.delta * own[c] for c in range(dim)]
     lam, mu = d.lam[0], d.mu[0]
-    vol = _hooke(dim, lam, mu, grad)
-    face = _hooke(dim, lam, mu, lambda c, k: nrm[k] * du[c])
+    vol = hooke_rows(dim, lam, mu, cmat, grad)
+    face = hooke_rows(dim, lam, mu, cmat, lambda c, k: nrm[k] * du[c])
     return torch.cat([v + torch.matmul(d.lift, f * d.fsc)
                       for v, f in zip(vol, face)], dim=0)
 
@@ -263,9 +286,8 @@ def stress_op_lm_ref(d: LaneOpData, u_lm, tr_lm, cmat=None):
 def stress_op_lm_sel_ref(d: LaneOpData, u_lm, panels, combo, selcfg,
                          cmat=None):
     """Plain version of K5 mode SEL (see stress_op_lm_sel)."""
-    _no_cmat(cmat)
-    return stress_op_lm_ref(d, u_lm,
-                            _select_tiles(panels, combo, None, selcfg))
+    return stress_op_lm_ref(
+        d, u_lm, _select_tiles(panels, combo, None, selcfg), cmat=cmat)
 
 
 # ---------------------------------------------------------------------------
@@ -281,7 +303,7 @@ class LaneArgs(ctypes.Structure):
 
     _fields_ = [(n, _P) for n in (
         "field", "tr", "combo", "sign", "perms", "ginv", "nrm", "fsc",
-        "coef", "mat0", "mat1", "dr", "lift", "fnodes", "out")] + [
+        "coef", "mat0", "mat1", "cmat", "dr", "lift", "fnodes", "out")] + [
         ("E", ctypes.c_longlong)] + [(n, ctypes.c_int) for n in (
             "npp", "ftpp", "rows_pad", "cstride", "G", "mode")]
 
@@ -314,14 +336,16 @@ def check_select(name, d: LaneOpData, selcfg, combo):
 
 class LaneKernel:
     """ctypes binding of K4 (``lane_vel``) or K5 (``lane_stress``), with
-    its launch count: ``launches`` grows by one per kernel launch and
-    nowhere else."""
+    its launch counts: ``launches`` grows by one per kernel launch and
+    nowhere else; ``launches_c`` counts the launches among them that ran
+    the general Hooke law (K5 with ``cmat``)."""
 
     def __init__(self, symbol: str, name: str, vel: bool):
         self.symbol = symbol
         self.name = name
         self.vel = vel
         self.launches = 0
+        self.launches_c = 0
         self._fn = None
 
     def _function(self):
@@ -345,11 +369,14 @@ class LaneKernel:
         return LIBRARY.build_seconds
 
     def __call__(self, d: LaneOpData, field, tr, mode, combo=None,
-                 sign=None, selcfg=None):
+                 sign=None, selcfg=None, cmat=None):
         dev = field.device
         if dev.type != "cuda":
             raise ValueError(f"{self.name}: the kernel takes CUDA tensors, "
                              f"got {dev}")
+        if cmat is not None and self.vel:
+            raise ValueError(f"{self.name}: the velocity operator has no "
+                             "material law and takes no cmat")
         E = d.E
         sel = mode == (VEL_SEL if self.vel else STRESS_SEL)
         C_in, C_out = ((d.n_sig, d.dim) if self.vel else (d.dim, d.n_sig))
@@ -368,6 +395,9 @@ class LaneKernel:
             checks += [(d.beta, d.ftpp), (d.irho, 8)]
             if sel:
                 checks.append((sign, 8))
+        elif cmat is not None:
+            check_cmat(self.name, d, cmat)
+            checks += [(d.delta, d.ftpp), (cmat, d.n_sig * 8)]
         else:
             checks += [(d.delta, d.ftpp), (d.lam, 8), (d.mu, 8)]
         check_operands(self.name, dev, E, checks)
@@ -382,7 +412,7 @@ class LaneKernel:
             ginv=ptr(d.ginv), nrm=ptr(d.nrm), fsc=ptr(d.fsc),
             coef=ptr(d.beta if self.vel else d.delta),
             mat0=ptr(d.irho if self.vel else d.lam),
-            mat1=None if self.vel else ptr(d.mu),
+            mat1=None if self.vel else ptr(d.mu), cmat=ptr(cmat),
             dr=ptr(d.kdr), lift=ptr(d.klift), fnodes=ptr(d.kfn), out=ptr(out),
             E=E, npp=d.npp, ftpp=d.ftpp, rows_pad=rows_pad, cstride=cstride,
             G=0 if perm_t is None else perm_t.shape[0], mode=mode,
@@ -396,6 +426,7 @@ class LaneKernel:
                 else f"bad mode {mode}" if err == -2
                 else f"cudaError {err}"))
         self.launches += 1
+        self.launches_c += int(cmat is not None)
         return out
 
 
@@ -437,22 +468,22 @@ def vel_op_lm_trac_sel(d: LaneOpData, sig_lm, panels, combo, sign, selcfg):
 
 def stress_op_lm(d: LaneOpData, u_lm, tr_lm, cmat=None):
     """Lane-major stress operator: u (dim*npp, E) and neighbour u traces
-    (dim*ftpp, E) -> (n_sig*npp, E), isotropic Hooke law.  CUDA tensors
-    launch K5 (mode TR); CPU tensors run stress_op_lm_ref."""
-    _no_cmat(cmat)
+    (dim*ftpp, E) -> (n_sig*npp, E).  Isotropic Hooke law (d.lam, d.mu),
+    or with ``cmat`` (n_sig*8, E), row c*8 + k = Voigt C[c, k], the general
+    one.  CUDA tensors launch K5 (mode TR); CPU tensors run
+    stress_op_lm_ref."""
     if _on_cuda(u_lm):
-        return LANE_STRESS(d, u_lm, tr_lm, STRESS_TR)
-    return stress_op_lm_ref(d, u_lm, tr_lm)
+        return LANE_STRESS(d, u_lm, tr_lm, STRESS_TR, cmat=cmat)
+    return stress_op_lm_ref(d, u_lm, tr_lm, cmat=cmat)
 
 
 def stress_op_lm_sel(d: LaneOpData, u_lm, panels, combo, selcfg, cmat=None):
     """stress_op_lm with the u-trace (f2, pi)-select in the operator (K5
-    mode SEL, no sign)."""
-    _no_cmat(cmat)
+    mode SEL, no sign); ``cmat`` as in stress_op_lm."""
     if _on_cuda(u_lm):
         return LANE_STRESS(d, u_lm, panels, STRESS_SEL, combo=combo,
-                           selcfg=selcfg)
-    return stress_op_lm_sel_ref(d, u_lm, panels, combo, selcfg)
+                           selcfg=selcfg, cmat=cmat)
+    return stress_op_lm_sel_ref(d, u_lm, panels, combo, selcfg, cmat=cmat)
 
 
 _OPS = {f.__name__: (f, r) for f, r in (

@@ -18,7 +18,8 @@ the arrays compare row for row (tests/test_torch_merged_ops.py).
 (csrc/merged_kernels.cu) for CUDA tensors and run the plain PyTorch
 versions ``vel_merged_ref``/``stress_merged_ref`` for CPU tensors.  Each
 kernel keeps a launch count (``VEL_KERNEL.launches``,
-``STRESS_KERNEL.launches``).
+``STRESS_KERNEL.launches``; ``launches_c`` counts those of them that ran
+the general Hooke law of a ``C`` section, see ops/fused_kernels.py).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .anisotropic import _voigt_strain_pair
 from .cuda_build import CudaLibrary
 from .elastic import voigt_map
 from .fused_kernels import FusedOpData, _rup
@@ -216,6 +218,25 @@ def _hooke(dim, lam, mu, gd):
     return comps
 
 
+def _voigt_hooke(dim, crow, gd):
+    """gd(c, d) -> Voigt rows of C : sym(e) with engineering strains:
+    row k = sum_m crow(k, m) eps_m, eps_m = sum of gd(i, j) over the
+    (component i, direction j) pairs of Voigt slot m."""
+    eps = [sum(gd(i, j) for (i, j) in slot)
+           for slot in _voigt_strain_pair(dim)]
+    return [sum(crow(k, m) * e for m, e in enumerate(eps))
+            for k in range(len(eps))]
+
+
+def hooke_rows(dim, lam, mu, cmat, gd):
+    """Voigt rows of the stress of gd(c, d): the general law over the
+    8-row sections of ``cmat`` (row c*8 + k = C[c, k]) when it is given,
+    else the isotropic (lam, mu) one."""
+    if cmat is None:
+        return _hooke(dim, lam, mu, gd)
+    return _voigt_hooke(dim, lambda c, k: cmat[c * 8 + k], gd)
+
+
 def stress_merged_ref(plan: MergedPlan, d: FusedOpData, u_lm, trs, mask,
                       axpy=None, dt=0.0, c3=0.0, inject=None):
     """Plain version of K2 (see stress_merged)."""
@@ -229,14 +250,18 @@ def stress_merged_ref(plan: MergedPlan, d: FusedOpData, u_lm, trs, mask,
     nrm = [_face_rows(d, geo, o_nrm + 8 * k) for k in range(dim)]
     scb, dfs = _face_rows(d, geo, o_scb), _face_rows(d, geo, o_dfs)
     lam, mu = geo[o_mat + 1], geo[o_mat + 2]
+    o_C = d.off[6]
+    cmat = geo[o_C : o_C + 8 * d.n_sig] if o_C >= 0 else None
 
     def grad(k, c):  # d u_c / d x_k
         return sum(geo[o_ginv + r * dim + k] * der[r, c] for r in range(dim))
 
-    vol = torch.stack(_hooke(dim, lam, mu, lambda c, k: grad(k, c)))
+    vol = torch.stack(hooke_rows(dim, lam, mu, cmat,
+                                 lambda c, k: grad(k, c)))
     u_nb = _neighbour(plan, trs, (1.0,) * dim, own, _own_mask(d, mask))
     jump = scb * u_nb + dfs * own
-    face = torch.stack(_hooke(dim, lam, mu, lambda c, k: nrm[k] * jump[c]))
+    face = torch.stack(hooke_rows(dim, lam, mu, cmat,
+                                  lambda c, k: nrm[k] * jump[c]))
     res = vol + torch.matmul(d.lift[:, : d.ftp], face)
     damp = d.damp if axpy is not None else None
     res = _epilogue(res, axpy, dt, c3, damp, inject, d.n_sig, npp)
@@ -262,7 +287,7 @@ class MergedArgs(ctypes.Structure):
         "plan", "dr", "lift", "fnodes", "out", "trout")] + [
         ("Ls", ctypes.c_longlong)] + [(n, ctypes.c_int) for n in (
             "NC", "npp", "rtf", "o_ginv", "o_nrm", "o_scb", "o_bfs", "o_dfs",
-            "o_mat", "axpy", "n_inj")] + [(n, ctypes.c_float) for n in (
+            "o_mat", "o_C", "axpy", "n_inj")] + [(n, ctypes.c_float) for n in (
                 "dt", "c3", "r0", "r1")]
 
 
@@ -280,12 +305,15 @@ def check_operands(name, dev, Ls, checks):
 
 class MergedKernel:
     """ctypes binding of one merged operator kernel, with its launch
-    count: ``launches`` grows by one per kernel launch and nowhere else."""
+    counts: ``launches`` grows by one per kernel launch and nowhere else;
+    ``launches_c`` counts the launches among them that ran the general
+    Hooke law (K2 on operator data with a ``C`` section)."""
 
     def __init__(self, symbol: str, name: str):
         self.symbol = symbol
         self.name = name
         self.launches = 0
+        self.launches_c = 0
         self._fn = None
 
     def _function(self):
@@ -326,10 +354,16 @@ class MergedKernel:
         checks += [(damp, d.npp)] if damp is not None else []
         checks += [(s_g, C_out * d.npp) for s_g, _ in inject]
         check_operands(self.name, dev, Ls, checks)
+        o = d.off
+        # the C section switches K2 to the general Hooke law; K1 has no
+        # material law and ignores it
+        o_C = o[6] if self.name == "merged_stress" else -1
+        if o_C >= 0 and o_C + 8 * d.n_sig > d.geo.shape[0]:
+            raise ValueError(f"{self.name}: geo has {d.geo.shape[0]} rows, "
+                             f"its C section needs {o_C + 8 * d.n_sig}")
         out = torch.empty((C_out * d.npp, Ls), dtype=field.dtype, device=dev)
         trout = torch.empty((plan.nf * plan.rtf, Ls), dtype=field.dtype,
                             device=dev)
-        o = d.off
         ptr = (lambda x: None if x is None else x.data_ptr())
         args = MergedArgs(
             field=ptr(field), trs=ptr(trs), geo=ptr(d.geo), mask=ptr(mask),
@@ -342,7 +376,7 @@ class MergedKernel:
             fnodes=ptr(plan.fnodes), out=ptr(out), trout=ptr(trout),
             Ls=Ls, NC=plan.NC, npp=d.npp, rtf=plan.rtf, o_ginv=o[0],
             o_nrm=o[1], o_scb=o[2], o_bfs=o[3], o_dfs=o[4], o_mat=o[5],
-            axpy=int(axpy is not None), n_inj=len(inject),
+            o_C=o_C, axpy=int(axpy is not None), n_inj=len(inject),
             dt=float(dt), c3=float(c3),
             r0=float(inject[0][1]) if len(inject) > 0 else 0.0,
             r1=float(inject[1][1]) if len(inject) > 1 else 0.0,
@@ -355,6 +389,7 @@ class MergedKernel:
                 f"no instantiation for dim={d.dim} n_p={d.n_p}" if err == -1
                 else f"cudaError {err}"))
         self.launches += 1
+        self.launches_c += int(o_C >= 0)
         return out, trout
 
 
@@ -393,7 +428,9 @@ def stress_merged(plan: MergedPlan, d: FusedOpData, u_lm, trs, mask,
     """Merged stress operator (K2): consumes PRODUCER velocity traces trs;
     axpy (s, sh1) additionally folds d.damp: out = damp*(s + dt*sh1 +
     c3*ds).  Emits traction traces.  inject: see vel_merged (S_g has
-    n_sig*npp rows here).
+    n_sig*npp rows here).  Operator data built with ``stiffness``
+    (d.off[6] >= 0) takes the general Hooke law over its ``C`` rows
+    instead of the isotropic (lambda, mu) one.
 
     CUDA tensors launch K2; CPU tensors run stress_merged_ref.
     """

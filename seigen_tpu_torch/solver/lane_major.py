@@ -25,8 +25,8 @@ import numpy as np
 import torch
 
 from ..ops.elastic import ElasticParams
-from ..ops.lane_kernels import LaneOpData, build_lane_data, lane_op, \
-    permute_lanes
+from ..ops.lane_kernels import LaneOpData, build_cmat, build_lane_data, \
+    lane_op, permute_lanes
 from ..ops.structured_exchange import StructuredExchange
 from ..ops.unstructured_exchange import _gather_plan, _gather_traces
 from .receivers import ReceiverData
@@ -131,7 +131,12 @@ def make_exchange_lm(ex: StructuredExchange, d: LaneOpData, C: int, E: int):
 
 class LaneMajorRunner:
     """Build once from concrete data; run entire simulations lane-major
-    (LF2 or LF4, structured meshes, periodic ones included)."""
+    (LF2 or LF4, structured meshes, periodic ones included).
+
+    ``stiffness``: optional (n_sig, n_sig) or (E, n_sig, n_sig) Voigt
+    stiffness in p's element order (ops/anisotropic.py conventions): the
+    stress operator then takes the general Hooke law instead of p's
+    lam/mu."""
 
     def __init__(
         self,
@@ -146,9 +151,6 @@ class LaneMajorRunner:
         impl: str | None = None,
         stiffness=None,
     ):
-        if stiffness is not None:
-            raise NotImplementedError(
-                "the anisotropic lane stress operator is not ported yet")
         self.impl = resolve_impl(impl, p.device)
         self.record_pressure = record_pressure
         self.p, self.ex, self.order = p, ex, order
@@ -165,6 +167,11 @@ class LaneMajorRunner:
         perm = torch.as_tensor(old_of_new, device=p.device)
         self.d = d = permute_lanes(d, perm)
         self.ex_u, self.ex_s = self._make_exchanges()
+
+        # general anisotropic Hooke rows (n_sig*8, E), lanes in the new
+        # order: row c*8+k = Voigt C[old_of_new, c, k]
+        self.cmat = (None if stiffness is None
+                     else build_cmat(stiffness, d, old_of_new))
 
         # tiled damping rows (lanes in the new order)
         self.damp_u = self.damp_s = None
@@ -246,7 +253,8 @@ class LaneMajorRunner:
         return self._op("vel_op_lm")(self.d, s_lm, self.ex_s(s_lm))
 
     def _stress(self, u_lm):
-        return self._op("stress_op_lm")(self.d, u_lm, self.ex_u(u_lm))
+        return self._op("stress_op_lm")(self.d, u_lm, self.ex_u(u_lm),
+                                        cmat=self.cmat)
 
     def _inject(self, field, part, t):
         """field[:, lanes_g] += r_g(t) * patch_g for every wavelet group;

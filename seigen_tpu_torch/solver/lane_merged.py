@@ -1,8 +1,9 @@
 """Exchange-in-kernel lane-major LF4 solver (structured meshes).
 
-Port of ``seigen_tpu/solver/lane_merged.py:MergedLaneRunner`` (unpacked,
-isotropic).  The state lives in the class-major lane layout for the whole
-run — u: (dim*npp, Ls), sigma: (n_sig*npp, Ls), Ls = m*NC — and every
+Port of ``seigen_tpu/solver/lane_merged.py:MergedLaneRunner`` (unpacked;
+isotropic, or with ``stiffness=`` a Voigt stiffness per element).  The state
+lives in the class-major lane layout for the whole run — u: (dim*npp, Ls),
+sigma: (n_sig*npp, Ls), Ls = m*NC — and every
 operator reads the producer trace arrays of its input directly
 (ops/merged_kernels.py), so a step is six operator launches plus one damping
 multiply of u.  The traction traces of sigma ride the step carry.
@@ -49,19 +50,24 @@ class MergedLaneRunner:
         damp: torch.Tensor | np.ndarray | None = None,
         receivers: ReceiverData | None = None,
         impl: str | None = None,
+        stiffness=None,
     ):
+        """``stiffness``: optional (n_sig, n_sig) or (E, n_sig, n_sig)
+        Voigt stiffness in p's element order (ops/anisotropic.py
+        conventions): the stress operator then takes the general Hooke
+        law over the ``C`` section of the operator data."""
         self.impl = impl = resolve_impl(impl, p.device)
         self._vel_op = vel_merged if impl == "kernel" else vel_merged_ref
         self._stress_op = (stress_merged if impl == "kernel"
                            else stress_merged_ref)
         self._dt_f = float(dt)
         self._c3_f = float(dt) ** 3 / 24.0
-        self._setup_core(p, ex, dt, damp=damp)
+        self._setup_core(p, ex, dt, damp=damp, stiffness=stiffness)
         self._build_sources(src)
         self._build_receivers(receivers)
         self._lf = self._compose_step()
 
-    def _setup_core(self, p, ex, dt, damp=None, pay=None):
+    def _setup_core(self, p, ex, dt, damp=None, pay=None, stiffness=None):
         """Class-major permutation, merged plan, placed geo/mask, face-node
         normal expansion + restriction matrix (also used by the upwind RK4
         runner).  pay: trace payload components per face (default dim)."""
@@ -79,9 +85,10 @@ class MergedLaneRunner:
 
         if damp is not None:
             damp = torch.as_tensor(damp, device=p.device)[perm]
-        d = build_fused_data(p, damp=damp)
-        # lanes are class-major elements: permute the geo columns (damp was
-        # permuted above)
+        d = build_fused_data(p, damp=damp, stiffness=stiffness)
+        # lanes are class-major elements: permute the geo columns, the
+        # stiffness rows among them — stiffness went in in p's element
+        # order (damp was permuted above)
         self.d = d = dataclasses.replace(d, geo=d.geo[:, perm].contiguous())
         self.plan = plan = build_merged_plan(ex, d, pay=pay)
         if plan is None:
@@ -119,6 +126,7 @@ class MergedLaneRunner:
         d, p = self.d, self.p
         self.src_dense = None
         self._src_groups = []
+        self.src_vu = self.src_vs = self.src_tru = self.src_trt = None
         if src is None:
             self.src_elems = None
             return

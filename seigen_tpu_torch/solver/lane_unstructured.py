@@ -36,6 +36,7 @@ class UnstructuredLaneRunner(LaneMajorRunner):
 
     ``centroids`` (E, dim), when given, drives a Morton locality ordering
     (neighbour gathers become mostly short-range); identity otherwise.
+    ``stiffness`` (see LaneMajorRunner) follows the lanes into that order.
     """
 
     def __init__(self, p: ElasticParams, dt: float, *, centroids=None,
@@ -87,5 +88,6 @@ class UnstructuredLaneRunner(LaneMajorRunner):
         if self._fused_select:
             fn, combo, _, selcfg = self._pg_u
             return self._op("stress_op_lm_sel")(
-                self.d, u_lm, fn(u_lm), combo, selcfg)
-        return self._op("stress_op_lm")(self.d, u_lm, self.ex_u(u_lm))
+                self.d, u_lm, fn(u_lm), combo, selcfg, cmat=self.cmat)
+        return self._op("stress_op_lm")(self.d, u_lm, self.ex_u(u_lm),
+                                        cmat=self.cmat)

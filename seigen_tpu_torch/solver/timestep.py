@@ -141,12 +141,17 @@ def make_step(
     order: int = 4,
     src: SourceData | None = None,
     damp: torch.Tensor | None = None,
+    vel_op=apply_vel_op,
+    stress_op=apply_stress_op,
 ):
-    """Build the single-timestep function (State, t) -> State."""
+    """Build the single-timestep function (State, t) -> State.
+
+    ``vel_op``/``stress_op``: (p, field) operators replacing the isotropic
+    einsum ones (e.g. ops/anisotropic.py:make_aniso_stress_op)."""
     dt = numpy_dtype(p.dtype)(dt)
     lf = compose_lf_step(
-        vel=lambda s: apply_vel_op(p, s),
-        stress=lambda u: apply_stress_op(p, u),
+        vel=lambda s: vel_op(p, s),
+        stress=lambda u: stress_op(p, u),
         inject_u=lambda du, t: inject_velocity(src, du, t),
         inject_s=lambda ds, t: inject_stress(src, ds, t),
         post=damp_post(damp),
@@ -191,6 +196,8 @@ def run(
     damp: torch.Tensor | None = None,
     receivers: ReceiverData | None = None,
     step0: int = 0,
+    vel_op=apply_vel_op,
+    stress_op=apply_stress_op,
 ):
     """Run n_steps; returns (final State, seismograms tensor or None).
 
@@ -200,7 +207,8 @@ def run(
     sources in phase on resume).  Step k starts at t = k*dt, computed in
     the run dtype.
     """
-    step = make_step(p, dt, order=order, src=src, damp=damp)
+    step = make_step(p, dt, order=order, src=src, damp=damp, vel_op=vel_op,
+                     stress_op=stress_op)
     npdt = numpy_dtype(p.dtype)
     dt_ = npdt(dt)
     state = state0

@@ -3,7 +3,8 @@
 ``setup_case`` must build the JAX bench's case (same mesh, parameters,
 source, sponge, dt; with ``scramble=True`` the same cell permutation);
 ``measure`` runs end to end on the CPU through the plain operator versions,
-for the lane runners at LF2 and LF4 too; ``main`` refuses to measure
+for the lane runners at LF2 and LF4 too, and with ``vti=True`` through the
+general Hooke law (the upwind impls refuse it); ``main`` refuses to measure
 without a CUDA device; the entry points default to the card; and importing
 the port never imports JAX.
 """
@@ -21,6 +22,19 @@ import torch
 
 from seigen_tpu.bench import throughput as jbench
 from seigen_tpu_torch.bench import throughput as tbench
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These tiny CPU operators gain nothing from intra-op threads, and
+    several pytest workers' thread pools fight over the cores (a 60-step
+    einsum run: 0.15 s on one thread, 106 s with six processes on eight
+    cores at the default)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -78,6 +92,47 @@ def test_measure_lane_runners_on_cpu(impl, order):
     with pytest.raises(ValueError, match="LF4"):
         tbench.make_runner("merged", dm, p, src, damp, dt, "reference",
                            order=2)
+
+
+@pytest.mark.parametrize("impl", ["merged", "lane", "lane_u"])
+def test_vti_bench_runs_the_general_hooke_law(impl):
+    """``vti=True`` hands the runner the JAX bench's VTI stiffness (same
+    Thomsen parameters, one matrix per element) and changes the result."""
+    from seigen_tpu.ops.anisotropic import vti_stiffness
+
+    dm, p, src, damp, dt, st = tbench.setup_case(
+        n=2, degree=1, dtype=torch.float64, device="cpu",
+        scramble=(impl == "lane_u"))
+    E = dm.num_elements
+    C = tbench.bench_stiffness(impl, E)
+    assert C.shape == (E, 6, 6)
+    np.testing.assert_array_equal(
+        C[E // 2], vti_stiffness(2.0, 1.0, 1.0, epsilon=0.15, delta=0.05,
+                                 gamma=0.1))
+    outs = []
+    for vti in (False, True):
+        runner = tbench.make_runner(impl, dm, p, src, damp, dt, "reference",
+                                    vti=vti)
+        has_c = (runner.d.off[6] >= 0 if impl == "merged"
+                 else runner.cmat is not None)
+        assert has_c is vti
+        outs.append(runner.run(st, 2)[0])
+    assert torch.isfinite(outs[1].s).all()
+    assert not torch.allclose(outs[0].s, outs[1].s)
+    res = tbench.measure(p, src, damp, dt, st, dm, n_steps=2, impl=impl,
+                         kernel_impl="reference", vti=True)
+    assert np.isfinite(res.dof_updates_per_sec) and res.seconds > 0
+
+
+@pytest.mark.parametrize("impl", ["upwind_lane", "upwind_lane_u"])
+def test_vti_bench_refuses_the_upwind_impls(impl):
+    """The Riemann solver is isotropy-specific: refuse rather than time
+    isotropic physics under a row labelled vti."""
+    dm, p, src, damp, dt, _ = tbench.setup_case(
+        n=2, degree=1, dtype=torch.float64, device="cpu",
+        scramble=(impl == "upwind_lane_u"))
+    with pytest.raises(ValueError, match="vti"):
+        tbench.make_runner(impl, dm, p, src, damp, dt, "reference", vti=True)
 
 
 def test_scrambled_case_matches_jax():

@@ -12,7 +12,10 @@ box_mesh(4, 4, 4) at P2 and P3 and scrambled rect_mesh(8, 8) P2; the
 kernel runners (merged LF4, upwind RK4 elastic and viscoelastic, lane LF2,
 lane_u LF4 with both select paths, upwind_lane_u with its three steppers
 and viscoelastic) against the plain runners for a few steps, with their
-launch counts.
+launch counts; and the general Hooke law of K2 (plain, axpy, axpy + damp,
+1 and 2 source groups) and K5 (TR, SEL) with a per-element non-symmetric
+random stiffness on box_mesh(4, 4, 4) P2/P3 and rect_mesh(8, 8) P2, plus
+the three runners with a VTI stiffness (``launches_c`` counts).
 These tests need a CUDA device and nvcc; elsewhere they skip.  On the GPU
 machine (which has no JAX, so the suite's conftest is not loaded):
 
@@ -438,6 +441,162 @@ def test_upwind_u_runner_kernels_match_plain(upwind_u_case, device, name,
     assert luk.LANE_UPWIND_AXPY.launches - n7 == (12 if axpy else 0)
     assert luk.LANE_UPWIND_RHS.launches - n6 == (0 if axpy else 12)
     out_r, _ = plain.run(st, 3)
+    for a, b in ((out_k.u, out_r.u), (out_k.s, out_r.s)):
+        assert torch.isfinite(a).all()
+        assert ((a - b).norm() / b.norm()).item() < 1e-5
+
+
+# --- the general Hooke law (per-element Voigt stiffness) of K2 and K5 ---
+
+
+def _random_stiffness(E, n_sig, seed):
+    """Per-element NON-symmetric matrices: a C[c, k] / C[k, c] swap or a
+    transposed strain index hides behind a symmetric one."""
+    return np.random.default_rng(seed).standard_normal((E, n_sig, n_sig))
+
+
+@pytest.fixture(scope="module", params=[(3, 2), (3, 3), (2, 2)],
+                ids=["3d-P2", "3d-P3", "2d-P2"])
+def aniso_case(request, device):
+    """Structured and scrambled copies of box_mesh(4, 4, 4) or
+    rect_mesh(8, 8) with a blob source and a sponge, and runner factories
+    taking a stiffness."""
+    import dataclasses
+
+    dim, degree = request.param
+    topo = box_mesh(4, 4, 4) if dim == 3 else rect_mesh(8, 8)
+    perm = np.random.default_rng(0).permutation(topo.num_cells)
+    bc = absorbing_bc_fn(((0.0, 1.0),) * dim, free_sides=[(dim - 1, "hi")])
+    out = {}
+    for name, t in (("structured", topo), ("scrambled", dataclasses.replace(
+            topo, cells=topo.cells[perm], structure=None))):
+        dm = build_discrete(t, degree, bc_fn=bc)
+        p = build_params(dm, Material(1.0, 2.0, 1.0), device=device)
+        kw = dict(
+            src=build_sources(dm, [PointSource(
+                position=(0.5, 0.5, 0.7)[:dim], f0=4.0, radius=0.25)],
+                device=device),
+            damp=torch.as_tensor(sponge_mask(dm, [(0, "lo"), (0, "hi")],
+                                             width=0.3),
+                                 device=device).float())
+        out[name] = (dm, p, kw)
+    return out
+
+
+@pytest.mark.parametrize("variant", ["plain", "axpy", "axpy_damp", "inject1",
+                                     "inject2"])
+def test_merged_stress_kernel_with_stiffness_matches_plain(aniso_case,
+                                                           variant):
+    import dataclasses
+
+    dm, p, kw = aniso_case["structured"]
+    C = _random_stiffness(dm.num_elements, p.n_sig, 40)
+    runner = MergedLaneRunner(p, detect_structured(dm), 0.01, impl="kernel",
+                              stiffness=C, **kw)
+    d, plan = runner.d, runner.plan
+    assert d.off[6] >= 0
+    if variant == "axpy":
+        d = dataclasses.replace(d, damp=None)
+    rng = np.random.default_rng(41)
+
+    def field(Cn, used, rows):
+        a = rng.standard_normal((Cn, rows, plan.Ls)).astype(np.float32)
+        a[:, used:] = 0.0
+        return torch.as_tensor(a.reshape(Cn * rows, plan.Ls), device=p.device)
+
+    u = field(d.dim, d.n_p, d.npp)
+    y = [field(d.n_sig, d.n_p, d.npp) for _ in range(2)]
+    trs = field(d.nf, d.dim * d.n_fp, plan.rtf)
+    okw = {}
+    if variant.startswith("axpy"):
+        okw = dict(axpy=(y[0], y[1]), dt=0.01, c3=0.01**3 / 24.0)
+    elif variant.startswith("inject"):
+        okw = dict(inject=[(y[g], (0.7, -1.3)[g])
+                           for g in range(int(variant[-1]))])
+    args = (plan, d, u, trs, runner.mask)
+    n0, c0 = mk.STRESS_KERNEL.launches, mk.STRESS_KERNEL.launches_c
+    got = mk.stress_merged(*args, **okw)
+    ref = mk.stress_merged_ref(*args, **okw)
+    torch.cuda.synchronize()
+    assert mk.STRESS_KERNEL.launches == n0 + 1
+    assert mk.STRESS_KERNEL.launches_c == c0 + 1
+    for g, r in zip(got, ref):
+        _assert_close(g, r)
+
+
+@pytest.mark.parametrize("mesh", ["structured", "scrambled"])
+@pytest.mark.parametrize("mode", ["TR", "SEL"])
+def test_lane_stress_kernel_with_cmat_matches_plain(aniso_case, mesh, mode):
+    dm, p, kw = aniso_case[mesh]
+    C = _random_stiffness(dm.num_elements, p.n_sig, 42)
+    r = UnstructuredLaneRunner(p, 0.01, impl="kernel", stiffness=C,
+                               centroids=dm.coords.mean(axis=1), **kw)
+    d = r.d
+    _, combo_u, _, cfg_u = r._pg_u
+    rng = np.random.default_rng(43)
+
+    def rows(Cn, used, pad):
+        a = rng.standard_normal((Cn, pad, d.E)).astype(np.float32)
+        a[:, used:] = 0.0
+        return torch.as_tensor(a.reshape(Cn * pad, d.E), device=p.device)
+
+    u = rows(d.dim, d.n_p, d.npp)
+    if mode == "TR":
+        fused, plain = lk.stress_op_lm, lk.stress_op_lm_ref
+        args = (d, u, rows(d.dim, d.ftp, d.ftpp))
+    else:
+        fused, plain = lk.stress_op_lm_sel, lk.stress_op_lm_sel_ref
+        args = (d, u, rows(d.nf, d.dim * d.ftp, cfg_u[5]), combo_u, cfg_u)
+    n0, c0 = lk.LANE_STRESS.launches, lk.LANE_STRESS.launches_c
+    got = fused(*args, cmat=r.cmat)
+    ref = plain(*args, cmat=r.cmat)
+    iso = fused(*args)
+    torch.cuda.synchronize()
+    assert lk.LANE_STRESS.launches == n0 + 2
+    assert lk.LANE_STRESS.launches_c == c0 + 1
+    _assert_close(got, ref)
+    assert not torch.allclose(got, iso)
+
+
+@pytest.mark.parametrize("name", ["merged", "lane-LF4", "lane-LF2",
+                                  "lane_u-sel", "lane_u-trac"])
+def test_runner_kernels_with_stiffness_match_plain(aniso_case, device, name):
+    from seigen_tpu_torch.ops.anisotropic import vti_stiffness
+
+    dm, p, kw = aniso_case["scrambled" if name.startswith("lane_u")
+                           else "structured"]
+    if p.dim == 2:
+        pytest.skip("the VTI stiffness is a 3D matrix")
+    E, n_p = dm.num_elements, dm.re.n_p
+    C = vti_stiffness(2.0, 1.0, 1.0,
+                      epsilon=np.random.default_rng(1).uniform(0.05, 0.25, E),
+                      delta=0.05, gamma=0.1)
+    order = 2 if name.endswith("LF2") else 4
+
+    def make(impl):
+        if name == "merged":
+            return MergedLaneRunner(p, detect_structured(dm), 0.005,
+                                    impl=impl, stiffness=C, **kw)
+        if name.startswith("lane-"):
+            return LaneMajorRunner(p, detect_structured(dm), 0.005,
+                                   order=order, impl=impl, stiffness=C, **kw)
+        return UnstructuredLaneRunner(
+            p, 0.005, impl=impl, stiffness=C,
+            centroids=dm.coords.mean(axis=1),
+            fused_select=name.endswith("sel"), **kw)
+
+    rng = np.random.default_rng(7)
+    st = State(u=torch.as_tensor(rng.standard_normal((E, n_p, 3)),
+                                 device=device).float(),
+               s=torch.as_tensor(rng.standard_normal((E, n_p, 6)),
+                                 device=device).float())
+    kernel = mk.STRESS_KERNEL if name == "merged" else lk.LANE_STRESS
+    n0, c0 = kernel.launches, kernel.launches_c
+    out_k, _ = make("kernel").run(st, 3)
+    per_step = 1 if order == 2 else 3
+    assert kernel.launches - n0 == 3 * per_step
+    assert kernel.launches_c - c0 == 3 * per_step
+    out_r, _ = make("reference").run(st, 3)
     for a, b in ((out_k.u, out_r.u), (out_k.s, out_r.s)):
         assert torch.isfinite(a).all()
         assert ((a - b).norm() / b.norm()).item() < 1e-5

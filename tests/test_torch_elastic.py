@@ -22,6 +22,19 @@ from seigen_tpu.ops.fused_kernels import build_fused_data as jfused
 from seigen_tpu.solver.damping import absorbing_bc_fn, sponge_mask
 from seigen_tpu_torch.ops.fused_kernels import build_fused_data as tfused
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These tiny CPU operators gain nothing from intra-op threads, and
+    several pytest workers' thread pools fight over the cores (a 60-step
+    einsum run: 0.15 s on one thread, 106 s with six processes on eight
+    cores at the default)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MAT = jops.Material(rho=1.0, vp=2.0, vs=1.0)
 TMAT = tops.Material(rho=1.0, vp=2.0, vs=1.0)
 
@@ -106,5 +119,14 @@ def test_fused_data_refuses_unported_layouts(case):
     _, _, p_t = case
     with pytest.raises(NotImplementedError):
         tfused(p_t, packed=True)
-    with pytest.raises(NotImplementedError):
-        tfused(p_t, stiffness=np.eye(p_t.n_sig))
+    # the stiffness section is ported: n_sig sections of 8 rows after mat
+    d = tfused(p_t, stiffness=np.eye(p_t.n_sig))
+    o_mat, o_C, total = d.off[5:8]
+    assert o_C == o_mat + 8 and total == o_C + 8 * p_t.n_sig
+    assert d.geo.shape[0] == total
+    for c in range(p_t.n_sig):
+        sec = d.geo[o_C + 8 * c : o_C + 8 * c + 8].numpy()
+        want = np.zeros(8)
+        want[c] = 1.0
+        np.testing.assert_array_equal(sec, np.tile(want[:, None],
+                                                   (1, sec.shape[1])))

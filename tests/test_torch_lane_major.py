@@ -13,7 +13,8 @@ versions) against the JAX package.
    the cases of tests/test_lane_major.py: periodic 2D/3D P2 plane waves,
    and a 2D P2 case with a source, a sponge and receivers (with the
    pressure column); states and seismograms at rtol 1e-10.
-4. ``impl="kernel"`` refuses CPU tensors; the anisotropic path raises.
+4. ``impl="kernel"`` refuses CPU tensors; a wrong-shaped ``cmat`` or
+   stiffness raises.
 """
 
 import dataclasses
@@ -46,6 +47,19 @@ from seigen_tpu_torch.ops.unstructured_exchange import \
     make_panel_gather as tpg
 from seigen_tpu_torch.solver.lane_major import LaneMajorRunner
 from seigen_tpu_torch.solver.lane_major import make_exchange_lm
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These tiny CPU operators gain nothing from intra-op threads, and
+    several pytest workers' thread pools fight over the cores (a 60-step
+    einsum run: 0.15 s on one thread, 106 s with six processes on eight
+    cores at the default)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 RTOL = 1e-10
 MAT = (1.2, 2.0, 1.1)  # rho, vp, vs
@@ -162,8 +176,10 @@ def test_plain_op_matches_jax(op_case, name):
 def test_anisotropic_and_cuda_only_paths_refuse(op_case):
     _, dt, _, x = op_case
     u, tr = torch.as_tensor(x["u"]), torch.as_tensor(x["tr_u"])
-    with pytest.raises(NotImplementedError):
-        lk.stress_op_lm(dt, u, tr, cmat=torch.zeros(1))
+    for bad in (torch.zeros(1), torch.zeros((dt.n_sig * 8, dt.E + 1)),
+                torch.zeros((dt.n_sig * 8, dt.E), dtype=torch.float32)):
+        with pytest.raises(ValueError, match="cmat"):
+            lk.stress_op_lm(dt, u, tr, cmat=bad)
     with pytest.raises(ValueError, match="CUDA"):
         lk.LANE_STRESS(dt, u.float(), tr.float(), lk.STRESS_TR)
 
@@ -275,7 +291,7 @@ def test_runner_refuses_kernel_on_cpu_and_stiffness():
     ex = tdetect(dmt)
     with pytest.raises(ValueError, match="CUDA"):
         LaneMajorRunner(pt, ex, 0.01, impl="kernel")
-    with pytest.raises(NotImplementedError):
-        LaneMajorRunner(pt, ex, 0.01, stiffness=np.eye(3))
+    with pytest.raises(ValueError):  # not an (n_sig, n_sig) stiffness
+        LaneMajorRunner(pt, ex, 0.01, stiffness=np.eye(4))
     with pytest.raises(ValueError, match="order"):
         LaneMajorRunner(pt, ex, 0.01, order=3)

@@ -31,6 +31,19 @@ from seigen_tpu_torch.ops.structured_exchange import \
     detect_structured as tdetect
 from seigen_tpu_torch.solver.lane_merged import MergedLaneRunner
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These tiny CPU operators gain nothing from intra-op threads, and
+    several pytest workers' thread pools fight over the cores (a 60-step
+    einsum run: 0.15 s on one thread, 106 s with six processes on eight
+    cores at the default)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL, ATOL = 1e-10, 1e-12
 DT, C3 = 0.013, 0.013**3 / 24.0
 

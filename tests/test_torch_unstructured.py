@@ -43,6 +43,19 @@ from seigen_tpu_torch.parallel.partition import morton_order as tmorton
 from seigen_tpu_torch.solver.lane_major import to_lm
 from seigen_tpu_torch.solver.lane_unstructured import UnstructuredLaneRunner
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These tiny CPU operators gain nothing from intra-op threads, and
+    several pytest workers' thread pools fight over the cores (a 60-step
+    einsum run: 0.15 s on one thread, 106 s with six processes on eight
+    cores at the default)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL = 1e-10
 MAT = (1.0, 2.0, 1.0)  # rho, vp, vs
 
