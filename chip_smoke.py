@@ -8,11 +8,12 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. device   - require a CUDA device; print nvidia-smi's name and power limit.
 2. build    - compile every kernel library from seigen_tpu_torch/csrc with
               nvcc, one nvcc per source, all at once: merged_kernels.cu
-              (K1 merged_vel, K2 merged_stress), upwind_kernels.cu (K3
-              upwind_rhs), lane_kernels.cu (K4 lane_vel, K5 lane_stress)
-              and lane_upwind_kernels.cu (K6 lane_upwind_rhs, K7
-              lane_upwind_axpy); print ptxas's registers, stack and
-              spills.
+              (K1 merged_vel, K2 merged_stress and their v2 instantiations
+              K8 fused_vel2, K9 fused_stress2), upwind_kernels.cu (K3
+              upwind_rhs), lane_kernels.cu (K4 lane_vel, K5 lane_stress),
+              lane_upwind_kernels.cu (K6 lane_upwind_rhs, K7
+              lane_upwind_axpy) and trace_exchange.cu (K10
+              trace_exchange); print ptxas's registers, stack and spills.
 3. kernels  - every K1/K2 variant (vel plain/axpy/inject with 1 and 2
               groups; stress plain/axpy+damp/inject with 1 and 2 groups)
               against its plain PyTorch version on the card in float32, on
@@ -89,6 +90,23 @@ Phases, each printing its own lines; any failure exits non-zero:
               (rect_mesh(8, 8) P2, source, receivers): impl "auto" runs the
               lane kernels, ``stiffness=`` the einsum path.  Phases 4-8
               must launch no general-law kernel.
+10. fused   - the v2 exchange-fused LF4 engine.  K8 (plain, axpy) and K9
+              (plain, axpy + sponge, and both with a per-element
+              NON-symmetric C) against their plain versions, K10 (traction
+              and velocity traces) against the plain gather, on
+              box_mesh(4, 4, 4) at P3 and P2 and rect_mesh(8, 8) P2; K10
+              also on their periodic twins.  FusedLaneRunner on the n=24
+              P3 case for 10 steps: kernel vs plain and vs phase 4's kernel
+              MergedLaneRunner (relative L2, finiteness), exactly 3 K8 + 3
+              K9 + 6 K10 launches a step and no K1/K2; the same with the
+              bench's VTI stiffness (3 general-law K9 a step, no isotropic
+              one).  K8, K9, K9-C and K10 times beside their plain versions
+              and bounds, and for K10 one torch.take over the plain
+              version's index (library_ms); the bench (impl "fused" with
+              the kernels and the plain versions, and --vti); the LF4
+              eigenmode through K8/K9/K10 on periodic box_mesh(N, N, N),
+              N = 4 and 8, P2, float32: order > 2.8.  Phases 1-9 must
+              launch no K8, K9 or K10.
 
 Tolerance of a kernel against its plain version: |k - p| <= rtol*|p| +
 atol*max|p| with rtol = 2e-4, atol = 2e-5.  The absolute floor is taken
@@ -100,7 +118,9 @@ the kernel.
 Each kernel's bound is the larger of its compulsory bytes (inputs read
 once, outputs written once, from the main path's shapes) over the H100's
 published 3.35 TB/s and its matrix-product FLOPs over the published 67
-TFLOP/s FP32 rate.
+TFLOP/s FP32 rate.  K10 does no arithmetic: its library yardstick is the
+gather alone (torch.take over the plain version's precomputed index, no
+sign), the one PyTorch call that moves the same bytes.
 
 Output: the JSON lines of the bench phases, then the nvidia-smi line, one
 JSON line describing the kernels, and as the last line
@@ -140,6 +160,12 @@ KERNELS = {  # name -> (source, replaced TPU kernel)
                         "seigen_tpu/ops/pallas_kernels.py:848"),
     "lane_upwind_axpy": ("seigen_tpu_torch/csrc/lane_upwind_kernels.cu",
                          "seigen_tpu/ops/pallas_kernels.py:791"),
+    "fused_vel2": ("seigen_tpu_torch/csrc/merged_kernels.cu",
+                   "seigen_tpu/ops/fused_kernels.py:718"),
+    "fused_stress2": ("seigen_tpu_torch/csrc/merged_kernels.cu",
+                      "seigen_tpu/ops/fused_kernels.py:759"),
+    "trace_exchange": ("seigen_tpu_torch/csrc/trace_exchange.cu",
+                       "seigen_tpu/solver/lane_fused.py:247"),
 }
 ANISO_MODES = {  # general-Hooke-law mode -> (kernel, replaced TPU kernel)
     "merged_stress[C]": ("merged_stress",
@@ -148,8 +174,11 @@ ANISO_MODES = {  # general-Hooke-law mode -> (kernel, replaced TPU kernel)
                           "seigen_tpu/ops/pallas_kernels.py:497"),
     "lane_stress[C,SEL]": ("lane_stress",
                            "seigen_tpu/ops/pallas_kernels.py:527"),
+    "fused_stress2[C]": ("fused_stress2",
+                         "seigen_tpu/ops/fused_kernels.py:546"),
 }
-C_COUNTS = ("merged_stress_c", "lane_stress_c")  # the launches_c counts
+# the launches_c counts
+C_COUNTS = ("merged_stress_c", "lane_stress_c", "fused_stress2_c")
 
 
 def log(msg: str):
@@ -401,16 +430,20 @@ def upwind_runner(case, impl, visco=False):
 
 def all_kernels():
     """name -> kernel binding (each with its ``launches`` count)."""
+    from seigen_tpu_torch.ops import fused_ops as fo
     from seigen_tpu_torch.ops import lane_kernels as lk
     from seigen_tpu_torch.ops import lane_upwind_kernels as luk
     from seigen_tpu_torch.ops import merged_kernels as mk
     from seigen_tpu_torch.ops import upwind_kernels as uk
+    from seigen_tpu_torch.solver import lane_fused as lf
 
     return {"merged_vel": mk.VEL_KERNEL, "merged_stress": mk.STRESS_KERNEL,
             "upwind_rhs": uk.UPWIND_KERNEL, "lane_vel": lk.LANE_VEL,
             "lane_stress": lk.LANE_STRESS,
             "lane_upwind_rhs": luk.LANE_UPWIND_RHS,
-            "lane_upwind_axpy": luk.LANE_UPWIND_AXPY}
+            "lane_upwind_axpy": luk.LANE_UPWIND_AXPY,
+            "fused_vel2": fo.VEL2_KERNEL, "fused_stress2": fo.STRESS2_KERNEL,
+            "trace_exchange": lf.TRACE_EXCHANGE}
 
 
 def reset_counts():
@@ -421,8 +454,8 @@ def reset_counts():
 
 
 def read_counts():
-    """Launches per kernel, and under C_COUNTS those of K2 and K5 that ran
-    the general Hooke law."""
+    """Launches per kernel, and under C_COUNTS those of K2, K5 and K9 that
+    ran the general Hooke law."""
     kernels = all_kernels()
     counts = {name: k.launches for name, k in kernels.items()}
     for name in C_COUNTS:
@@ -438,7 +471,7 @@ def expect_counts(tag, counts, **nonzero):
         raise AssertionError(f"{tag} launches {counts}, expected {expect}")
 
 
-def compare_states(tag, out_k, out_r):
+def compare_states(tag, out_k, out_r, what="kernel vs plain"):
     import torch
 
     for name in ("u", "s"):
@@ -446,7 +479,7 @@ def compare_states(tag, out_k, out_r):
         rel = ((a - b).norm() / b.norm()).item()
         finite = bool(torch.isfinite(a).all())
         nrm = a.norm().item()
-        log(f"[{tag}] {name}: rel L2 kernel vs plain {rel:.3e}, norm "
+        log(f"[{tag}] {name}: rel L2 {what} {rel:.3e}, norm "
             f"{nrm:.4e}, finite {finite}")
         if not (finite and nrm > 0 and rel < 1e-4):
             raise AssertionError(f"{tag} state {name} off: rel {rel}")
@@ -679,10 +712,12 @@ def lane_bound(d, mode, aniso=False):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def lane_eigenmode_order(dev):
-    """LF4 through K4/K5 (LaneMajorRunner) on the travelling S wave of
-    tests/test_eigenmode.py over half a period, periodic box_mesh(N, N, N)
-    P2, float32 on the card: (errors, order)."""
+def lane_eigenmode_order(dev, runner_cls=None, tag="lane eigenmode",
+                         **per_step):
+    """LF4 through K4/K5 (LaneMajorRunner; or through the kernels of
+    ``runner_cls``, launched ``per_step`` times a step) on the travelling S
+    wave of tests/test_eigenmode.py over half a period, periodic
+    box_mesh(N, N, N) P2, float32 on the card: (errors, order)."""
     import numpy as np
     import torch
 
@@ -693,6 +728,8 @@ def lane_eigenmode_order(dev):
         interpolate, l2_error
     from seigen_tpu_torch.solver.lane_major import LaneMajorRunner
 
+    runner_cls = runner_cls or LaneMajorRunner
+    per_step = per_step or dict(lane_vel=3, lane_stress=3)
     mat = Material(1.0, 2.0, 1.0)
     pw = PlaneWave(mat=mat, k=2 * np.pi * np.array([1.0, 1.0, 0.0]),
                    mode="S", polarization=np.array([0.0, 0.0, 1.0]))
@@ -706,15 +743,15 @@ def lane_eigenmode_order(dev):
         st = State(*(torch.as_tensor(interpolate(dm, f, t), device=dev
                                      ).float()
                      for f, t in ((pw.u, 0.0), (pw.sigma, 0.5 * dt))))
-        runner = LaneMajorRunner(p, detect_structured(dm), dt, order=4,
-                                 impl="kernel")
+        runner = runner_cls(p, detect_structured(dm), dt, order=4,
+                            impl="kernel")
         reset_counts()
         fin, _ = runner.run(st, n)
         torch.cuda.synchronize()
-        expect_counts(f"eigenmode N={N}", read_counts(), lane_vel=3 * n,
-                      lane_stress=3 * n)
+        expect_counts(f"{tag} N={N}", read_counts(),
+                      **{k: v * n for k, v in per_step.items()})
         errs.append(l2_error(dm, fin.u.cpu().numpy(), pw.u, n * dt))
-        log(f"[lane eigenmode] N={N} P2 LF4 float32: E {dm.num_elements}, "
+        log(f"[{tag}] N={N} P2 LF4 float32: E {dm.num_elements}, "
             f"{n} steps, L2(u) {errs[-1]:.6e}")
     return errs, math.log2(errs[0] / errs[1])
 
@@ -1348,7 +1385,7 @@ def phase_aniso(dev, case, st, scase, sst, check, n=24):
         times[name] = (time_ms(kern), time_ms(plain))
         bounds[name] = lane_bound(runner.d, mode, aniso=True)
         del x, got, ref
-    for name in ANISO_MODES:
+    for name in times:
         t, b = times[name], bounds[name]
         log(f"[aniso] {name} at n={n} P3: kernel {t[0]:.4f} ms, plain "
             f"{t[1]:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
@@ -1382,6 +1419,257 @@ def phase_aniso(dev, case, st, scase, sst, check, n=24):
     return launches, times, bounds
 
 
+FUSED_VARIANTS = {  # check name -> (op, variant)
+    "fused_vel2": (("vel", "plain"), ("vel", "axpy")),
+    "fused_stress2": (("stress", "plain"), ("stress", "axpy_damp")),
+    "fused_stress2[C]": (("stress", "plain"), ("stress", "axpy_damp"))}
+
+
+def small_fused_runners(dim, degree, dev):
+    """Kernel FusedLaneRunners on a free-top, sponge-damped box_mesh(4, 4,
+    4) (3D) or rect_mesh(8, 8) (2D): isotropic, with a per-element random
+    stiffness, and on the periodic twin of the mesh."""
+    import torch
+
+    from seigen_tpu_torch.mesh import box_mesh, build_discrete, rect_mesh
+    from seigen_tpu_torch.ops import Material, build_params
+    from seigen_tpu_torch.ops.structured_exchange import detect_structured
+    from seigen_tpu_torch.solver.damping import absorbing_bc_fn, sponge_mask
+    from seigen_tpu_torch.solver.lane_fused import FusedLaneRunner
+
+    topo, per = ((box_mesh(4, 4, 4), box_mesh(4, 4, 4, periodic=(0, 1, 2)))
+                 if dim == 3 else
+                 (rect_mesh(8, 8), rect_mesh(8, 8, periodic=(0, 1))))
+    mat = Material(1.0, 2.0, 1.0)
+    dm = build_discrete(topo, degree, bc_fn=absorbing_bc_fn(
+        ((0.0, 1.0),) * dim, free_sides=[(dim - 1, "hi")]))
+    p = build_params(dm, mat, device=dev)
+    ex = detect_structured(dm)
+    damp = torch.as_tensor(sponge_mask(dm, [(0, "lo"), (0, "hi")],
+                                       width=0.3), device=dev).float()
+    C = random_stiffness(dm.num_elements, p.n_sig, 95)
+    dm_per = build_discrete(per, degree)
+    return (FusedLaneRunner(p, ex, 0.01, damp=damp, impl="kernel"),
+            FusedLaneRunner(p, ex, 0.01, damp=damp, impl="kernel",
+                            stiffness=C),
+            FusedLaneRunner(build_params(dm_per, mat, device=dev),
+                            detect_structured(dm_per), 0.01, impl="kernel"))
+
+
+def fused_inputs(d, dev, seed):
+    """numpy-seeded float32 K8/K9/K10 operands in the v2 lane layout."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def rows(C, used, pad):
+        a = rng.standard_normal((C, pad, d.E)).astype(np.float32)
+        a[:, used:] = 0.0
+        return torch.as_tensor(a.reshape(C * pad, d.E), device=dev)
+
+    return {"sig": [rows(d.n_sig, d.n_p, d.npp) for _ in range(3)],
+            "u": [rows(d.dim, d.n_p, d.npp) for _ in range(3)],
+            "tr": rows(d.dim, d.ftp, d.ftpp)}
+
+
+def fused_call(runner, x, op, variant):
+    """(kernel fn, plain fn) of one K8/K9 variant on the runner's data (K9
+    runs the general Hooke law when the runner has a stiffness)."""
+    from seigen_tpu_torch.ops import fused_ops as fo
+
+    d = runner.d
+    field, pair = (x["sig"], x["u"]) if op == "vel" else (x["u"], x["sig"])
+    kw = {}
+    if variant.startswith("axpy"):
+        dt = float(runner.dt)
+        kw = dict(axpy=(pair[1], pair[2]), dt=dt, c3=dt**3 / 24.0)
+    if op == "vel":
+        return (lambda: fo.VEL2_KERNEL(d, field[0], x["tr"], **kw),
+                lambda: fo.vel2_op_ref(d, field[0], x["tr"], **kw))
+    damp = d.damp if variant == "axpy_damp" else None
+    return (lambda: fo.STRESS2_KERNEL(d, field[0], x["tr"], damp=damp, **kw),
+            lambda: fo.stress2_op_ref(d, field[0], x["tr"], **kw))
+
+
+def compare_fused(iso, aniso, check, tag, seed):
+    """Every K8/K9 variant (K9 also with the general Hooke law) vs the
+    plain versions."""
+    import torch
+
+    from seigen_tpu_torch.ops import fused_ops as fo
+
+    for name, variants in FUSED_VARIANTS.items():
+        runner = aniso if name.endswith("[C]") else iso
+        x = fused_inputs(runner.d, runner.device, seed)
+        for op, variant in variants:
+            kern, plain = fused_call(runner, x, op, variant)
+            c0 = fo.STRESS2_KERNEL.launches_c
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            if fo.STRESS2_KERNEL.launches_c - c0 != int(runner is aniso):
+                raise AssertionError(f"{tag} {name} {variant}: general-law "
+                                     "launch count off")
+            check(name, f"{tag} {name} {variant} out", got[0], ref[0])
+            check(name, f"{tag} {name} {variant} traces", got[1], ref[1])
+
+
+def compare_exchange(runner, check, tag, seed):
+    """K10 vs the plain gather, traction (negated) and velocity traces."""
+    import torch
+
+    from seigen_tpu_torch.solver import lane_fused as lf
+
+    tr = fused_inputs(runner.d, runner.device, seed)["tr"]
+    for negate in (True, False):
+        got = lf.TRACE_EXCHANGE(runner.xplan, tr, negate)
+        ref = lf.trace_exchange_ref(runner.xplan, tr, negate)
+        torch.cuda.synchronize()
+        check("trace_exchange", f"{tag} trace_exchange negate={negate}",
+              got, ref)
+
+
+def fused_bound(d, kname, aniso=False):
+    """(bound_ms, "bytes" | "operations") of one plain launch of K8, K9 or
+    K10 at these shapes.  K8/K9: state rows n_p per component, the dim*ftp
+    consumer trace rows, the geometry once per face (Ginv, normals, scb,
+    bfs or dfs) and the material rows (1/rho; lambda and mu, or the n_sig^2
+    stiffness rows), the output at npp and its dim*ftpp trace rows
+    written; the Dr and LIFT FLOPs.  K10: dim*ftp rows and nf mask rows
+    read, dim*ftpp rows written, no arithmetic."""
+    dim, n_p, nf, npp, n_sig = d.dim, d.n_p, d.nf, d.npp, d.n_sig
+    ftp, ftpp = d.ftp, d.ftpp
+    if kname == "trace_exchange":
+        rows, flops = dim * ftp + nf + dim * ftpp, 0
+    else:
+        geo = dim * dim + dim * nf + 2 * nf
+        if kname == "fused_vel2":
+            c_in, c_out, geo = n_sig, dim, geo + 1
+        else:
+            c_in, c_out = dim, n_sig
+            geo += n_sig * n_sig if aniso else 2
+        rows = c_in * n_p + dim * ftp + geo + c_out * npp + dim * ftpp
+        flops = 2 * (c_out * dim * n_p * n_p + c_out * n_p * ftp)
+    t_bytes = 4.0 * rows * d.E / HBM_BYTES_PER_S * 1e3
+    t_ops = float(flops) * d.E / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_fused(dev, case, st, check, merged_out, n=24):
+    """Phase 10 (see the module docstring); merged_out: phase 4's kernel
+    MergedLaneRunner state after RUNNER_STEPS steps from ``st``.  Returns
+    ({kernel: launches on its main-path run}, {kernel: (kernel ms, plain
+    ms)}, {kernel: bound}, {kernel: library ms})."""
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.bench import throughput
+    from seigen_tpu_torch.solver import lane_fused as lf
+
+    t0 = time.perf_counter()
+    for dim, degree in ((3, 3), (3, 2), (2, 2)):
+        iso, aniso, per = small_fused_runners(dim, degree, dev)
+        tag = f"{dim}D P{degree}"
+        log(f"[fused] {tag}: E {iso.d.E}, ftp {iso.d.ftp}, ftpp "
+            f"{iso.d.ftpp}; periodic twin E {per.d.E}")
+        compare_fused(iso, aniso, check, tag, 100 + 10 * dim + degree)
+        compare_exchange(iso, check, tag, 120 + 10 * dim + degree)
+        compare_exchange(per, check, f"{tag} periodic",
+                         140 + 10 * dim + degree)
+    log(f"[fused] all small-mesh variants agree "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    dm, p, src, damp, dt, _ = case
+    S = RUNNER_STEPS
+    launches, keep = {}, {}
+    for tag, vti in (("fused", False), ("fused vti", True)):
+        t1 = time.perf_counter()
+        k, r = (throughput.make_runner("fused", dm, p, src, damp, dt, impl,
+                                       vti=vti)
+                for impl in ("kernel", "reference"))
+        log(f"[{tag}] n={n} P3: runner setup "
+            f"{time.perf_counter() - t1:.1f} s")
+        reset_counts()
+        out_k, _ = k.run(st, S)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        out_r, _ = r.run(st, S)
+        torch.cuda.synchronize()
+        log(f"[{tag}] {S} steps: launches {counts}")
+        expect = dict(fused_vel2=3 * S, fused_stress2=3 * S,
+                      trace_exchange=6 * S)
+        if vti:
+            expect["fused_stress2_c"] = 3 * S
+        expect_counts(tag, counts, **expect)
+        compare_states(tag, out_k, out_r)
+        if vti:
+            launches["fused_stress2[C]"] = counts["fused_stress2_c"]
+            keep["fused_stress2[C]"] = k
+        else:
+            compare_states(tag, out_k, merged_out, "fused vs merged kernel")
+            launches.update({name: counts[name] for name in expect})
+            keep["fused"] = k
+        del r, out_k, out_r
+
+    # K8, K9, K9-C and K10 at n=24 P3: check, kernel and plain times, bound
+    times, bounds, library = {}, {}, {}
+    run_k = keep["fused"]
+    x = fused_inputs(run_k.d, dev, 150)
+    for name, runner in (("fused_vel2", run_k), ("fused_stress2", run_k),
+                         ("fused_stress2[C]", keep["fused_stress2[C]"])):
+        kern, plain = fused_call(runner, x, *FUSED_VARIANTS[name][0])
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        check(name, f"n={n} P3 {name} plain out", got[0], ref[0])
+        check(name, f"n={n} P3 {name} plain traces", got[1], ref[1])
+        times[name] = (time_ms(kern), time_ms(plain))
+        bounds[name] = fused_bound(runner.d, name.removesuffix("[C]"),
+                                   aniso=name.endswith("[C]"))
+        del got, ref
+    xp, tr = run_k.xplan, x["tr"]
+    compare_exchange(run_k, check, f"n={n} P3", 151)
+    times["trace_exchange"] = (
+        time_ms(lambda: lf.TRACE_EXCHANGE(xp, tr, True)),
+        time_ms(lambda: lf.trace_exchange_ref(xp, tr, True)))
+    bounds["trace_exchange"] = fused_bound(run_k.d, "trace_exchange")
+    index = xp.gather[0]
+    library["trace_exchange"] = time_ms(lambda: torch.take(tr, index))
+    for name in ("fused_vel2", "fused_stress2", "fused_stress2[C]",
+                 "trace_exchange"):
+        t, b = times[name], bounds[name]
+        lib = (f", torch.take {library[name]:.4f} ms" if name in library
+               else "")
+        log(f"[fused] {name} at n={n} P3: kernel {t[0]:.4f} ms, plain "
+            f"{t[1]:.4f} ms{lib}, bound {b[0]:.4f} ms ({b[1]})")
+    keep.clear()
+    del run_k, runner, x, xp, tr, index, kern, plain
+
+    for kimpl, vti in (("kernel", False), ("reference", False),
+                       ("kernel", True)):
+        reset_counts()
+        rec = throughput.main(n=n, degree=3, n_steps=BENCH_STEPS,
+                              impl="fused", kernel_impl=kimpl, case=case,
+                              vti=vti)
+        counts = read_counts()
+        n_c = counts["fused_stress2_c"]
+        if not (np.isfinite(rec["value"]) and rec["value"] > 0
+                and rec["detail"]["vti"] is vti
+                and n_c == (counts["fused_stress2"] if vti else 0)):
+            raise AssertionError(f"fused bench {kimpl} vti={vti}: rate "
+                                 f"{rec['value']}, launches {counts}")
+        print(json.dumps(rec), flush=True)
+
+    errs, order = lane_eigenmode_order(
+        dev, lf.FusedLaneRunner, "fused eigenmode", fused_vel2=3,
+        fused_stress2=3, trace_exchange=6)
+    log(f"[fused eigenmode] observed order {order:.3f} (bar "
+        f"{EIGEN_MIN_ORDER})")
+    if not (order > EIGEN_MIN_ORDER):
+        raise AssertionError(f"v2 kernel eigenmode order {order} <= "
+                             f"{EIGEN_MIN_ORDER}: errors {errs}")
+    return launches, times, bounds, library
+
+
 def main() -> int:
     try:
         import torch
@@ -1401,6 +1689,7 @@ def main() -> int:
         from seigen_tpu_torch.ops import merged_kernels as mk
         from seigen_tpu_torch.ops import upwind_kernels as uk
         from seigen_tpu_torch.ops.cuda_build import build_all
+        from seigen_tpu_torch.solver import lane_fused as lf
         from seigen_tpu_torch.solver.timestep import State
     except ImportError as e:
         print(f"chip_smoke: the seigen_tpu_torch package is missing ({e}); "
@@ -1417,7 +1706,8 @@ def main() -> int:
         f"{torch.version.cuda}; {torch.cuda.device_count()} device(s)")
 
     # 2. build: one nvcc per source, all at once
-    libraries = (mk.LIBRARY, uk.LIBRARY, lk.LIBRARY, luk.LIBRARY)
+    libraries = (mk.LIBRARY, uk.LIBRARY, lk.LIBRARY, luk.LIBRARY,
+                 lf.EXCHANGE_LIBRARY)
     wall = build_all(libraries)
     for k in all_kernels().values():
         k.build()  # load the symbols, check the argument structs
@@ -1520,7 +1810,14 @@ def main() -> int:
     for have, new in zip((launches, times, bounds),
                          phase_aniso(dev, case, st, scase, sst, check)):
         have.update(new)
-    log(f"[aniso] phase {time.perf_counter() - t0:.1f} s; total "
+    log(f"[aniso] phase {time.perf_counter() - t0:.1f} s")
+
+    # 10. fused: the v2 exchange-fused LF4 engine (K8, K9, K10)
+    t0 = time.perf_counter()
+    *fused, library = phase_fused(dev, case, st, check, out_k)
+    for have, new in zip((launches, times, bounds), fused):
+        have.update(new)
+    log(f"[fused] phase {time.perf_counter() - t0:.1f} s; total "
         f"{time.perf_counter() - t_all:.1f} s")
 
     sources = dict(KERNELS)
@@ -1530,7 +1827,7 @@ def main() -> int:
                 "replaces": replaces, "launches": launches[k],
                 "max_abs_err": check.worst[k], "ms": times[k][0],
                 "plain_ms": times[k][1], "bound_ms": bounds[k][0],
-                "bound_by": bounds[k][1], "library_ms": None}
+                "bound_by": bounds[k][1], "library_ms": library.get(k)}
                for k, (src_file, replaces) in sources.items()]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

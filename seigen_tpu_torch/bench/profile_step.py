@@ -2,6 +2,7 @@
 
     python -m seigen_tpu_torch.bench.profile_step --impl upwind_lane
     python -m seigen_tpu_torch.bench.profile_step --impl merged
+    python -m seigen_tpu_torch.bench.profile_step --impl fused
     python -m seigen_tpu_torch.bench.profile_step --impl lane --order 2
     python -m seigen_tpu_torch.bench.profile_step --impl lane_u
     python -m seigen_tpu_torch.bench.profile_step --impl merged --vti
@@ -69,7 +70,14 @@ def copy_bandwidth(device, n_bytes=1 << 30, reps=10) -> float:
 
 OPERATOR_KERNELS = ("merged_vel_kernel", "merged_stress_kernel",
                     "lane_upwind_kernel", "upwind_rhs_kernel",
-                    "lane_vel_kernel", "lane_stress_kernel")
+                    "lane_vel_kernel", "lane_stress_kernel",
+                    "trace_exchange_kernel")
+
+
+def _last_bool(name: str) -> bool:
+    """The value of the last template argument of a kernel name, a bool."""
+    head = name.split(">")[0].rstrip()
+    return head.endswith("true") or head.endswith("(bool)1")
 
 
 def kernel_group(name: str) -> str:
@@ -79,8 +87,11 @@ def kernel_group(name: str) -> str:
     for k in OPERATOR_KERNELS:
         if k in name:
             if k == "lane_upwind_kernel":  # K7 is its AXPY = true instance
-                axpy = "true>" in name or "(bool)1>" in name
-                return "lane_upwind_axpy" if axpy else "lane_upwind_rhs"
+                return ("lane_upwind_axpy" if _last_bool(name)
+                        else "lane_upwind_rhs")
+            if k.startswith("merged_") and _last_bool(name):  # V2: K8/K9
+                return ("fused_vel2" if k == "merged_vel_kernel"
+                        else "fused_stress2")
             return k.removesuffix("_kernel")
     if "gather" in name or "index" in name.lower():
         return "pytorch gather/index"

@@ -1,22 +1,24 @@
 """Throughput benchmark: DOF-updates/s on one GPU, 3D explosive source.
 
 Port of ``seigen_tpu/bench/throughput.py`` for the lane runners: the
-merged LF4 runner (impl "merged"), the v1 lane-major LF2/LF4 runner (impl
+merged LF4 runner (impl "merged"), the v2 exchange-fused LF4 runner (impl
+"fused"), the v1 lane-major LF2/LF4 runner (impl
 "lane", ``--order``), the unstructured lane runner (impl "lane_u", on the
 scrambled case: cells randomly permuted, structure dropped, Morton order
 from the cell centroids), the upwind-RK4 lane runner (impl "upwind_lane")
 and the unstructured upwind-RK4 runner (impl "upwind_lane_u", on the
 scrambled case; ``--panel-emit`` and ``--no-fused-axpy`` select its
 panel-emission and glue steppers).  ``--vti`` hands the central-flux
-runners (merged, lane, lane_u) a per-element VTI Voigt stiffness, so their
-stress kernels run the general Hooke law; any other impl refuses rather
-than time isotropic physics under a row labelled vti.  A "DOF update" is
+runners (merged, fused, lane, lane_u) a per-element VTI Voigt stiffness,
+so their stress kernels run the general Hooke law; any other impl refuses
+rather than time isotropic physics under a row labelled vti.  A "DOF update" is
 one field coefficient advanced one full timestep; the per-step DOF count is
 E * n_p * (dim + n_sig).  The timed region is the runner's ``run_lm`` over
 ``n_steps`` steps, best of 3 after one warm-up run, each ending in
 ``torch.cuda.synchronize()``.
 
     python -m seigen_tpu_torch.bench.throughput            # n=24, P3, 100 steps
+    python -m seigen_tpu_torch.bench.throughput --impl fused [--vti]
     python -m seigen_tpu_torch.bench.throughput --impl lane --order 2
     python -m seigen_tpu_torch.bench.throughput --impl lane_u
     python -m seigen_tpu_torch.bench.throughput --impl lane_u --vti
@@ -44,6 +46,7 @@ from ..ops import Material, build_params, build_upwind_data, n_sig_for
 from ..ops.anisotropic import vti_stiffness
 from ..ops.structured_exchange import detect_structured
 from ..solver.damping import absorbing_bc_fn, sponge_mask
+from ..solver.lane_fused import FusedLaneRunner
 from ..solver.lane_major import LaneMajorRunner
 from ..solver.lane_merged import MergedLaneRunner
 from ..solver.lane_unstructured import UnstructuredLaneRunner
@@ -55,10 +58,12 @@ from ..solver.timestep import State, cfl_dt
 # ONE material for the whole bench surface (the JAX bench's BENCH_MAT): the
 # elastic parameters and the Godunov impedances stay consistent
 BENCH_MAT = Material(rho=1.0, vp=2.0, vs=1.0)
-IMPLS = ("merged", "upwind_lane", "lane", "lane_u", "upwind_lane_u")
+IMPLS = ("merged", "upwind_lane", "lane", "lane_u", "upwind_lane_u",
+         "fused")
 SCRAMBLED_IMPLS = ("lane_u", "upwind_lane_u")  # run on the scrambled case
 RK4_IMPLS = ("upwind_lane", "upwind_lane_u")
-VTI_IMPLS = ("merged", "lane", "lane_u")  # central flux: take a stiffness
+# central flux: these take a stiffness
+VTI_IMPLS = ("merged", "lane", "lane_u", "fused")
 
 
 def scheme_name(impl: str, order: int) -> str:
@@ -139,22 +144,23 @@ def _sync(device):
 
 def make_runner(impl, dm, p, src, damp, dt, kernel_impl=None, visco=None,
                 order=4, vti=False, **upwind_u):
-    """The bench's lane runner: "merged" (LF4, MergedLaneRunner), "lane"
+    """The bench's lane runner: "merged" (LF4, MergedLaneRunner), "fused"
+    (LF4, FusedLaneRunner: K8/K9 and the K10 exchange), "lane"
     (LF ``order``, LaneMajorRunner), "lane_u" (LF ``order``,
     UnstructuredLaneRunner in Morton order of the cell centroids),
     "upwind_lane" (Godunov RK4, UpwindLaneRunner) or "upwind_lane_u"
     (Godunov RK4, UnstructuredUpwindRunner in Morton order; ``upwind_u``:
     its ``fused_axpy``/``panel_emit``).  The upwind runners take the bench
     material's impedances and ``visco`` (optional ViscoData); ``order``
-    does not apply to them.  ``vti``: the stress operators of the three
+    does not apply to them.  ``vti``: the stress operators of the four
     LF runners take ``bench_stiffness``.  kernel_impl: "kernel" (CUDA
     kernels) or "reference" (their plain PyTorch versions); default by
     device."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, not {impl!r}")
     stiffness = bench_stiffness(impl, dm.num_elements) if vti else None
-    if impl == "merged" and order != 4:
-        raise ValueError("the merged runner is LF4 only")
+    if impl in ("merged", "fused") and order != 4:
+        raise ValueError(f"the {impl} runner is LF4 only")
     if impl == "lane_u":
         return UnstructuredLaneRunner(
             p, dt, order=order, src=src, damp=damp, impl=kernel_impl,
@@ -170,6 +176,9 @@ def make_runner(impl, dm, p, src, damp, dt, kernel_impl=None, visco=None,
     if impl == "merged":
         return MergedLaneRunner(p, ex, dt, src=src, damp=damp,
                                 impl=kernel_impl, stiffness=stiffness)
+    if impl == "fused":
+        return FusedLaneRunner(p, ex, dt, src=src, damp=damp,
+                               impl=kernel_impl, stiffness=stiffness)
     if impl == "lane":
         return LaneMajorRunner(p, ex, dt, order=order, src=src, damp=damp,
                                impl=kernel_impl, stiffness=stiffness)
@@ -254,8 +263,8 @@ def report(res: BenchResult, impl: str, kernel_impl: str,
 
 def add_vti_argument(ap) -> None:
     ap.add_argument("--vti", action="store_true",
-                    help="merged, lane, lane_u: a per-element VTI stiffness "
-                    "(general Hooke law in the stress kernels)")
+                    help="merged, fused, lane, lane_u: a per-element VTI "
+                    "stiffness (general Hooke law in the stress kernels)")
 
 
 def add_upwind_u_arguments(ap) -> None:

@@ -1,4 +1,5 @@
-// Merged LF operators for Hopper (sm_90a): K1 merged_vel and K2 merged_stress.
+// Merged LF operators for Hopper (sm_90a): K1 merged_vel and K2 merged_stress,
+// and their v2 instantiations K8 fused_vel2 and K9 fused_stress2.
 //
 // Replaces the JAX package's one Pallas kernel family on the LF4 main path,
 // seigen_tpu/ops/merged_kernels.py:_merged_kernel, issued per class by
@@ -29,6 +30,19 @@
 // unmasked faces, so no load leaves [t2*NC, (t2+1)*NC).  Tensor-core
 // (wgmma) tiles and TMA staging are later work.
 //
+// K8/K9 replace the v2 engine's Pallas kernels,
+//   K8  seigen_tpu/ops/fused_kernels.py:vel2_op    (:718 -> _vel2_kernel :520)
+//   K9  seigen_tpu/ops/fused_kernels.py:stress2_op (:759 -> _stress2_kernel :675,
+//       ANISO as K2)
+// which run the same _vel2_body / _stress2_body on traces exchanged
+// beforehand (solver/lane_fused.py, K10 in trace_exchange.cu).  They are the
+// V2 = true instantiations of the K1/K2 templates below: the neighbour value
+// is row c*ftpp + f*n_fp + k of the lane itself, already signed and already
+// the own value on boundary faces (no plan, no sign, no mask), and the
+// emitted traces are written component-major, rows c*ftpp + f*n_fp + k, pad
+// rows 0.  Same arithmetic and bound as K1/K2.  V2 = false compiles to the
+// merged kernels exactly as before (the layout code sits under if constexpr).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (seigen_tpu_torch/ops/cuda_build.py, at first use).
 
@@ -40,24 +54,29 @@
 // MergedArgs in seigen_tpu_torch/ops/merged_kernels.py.
 struct MergedArgs {
   const float* field;  // sigma (n_sig*npp, Ls) for K1; u (dim*npp, Ls) for K2
-  const float* trs;    // producer face-major traces (nf*rtf, Ls)
+  const float* trs;    // merged: producer face-major traces (nf*rtf, Ls);
+                       // v2: consumer-ordered traces (dim*ftpp, Ls)
   const float* geo;    // (G_ROWS, Ls) geo sections (FusedOpData layout)
   const float* mask;   // (8, Ls): row f != 0 -> face f takes the own trace
+                       // (merged only)
   const float* ax0;    // axpy: u (K1) / s (K2); else null
   const float* ax1;    // axpy: uh1 (K1) / sh1 (K2); else null
   const float* damp;   // (npp, Ls) K2 axpy damping; else null
   const float* inj0;   // dense source pattern of wavelet group 0; else null
   const float* inj1;   // dense source pattern of wavelet group 1; else null
   const int* plan;     // (m, nf, 3 + n_fp): t2, f2, flat shift s, pi[n_fp]
+                       // (merged only)
   const float* dr;     // (dim, n_p, n_p) reference derivative matrices
   const float* lift;   // (n_p, nf*n_fp) LIFT
   const int* fnodes;   // (nf, n_fp) volume node of each face node
   float* out;          // (C*npp, Ls) operator output
-  float* trout;        // (nf*rtf, Ls) face-major traces of out
+  float* trout;        // traces of out: merged (nf*rtf, Ls) face-major,
+                       // v2 (dim*ftpp, Ls) component-major
   long long Ls;        // lanes = m * NC
   int NC;              // lanes per class
   int npp;             // node rows per component (n_p rounded up to 8)
-  int rtf;             // trace rows per face (roundup(dim*n_fp, 8))
+  int rtf;             // merged: trace rows per face (roundup(dim*n_fp, 8));
+                       // v2: trace rows per component (ftpp)
   int o_ginv, o_nrm, o_scb, o_bfs, o_dfs, o_mat;
   int o_C;             // K2: first row of the stiffness section (n_sig
                        // sections of 8 rows, row c*8+k = C[c,k]); -1: none
@@ -90,7 +109,8 @@ __device__ __forceinline__ void finish_row(const MergedArgs& a, size_t idx,
 //                 + LIFT (scb * t+_c + bfs * t-_c))
 // t-_c = n_d sigma_{V[c,d]} at the face nodes; t+_c = -(producer traction)
 // on interior faces, t-_c on boundary faces.  Emits the velocity traces.
-template <int DIM, int NP, int NFP>
+// V2: t+_c is the lane's own row of the exchanged traces (K8).
+template <int DIM, int NP, int NFP, bool V2>
 __global__ void __launch_bounds__(kThreads)
 merged_vel_kernel(const MergedArgs a) {
   using S = Shape<DIM, NP, NFP>;
@@ -115,7 +135,7 @@ merged_vel_kernel(const MergedArgs a) {
   const float irho = geo(a.o_mat);
 
   FaceLinks<NF> fl;
-  face_links<NF, NFP>(a, L, fl);
+  if constexpr (!V2) face_links<NF, NFP>(a, L, fl);
 
   // scaled face flux scb*t+ + bfs*t- per output component and face node
   float flux[DIM][NFT];
@@ -137,7 +157,9 @@ merged_vel_kernel(const MergedArgs a) {
 #pragma unroll
         for (int d = 0; d < DIM; ++d) own += n[d] * sv[voigt<DIM>(c, d)];
         float nb = own;
-        if (!fl.own_only[f])
+        if constexpr (V2)
+          nb = a.trs[((long long)c * a.rtf + f * NFP + k) * Ls + L];
+        else if (!fl.own_only[f])
           nb = -a.trs[((long long)fl.f2[f] * a.rtf + c * NFP + fl.pi[f][k]) * Ls
                       + fl.lane[f]];
         flux[c][f * NFP + k] = scb * nb + bfs * own;
@@ -180,18 +202,30 @@ merged_vel_kernel(const MergedArgs a) {
       finish_row(a, ((size_t)c * npp + i) * Ls + L, 0.f, nullptr);
   }
 
-  // face-major velocity traces of the output; pad rows are written 0
-#pragma unroll 1
-  for (int f = 0; f < NF; ++f) {
-    float* tr = a.trout + (long long)f * a.rtf * Ls + L;
-#pragma unroll 1
-    for (int k = 0; k < NFP; ++k) {
-      const int node = s_fn[f * NFP + k];
+  if constexpr (V2) {
+    // component-major velocity traces of the output; pad rows are written 0
 #pragma unroll
-      for (int c = 0; c < DIM; ++c)
-        tr[(long long)(c * NFP + k) * Ls] = a.out[((size_t)c * npp + node) * Ls + L];
+    for (int c = 0; c < DIM; ++c) {
+      float* tr = a.trout + (long long)c * a.rtf * Ls + L;
+#pragma unroll 1
+      for (int q = 0; q < NFT; ++q)
+        tr[(long long)q * Ls] = a.out[((size_t)c * npp + s_fn[q]) * Ls + L];
+      for (int q = NFT; q < a.rtf; ++q) tr[(long long)q * Ls] = 0.f;
     }
-    for (int q = DIM * NFP; q < a.rtf; ++q) tr[(long long)q * Ls] = 0.f;
+  } else {
+    // face-major velocity traces of the output; pad rows are written 0
+#pragma unroll 1
+    for (int f = 0; f < NF; ++f) {
+      float* tr = a.trout + (long long)f * a.rtf * Ls + L;
+#pragma unroll 1
+      for (int k = 0; k < NFP; ++k) {
+        const int node = s_fn[f * NFP + k];
+#pragma unroll
+        for (int c = 0; c < DIM; ++c)
+          tr[(long long)(c * NFP + k) * Ls] = a.out[((size_t)c * npp + node) * Ls + L];
+      }
+      for (int q = DIM * NFP; q < a.rtf; ++q) tr[(long long)q * Ls] = 0.f;
+    }
   }
 }
 
@@ -203,8 +237,9 @@ merged_vel_kernel(const MergedArgs a) {
 // du*_c = scb * u+_c + dfs * u-_c (u+ = producer velocity trace, u- on
 // boundary faces).  Emits the traction traces n . sigma of the output.
 // ANISO is a template parameter so that the isotropic instantiation keeps
-// its registers.
-template <int DIM, int NP, int NFP, bool ANISO>
+// its registers.  V2: u+_c is the lane's own row of the exchanged traces
+// (K9).
+template <int DIM, int NP, int NFP, bool ANISO, bool V2>
 __global__ void __launch_bounds__(kThreads)
 merged_stress_kernel(const MergedArgs a) {
   using S = Shape<DIM, NP, NFP>;
@@ -230,7 +265,7 @@ merged_stress_kernel(const MergedArgs a) {
   if constexpr (!ANISO) lam = geo(a.o_mat + 1), mu = geo(a.o_mat + 2);
 
   FaceLinks<NF> fl;
-  face_links<NF, NFP>(a, L, fl);
+  if constexpr (!V2) face_links<NF, NFP>(a, L, fl);
 
   // velocity jump scb*u+ + dfs*u- per component and face node
   float jump[DIM][NFT];
@@ -244,7 +279,9 @@ merged_stress_kernel(const MergedArgs a) {
       for (int c = 0; c < DIM; ++c) {
         const float own = fld(c, node);
         float nb = own;
-        if (!fl.own_only[f])
+        if constexpr (V2)
+          nb = a.trs[((long long)c * a.rtf + f * NFP + k) * Ls + L];
+        else if (!fl.own_only[f])
           nb = a.trs[((long long)fl.f2[f] * a.rtf + c * NFP + fl.pi[f][k]) * Ls
                      + fl.lane[f]];
         jump[c][f * NFP + k] = scb * nb + dfs * own;
@@ -316,13 +353,15 @@ merged_stress_kernel(const MergedArgs a) {
     }
   }
 
-  // face-major traction traces n . sigma of the output; pad rows 0
+  // traction traces n . sigma of the output, face-major (merged) or
+  // component-major (V2); pad rows 0
 #pragma unroll 1
   for (int f = 0; f < NF; ++f) {
     float n[DIM];
 #pragma unroll
     for (int d = 0; d < DIM; ++d) n[d] = geo(a.o_nrm + 8 * d + f);
-    float* tr = a.trout + (long long)f * a.rtf * Ls + L;
+    float* tr = V2 ? a.trout + (long long)f * NFP * Ls + L
+                   : a.trout + (long long)f * a.rtf * Ls + L;
 #pragma unroll 1
     for (int kk = 0; kk < NFP; ++kk) {
       const int node = s_fn[f * NFP + kk];
@@ -334,24 +373,41 @@ merged_stress_kernel(const MergedArgs a) {
         float t = 0.f;
 #pragma unroll
         for (int d = 0; d < DIM; ++d) t += n[d] * sv[voigt<DIM>(c, d)];
-        tr[(long long)(c * NFP + kk) * Ls] = t;
+        if constexpr (V2)
+          tr[((long long)c * a.rtf + kk) * Ls] = t;
+        else
+          tr[(long long)(c * NFP + kk) * Ls] = t;
       }
     }
-    for (int q = DIM * NFP; q < a.rtf; ++q) tr[(long long)q * Ls] = 0.f;
+    if constexpr (!V2)
+      for (int q = DIM * NFP; q < a.rtf; ++q) tr[(long long)q * Ls] = 0.f;
   }
+  if constexpr (V2)
+    for (int c = 0; c < DIM; ++c)
+      for (int q = NFT; q < a.rtf; ++q)
+        a.trout[((long long)c * a.rtf + q) * Ls + L] = 0.f;
 }
 
-template <int DIM, int NP, int NFP>
-int launch(int op, const MergedArgs& a, cudaStream_t stream) {
+template <int DIM, int NP, int NFP, bool V2>
+void launch_layout(bool vel, const MergedArgs& a, cudaStream_t stream) {
   const unsigned blocks = (unsigned)((a.Ls + kThreads - 1) / kThreads);
-  if (op == 0)
-    merged_vel_kernel<DIM, NP, NFP><<<blocks, kThreads, 0, stream>>>(a);
+  if (vel)
+    merged_vel_kernel<DIM, NP, NFP, V2><<<blocks, kThreads, 0, stream>>>(a);
   else if (a.o_C >= 0)
-    merged_stress_kernel<DIM, NP, NFP, true>
+    merged_stress_kernel<DIM, NP, NFP, true, V2>
         <<<blocks, kThreads, 0, stream>>>(a);
   else
-    merged_stress_kernel<DIM, NP, NFP, false>
+    merged_stress_kernel<DIM, NP, NFP, false, V2>
         <<<blocks, kThreads, 0, stream>>>(a);
+}
+
+// op: 0 K1, 1 K2, 2 K8, 3 K9.
+template <int DIM, int NP, int NFP>
+int launch(int op, const MergedArgs& a, cudaStream_t stream) {
+  if (op < 2)
+    launch_layout<DIM, NP, NFP, false>(op == 0, a, stream);
+  else
+    launch_layout<DIM, NP, NFP, true>(op == 2, a, stream);
   return (int)cudaGetLastError();
 }
 
@@ -383,6 +439,18 @@ int seigen_merged_vel(const MergedArgs* a, int dim, int n_p, int n_fp,
 int seigen_merged_stress(const MergedArgs* a, int dim, int n_p, int n_fp,
                          void* stream) {
   return dispatch(1, a, dim, n_p, n_fp, stream);
+}
+
+// K8: K1 on consumer-ordered traces (a->rtf = ftpp, plan and mask unused).
+int seigen_fused_vel2(const MergedArgs* a, int dim, int n_p, int n_fp,
+                      void* stream) {
+  return dispatch(2, a, dim, n_p, n_fp, stream);
+}
+
+// K9: K2 on consumer-ordered traces; a->o_C >= 0 as for K2.
+int seigen_fused_stress2(const MergedArgs* a, int dim, int n_p, int n_fp,
+                         void* stream) {
+  return dispatch(3, a, dim, n_p, n_fp, stream);
 }
 
 }  // extern "C"

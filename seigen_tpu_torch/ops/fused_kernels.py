@@ -51,6 +51,17 @@ def stiffness_array(stiffness, E: int, n_sig: int) -> np.ndarray:
 
 
 @dataclass(frozen=True)
+class KernelTables:
+    """The element tables of the CUDA operator kernels, float32 on the
+    operator data's device: Dr (dim, n_p, n_p), LIFT (n_p, nf*n_fp) and the
+    volume node of each face node (nf, n_fp) int32."""
+
+    dr: torch.Tensor
+    lift: torch.Tensor
+    fnodes: torch.Tensor
+
+
+@dataclass(frozen=True)
 class FusedOpData:
     """Operator data for the lane-major operators (see module docstring)."""
 
@@ -69,6 +80,7 @@ class FusedOpData:
     n_fp: int
     off: tuple  # (ginv, nrm, scb, bfs, dfs, mat, C or -1, total)
     fnodes: tuple  # ((...face0 node ids...), ...)
+    tables: KernelTables
 
 
 def build_fused_data(p: ElasticParams, damp=None, stiffness=None,
@@ -138,6 +150,10 @@ def build_fused_data(p: ElasticParams, damp=None, stiffness=None,
             dtype=np.float64).T
         dmp = dev(dn)
 
+    def f32(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), device=p.device).to(
+            dtype)
+
     return FusedOpData(
         drr=dev(np.concatenate([Dr, R], axis=0)),
         lift=dev(LIFT),
@@ -154,4 +170,8 @@ def build_fused_data(p: ElasticParams, damp=None, stiffness=None,
         n_fp=n_fp,
         off=(o_ginv, o_nrm, o_scb, o_bfs, o_dfs, o_mat, o_C, total),
         fnodes=p.fnodes,
+        tables=KernelTables(
+            dr=f32(Dr.reshape(dim, npp, npp)[:, :n_p, :n_p]),
+            lift=f32(LIFT[:n_p, :ftp]),
+            fnodes=f32(np.array(p.fnodes), torch.int32)),
     )

@@ -20,6 +20,14 @@ versions ``vel_merged_ref``/``stress_merged_ref`` for CPU tensors.  Each
 kernel keeps a launch count (``VEL_KERNEL.launches``,
 ``STRESS_KERNEL.launches``; ``launches_c`` counts those of them that ran
 the general Hooke law of a ``C`` section, see ops/fused_kernels.py).
+
+The physics is written once, in ``vel_body``/``stress_body``, as in the
+JAX package (``_vel2_body``/``_stress2_body`` behind both its merged and
+its v2 kernels): a body takes the source of the neighbour traces and the
+layout of the traces it emits as functions.  The merged operators read
+the producer face-major rows through the plan and emit face-major rows;
+the v2 operators (ops/fused_ops.py) read exchanged consumer-order rows and
+emit component-major rows.
 """
 
 from __future__ import annotations
@@ -46,7 +54,8 @@ class MergedPlan:
     kernel as (m, nf, 3 + n_fp) int32 rows [t2, f2, s, pi...];
     ``gather`` is the plain version's flat index of the component-0
     neighbour trace of every (face node, lane), its lane clamped into the
-    producer class (boundary faces never use it).
+    producer class (boundary faces never use it).  The kernels' element
+    tables are the operator data's (``FusedOpData.tables``).
     """
 
     m: int
@@ -57,9 +66,6 @@ class MergedPlan:
     rtf: int  # trace rows per face = roundup(pay*n_fp, 8)
     table: torch.Tensor  # (m, nf, 3 + n_fp) int32
     gather: torch.Tensor  # (nf*n_fp, Ls) int64 into the flat trace array
-    dr: torch.Tensor  # (dim, n_p, n_p) kernel tables, float32
-    lift: torch.Tensor  # (n_p, nf*n_fp)
-    fnodes: torch.Tensor  # (nf, n_fp) int32
 
     @property
     def Ls(self):
@@ -106,16 +112,10 @@ def build_merged_plan(ex: StructuredExchange, d: FusedOpData,
             gather[f, :, t * NC : (t + 1) * NC] = (
                 row[:, None] * Ls + lane[None, :])
     dev = d.geo.device
-    n_p = d.n_p
-    dr = d.drr[: d.dim * d.npp].reshape(d.dim, d.npp, d.npp)[:, :n_p, :n_p]
     return MergedPlan(
         m=m, nf=nf, n_fp=nfp, NC=NC, pay=pay, rtf=rtf,
         table=torch.as_tensor(table, device=dev).to(torch.int32).contiguous(),
         gather=torch.as_tensor(gather.reshape(nf * nfp, Ls), device=dev),
-        dr=dr.to(torch.float32).contiguous(),
-        lift=d.lift[:n_p, : d.ftp].to(torch.float32).contiguous(),
-        fnodes=torch.as_tensor(np.array(d.fnodes), device=dev).to(
-            torch.int32).contiguous(),
     )
 
 
@@ -178,9 +178,14 @@ def _derivs(d: FusedOpData, x):
     return torch.matmul(Dr, x[None])
 
 
-def vel_merged_ref(plan: MergedPlan, d: FusedOpData, sig_lm, trs, mask,
-                   axpy=None, dt=0.0, c3=0.0, inject=None):
-    """Plain version of K1 (see vel_merged)."""
+def vel_body(d: FusedOpData, sig_lm, neighbour, emit, axpy=None, dt=0.0,
+             c3=0.0, inject=None):
+    """The plain velocity operator of K1 and K8:
+    du_c = (1/rho) (div(sigma)_c + LIFT(scb*t+_c + bfs*t-_c)).
+
+    neighbour(t_own) -> (dim, ftp, Ls) signed neighbour tractions t+ (t_own
+    on boundary faces); emit(traces (dim, ftp, Ls)) -> the trace array the
+    operator returns.  axpy / inject: see vel_merged."""
     dim, npp, Ls = d.dim, d.npp, sig_lm.shape[1]
     V = voigt_map(dim)
     o_ginv, o_nrm, o_scb, o_bfs, _, o_mat = d.off[:6]
@@ -192,8 +197,7 @@ def vel_merged_ref(plan: MergedPlan, d: FusedOpData, sig_lm, trs, mask,
     scb, bfs = _face_rows(d, geo, o_scb), _face_rows(d, geo, o_bfs)
     t_own = torch.stack([sum(nrm[k] * own[V[c, k]] for k in range(dim))
                          for c in range(dim)])
-    t_nb = _neighbour(plan, trs, (-1.0,) * dim, t_own, _own_mask(d, mask))
-    flux = scb * t_nb + bfs * t_own
+    flux = scb * neighbour(t_own) + bfs * t_own
     surf = torch.matmul(d.lift[:, : d.ftp], flux)  # (dim, npp, Ls)
     div = torch.stack([
         sum(geo[o_ginv + r * dim + k] * der[r, V[c, k]]
@@ -201,8 +205,17 @@ def vel_merged_ref(plan: MergedPlan, d: FusedOpData, sig_lm, trs, mask,
         for c in range(dim)])
     res = geo[o_mat] * (div + surf)
     res = _epilogue(res, axpy, dt, c3, None, inject, dim, npp)
-    tr = _restrict(d, res)
-    return res.reshape(dim * npp, Ls), _emit(plan, d, tr)
+    return res.reshape(dim * npp, Ls), emit(_restrict(d, res))
+
+
+def vel_merged_ref(plan: MergedPlan, d: FusedOpData, sig_lm, trs, mask,
+                   axpy=None, dt=0.0, c3=0.0, inject=None):
+    """Plain version of K1 (see vel_merged)."""
+    sel = _own_mask(d, mask)
+    return vel_body(
+        d, sig_lm,
+        lambda t_own: _neighbour(plan, trs, (-1.0,) * d.dim, t_own, sel),
+        lambda tr: _emit(plan, d, tr), axpy, dt, c3, inject)
 
 
 def _hooke(dim, lam, mu, gd):
@@ -237,9 +250,16 @@ def hooke_rows(dim, lam, mu, cmat, gd):
     return _voigt_hooke(dim, lambda c, k: cmat[c * 8 + k], gd)
 
 
-def stress_merged_ref(plan: MergedPlan, d: FusedOpData, u_lm, trs, mask,
-                      axpy=None, dt=0.0, c3=0.0, inject=None):
-    """Plain version of K2 (see stress_merged)."""
+def stress_body(d: FusedOpData, u_lm, neighbour, emit, axpy=None, dt=0.0,
+                c3=0.0, inject=None):
+    """The plain stress operator of K2 and K9: ds = Hooke(grad u) +
+    LIFT(Hooke_face(n (x) (scb*u+ + dfs*u-))), the Hooke law isotropic or
+    general over the ``C`` rows of d.geo; emits the TRACTION traces
+    n . sigma of its output.
+
+    neighbour(u_own) -> (dim, ftp, Ls) neighbour velocity traces u+ (u_own
+    on boundary faces); emit: see vel_body.  axpy also folds d.damp:
+    out = damp*(s + dt*sh1 + c3*ds)."""
     dim, npp, Ls = d.dim, d.npp, u_lm.shape[1]
     V = voigt_map(dim)
     o_ginv, o_nrm, o_scb, _, o_dfs, o_mat = d.off[:6]
@@ -258,8 +278,7 @@ def stress_merged_ref(plan: MergedPlan, d: FusedOpData, u_lm, trs, mask,
 
     vol = torch.stack(hooke_rows(dim, lam, mu, cmat,
                                  lambda c, k: grad(k, c)))
-    u_nb = _neighbour(plan, trs, (1.0,) * dim, own, _own_mask(d, mask))
-    jump = scb * u_nb + dfs * own
+    jump = scb * neighbour(own) + dfs * own
     face = torch.stack(hooke_rows(dim, lam, mu, cmat,
                                   lambda c, k: nrm[k] * jump[c]))
     res = vol + torch.matmul(d.lift[:, : d.ftp], face)
@@ -268,7 +287,17 @@ def stress_merged_ref(plan: MergedPlan, d: FusedOpData, u_lm, trs, mask,
     tr_sig = _restrict(d, res)
     tr = torch.stack([sum(nrm[k] * tr_sig[V[c, k]] for k in range(dim))
                       for c in range(dim)])
-    return res.reshape(d.n_sig * npp, Ls), _emit(plan, d, tr)
+    return res.reshape(d.n_sig * npp, Ls), emit(tr)
+
+
+def stress_merged_ref(plan: MergedPlan, d: FusedOpData, u_lm, trs, mask,
+                      axpy=None, dt=0.0, c3=0.0, inject=None):
+    """Plain version of K2 (see stress_merged)."""
+    sel = _own_mask(d, mask)
+    return stress_body(
+        d, u_lm,
+        lambda own: _neighbour(plan, trs, (1.0,) * d.dim, own, sel),
+        lambda tr: _emit(plan, d, tr), axpy, dt, c3, inject)
 
 
 # ---------------------------------------------------------------------------
@@ -304,14 +333,18 @@ def check_operands(name, dev, Ls, checks):
 
 
 class MergedKernel:
-    """ctypes binding of one merged operator kernel, with its launch
-    counts: ``launches`` grows by one per kernel launch and nowhere else;
-    ``launches_c`` counts the launches among them that ran the general
-    Hooke law (K2 on operator data with a ``C`` section)."""
+    """ctypes binding of one operator kernel of csrc/merged_kernels.cu,
+    with its launch counts: ``launches`` grows by one per kernel launch and
+    nowhere else; ``launches_c`` counts the launches among them that ran
+    the general Hooke law (a stress operator on operator data with a ``C``
+    section).  Calling it launches a merged operator (K1/K2) on the
+    producer trace array of its plan; ops/fused_ops.py binds the v2
+    operators (K8/K9) through ``launch``."""
 
-    def __init__(self, symbol: str, name: str):
+    def __init__(self, symbol: str, name: str, vel: bool):
         self.symbol = symbol
         self.name = name
+        self.vel = vel
         self.launches = 0
         self.launches_c = 0
         self._fn = None
@@ -338,6 +371,16 @@ class MergedKernel:
 
     def __call__(self, plan: MergedPlan, d: FusedOpData, field, trs, mask,
                  axpy=None, damp=None, dt=0.0, c3=0.0, inject=None):
+        return self.launch(d, field, trs, plan.nf * plan.rtf, plan.rtf,
+                           plan=plan, mask=mask, axpy=axpy, damp=damp, dt=dt,
+                           c3=c3, inject=inject)
+
+    def launch(self, d: FusedOpData, field, trs, tr_rows, rtf, plan=None,
+               mask=None, axpy=None, damp=None, dt=0.0, c3=0.0, inject=None):
+        """Check the operands and launch: traces in and out have tr_rows
+        rows, ``rtf`` is the kernel's row stride of a trace block (merged:
+        rows per face; v2: rows per component); ``plan`` and ``mask`` only
+        for the merged layout."""
         inject = list(inject or ())
         if len(inject) > 2:
             raise ValueError("the kernels take at most 2 dense source groups")
@@ -345,26 +388,28 @@ class MergedKernel:
         if dev.type != "cuda":
             raise ValueError(f"{self.name}: the kernel takes CUDA tensors, "
                              f"got {dev}")
-        Ls = plan.Ls
-        C_in, C_out = ((d.n_sig, d.dim) if self.name == "merged_vel"
-                       else (d.dim, d.n_sig))
-        checks = [(field, C_in * d.npp), (trs, plan.nf * plan.rtf),
-                  (d.geo, None), (mask, 8)]
+        Ls = field.shape[-1]
+        if plan is not None and Ls != plan.Ls:
+            raise ValueError(f"{self.name}: {Ls} lanes, the plan has "
+                             f"{plan.Ls}")
+        C_in, C_out = (d.n_sig, d.dim) if self.vel else (d.dim, d.n_sig)
+        checks = [(field, C_in * d.npp), (trs, tr_rows), (d.geo, None)]
+        checks += [(mask, 8)] if plan is not None else []
         checks += [(x, C_out * d.npp) for x in (axpy or ())]
         checks += [(damp, d.npp)] if damp is not None else []
         checks += [(s_g, C_out * d.npp) for s_g, _ in inject]
         check_operands(self.name, dev, Ls, checks)
         o = d.off
-        # the C section switches K2 to the general Hooke law; K1 has no
-        # material law and ignores it
-        o_C = o[6] if self.name == "merged_stress" else -1
+        # the C section switches a stress kernel to the general Hooke law;
+        # the velocity kernels have no material law and ignore it
+        o_C = -1 if self.vel else o[6]
         if o_C >= 0 and o_C + 8 * d.n_sig > d.geo.shape[0]:
             raise ValueError(f"{self.name}: geo has {d.geo.shape[0]} rows, "
                              f"its C section needs {o_C + 8 * d.n_sig}")
         out = torch.empty((C_out * d.npp, Ls), dtype=field.dtype, device=dev)
-        trout = torch.empty((plan.nf * plan.rtf, Ls), dtype=field.dtype,
-                            device=dev)
+        trout = torch.empty((tr_rows, Ls), dtype=field.dtype, device=dev)
         ptr = (lambda x: None if x is None else x.data_ptr())
+        kt = d.tables
         args = MergedArgs(
             field=ptr(field), trs=ptr(trs), geo=ptr(d.geo), mask=ptr(mask),
             ax0=ptr(axpy[0]) if axpy else None,
@@ -372,10 +417,12 @@ class MergedKernel:
             damp=ptr(damp),
             inj0=ptr(inject[0][0]) if len(inject) > 0 else None,
             inj1=ptr(inject[1][0]) if len(inject) > 1 else None,
-            plan=ptr(plan.table), dr=ptr(plan.dr), lift=ptr(plan.lift),
-            fnodes=ptr(plan.fnodes), out=ptr(out), trout=ptr(trout),
-            Ls=Ls, NC=plan.NC, npp=d.npp, rtf=plan.rtf, o_ginv=o[0],
-            o_nrm=o[1], o_scb=o[2], o_bfs=o[3], o_dfs=o[4], o_mat=o[5],
+            plan=ptr(plan.table) if plan is not None else None,
+            dr=ptr(kt.dr), lift=ptr(kt.lift), fnodes=ptr(kt.fnodes),
+            out=ptr(out), trout=ptr(trout),
+            Ls=Ls, NC=plan.NC if plan is not None else Ls, npp=d.npp,
+            rtf=rtf, o_ginv=o[0], o_nrm=o[1], o_scb=o[2], o_bfs=o[3],
+            o_dfs=o[4], o_mat=o[5],
             o_C=o_C, axpy=int(axpy is not None), n_inj=len(inject),
             dt=float(dt), c3=float(c3),
             r0=float(inject[0][1]) if len(inject) > 0 else 0.0,
@@ -393,8 +440,9 @@ class MergedKernel:
         return out, trout
 
 
-VEL_KERNEL = MergedKernel("seigen_merged_vel", "merged_vel")
-STRESS_KERNEL = MergedKernel("seigen_merged_stress", "merged_stress")
+VEL_KERNEL = MergedKernel("seigen_merged_vel", "merged_vel", vel=True)
+STRESS_KERNEL = MergedKernel("seigen_merged_stress", "merged_stress",
+                             vel=False)
 
 
 def _on_cuda(x):

@@ -257,8 +257,8 @@ class UpwindKernel:
             geo=d.geo.data_ptr(), uwg=uwg.data_ptr(), mask=mask.data_ptr(),
             inj_u0=inj(0, 0), inj_s0=inj(0, 1), inj_u1=inj(1, 0),
             inj_s1=inj(1, 1), plan=plan.table.data_ptr(),
-            dr=plan.dr.data_ptr(), lift=plan.lift.data_ptr(),
-            fnodes=plan.fnodes.data_ptr(), du=du.data_ptr(),
+            dr=d.tables.dr.data_ptr(), lift=d.tables.lift.data_ptr(),
+            fnodes=d.tables.fnodes.data_ptr(), du=du.data_ptr(),
             ds=ds.data_ptr(), trout=trout.data_ptr(),
             Ls=Ls, NC=plan.NC, npp=d.npp, rtf=plan.rtf, o_ginv=o[0],
             o_nrm=o[1], o_scb=o[2], o_mat=o[5], n_inj=len(inject),

@@ -1,6 +1,7 @@
 from .analytic import PlaneWave
 from .damping import absorbing_bc_fn, sponge_mask
 from .errors import convergence_order, interpolate, l2_error, l2_norm
+from .lane_fused import FusedLaneRunner
 from .receivers import ReceiverData, build_receivers, line, sample
 from .rk4 import make_rk4_step, run_rk4, run_rk4_visco
 from .simulation import ElasticSimulation, SimConfig
@@ -15,6 +16,7 @@ __all__ = [
     "interpolate",
     "l2_error",
     "l2_norm",
+    "FusedLaneRunner",
     "ReceiverData",
     "build_receivers",
     "line",

@@ -11,7 +11,8 @@ multiply of u.  The traction traces of sigma ride the step carry.
 ``impl="kernel"`` runs the CUDA kernels (CUDA tensors only);
 ``impl="reference"`` runs their plain PyTorch versions on any device.  The
 default follows the device of the parameters.  ``run_lm`` is a Python loop
-over steps.
+over steps.  The v2 runner (solver/lane_fused.py) and the upwind RK4 runner
+(solver/lane_upwind.py) build on this class.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 from ..ops.elastic import ElasticParams, voigt_map
 from ..ops.fused_kernels import build_fused_data
 from ..ops.merged_kernels import (
+    _emit,
     build_merged_plan,
     stress_merged,
     stress_merged_ref,
@@ -41,6 +43,10 @@ from .timestep import State, compose_lf_step_traced, inject_columns, \
 class MergedLaneRunner:
     """Exchange-in-kernel lane-major runner (LF4, structured meshes)."""
 
+    record_pressure = False
+    # sources of <= 2 wavelet groups enter through the stage operators
+    _kernel_injection = True
+
     def __init__(
         self,
         p: ElasticParams,
@@ -49,13 +55,17 @@ class MergedLaneRunner:
         src: SourceData | None = None,
         damp: torch.Tensor | np.ndarray | None = None,
         receivers: ReceiverData | None = None,
+        record_pressure: bool = False,
         impl: str | None = None,
         stiffness=None,
     ):
         """``stiffness``: optional (n_sig, n_sig) or (E, n_sig, n_sig)
         Voigt stiffness in p's element order (ops/anisotropic.py
         conventions): the stress operator then takes the general Hooke
-        law over the ``C`` section of the operator data."""
+        law over the ``C`` section of the operator data.
+        ``record_pressure``: the seismograms get a last column, the
+        pressure -tr(sigma)/dim at each receiver."""
+        self.record_pressure = record_pressure
         self.impl = impl = resolve_impl(impl, p.device)
         self._vel_op = vel_merged if impl == "kernel" else vel_merged_ref
         self._stress_op = (stress_merged if impl == "kernel"
@@ -68,9 +78,10 @@ class MergedLaneRunner:
         self._lf = self._compose_step()
 
     def _setup_core(self, p, ex, dt, damp=None, pay=None, stiffness=None):
-        """Class-major permutation, merged plan, placed geo/mask, face-node
-        normal expansion + restriction matrix (also used by the upwind RK4
-        runner).  pay: trace payload components per face (default dim)."""
+        """Class-major permutation, merged plan (``_build_plan``), placed
+        geo/mask, face-node normal expansion + restriction matrix (also used
+        by the upwind RK4 and the v2 runner).  pay: trace payload components
+        per face (default dim)."""
         self.p = p
         self.ex = ex
         self.device = p.device
@@ -90,13 +101,10 @@ class MergedLaneRunner:
         # stiffness rows among them — stiffness went in in p's element
         # order (damp was permuted above)
         self.d = d = dataclasses.replace(d, geo=d.geo[:, perm].contiguous())
-        self.plan = plan = build_merged_plan(ex, d, pay=pay)
-        if plan is None:
-            raise ValueError("mesh does not satisfy the merged-operator "
-                             "constraints (see build_merged_plan)")
+        self.plan = self._build_plan(ex, d, pay)
 
         # per-face boundary mask as lane rows (8, Ls)
-        mk = np.ones((8, plan.Ls), dtype=np.float64)
+        mk = np.ones((8, ex.m * NC), dtype=np.float64)
         for t in range(ex.m):
             for f in range(ex.n_faces):
                 mk[f, t * NC : (t + 1) * NC] = ex.self_mask[t, f].reshape(-1)
@@ -107,6 +115,18 @@ class MergedLaneRunner:
         nrm = p.normals[perm]  # (Ls, nf, dim)
         self._nrm_exp = nrm[:, rep, :].permute(2, 1, 0).contiguous()
         self._rmat = d.drr[d.dim * d.npp : d.dim * d.npp + d.ftp]
+
+    def _build_plan(self, ex, d, pay):
+        plan = build_merged_plan(ex, d, pay=pay)
+        if plan is None:
+            raise ValueError("mesh does not satisfy the merged-operator "
+                             "constraints (see build_merged_plan)")
+        return plan
+
+    def _place_traces(self, tr):
+        """(C, ftp, L) face-node traces -> the runner's trace layout
+        (face-major rows f*rtf + c*n_fp + k)."""
+        return _emit(self.plan, self.d, tr)
 
     def _build_receivers(self, receivers):
         if receivers is None:
@@ -121,74 +141,75 @@ class MergedLaneRunner:
             elems=torch.as_tensor(e_new, device=self.device), weights=w8)
 
     def _build_sources(self, src):
-        """Dense per-wavelet-group patterns (<= 2 groups: kernel-fused
-        injection) or per-element column patches (scatter fallback)."""
+        """Sources grouped by wavelet.  With <= 2 groups (and
+        ``_kernel_injection``) ``src_dense`` holds the dense (u, sigma)
+        patterns per group of the kernel-fused injection and
+        ``_src_groups`` the (f0, t0) of each; otherwise a group is (f0, t0,
+        lanes, u patch, sigma patch, velocity-trace patch, traction-trace
+        patch), amplitudes folded in, trace patches in the runner's trace
+        layout, and the stages scatter the patches."""
         d, p = self.d, self.p
         self.src_dense = None
         self._src_groups = []
-        self.src_vu = self.src_vs = self.src_tru = self.src_trt = None
         if src is None:
-            self.src_elems = None
             return
         K = src.elems.shape[0]
         V = voigt_map(d.dim)
-        fnodes = np.array(p.fnodes)
-        normals = p.normals.detach().cpu().numpy().astype(np.float64)
-        elems_old = src.elems.cpu().numpy()
-        vec_u = src.vec_u.detach().cpu().numpy().astype(np.float64)
-        vec_s = src.vec_s.detach().cpu().numpy().astype(np.float64)
-        e_new = self._new_of_old[elems_old]
-        vu = np.zeros((d.dim * d.npp, K), dtype=np.float64)
-        vs = np.zeros((d.n_sig * d.npp, K), dtype=np.float64)
-        # face-major trace patches, rows f*rtf + c*n_fp + k
-        rtf = self.plan.rtf
-        tru = np.zeros((d.nf * rtf, K), dtype=np.float64)
-        trt = np.zeros((d.nf * rtf, K), dtype=np.float64)
-        for c in range(d.dim):
-            vu[c * d.npp : c * d.npp + d.n_p] = vec_u[:, :, c].T
-        for c in range(d.n_sig):
-            vs[c * d.npp : c * d.npp + d.n_p] = vec_s[:, :, c].T
-        for c in range(d.dim):
-            for f in range(d.nf):
-                rows = f * rtf + c * d.n_fp + np.arange(d.n_fp)
-                tru[rows] = vec_u[:, fnodes[f], c].T
-                acc = np.zeros((K, d.n_fp))
-                for dd in range(d.dim):
-                    acc += (normals[elems_old, f, dd][:, None]
-                            * vec_s[:, fnodes[f], V[c, dd]])
-                trt[rows] = acc.T
-        # lanes are class-major element ids (no per-class padding)
-        self.src_elems = torch.as_tensor(e_new, device=self.device)
+
+        def host(x):
+            return x.detach().cpu().numpy().astype(np.float64)
 
         def dev(a):
-            return torch.as_tensor(a, device=self.device).to(self.dtype)
+            return torch.as_tensor(np.ascontiguousarray(a),
+                                   device=self.device).to(self.dtype)
 
-        f0a = np.broadcast_to(src.f0.cpu().numpy().astype(np.float64), (K,))
-        t0a = np.broadcast_to(src.t0.cpu().numpy().astype(np.float64), (K,))
-        ampa = np.broadcast_to(src.amp.cpu().numpy().astype(np.float64), (K,))
+        elems_old = src.elems.cpu().numpy()
+        vec_u, vec_s = host(src.vec_u), host(src.vec_s)  # (K, n_p, C)
+        f0a, t0a, ampa = (np.broadcast_to(host(x), (K,))
+                          for x in (src.f0, src.t0, src.amp))
+        vu = np.zeros((d.dim, d.npp, K))
+        vs = np.zeros((d.n_sig, d.npp, K))
+        vu[:, : d.n_p] = vec_u.transpose(2, 1, 0) * ampa
+        vs[:, : d.n_p] = vec_s.transpose(2, 1, 0) * ampa
+        vu = vu.reshape(d.dim * d.npp, K)
+        vs = vs.reshape(d.n_sig * d.npp, K)
+        e_new = self._new_of_old[elems_old]
         groups: dict = {}
         for k in range(K):
             key = (round(float(f0a[k]), 12), round(float(t0a[k]), 12))
             groups.setdefault(key, []).append(k)
-        if len(groups) <= 2:
+
+        if self._kernel_injection and len(groups) <= 2:
             # kernel-fused injection: out += r_g(t) * S_g inside the stage
             # operators, so the emitted traces carry the source too
+            Ls = d.geo.shape[1]
             dense = []
-            for (f0g, t0g), idx in groups.items():
-                Su = np.zeros((d.dim * d.npp, self.plan.Ls), np.float64)
-                Ss = np.zeros((d.n_sig * d.npp, self.plan.Ls), np.float64)
-                for k in idx:
-                    Su[:, e_new[k]] += vu[:, k] * ampa[k]
-                    Ss[:, e_new[k]] += vs[:, k] * ampa[k]
+            for key, idx in groups.items():
+                Su = np.zeros((d.dim * d.npp, Ls))
+                Ss = np.zeros((d.n_sig * d.npp, Ls))
+                np.add.at(Su.T, e_new[idx], vu[:, idx].T)
+                np.add.at(Ss.T, e_new[idx], vs[:, idx].T)
                 dense.append((dev(Su), dev(Ss)))
-                self._src_groups.append((f0g, t0g))
+                self._src_groups.append(key)
             self.src_dense = tuple(dense)
-        self.src_vu, self.src_vs = dev(vu), dev(vs)
-        self.src_tru, self.src_trt = dev(tru), dev(trt)
-        npdt = self._npdt
-        self.src_f0 = src.f0.cpu().numpy().astype(npdt)
-        self.src_t0 = src.t0.cpu().numpy().astype(npdt)
-        self.src_amp = src.amp.cpu().numpy().astype(npdt)
+            return
+
+        # face-node patches: velocity rows, and traction rows with the
+        # element's own normals
+        fn = np.array(p.fnodes).reshape(-1)
+        nrm = host(p.normals)[elems_old][
+            :, np.repeat(np.arange(d.nf), d.n_fp)]  # (K, ftp, dim)
+        sf = vec_s[:, fn]  # (K, ftp, n_sig)
+        tru = vec_u[:, fn].transpose(2, 1, 0) * ampa  # (dim, ftp, K)
+        trt = np.stack([sum(nrm[..., dd] * sf[..., V[c, dd]]
+                            for dd in range(d.dim))
+                        for c in range(d.dim)]).transpose(0, 2, 1) * ampa
+        for (f0g, t0g), idx in groups.items():
+            self._src_groups.append((
+                f0g, t0g, torch.as_tensor(e_new[idx], device=self.device),
+                dev(vu[:, idx]), dev(vs[:, idx]),
+                self._place_traces(dev(tru[..., idx])),
+                self._place_traces(dev(trt[..., idx]))))
 
     # --- state conversion ---
     def _to_lm(self, x):
@@ -207,36 +228,36 @@ class MergedLaneRunner:
         return State(u=self._from_lm(ulm, self.d.dim),
                      s=self._from_lm(slm, self.d.n_sig))
 
-    def traction_traces(self, slm):
-        """Own-face traction traces of a lane-major stress field in the
-        face-major trace layout — seeds the step carry."""
-        d, plan = self.d, self.plan
+    def _traction_rows(self, x_lm):
+        """(dim, ftp, Ls) traction rows (own normals) of a lane-major Voigt
+        field."""
+        d = self.d
         V = voigt_map(d.dim)
-        S = slm.reshape(d.n_sig, d.npp, -1)
-        tr_sig = torch.matmul(self._rmat, S)  # (n_sig, ftp, Ls)
-        rows = torch.stack([
+        tr_sig = torch.matmul(self._rmat, x_lm.reshape(d.n_sig, d.npp, -1))
+        return torch.stack([
             sum(self._nrm_exp[dd] * tr_sig[V[c, dd]] for dd in range(d.dim))
             for c in range(d.dim)])
-        out = torch.zeros((plan.nf, plan.rtf, plan.Ls), dtype=slm.dtype,
-                          device=slm.device)
-        blk = rows.reshape(d.dim, d.nf, d.n_fp, -1).transpose(0, 1)
-        out[:, : d.dim * d.n_fp] = blk.reshape(d.nf, d.dim * d.n_fp, -1)
-        return out.reshape(plan.nf * plan.rtf, plan.Ls)
+
+    def traction_traces(self, slm):
+        """Own-face traction traces of a lane-major stress field in the
+        runner's trace layout — seeds the step carry."""
+        return self._place_traces(self._traction_rows(slm))
 
     # --- step ---
-    def _inject(self, field, tr, vecs, tr_vecs, t):
-        """Scatter fallback (> 2 wavelet groups): columns += r(t)*patch."""
-        if self.src_elems is None:
-            return field, tr
-        r = torch.as_tensor(
-            self.src_amp * ricker(t, self.src_f0, self.src_t0),
-            device=self.device)[None, :]
-        field = inject_columns(field, self.src_elems, vecs * r)
-        tr = inject_columns(tr, self.src_elems, tr_vecs * r)
+    def _inject(self, field, tr, part, t):
+        """Scatter the sources into a stage output and its traces: per
+        wavelet group, columns += r_g(t) * patch (part 0: velocity, 1:
+        stress).  One index_add per array and group, the wavelet value an
+        argument computed on the host: copying it to the device would
+        synchronise the stream every stage."""
+        for g, (_, _, lanes, *patches) in enumerate(self._src_groups):
+            r = self._wavelet(t, g)
+            field = inject_columns(field, lanes, patches[part], alpha=r)
+            tr = inject_columns(tr, lanes, patches[2 + part], alpha=r)
         return field, tr
 
     def _wavelet(self, t, g):
-        f0g, t0g = self._src_groups[g]
+        f0g, t0g = self._src_groups[g][:2]
         return float(ricker(t, f0g, t0g))
 
     def _src_stage_ops(self):
@@ -283,10 +304,8 @@ class MergedLaneRunner:
                 plan, d, s, tr, mask, axpy=(u, uh1), dt=dt, c3=c3),
             stress_axpy=lambda u, tr, s, sh1: stress(
                 plan, d, u, tr, mask, axpy=(s, sh1), dt=dt, c3=c3),
-            inject_u=lambda f, tr, t_: self._inject(
-                f, tr, self.src_vu, self.src_tru, t_),
-            inject_s=lambda f, tr, t_: self._inject(
-                f, tr, self.src_vs, self.src_trt, t_),
+            inject_u=lambda f, tr, t_: self._inject(f, tr, 0, t_),
+            inject_s=lambda f, tr, t_: self._inject(f, tr, 1, t_),
             post_u=self._post_u,
         )
 
@@ -295,10 +314,19 @@ class MergedLaneRunner:
         ulm, slm, trs = carry
         return self._lf(ulm, slm, trs, t, self.dt)
 
-    def _sample(self, u_lm):
-        """(R, dim) velocity samples of lane-major u."""
-        g3 = u_lm[:, self.rcv.elems].reshape(self.d.dim, self.d.npp, -1)
-        return torch.einsum("ri,cir->rc", self.rcv.weights, g3)
+    def _sample(self, u_lm, s_lm=None):
+        """(R, dim) velocity samples of lane-major u, and with
+        ``record_pressure`` and s_lm a last column, the pressure
+        -tr(sigma)/dim."""
+        d, w = self.d, self.rcv.weights
+        g3 = u_lm[:, self.rcv.elems].reshape(d.dim, d.npp, -1)
+        rec = torch.einsum("ri,cir->rc", w, g3)
+        if self.record_pressure and s_lm is not None:
+            gs = s_lm[:, self.rcv.elems].reshape(d.n_sig, d.npp, -1)
+            pr = -gs[: d.dim].mean(dim=0)
+            rec = torch.cat([rec, torch.einsum("ri,ir->r", w, pr)[:, None]],
+                            dim=-1)
+        return rec
 
     def run_lm(self, ulm, slm, n_steps: int, step0: int = 0):
         """n_steps on lane-major state; returns (ulm, slm, seismograms
@@ -310,7 +338,7 @@ class MergedLaneRunner:
         for k in range(step0, step0 + n_steps):
             carry = self.step_with(carry, self._npdt(k) * self.dt)
             if self.rcv is not None:
-                seis.append(self._sample(carry[0]))
+                seis.append(self._sample(carry[0], carry[1]))
         return carry[0], carry[1], (torch.stack(seis) if seis else None)
 
     def run(self, state0: State, n_steps: int, step0: int = 0):

@@ -177,16 +177,6 @@ class UpwindLaneRunner(MergedLaneRunner):
         tr_u = torch.matmul(self._rmat, ulm.reshape(d.dim, d.npp, -1))
         return self._payload_place(tr_u, self._traction_rows(slm))
 
-    def _traction_rows(self, x_lm):
-        """(dim, ftp, Ls) traction rows (own normals) of a lane-major Voigt
-        field."""
-        d = self.d
-        V = voigt_map(d.dim)
-        tr_sig = torch.matmul(self._rmat, x_lm.reshape(d.n_sig, d.npp, -1))
-        return torch.stack([
-            sum(self._nrm_exp[dd] * tr_sig[V[c, dd]] for dd in range(d.dim))
-            for c in range(d.dim)])
-
     def _payload_place(self, u_rows, t_rows):
         """(dim, ftp, Ls) velocity rows (None: zero) and traction rows ->
         (nf*rtf, Ls) face-major payload traces."""

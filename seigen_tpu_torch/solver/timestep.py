@@ -116,10 +116,10 @@ def compose_lf_step_traced(vel, stress, vel_axpy, stress_axpy,
 
 
 def inject_columns(arr: torch.Tensor, lanes: torch.Tensor,
-                   patch: torch.Tensor) -> torch.Tensor:
-    """arr[:, lanes[k]] += patch[:, k] (point-source injection); repeated
-    lanes accumulate.  Returns a new tensor."""
-    return arr.index_add(1, lanes, patch)
+                   patch: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
+    """arr[:, lanes[k]] += alpha * patch[:, k] (point-source injection);
+    repeated lanes accumulate.  Returns a new tensor."""
+    return arr.index_add(1, lanes, patch, alpha=alpha)
 
 
 def damp_post(damp: torch.Tensor | None):

@@ -3,8 +3,9 @@
 ``setup_case`` must build the JAX bench's case (same mesh, parameters,
 source, sponge, dt; with ``scramble=True`` the same cell permutation);
 ``measure`` runs end to end on the CPU through the plain operator versions,
-for the lane runners at LF2 and LF4 too, and with ``vti=True`` through the
-general Hooke law (the upwind impls refuse it); ``main`` refuses to measure
+for the lane runners at LF2 and LF4 and the v2 runner (LF4 only) too, and
+with ``vti=True`` through the general Hooke law (the upwind impls refuse
+it); ``main`` refuses to measure
 without a CUDA device; the entry points default to the card; and importing
 the port never imports JAX.
 """
@@ -94,7 +95,21 @@ def test_measure_lane_runners_on_cpu(impl, order):
                            order=2)
 
 
-@pytest.mark.parametrize("impl", ["merged", "lane", "lane_u"])
+def test_measure_fused_on_cpu():
+    dm, p, src, damp, dt, st = tbench.setup_case(
+        n=2, degree=1, dtype=torch.float64, device="cpu")
+    runner = tbench.make_runner("fused", dm, p, src, damp, dt, "reference")
+    assert runner.impl == "reference"
+    res = tbench.measure(p, src, damp, dt, st, dm, n_steps=2, impl="fused",
+                         kernel_impl="reference")
+    assert res.n_dof == dm.num_elements * dm.re.n_p * 9
+    assert np.isfinite(res.dof_updates_per_sec) and res.seconds > 0
+    with pytest.raises(ValueError, match="LF4"):
+        tbench.make_runner("fused", dm, p, src, damp, dt, "reference",
+                           order=2)
+
+
+@pytest.mark.parametrize("impl", ["merged", "lane", "lane_u", "fused"])
 def test_vti_bench_runs_the_general_hooke_law(impl):
     """``vti=True`` hands the runner the JAX bench's VTI stiffness (same
     Thomsen parameters, one matrix per element) and changes the result."""
@@ -113,7 +128,7 @@ def test_vti_bench_runs_the_general_hooke_law(impl):
     for vti in (False, True):
         runner = tbench.make_runner(impl, dm, p, src, damp, dt, "reference",
                                     vti=vti)
-        has_c = (runner.d.off[6] >= 0 if impl == "merged"
+        has_c = (runner.d.off[6] >= 0 if impl in ("merged", "fused")
                  else runner.cmat is not None)
         assert has_c is vti
         outs.append(runner.run(st, 2)[0])
@@ -161,6 +176,14 @@ def test_profile_groups_kernels_and_needs_cuda(monkeypatch):
         "(MergedArgs)": "merged_vel",
         "void (anonymous namespace)::lane_stress_kernel<3, 20, 10>"
         "(LaneArgs)": "lane_stress",
+        "void (anonymous namespace)::merged_vel_kernel<3, 20, 10, true>"
+        "(MergedArgs)": "fused_vel2",
+        "void (anonymous namespace)::merged_stress_kernel<3, 20, 10, true, "
+        "false>(MergedArgs)": "merged_stress",
+        "void (anonymous namespace)::merged_stress_kernel<3, 20, 10, true, "
+        "true>(MergedArgs)": "fused_stress2",
+        "void (anonymous namespace)::trace_exchange_kernel(ExchangeArgs)":
+        "trace_exchange",
         "void at::native::_scatter_gather_elementwise_kernel<128, 4>":
         "pytorch gather/index",
         "void at::native::indexSelectLargeIndex<float, long>":
@@ -190,6 +213,8 @@ def test_entry_points_default_to_the_card():
 def test_port_never_imports_jax():
     code = ("import sys, seigen_tpu_torch.bench.throughput, "
             "seigen_tpu_torch.solver.lane_merged, "
+            "seigen_tpu_torch.solver.lane_fused, "
+            "seigen_tpu_torch.ops.fused_ops, "
             "seigen_tpu_torch.solver.lane_upwind, "
             "seigen_tpu_torch.solver.rk4, "
             "seigen_tpu_torch.solver.lane_unstructured, "

@@ -15,7 +15,12 @@ and viscoelastic) against the plain runners for a few steps, with their
 launch counts; and the general Hooke law of K2 (plain, axpy, axpy + damp,
 1 and 2 source groups) and K5 (TR, SEL) with a per-element non-symmetric
 random stiffness on box_mesh(4, 4, 4) P2/P3 and rect_mesh(8, 8) P2, plus
-the three runners with a VTI stiffness (``launches_c`` counts).
+the three runners with a VTI stiffness (``launches_c`` counts); the v2
+engine's K8 (fused_vel2: plain, axpy) and K9 (fused_stress2: plain, axpy +
+damp, and both with a per-element non-symmetric stiffness) on
+box_mesh(4, 4, 4) P2/P3 and rect_mesh(8, 8) P2, K10 (trace_exchange,
+tractions and velocities) on those meshes and their periodic twins, and
+FusedLaneRunner against its plain runner and the kernel merged runner.
 These tests need a CUDA device and nvcc; elsewhere they skip.  On the GPU
 machine (which has no JAX, so the suite's conftest is not loaded):
 
@@ -37,11 +42,13 @@ from seigen_tpu_torch.ops import (
     build_upwind_data,
     build_visco,
 )
+from seigen_tpu_torch.ops import fused_ops as fo
 from seigen_tpu_torch.ops import lane_kernels as lk
 from seigen_tpu_torch.ops import lane_upwind_kernels as luk
 from seigen_tpu_torch.ops import merged_kernels as mk
 from seigen_tpu_torch.ops import upwind_kernels as uk
 from seigen_tpu_torch.ops.structured_exchange import detect_structured
+from seigen_tpu_torch.solver import lane_fused as lf
 from seigen_tpu_torch.solver.damping import absorbing_bc_fn, sponge_mask
 from seigen_tpu_torch.solver.lane_major import LaneMajorRunner
 from seigen_tpu_torch.solver.lane_merged import MergedLaneRunner
@@ -600,3 +607,115 @@ def test_runner_kernels_with_stiffness_match_plain(aniso_case, device, name):
     for a, b in ((out_k.u, out_r.u), (out_k.s, out_r.s)):
         assert torch.isfinite(a).all()
         assert ((a - b).norm() / b.norm()).item() < 1e-5
+
+
+@pytest.fixture(scope="module", params=[(3, 2), (3, 3), (2, 2)],
+                ids=["3D-P2", "3D-P3", "2D-P2"])
+def fused_case(request, device):
+    """Free-top, sponge-damped box_mesh(4, 4, 4) (3D) or rect_mesh(8, 8)
+    (2D) with a blob source, and the same mesh periodic."""
+    dim, degree = request.param
+    topo = box_mesh(4, 4, 4) if dim == 3 else rect_mesh(8, 8)
+    dm = build_discrete(topo, degree, bc_fn=absorbing_bc_fn(
+        ((0.0, 1.0),) * dim, free_sides=[(dim - 1, "hi")]))
+    p = build_params(dm, Material(1.0, 2.0, 1.0), device=device)
+    kw = dict(
+        damp=torch.as_tensor(sponge_mask(dm, [(0, "lo"), (0, "hi")],
+                                         width=0.3), device=device).float(),
+        src=build_sources(dm, [PointSource(
+            position=(0.5,) * (dim - 1) + (0.7,), f0=4.0, radius=0.25)],
+            device=device))
+    per = (box_mesh(4, 4, 4, periodic=(0, 1, 2)) if dim == 3
+           else rect_mesh(8, 8, periodic=(0, 1)))
+    dm_per = build_discrete(per, degree)
+    p_per = build_params(dm_per, Material(1.0, 2.0, 1.0), device=device)
+    return dm, p, kw, dm_per, p_per
+
+
+def _rows(rng, d, C, used, pad, device):
+    a = rng.standard_normal((C, pad, d.E)).astype(np.float32)
+    a[:, used:] = 0.0
+    return torch.as_tensor(a.reshape(C * pad, d.E), device=device)
+
+
+@pytest.mark.parametrize("op,variant", [
+    ("vel", "plain"), ("vel", "axpy"), ("stress", "plain"),
+    ("stress", "axpy_damp"), ("stress", "C"), ("stress", "C_axpy_damp")])
+def test_fused_operator_kernels_match_plain(fused_case, device, op, variant):
+    dm, p, kw, _, _ = fused_case
+    C = (_random_stiffness(dm.num_elements, p.n_sig, 50)
+         if variant.startswith("C") else None)
+    d = lf.FusedLaneRunner(p, detect_structured(dm), 0.01, impl="kernel",
+                           stiffness=C, **kw).d
+    rng = np.random.default_rng(51)
+    c_in, c_out = (d.n_sig, d.dim) if op == "vel" else (d.dim, d.n_sig)
+    x = _rows(rng, d, c_in, d.n_p, d.npp, device)
+    tr = _rows(rng, d, d.dim, d.ftp, d.ftpp, device)
+    okw = {}
+    if "axpy" in variant:
+        okw = dict(axpy=tuple(_rows(rng, d, c_out, d.n_p, d.npp, device)
+                              for _ in range(2)), dt=0.01, c3=0.01**3 / 24)
+    fused, plain, kernel = ((fo.vel2_op, fo.vel2_op_ref, fo.VEL2_KERNEL)
+                            if op == "vel" else
+                            (fo.stress2_op, fo.stress2_op_ref,
+                             fo.STRESS2_KERNEL))
+    n0, c0 = kernel.launches, kernel.launches_c
+    got = fused(d, x, tr, **okw)
+    ref = plain(d, x, tr, **okw)
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 1
+    assert kernel.launches_c == c0 + int(C is not None)
+    for g, r in zip(got, ref):
+        _assert_close(g, r)
+
+
+@pytest.mark.parametrize("periodic", [False, True],
+                         ids=["bounded", "periodic"])
+@pytest.mark.parametrize("negate", [True, False])
+def test_trace_exchange_kernel_matches_plain(fused_case, device, periodic,
+                                             negate):
+    dm, p, _, dm_per, p_per = fused_case
+    if periodic:
+        dm, p = dm_per, p_per
+    r = lf.FusedLaneRunner(p, detect_structured(dm), 0.01, impl="kernel")
+    d, xp = r.d, r.xplan
+    tr = _rows(np.random.default_rng(52), d, d.dim, d.ftp, d.ftpp, device)
+    n0 = lf.TRACE_EXCHANGE.launches
+    got = lf.TRACE_EXCHANGE(xp, tr, negate)
+    ref = lf.trace_exchange_ref(xp, tr, negate)
+    torch.cuda.synchronize()
+    assert lf.TRACE_EXCHANGE.launches == n0 + 1
+    assert torch.equal(got, ref)  # a permutation: exact
+
+
+@pytest.mark.parametrize("stiffness", [False, True], ids=["iso", "C"])
+def test_fused_runner_kernels_match_plain(fused_case, device, stiffness):
+    dm, p, kw, _, _ = fused_case
+    E, n_p = dm.num_elements, dm.re.n_p
+    C = _random_stiffness(E, p.n_sig, 53) * 0.1 if stiffness else None
+    if stiffness:  # stable: the isotropic law plus a small perturbation
+        from seigen_tpu_torch.ops.anisotropic import iso_stiffness
+
+        C = C + iso_stiffness(2.0, 1.0, p.dim)[None]
+    rng = np.random.default_rng(7)
+    st = State(u=torch.as_tensor(rng.standard_normal((E, n_p, p.dim)),
+                                 device=device).float(),
+               s=torch.as_tensor(rng.standard_normal((E, n_p, p.n_sig)),
+                                 device=device).float())
+    ex = detect_structured(dm)
+    counts = [fo.VEL2_KERNEL, fo.STRESS2_KERNEL, lf.TRACE_EXCHANGE,
+              mk.VEL_KERNEL, mk.STRESS_KERNEL]
+    n0 = [k.launches for k in counts]
+    c0 = fo.STRESS2_KERNEL.launches_c
+    out_k, _ = lf.FusedLaneRunner(p, ex, 0.005, impl="kernel", stiffness=C,
+                                  **kw).run(st, 3)
+    assert [k.launches - n for k, n in zip(counts, n0)] == [9, 9, 18, 0, 0]
+    assert fo.STRESS2_KERNEL.launches_c - c0 == (9 if stiffness else 0)
+    out_r, _ = lf.FusedLaneRunner(p, ex, 0.005, impl="reference",
+                                  stiffness=C, **kw).run(st, 3)
+    out_m, _ = MergedLaneRunner(p, ex, 0.005, impl="kernel", stiffness=C,
+                                **kw).run(st, 3)
+    for ref in (out_r, out_m):
+        for a, b in ((out_k.u, ref.u), (out_k.s, ref.s)):
+            assert torch.isfinite(a).all()
+            assert ((a - b).norm() / b.norm()).item() < 1e-5

@@ -3,10 +3,15 @@
 1. Against the JAX ``MergedLaneRunner(interpret=True, block=9)`` at f64 on
    ``box_mesh(3, 3, 3)`` P2 with a blob source (kernel-fused dense
    injection), a sponge and 3 receivers, for 3 steps from a numpy-seeded
-   random state: states and seismograms agree at rtol 1e-10.
+   random state: states and seismograms agree at rtol 1e-10.  One JAX run
+   (its interpret-mode compile is most of this file's time) serves 1 and
+   4.
 2. Against the port's own general-layout einsum ``timestep.run`` (the
    general-path oracle), also with the >2-wavelet-group scatter fallback.
 3. ``impl="kernel"`` refuses CPU tensors.
+4. ``record_pressure`` (a last seismogram column, -tr(sigma)/dim) against
+   the same JAX run, rtol 1e-10.  The 2D runner with pressure is held at
+   1e-10 to the port's v2 and v1 runners in tests/test_torch_fused.py.
 """
 
 import jax.numpy as jnp
@@ -67,8 +72,11 @@ def torch_case():
     return dm, p, damp, rcv, dt, st
 
 
-def test_runner_matches_jax_merged_runner(torch_case):
-    dm_t, p_t, damp, rcv_t, dt, st_t = torch_case
+@pytest.fixture(scope="module")
+def jax_run(torch_case):
+    """The JAX runner on torch_case's mesh, source, sponge and receivers
+    with record_pressure, and its N_STEPS run from the same state."""
+    _, _, damp, _, dt, st_t = torch_case
     dm_j = jmesh.build_discrete(
         jmesh.box_mesh(3, 3, 3), 2,
         bc_fn=jsol.absorbing_bc_fn(EXT, free_sides=[(2, "hi")]))
@@ -81,28 +89,47 @@ def test_runner_matches_jax_merged_runner(torch_case):
         dm_j, jsol.line((0.2, 0.5, 0.9), (0.8, 0.5, 0.9), 3),
         dtype=jnp.float64)
     jr = JaxRunner(p_j, jdetect(dm_j), dt, src=src_j,
-                   damp=jnp.asarray(damp), receivers=rcv_j, block=9,
-                   interpret=True)
+                   damp=jnp.asarray(damp), receivers=rcv_j,
+                   record_pressure=True, block=9, interpret=True)
+    st_j = jsol.State(u=jnp.asarray(st_t.u.numpy()),
+                      s=jnp.asarray(st_t.s.numpy()))
+    out_j, seis_j = jr.run(st_j, N_STEPS)
+    return jr, out_j, np.asarray(seis_j)
+
+
+def _torch_runner(torch_case, record_pressure):
+    dm_t, p_t, damp, rcv_t, dt, _ = torch_case
     src_t = tsol.build_sources(
         dm_t, [tsol.PointSource(position=(0.5, 0.5, 0.7), f0=4.0,
                                 radius=0.25)], dtype=torch.float64,
         device="cpu")
-    tr = MergedLaneRunner(p_t, tdetect(dm_t), dt, src=src_t, damp=damp,
-                          receivers=rcv_t)
+    return MergedLaneRunner(p_t, tdetect(dm_t), dt, src=src_t, damp=damp,
+                            receivers=rcv_t, record_pressure=record_pressure)
+
+
+def test_runner_matches_jax_merged_runner(torch_case, jax_run):
+    jr, out_j, seis_j = jax_run
+    tr = _torch_runner(torch_case, False)
     assert tr.impl == "reference"
     assert tr.src_dense is not None and len(tr.src_dense) == 1
     assert (jr.plan.NCs, jr.plan.NCt, jr.plan.h0) == (27, 27, 0)
 
-    st_j = jsol.State(u=jnp.asarray(st_t.u.numpy()),
-                      s=jnp.asarray(st_t.s.numpy()))
-    out_j, seis_j = jr.run(st_j, N_STEPS)
-    out_t, seis_t = tr.run(st_t, N_STEPS)
+    out_t, seis_t = tr.run(torch_case[-1], N_STEPS)
     np.testing.assert_allclose(out_t.u.numpy(), np.asarray(out_j.u),
                                rtol=1e-10, atol=1e-10)
     np.testing.assert_allclose(out_t.s.numpy(), np.asarray(out_j.s),
                                rtol=1e-10, atol=1e-10)
-    np.testing.assert_allclose(seis_t, np.asarray(seis_j), rtol=1e-10,
+    # the JAX run also records pressure: its velocity columns
+    np.testing.assert_allclose(seis_t, seis_j[..., :3], rtol=1e-10,
                                atol=1e-12)
+
+
+def test_runner_matches_jax_with_pressure(torch_case, jax_run):
+    _, _, seis_j = jax_run
+    _, seis_t = _torch_runner(torch_case, True).run(torch_case[-1], N_STEPS)
+    assert seis_t.shape == (N_STEPS, 3, 4)  # 3 velocity columns + pressure
+    assert np.abs(seis_j[..., 3]).max() > 0
+    np.testing.assert_allclose(seis_t, seis_j, rtol=1e-10, atol=1e-12)
 
 
 @pytest.mark.parametrize("n_groups", [1, 3], ids=["dense", "scatter"])
