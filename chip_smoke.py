@@ -107,6 +107,25 @@ Phases, each printing its own lines; any failure exits non-zero:
               eigenmode through K8/K9/K10 on periodic box_mesh(N, N, N),
               N = 4 and 8, P2, float32: order > 2.8.  Phases 1-9 must
               launch no K8, K9 or K10.
+11. packed  - the P1 two-elements-per-lane layout: the NPAR = 2
+              instantiations of K1/K2/K8/K9 (counted by ``launches_pk``)
+              and K11 p1_pack_vel.  ptxas's lines of the packed
+              instantiations; every K1/K2 variant (as phase 3) and every
+              K8/K9 variant (plain, axpy; plain, axpy + sponge) on packed
+              data against the plain versions on box_mesh(4, 4, 4) P1 and
+              rect_mesh(8, 8) P1; K11 against packed_vel_op_ref.
+              MergedLaneRunner(packed=True) on the n=32 P1 explosive-
+              source case (E = 196 608) for 10 steps: kernel vs plain and
+              packed kernel vs unpacked kernel runner (relative L2),
+              exactly 3 + 3 packed K1/K2 launches a step and no other;
+              each packed kernel's time beside its plain version's and its
+              bound at these shapes, with the unpacked K1/K2 at the same
+              case beside them; the benches at n=32 P1 (impl "merged" and
+              "merged_pk" with the kernels, "merged_pk" with the plain
+              versions); the pack probe (p1_pack_probe.main): padded K8
+              against K11, packed K8, padded and packed K9, in ms per op
+              beside their bytes bounds.  Phases 1-10 must launch no
+              packed instantiation and no K11.
 
 Tolerance of a kernel against its plain version: |k - p| <= rtol*|p| +
 atol*max|p| with rtol = 2e-4, atol = 2e-5.  The absolute floor is taken
@@ -166,6 +185,8 @@ KERNELS = {  # name -> (source, replaced TPU kernel)
                       "seigen_tpu/ops/fused_kernels.py:759"),
     "trace_exchange": ("seigen_tpu_torch/csrc/trace_exchange.cu",
                        "seigen_tpu/solver/lane_fused.py:247"),
+    "p1_pack_vel": ("seigen_tpu_torch/csrc/merged_kernels.cu",
+                    "seigen_tpu/bench/p1_pack_probe.py:176"),
 }
 ANISO_MODES = {  # general-Hooke-law mode -> (kernel, replaced TPU kernel)
     "merged_stress[C]": ("merged_stress",
@@ -179,6 +200,17 @@ ANISO_MODES = {  # general-Hooke-law mode -> (kernel, replaced TPU kernel)
 }
 # the launches_c counts
 C_COUNTS = ("merged_stress_c", "lane_stress_c", "fused_stress2_c")
+PACKED_MODES = {  # packed P1 instantiation -> (kernel, replaced TPU kernel)
+    "merged_vel[pk]": ("merged_vel", "seigen_tpu/ops/merged_kernels.py:542"),
+    "merged_stress[pk]": ("merged_stress",
+                          "seigen_tpu/ops/merged_kernels.py:582"),
+    "fused_vel2[pk]": ("fused_vel2", "seigen_tpu/ops/fused_kernels.py:718"),
+    "fused_stress2[pk]": ("fused_stress2",
+                          "seigen_tpu/ops/fused_kernels.py:759"),
+}
+# the launches_pk counts
+PK_COUNTS = ("merged_vel_pk", "merged_stress_pk", "fused_vel2_pk",
+             "fused_stress2_pk")
 
 
 def log(msg: str):
@@ -236,7 +268,8 @@ def make_case(n, degree, device):
 
 
 def variant_inputs(runner, seed):
-    """numpy-seeded float32 operands in the runner's lane layout."""
+    """numpy-seeded float32 operands in the runner's lane layout (packed:
+    the live rows of each parity block)."""
     import numpy as np
     import torch
 
@@ -244,8 +277,9 @@ def variant_inputs(runner, seed):
     rng = np.random.default_rng(seed)
 
     def field(C, used, rows):
-        a = rng.standard_normal((C, rows, plan.Ls)).astype(np.float32)
-        a[:, used:] = 0.0
+        a = rng.standard_normal((C, d.n_par, rows // d.n_par, plan.Ls)
+                                ).astype(np.float32)
+        a[:, :, used:] = 0.0
         return torch.as_tensor(a.reshape(C * rows, plan.Ls),
                                device=runner.device)
 
@@ -300,7 +334,8 @@ def compare_variants(runner, check, tag, seed):
         got = kern(*args, **kw)
         ref = plain(*args, **kw)
         torch.cuda.synchronize()
-        kname = "merged_vel" if op == "vel" else "merged_stress"
+        kname = ("merged_vel" if op == "vel" else "merged_stress") + (
+            "[pk]" if runner.d.n_par == 2 else "")
         check(kname, f"{tag} {op} {variant} out", got[0], ref[0])
         check(kname, f"{tag} {op} {variant} traces", got[1], ref[1])
     return x
@@ -325,11 +360,13 @@ def time_ms(fn, reps=TIMING_REPS):
 def bound(d, plan, kname, aniso=False):
     """(bound_ms, "bytes" | "operations") of one plain launch of a kernel
     at these shapes: compulsory bytes (state rows n_p per component, the
-    neighbour payload rows, the geo/impedance/mask rows the operator reads;
-    the full output and trace arrays written) over the memory rate, and
-    the Dr and LIFT matrix-product FLOPs over the FP32 rate.  aniso: K2
+    neighbour payload rows, the geo/impedance/mask rows the operator reads,
+    each per element: n_par of them a lane; the full output and trace
+    arrays written) over the memory rate, and the Dr and LIFT
+    matrix-product FLOPs of every element over the FP32 rate.  aniso: K2
     reads the n_sig^2 stiffness rows instead of lambda and mu."""
     dim, n_p, nf, nfp, npp = d.dim, d.n_p, d.nf, d.n_fp, d.npp
+    n_par = d.n_par
     nft = nf * nfp
     geo = dim * dim + dim * nf  # Ginv, normals
     if kname == "merged_vel":  # sigma in, u out; scb, bfs, 1/rho
@@ -340,9 +377,9 @@ def bound(d, plan, kname, aniso=False):
     else:  # u, sigma in and out; scb, 1/rho, lam, mu; 4*nf + 2 uwg rows
         c_in = c_out = dim + d.n_sig
         geo += nf + 3 + 4 * nf + 2
-    rows = c_in * n_p + plan.pay * nft + geo + nf + c_out * npp \
-        + nf * plan.rtf
-    flops = 2 * (c_out * dim * n_p * n_p + c_out * n_p * nft)
+    rows = n_par * (c_in * n_p + plan.pay * nft + geo + nf) \
+        + c_out * npp + nf * plan.rtf
+    flops = 2 * n_par * (c_out * dim * n_p * n_p + c_out * n_p * nft)
     t_bytes = 4.0 * rows * plan.Ls / HBM_BYTES_PER_S * 1e3
     t_ops = float(flops) * plan.Ls / FP32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -435,6 +472,7 @@ def all_kernels():
     from seigen_tpu_torch.ops import lane_upwind_kernels as luk
     from seigen_tpu_torch.ops import merged_kernels as mk
     from seigen_tpu_torch.ops import upwind_kernels as uk
+    from seigen_tpu_torch.bench import p1_pack_probe as probe
     from seigen_tpu_torch.solver import lane_fused as lf
 
     return {"merged_vel": mk.VEL_KERNEL, "merged_stress": mk.STRESS_KERNEL,
@@ -443,30 +481,37 @@ def all_kernels():
             "lane_upwind_rhs": luk.LANE_UPWIND_RHS,
             "lane_upwind_axpy": luk.LANE_UPWIND_AXPY,
             "fused_vel2": fo.VEL2_KERNEL, "fused_stress2": fo.STRESS2_KERNEL,
-            "trace_exchange": lf.TRACE_EXCHANGE}
+            "trace_exchange": lf.TRACE_EXCHANGE,
+            "p1_pack_vel": probe.PACK_VEL_KERNEL}
 
 
 def reset_counts():
     for k in all_kernels().values():
         k.launches = 0
-        if hasattr(k, "launches_c"):
-            k.launches_c = 0
+        for sub in ("launches_c", "launches_pk"):
+            if hasattr(k, sub):
+                setattr(k, sub, 0)
 
 
 def read_counts():
-    """Launches per kernel, and under C_COUNTS those of K2, K5 and K9 that
-    ran the general Hooke law."""
+    """Launches per kernel, under C_COUNTS those of K2, K5 and K9 that ran
+    the general Hooke law, and under PK_COUNTS those of K1, K2, K8 and K9
+    that ran the packed P1 layout."""
     kernels = all_kernels()
     counts = {name: k.launches for name, k in kernels.items()}
     for name in C_COUNTS:
         counts[name] = kernels[name[:-2]].launches_c
+    for name in PK_COUNTS:
+        counts[name] = kernels[name[:-3]].launches_pk
     return counts
 
 
 def expect_counts(tag, counts, **nonzero):
-    """Fail unless the kernels (and general-law counts) of ``nonzero``
-    launched exactly that often and every other one not at all."""
-    expect = {name: nonzero.get(name, 0) for name in (*KERNELS, *C_COUNTS)}
+    """Fail unless the kernels (and general-law and packed counts) of
+    ``nonzero`` launched exactly that often and every other one not at
+    all."""
+    expect = {name: nonzero.get(name, 0)
+              for name in (*KERNELS, *C_COUNTS, *PK_COUNTS)}
     if counts != expect:
         raise AssertionError(f"{tag} launches {counts}, expected {expect}")
 
@@ -1457,19 +1502,22 @@ def small_fused_runners(dim, degree, dev):
 
 
 def fused_inputs(d, dev, seed):
-    """numpy-seeded float32 K8/K9/K10 operands in the v2 lane layout."""
+    """numpy-seeded float32 K8/K9/K10 operands in the v2 lane layout
+    (packed: state rows live in each parity block)."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
+    lanes = d.E // d.n_par
 
-    def rows(C, used, pad):
-        a = rng.standard_normal((C, pad, d.E)).astype(np.float32)
-        a[:, used:] = 0.0
-        return torch.as_tensor(a.reshape(C * pad, d.E), device=dev)
+    def rows(C, used, pad, blocks=1):
+        a = rng.standard_normal((C, blocks, pad // blocks, lanes)
+                                ).astype(np.float32)
+        a[:, :, used:] = 0.0
+        return torch.as_tensor(a.reshape(C * pad, lanes), device=dev)
 
-    return {"sig": [rows(d.n_sig, d.n_p, d.npp) for _ in range(3)],
-            "u": [rows(d.dim, d.n_p, d.npp) for _ in range(3)],
+    return {"sig": [rows(d.n_sig, d.n_p, d.npp, d.n_par) for _ in range(3)],
+            "u": [rows(d.dim, d.n_p, d.npp, d.n_par) for _ in range(3)],
             "tr": rows(d.dim, d.ftp, d.ftpp)}
 
 
@@ -1534,11 +1582,13 @@ def fused_bound(d, kname, aniso=False):
     K10 at these shapes.  K8/K9: state rows n_p per component, the dim*ftp
     consumer trace rows, the geometry once per face (Ginv, normals, scb,
     bfs or dfs) and the material rows (1/rho; lambda and mu, or the n_sig^2
-    stiffness rows), the output at npp and its dim*ftpp trace rows
-    written; the Dr and LIFT FLOPs.  K10: dim*ftp rows and nf mask rows
-    read, dim*ftpp rows written, no arithmetic."""
+    stiffness rows), each per element (n_par of them a lane), the output
+    at npp and its dim*ftpp trace rows written; the Dr and LIFT FLOPs.
+    K10: dim*ftp rows and nf mask rows read, dim*ftpp rows written, no
+    arithmetic."""
     dim, n_p, nf, npp, n_sig = d.dim, d.n_p, d.nf, d.npp, d.n_sig
-    ftp, ftpp = d.ftp, d.ftpp
+    n_par = d.n_par
+    ftp, ftpp = d.ftp // n_par, d.ftpp
     if kname == "trace_exchange":
         rows, flops = dim * ftp + nf + dim * ftpp, 0
     else:
@@ -1548,10 +1598,12 @@ def fused_bound(d, kname, aniso=False):
         else:
             c_in, c_out = dim, n_sig
             geo += n_sig * n_sig if aniso else 2
-        rows = c_in * n_p + dim * ftp + geo + c_out * npp + dim * ftpp
-        flops = 2 * (c_out * dim * n_p * n_p + c_out * n_p * ftp)
-    t_bytes = 4.0 * rows * d.E / HBM_BYTES_PER_S * 1e3
-    t_ops = float(flops) * d.E / FP32_FLOPS_PER_S * 1e3
+        rows = n_par * (c_in * n_p + dim * ftp + geo) + c_out * npp \
+            + dim * ftpp
+        flops = 2 * n_par * (c_out * dim * n_p * n_p + c_out * n_p * ftp)
+    lanes = d.E // n_par
+    t_bytes = 4.0 * rows * lanes / HBM_BYTES_PER_S * 1e3
+    t_ops = float(flops) * lanes / FP32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1668,6 +1720,222 @@ def phase_fused(dev, case, st, check, merged_out, n=24):
         raise AssertionError(f"v2 kernel eigenmode order {order} <= "
                              f"{EIGEN_MIN_ORDER}: errors {errs}")
     return launches, times, bounds, library
+
+
+PACKED_SHAPES = ("ILi2ELi3ELi2ELi2E", "ILi3ELi4ELi3ELi2E")  # <2,3,2,2>, <3,4,3,2>
+
+
+def packed_ptxas_lines():
+    """ptxas's lines of the packed instantiations (template NPAR = 2)."""
+    from seigen_tpu_torch.ops import merged_kernels as mk
+
+    out, keep = [], False
+    for ln in mk.LIBRARY.ptxas_report().splitlines():
+        if "Compiling" in ln:
+            keep = any(tag in ln for tag in PACKED_SHAPES)
+        if keep:
+            out.append(ln.strip())
+    return out
+
+
+def small_packed_runner(dim, dev):
+    """A packed kernel MergedLaneRunner on a free-top, sponge-damped
+    box_mesh(4, 4, 4) (3D) or rect_mesh(8, 8) (2D) at P1."""
+    import torch
+
+    from seigen_tpu_torch.mesh import box_mesh, build_discrete, rect_mesh
+    from seigen_tpu_torch.ops import Material, build_params
+    from seigen_tpu_torch.ops.structured_exchange import detect_structured
+    from seigen_tpu_torch.solver.damping import absorbing_bc_fn, sponge_mask
+    from seigen_tpu_torch.solver.lane_merged import MergedLaneRunner
+
+    topo = box_mesh(4, 4, 4) if dim == 3 else rect_mesh(8, 8)
+    dm = build_discrete(topo, 1, bc_fn=absorbing_bc_fn(
+        ((0.0, 1.0),) * dim, free_sides=[(dim - 1, "hi")]))
+    p = build_params(dm, Material(1.0, 2.0, 1.0), device=dev)
+    damp = torch.as_tensor(sponge_mask(dm, [(0, "lo"), (0, "hi")],
+                                       width=0.3), device=dev).float()
+    return p, MergedLaneRunner(p, detect_structured(dm), 0.01, damp=damp,
+                               impl="kernel", packed=True)
+
+
+def probe_inputs(p, seed):
+    """numpy-seeded float32 sigma and traces of the P1 pack probe's layout
+    (pairs (2j, 2j+1)) on p's device."""
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.bench import p1_pack_probe as probe
+
+    E = p.Ginv.shape[0]
+    rng = np.random.default_rng(seed)
+    sig = rng.standard_normal((E, 4, 6)).astype(np.float32)
+    trc = rng.standard_normal((E, 3, 12)).astype(np.float32)
+    return (torch.as_tensor(probe.pack_state(sig, 4), device=p.device),
+            torch.as_tensor(probe.pack_traces(trc), device=p.device))
+
+
+def phase_packed(dev, check, n=32):
+    """Phase 11 (see the module docstring).  Returns ({kernel: launches on
+    its main-path run}, {kernel: (kernel ms, plain ms)}, {kernel:
+    bound})."""
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.bench import p1_pack_probe as probe
+    from seigen_tpu_torch.bench import throughput
+    from seigen_tpu_torch.ops.structured_exchange import detect_structured
+    from seigen_tpu_torch.solver.lane_merged import MergedLaneRunner
+    from seigen_tpu_torch.solver.timestep import State
+
+    lines = packed_ptxas_lines()
+    for ln in lines:
+        log(f"  ptxas [pk]: {ln}")
+    log(f"[packed] ptxas: {sum('Compiling' in ln for ln in lines)} packed "
+        "instantiations")
+
+    t0 = time.perf_counter()
+    for dim in (3, 2):
+        p, runner = small_packed_runner(dim, dev)
+        tag = f"{dim}D P1 [pk]"
+        log(f"[packed] {tag}: Ls {runner.plan.Ls}, rtq {runner.plan.rtq}, "
+            f"rtf {runner.plan.rtf}, ftpp {runner.d.ftpp}")
+        compare_variants(runner, check, tag, seed=200 + dim)
+        x = fused_inputs(runner.d, dev, 210 + dim)
+        for name in ("fused_vel2", "fused_stress2"):
+            for op, variant in FUSED_VARIANTS[name]:
+                kern, plain = fused_call(runner, x, op, variant)
+                got, ref = kern(), plain()
+                torch.cuda.synchronize()
+                check(f"{name}[pk]", f"{tag} {name} {variant} out", got[0],
+                      ref[0])
+                check(f"{name}[pk]", f"{tag} {name} {variant} traces",
+                      got[1], ref[1])
+        if dim == 3:
+            d_pr = probe.build_packed_vel_data(p)
+            sig_p, tr_p = probe_inputs(p, 220)
+            got = probe.PACK_VEL_KERNEL(d_pr, sig_p, tr_p)
+            ref = probe.packed_vel_op_ref(d_pr, sig_p, tr_p)
+            torch.cuda.synchronize()
+            check("p1_pack_vel", f"{tag} p1_pack_vel out", got[0], ref[0])
+            check("p1_pack_vel", f"{tag} p1_pack_vel traces", got[1],
+                  ref[1])
+    log(f"[packed] all small-mesh variants agree "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # the packed LF4 path at the P1 case's full width
+    t1 = time.perf_counter()
+    case = throughput.setup_case(n=n, degree=1, device=dev)
+    dm, p, src, damp, dt, _ = case
+    E, n_p = dm.num_elements, dm.re.n_p
+    rng = np.random.default_rng(7)
+    st = State(
+        u=torch.as_tensor(rng.standard_normal((E, n_p, 3)), device=dev
+                          ).float(),
+        s=torch.as_tensor(rng.standard_normal((E, n_p, 6)), device=dev
+                          ).float())
+    ex = detect_structured(dm)
+    run_k, run_r, run_u = (
+        MergedLaneRunner(p, ex, dt, src=src, damp=damp, impl=impl,
+                         packed=packed)
+        for impl, packed in (("kernel", True), ("reference", True),
+                             ("kernel", False)))
+    log(f"[packed] n={n} P1: E {E}, Ls {run_k.plan.Ls} (unpacked "
+        f"{run_u.plan.Ls}), dense source groups {len(run_k.src_dense)}; "
+        f"setup {time.perf_counter() - t1:.1f} s")
+    S = RUNNER_STEPS
+    reset_counts()
+    out_k, _ = run_k.run(st, S)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[packed] {S} steps: launches {counts}")
+    expect_counts("packed LF4 path", counts, merged_vel=3 * S,
+                  merged_stress=3 * S, merged_vel_pk=3 * S,
+                  merged_stress_pk=3 * S)
+    launches = {"merged_vel[pk]": counts["merged_vel_pk"],
+                "merged_stress[pk]": counts["merged_stress_pk"]}
+    out_r, _ = run_r.run(st, S)
+    out_u, _ = run_u.run(st, S)
+    torch.cuda.synchronize()
+    compare_states("packed", out_k, out_r)
+    compare_states("packed", out_k, out_u, "packed vs unpacked kernel")
+    del out_k, out_r, out_u, run_r
+
+    # every K1/K2 variant at these shapes; kernel, plain and bound of each
+    # packed kernel, the unpacked K1/K2 on the same case beside them
+    times, bounds = {}, {}
+    x = compare_variants(run_k, check, f"n={n} P1 [pk]", seed=230)
+    xu = variant_inputs(run_u, 231)
+    for op in ("vel", "stress"):
+        kname = "merged_vel" if op == "vel" else "merged_stress"
+        for runner, xx, label in ((run_k, x, f"{kname}[pk]"),
+                                  (run_u, xu, kname)):
+            kern, plain, args, kw = variant_call(runner, xx, op, "plain")
+            t = (time_ms(lambda: kern(*args, **kw)),
+                 time_ms(lambda: plain(*args, **kw)))
+            b = bound(runner.d, runner.plan, kname)
+            log(f"[packed] {label} at n={n} P1: kernel {t[0]:.4f} ms, plain "
+                f"{t[1]:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+            if runner is run_k:
+                times[label], bounds[label] = t, b
+    del x, xu, run_u
+    xf = fused_inputs(run_k.d, dev, 232)
+    for name in ("fused_vel2", "fused_stress2"):
+        kern, plain = fused_call(run_k, xf, *FUSED_VARIANTS[name][0])
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        check(f"{name}[pk]", f"n={n} P1 {name}[pk] plain out", got[0],
+              ref[0])
+        check(f"{name}[pk]", f"n={n} P1 {name}[pk] plain traces", got[1],
+              ref[1])
+        times[f"{name}[pk]"] = (time_ms(kern), time_ms(plain))
+        bounds[f"{name}[pk]"] = fused_bound(run_k.d, name)
+    d_pr = probe.build_packed_vel_data(p)
+    sig_p, tr_p = probe_inputs(p, 233)
+    kern = (lambda: probe.PACK_VEL_KERNEL(d_pr, sig_p, tr_p))
+    plain = (lambda: probe.packed_vel_op_ref(d_pr, sig_p, tr_p))
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    check("p1_pack_vel", f"n={n} P1 p1_pack_vel out", got[0], ref[0])
+    check("p1_pack_vel", f"n={n} P1 p1_pack_vel traces", got[1], ref[1])
+    times["p1_pack_vel"] = (time_ms(kern), time_ms(plain))
+    bounds["p1_pack_vel"] = fused_bound(d_pr, "fused_vel2")
+    for name in ("fused_vel2[pk]", "fused_stress2[pk]", "p1_pack_vel"):
+        t, b = times[name], bounds[name]
+        log(f"[packed] {name} at n={n} P1: kernel {t[0]:.4f} ms, plain "
+            f"{t[1]:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+    del xf, got, ref, kern, plain, sig_p, tr_p, d_pr, run_k
+
+    # the benches: unpacked and packed kernels, packed plain versions
+    for impl, kimpl in (("merged", "kernel"), ("merged_pk", "kernel"),
+                        ("merged_pk", "reference")):
+        reset_counts()
+        rec = throughput.main(n=n, degree=1, n_steps=BENCH_STEPS, impl=impl,
+                              kernel_impl=kimpl, case=case)
+        c = read_counts()
+        pk = impl == "merged_pk" and kimpl == "kernel"
+        ok = all(c[f"{k}_pk"] == (c[k] if pk else 0) for k in
+                 ("merged_vel", "merged_stress"))
+        if not (np.isfinite(rec["value"]) and rec["value"] > 0 and ok
+                and (c["merged_vel"] > 0) == (kimpl == "kernel")):
+            raise AssertionError(f"bench {impl} {kimpl}: rate "
+                                 f"{rec['value']}, launches {c}")
+        print(json.dumps(rec), flush=True)
+
+    # the pack probe: padded K8 against K11 (and packed K8, K9)
+    reset_counts()
+    steps = 300
+    rec = probe.main(n_steps=steps, p=p)
+    counts = read_counts()
+    per = 1 + 3 * steps  # warm-up, then best of 3 runs
+    expect_counts("pack probe", counts, fused_vel2=2 * per,
+                  fused_stress2=2 * per, fused_vel2_pk=per,
+                  fused_stress2_pk=per, p1_pack_vel=per)
+    launches.update({"fused_vel2[pk]": counts["fused_vel2_pk"],
+                     "fused_stress2[pk]": counts["fused_stress2_pk"],
+                     "p1_pack_vel": counts["p1_pack_vel"]})
+    print(json.dumps(rec), flush=True)
+    return launches, times, bounds
 
 
 def main() -> int:
@@ -1817,12 +2085,20 @@ def main() -> int:
     *fused, library = phase_fused(dev, case, st, check, out_k)
     for have, new in zip((launches, times, bounds), fused):
         have.update(new)
-    log(f"[fused] phase {time.perf_counter() - t0:.1f} s; total "
+    log(f"[fused] phase {time.perf_counter() - t0:.1f} s")
+
+    # 11. packed: the P1 two-elements-per-lane layout and K11
+    t0 = time.perf_counter()
+    for have, new in zip((launches, times, bounds),
+                         phase_packed(dev, check)):
+        have.update(new)
+    log(f"[packed] phase {time.perf_counter() - t0:.1f} s; total "
         f"{time.perf_counter() - t_all:.1f} s")
 
     sources = dict(KERNELS)
     sources.update({m: (KERNELS[k][0], replaces)
-                    for m, (k, replaces) in ANISO_MODES.items()})
+                    for modes in (ANISO_MODES, PACKED_MODES)
+                    for m, (k, replaces) in modes.items()})
     kernels = [{"name": k, "route": "cuda", "source": src_file,
                 "replaces": replaces, "launches": launches[k],
                 "max_abs_err": check.worst[k], "ms": times[k][0],

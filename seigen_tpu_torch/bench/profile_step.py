@@ -2,6 +2,8 @@
 
     python -m seigen_tpu_torch.bench.profile_step --impl upwind_lane
     python -m seigen_tpu_torch.bench.profile_step --impl merged
+    python -m seigen_tpu_torch.bench.profile_step --impl merged_pk --degree 1 \
+        --n 32                # and --impl merged at the same size
     python -m seigen_tpu_torch.bench.profile_step --impl fused
     python -m seigen_tpu_torch.bench.profile_step --impl lane --order 2
     python -m seigen_tpu_torch.bench.profile_step --impl lane_u
@@ -74,24 +76,33 @@ OPERATOR_KERNELS = ("merged_vel_kernel", "merged_stress_kernel",
                     "trace_exchange_kernel")
 
 
+def _template_args(name: str) -> list:
+    """The template arguments of a kernel name, as strings."""
+    return [a.strip() for a in
+            name[name.index("<") + 1 : name.index(">")].split(",")]
+
+
 def _last_bool(name: str) -> bool:
     """The value of the last template argument of a kernel name, a bool."""
-    head = name.split(">")[0].rstrip()
-    return head.endswith("true") or head.endswith("(bool)1")
+    return _template_args(name)[-1] in ("true", "(bool)1")
 
 
 def kernel_group(name: str) -> str:
-    """The port's operator kernels by name; PyTorch's gather/index (the
-    lane runners' trace exchanges), elementwise, copy and matmul kernels
-    as groups; anything else as "other"."""
+    """The port's operator kernels by name (K1/K2/K8/K9 of the packed P1
+    layout, template NPAR = 2, with the suffix "[pk]"); PyTorch's
+    gather/index (the lane runners' trace exchanges), elementwise, copy and
+    matmul kernels as groups; anything else as "other"."""
     for k in OPERATOR_KERNELS:
         if k in name:
             if k == "lane_upwind_kernel":  # K7 is its AXPY = true instance
                 return ("lane_upwind_axpy" if _last_bool(name)
                         else "lane_upwind_rhs")
-            if k.startswith("merged_") and _last_bool(name):  # V2: K8/K9
-                return ("fused_vel2" if k == "merged_vel_kernel"
-                        else "fused_stress2")
+            if k.startswith("merged_"):
+                pk = "[pk]" if _template_args(name)[3] == "2" else ""
+                if _last_bool(name):  # V2: K8/K9
+                    return ("fused_vel2" if k == "merged_vel_kernel"
+                            else "fused_stress2") + pk
+                return k.removesuffix("_kernel") + pk
             return k.removesuffix("_kernel")
     if "gather" in name or "index" in name.lower():
         return "pytorch gather/index"

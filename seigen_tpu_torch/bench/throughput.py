@@ -1,8 +1,9 @@
 """Throughput benchmark: DOF-updates/s on one GPU, 3D explosive source.
 
 Port of ``seigen_tpu/bench/throughput.py`` for the lane runners: the
-merged LF4 runner (impl "merged"), the v2 exchange-fused LF4 runner (impl
-"fused"), the v1 lane-major LF2/LF4 runner (impl
+merged LF4 runner (impl "merged"; "merged_pk" forces its P1
+two-elements-per-lane layout, run it with ``--degree 1``), the v2
+exchange-fused LF4 runner (impl "fused"), the v1 lane-major LF2/LF4 runner (impl
 "lane", ``--order``), the unstructured lane runner (impl "lane_u", on the
 scrambled case: cells randomly permuted, structure dropped, Morton order
 from the cell centroids), the upwind-RK4 lane runner (impl "upwind_lane")
@@ -19,6 +20,8 @@ E * n_p * (dim + n_sig).  The timed region is the runner's ``run_lm`` over
 
     python -m seigen_tpu_torch.bench.throughput            # n=24, P3, 100 steps
     python -m seigen_tpu_torch.bench.throughput --impl fused [--vti]
+    python -m seigen_tpu_torch.bench.throughput --impl merged_pk --degree 1 \
+        --n 32                # and --impl merged at the same size
     python -m seigen_tpu_torch.bench.throughput --impl lane --order 2
     python -m seigen_tpu_torch.bench.throughput --impl lane_u
     python -m seigen_tpu_torch.bench.throughput --impl lane_u --vti
@@ -59,7 +62,7 @@ from ..solver.timestep import State, cfl_dt
 # elastic parameters and the Godunov impedances stay consistent
 BENCH_MAT = Material(rho=1.0, vp=2.0, vs=1.0)
 IMPLS = ("merged", "upwind_lane", "lane", "lane_u", "upwind_lane_u",
-         "fused")
+         "fused", "merged_pk")
 SCRAMBLED_IMPLS = ("lane_u", "upwind_lane_u")  # run on the scrambled case
 RK4_IMPLS = ("upwind_lane", "upwind_lane_u")
 # central flux: these take a stiffness
@@ -144,7 +147,8 @@ def _sync(device):
 
 def make_runner(impl, dm, p, src, damp, dt, kernel_impl=None, visco=None,
                 order=4, vti=False, **upwind_u):
-    """The bench's lane runner: "merged" (LF4, MergedLaneRunner), "fused"
+    """The bench's lane runner: "merged" (LF4, MergedLaneRunner),
+    "merged_pk" (the same with packed=True: P1 only), "fused"
     (LF4, FusedLaneRunner: K8/K9 and the K10 exchange), "lane"
     (LF ``order``, LaneMajorRunner), "lane_u" (LF ``order``,
     UnstructuredLaneRunner in Morton order of the cell centroids),
@@ -159,7 +163,7 @@ def make_runner(impl, dm, p, src, damp, dt, kernel_impl=None, visco=None,
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, not {impl!r}")
     stiffness = bench_stiffness(impl, dm.num_elements) if vti else None
-    if impl in ("merged", "fused") and order != 4:
+    if impl in ("merged", "merged_pk", "fused") and order != 4:
         raise ValueError(f"the {impl} runner is LF4 only")
     if impl == "lane_u":
         return UnstructuredLaneRunner(
@@ -173,9 +177,12 @@ def make_runner(impl, dm, p, src, damp, dt, kernel_impl=None, visco=None,
     ex = detect_structured(dm)
     if ex is None:
         raise ValueError(f"{impl} impl requires a structured mesh")
-    if impl == "merged":
+    if impl in ("merged", "merged_pk"):
+        # merged_pk forces the packed layout; plain "merged" stays unpacked
+        # at every degree, so the two compare at P1
         return MergedLaneRunner(p, ex, dt, src=src, damp=damp,
-                                impl=kernel_impl, stiffness=stiffness)
+                                impl=kernel_impl, stiffness=stiffness,
+                                packed=(impl == "merged_pk"))
     if impl == "fused":
         return FusedLaneRunner(p, ex, dt, src=src, damp=damp,
                                impl=kernel_impl, stiffness=stiffness)

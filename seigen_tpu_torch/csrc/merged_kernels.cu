@@ -43,6 +43,33 @@
 // rows 0.  Same arithmetic and bound as K1/K2.  V2 = false compiles to the
 // merged kernels exactly as before (the layout code sits under if constexpr).
 //
+// The packed P1 layout (NPAR = 2; only the P1 triangle and tetrahedron are
+// instantiated) is the branch of the same Pallas kernels that runs on
+// two-elements-per-lane operator data (seigen_tpu/ops/fused_kernels.py:
+// build_packed_fused_data, FusedOpData n_par = 2; merged_kernels.py:
+// _merged_kernel with n_par = 2 and gexp).  There the TPU filled its 8-row
+// tiles with two P1 elements; here a thread still owns one element: the
+// block row blockIdx.y is its parity par, so consecutive threads keep
+// touching consecutive lanes.  It reads state, damp and source rows
+// c*8 + par*4 + i, ginv rows o_ginv + 2*(r*dim+d) + par, face rows par*4 + f
+// of every face section and of the mask, material rows o_mat + 2*j + par
+// (1/rho at o_mat + par*irho_par: the P1 pack probe's geo keeps it at
+// o_irho + par*4, K11 below), and emits its traces at f*rtf + par*rtq + ...
+// (merged) or c*ftpp + par*ftq + ... (v2).  The merged plan table is over
+// the original classes: the thread's class is t = 2*(L / NC) + par, and its
+// producer t2 sits at lane (t2 / 2)*NC + j + s, rows f2*rtf + (t2 % 2)*rtq.
+// What packing saves on this card is device-memory traffic: the pad rows
+// 4..7 of every P1 state, damp and output block are neither read nor
+// written.  NPAR = 1 compiles to the unpacked kernels as before (the parity
+// is the constant 0).
+//
+// K11 p1_pack_vel replaces seigen_tpu/bench/p1_pack_probe.py:packed_vel_op
+// (:176 -> _packed_vel_kernel :121), the probe's packed P1/3D velocity
+// operator on its own geo layout.  That layout is FusedOpData's packed one
+// but for 1/rho (rows o_irho + par*4 + i, all four equal), so K11 is the
+// NPAR = 2, V2 velocity instantiation entered through its own symbol with
+// irho_par = 4; it reads the probe's arrays as they are.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (seigen_tpu_torch/ops/cuda_build.py, at first use).
 
@@ -75,8 +102,12 @@ struct MergedArgs {
   long long Ls;        // lanes = m * NC
   int NC;              // lanes per class
   int npp;             // node rows per component (n_p rounded up to 8)
-  int rtf;             // merged: trace rows per face (roundup(dim*n_fp, 8));
+  int rtf;             // merged: trace rows per face (n_par * rtq);
                        // v2: trace rows per component (ftpp)
+  int rtq;             // merged: rows of one parity's face block,
+                       // roundup(dim*n_fp, 8) (= rtf unpacked)
+  int n_par;           // elements per lane: 1, or 2 (packed P1)
+  int irho_par;        // packed: row distance of the parities' 1/rho rows
   int o_ginv, o_nrm, o_scb, o_bfs, o_dfs, o_mat;
   int o_C;             // K2: first row of the stiffness section (n_sig
                        // sections of 8 rows, row c*8+k = C[c,k]); -1: none
@@ -109,8 +140,9 @@ __device__ __forceinline__ void finish_row(const MergedArgs& a, size_t idx,
 //                 + LIFT (scb * t+_c + bfs * t-_c))
 // t-_c = n_d sigma_{V[c,d]} at the face nodes; t+_c = -(producer traction)
 // on interior faces, t-_c on boundary faces.  Emits the velocity traces.
-// V2: t+_c is the lane's own row of the exchanged traces (K8).
-template <int DIM, int NP, int NFP, bool V2>
+// V2: t+_c is the lane's own row of the exchanged traces (K8).  NPAR = 2:
+// the packed P1 layout, parity blockIdx.y.
+template <int DIM, int NP, int NFP, int NPAR, bool V2>
 __global__ void __launch_bounds__(kThreads)
 merged_vel_kernel(const MergedArgs a) {
   using S = Shape<DIM, NP, NFP>;
@@ -124,18 +156,20 @@ merged_vel_kernel(const MergedArgs a) {
   if (L >= a.Ls) return;
   const long long Ls = a.Ls;
   const int npp = a.npp;
+  const int par = NPAR == 1 ? 0 : (int)blockIdx.y;  // parity of the element
+  const int h = par * 4;  // its first row in an 8-row block
   auto geo = [&](int row) { return a.geo[row * Ls + L]; };
-  auto fld = [&](int c, int i) { return a.field[((long long)c * npp + i) * Ls + L]; };
+  auto fld = [&](int c, int i) { return a.field[((long long)c * npp + h + i) * Ls + L]; };
 
   float g[DIM][DIM];
 #pragma unroll
   for (int r = 0; r < DIM; ++r)
 #pragma unroll
-    for (int d = 0; d < DIM; ++d) g[r][d] = geo(a.o_ginv + r * DIM + d);
-  const float irho = geo(a.o_mat);
+    for (int d = 0; d < DIM; ++d) g[r][d] = geo(a.o_ginv + NPAR * (r * DIM + d) + par);
+  const float irho = geo(a.o_mat + par * a.irho_par);
 
-  FaceLinks<NF> fl;
-  if constexpr (!V2) face_links<NF, NFP>(a, L, fl);
+  FaceLinks<NF, NPAR> fl;
+  if constexpr (!V2) face_links<NF, NFP, NPAR>(a, L, fl, par);
 
   // scaled face flux scb*t+ + bfs*t- per output component and face node
   float flux[DIM][NFT];
@@ -143,8 +177,8 @@ merged_vel_kernel(const MergedArgs a) {
   for (int f = 0; f < NF; ++f) {
     float n[DIM];
 #pragma unroll
-    for (int d = 0; d < DIM; ++d) n[d] = geo(a.o_nrm + 8 * d + f);
-    const float scb = geo(a.o_scb + f), bfs = geo(a.o_bfs + f);
+    for (int d = 0; d < DIM; ++d) n[d] = geo(a.o_nrm + 8 * d + h + f);
+    const float scb = geo(a.o_scb + h + f), bfs = geo(a.o_bfs + h + f);
 #pragma unroll 1
     for (int k = 0; k < NFP; ++k) {
       const int node = s_fn[f * NFP + k];
@@ -158,10 +192,9 @@ merged_vel_kernel(const MergedArgs a) {
         for (int d = 0; d < DIM; ++d) own += n[d] * sv[voigt<DIM>(c, d)];
         float nb = own;
         if constexpr (V2)
-          nb = a.trs[((long long)c * a.rtf + f * NFP + k) * Ls + L];
+          nb = a.trs[((long long)c * a.rtf + par * NFT + f * NFP + k) * Ls + L];
         else if (!fl.own_only[f])
-          nb = -a.trs[((long long)fl.f2[f] * a.rtf + c * NFP + fl.pi[f][k]) * Ls
-                      + fl.lane[f]];
+          nb = -a.trs[(fl.row(a, f) + c * NFP + fl.pi[f][k]) * Ls + fl.lane[f]];
         flux[c][f * NFP + k] = scb * nb + bfs * own;
       }
     }
@@ -197,34 +230,38 @@ merged_vel_kernel(const MergedArgs a) {
     }
 #pragma unroll
     for (int i = 0; i < NP; ++i)
-      finish_row(a, ((size_t)c * npp + i) * Ls + L, irho * acc[i], nullptr);
-    for (int i = NP; i < npp; ++i)
-      finish_row(a, ((size_t)c * npp + i) * Ls + L, 0.f, nullptr);
+      finish_row(a, ((size_t)c * npp + h + i) * Ls + L, irho * acc[i], nullptr);
+    for (int i = NP; i < npp / NPAR; ++i)
+      finish_row(a, ((size_t)c * npp + h + i) * Ls + L, 0.f, nullptr);
   }
 
   if constexpr (V2) {
     // component-major velocity traces of the output; pad rows are written 0
+    // (by the parity-0 thread)
 #pragma unroll
     for (int c = 0; c < DIM; ++c) {
       float* tr = a.trout + (long long)c * a.rtf * Ls + L;
 #pragma unroll 1
       for (int q = 0; q < NFT; ++q)
-        tr[(long long)q * Ls] = a.out[((size_t)c * npp + s_fn[q]) * Ls + L];
-      for (int q = NFT; q < a.rtf; ++q) tr[(long long)q * Ls] = 0.f;
+        tr[(long long)(par * NFT + q) * Ls] =
+            a.out[((size_t)c * npp + h + s_fn[q]) * Ls + L];
+      if (par == 0)
+        for (int q = NPAR * NFT; q < a.rtf; ++q) tr[(long long)q * Ls] = 0.f;
     }
   } else {
     // face-major velocity traces of the output; pad rows are written 0
 #pragma unroll 1
     for (int f = 0; f < NF; ++f) {
-      float* tr = a.trout + (long long)f * a.rtf * Ls + L;
+      float* tr = a.trout + ((long long)f * a.rtf + par * a.rtq) * Ls + L;
 #pragma unroll 1
       for (int k = 0; k < NFP; ++k) {
         const int node = s_fn[f * NFP + k];
 #pragma unroll
         for (int c = 0; c < DIM; ++c)
-          tr[(long long)(c * NFP + k) * Ls] = a.out[((size_t)c * npp + node) * Ls + L];
+          tr[(long long)(c * NFP + k) * Ls] = a.out[((size_t)c * npp + h + node) * Ls + L];
       }
-      for (int q = DIM * NFP; q < a.rtf; ++q) tr[(long long)q * Ls] = 0.f;
+      for (int q = DIM * NFP; q < (NPAR == 1 ? a.rtf : a.rtq); ++q)
+        tr[(long long)q * Ls] = 0.f;
     }
   }
 }
@@ -238,8 +275,8 @@ merged_vel_kernel(const MergedArgs a) {
 // boundary faces).  Emits the traction traces n . sigma of the output.
 // ANISO is a template parameter so that the isotropic instantiation keeps
 // its registers.  V2: u+_c is the lane's own row of the exchanged traces
-// (K9).
-template <int DIM, int NP, int NFP, bool ANISO, bool V2>
+// (K9).  NPAR = 2: the packed P1 layout (isotropic only), parity blockIdx.y.
+template <int DIM, int NP, int NFP, int NPAR, bool ANISO, bool V2>
 __global__ void __launch_bounds__(kThreads)
 merged_stress_kernel(const MergedArgs a) {
   using S = Shape<DIM, NP, NFP>;
@@ -253,25 +290,28 @@ merged_stress_kernel(const MergedArgs a) {
   if (L >= a.Ls) return;
   const long long Ls = a.Ls;
   const int npp = a.npp;
+  const int par = NPAR == 1 ? 0 : (int)blockIdx.y;  // parity of the element
+  const int h = par * 4;  // its first row in an 8-row block
   auto geo = [&](int row) { return a.geo[row * Ls + L]; };
-  auto fld = [&](int c, int i) { return a.field[((long long)c * npp + i) * Ls + L]; };
+  auto fld = [&](int c, int i) { return a.field[((long long)c * npp + h + i) * Ls + L]; };
 
   float g[DIM][DIM];
 #pragma unroll
   for (int r = 0; r < DIM; ++r)
 #pragma unroll
-    for (int d = 0; d < DIM; ++d) g[r][d] = geo(a.o_ginv + r * DIM + d);
+    for (int d = 0; d < DIM; ++d) g[r][d] = geo(a.o_ginv + NPAR * (r * DIM + d) + par);
   float lam = 0.f, mu = 0.f;
-  if constexpr (!ANISO) lam = geo(a.o_mat + 1), mu = geo(a.o_mat + 2);
+  if constexpr (!ANISO)
+    lam = geo(a.o_mat + NPAR + par), mu = geo(a.o_mat + 2 * NPAR + par);
 
-  FaceLinks<NF> fl;
-  if constexpr (!V2) face_links<NF, NFP>(a, L, fl);
+  FaceLinks<NF, NPAR> fl;
+  if constexpr (!V2) face_links<NF, NFP, NPAR>(a, L, fl, par);
 
   // velocity jump scb*u+ + dfs*u- per component and face node
   float jump[DIM][NFT];
 #pragma unroll 1
   for (int f = 0; f < NF; ++f) {
-    const float scb = geo(a.o_scb + f), dfs = geo(a.o_dfs + f);
+    const float scb = geo(a.o_scb + h + f), dfs = geo(a.o_dfs + h + f);
 #pragma unroll 1
     for (int k = 0; k < NFP; ++k) {
       const int node = s_fn[f * NFP + k];
@@ -280,10 +320,9 @@ merged_stress_kernel(const MergedArgs a) {
         const float own = fld(c, node);
         float nb = own;
         if constexpr (V2)
-          nb = a.trs[((long long)c * a.rtf + f * NFP + k) * Ls + L];
+          nb = a.trs[((long long)c * a.rtf + par * NFT + f * NFP + k) * Ls + L];
         else if (!fl.own_only[f])
-          nb = a.trs[((long long)fl.f2[f] * a.rtf + c * NFP + fl.pi[f][k]) * Ls
-                     + fl.lane[f]];
+          nb = a.trs[(fl.row(a, f) + c * NFP + fl.pi[f][k]) * Ls + fl.lane[f]];
         jump[c][f * NFP + k] = scb * nb + dfs * own;
       }
     }
@@ -330,7 +369,7 @@ merged_stress_kernel(const MergedArgs a) {
     for (int f = 0; f < NF; ++f) {
       float n[DIM], F[DIM];
 #pragma unroll
-      for (int d = 0; d < DIM; ++d) n[d] = geo(a.o_nrm + 8 * d + f);
+      for (int d = 0; d < DIM; ++d) n[d] = geo(a.o_nrm + 8 * d + h + f);
       hooke(n, F);
 #pragma unroll 1
       for (int kk = 0; kk < NFP; ++kk) {
@@ -344,30 +383,30 @@ merged_stress_kernel(const MergedArgs a) {
     }
 #pragma unroll
     for (int i = 0; i < NP; ++i) {
-      const size_t idx = ((size_t)k * npp + i) * Ls + L;
-      finish_row(a, idx, acc[i], a.damp ? a.damp + (size_t)i * Ls + L : nullptr);
+      const size_t idx = ((size_t)k * npp + h + i) * Ls + L;
+      finish_row(a, idx, acc[i], a.damp ? a.damp + (size_t)(h + i) * Ls + L : nullptr);
     }
-    for (int i = NP; i < npp; ++i) {
-      const size_t idx = ((size_t)k * npp + i) * Ls + L;
-      finish_row(a, idx, 0.f, a.damp ? a.damp + (size_t)i * Ls + L : nullptr);
+    for (int i = NP; i < npp / NPAR; ++i) {
+      const size_t idx = ((size_t)k * npp + h + i) * Ls + L;
+      finish_row(a, idx, 0.f, a.damp ? a.damp + (size_t)(h + i) * Ls + L : nullptr);
     }
   }
 
   // traction traces n . sigma of the output, face-major (merged) or
-  // component-major (V2); pad rows 0
+  // component-major (V2); pad rows 0 (V2: by the parity-0 thread)
 #pragma unroll 1
   for (int f = 0; f < NF; ++f) {
     float n[DIM];
 #pragma unroll
-    for (int d = 0; d < DIM; ++d) n[d] = geo(a.o_nrm + 8 * d + f);
-    float* tr = V2 ? a.trout + (long long)f * NFP * Ls + L
-                   : a.trout + (long long)f * a.rtf * Ls + L;
+    for (int d = 0; d < DIM; ++d) n[d] = geo(a.o_nrm + 8 * d + h + f);
+    float* tr = V2 ? a.trout + (long long)(par * NFT + f * NFP) * Ls + L
+                   : a.trout + ((long long)f * a.rtf + par * a.rtq) * Ls + L;
 #pragma unroll 1
     for (int kk = 0; kk < NFP; ++kk) {
       const int node = s_fn[f * NFP + kk];
       float sv[NSIG];
 #pragma unroll
-      for (int c = 0; c < NSIG; ++c) sv[c] = a.out[((size_t)c * npp + node) * Ls + L];
+      for (int c = 0; c < NSIG; ++c) sv[c] = a.out[((size_t)c * npp + h + node) * Ls + L];
 #pragma unroll
       for (int c = 0; c < DIM; ++c) {
         float t = 0.f;
@@ -380,42 +419,55 @@ merged_stress_kernel(const MergedArgs a) {
       }
     }
     if constexpr (!V2)
-      for (int q = DIM * NFP; q < a.rtf; ++q) tr[(long long)q * Ls] = 0.f;
+      for (int q = DIM * NFP; q < (NPAR == 1 ? a.rtf : a.rtq); ++q)
+        tr[(long long)q * Ls] = 0.f;
   }
   if constexpr (V2)
-    for (int c = 0; c < DIM; ++c)
-      for (int q = NFT; q < a.rtf; ++q)
-        a.trout[((long long)c * a.rtf + q) * Ls + L] = 0.f;
+    if (par == 0)
+      for (int c = 0; c < DIM; ++c)
+        for (int q = NPAR * NFT; q < a.rtf; ++q)
+          a.trout[((long long)c * a.rtf + q) * Ls + L] = 0.f;
 }
 
-template <int DIM, int NP, int NFP, bool V2>
-void launch_layout(bool vel, const MergedArgs& a, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((a.Ls + kThreads - 1) / kThreads);
-  if (vel)
-    merged_vel_kernel<DIM, NP, NFP, V2><<<blocks, kThreads, 0, stream>>>(a);
-  else if (a.o_C >= 0)
-    merged_stress_kernel<DIM, NP, NFP, true, V2>
-        <<<blocks, kThreads, 0, stream>>>(a);
-  else
-    merged_stress_kernel<DIM, NP, NFP, false, V2>
-        <<<blocks, kThreads, 0, stream>>>(a);
-}
-
-// op: 0 K1, 1 K2, 2 K8, 3 K9.
-template <int DIM, int NP, int NFP>
-int launch(int op, const MergedArgs& a, cudaStream_t stream) {
-  if (op < 2)
-    launch_layout<DIM, NP, NFP, false>(op == 0, a, stream);
-  else
-    launch_layout<DIM, NP, NFP, true>(op == 2, a, stream);
+template <int DIM, int NP, int NFP, int NPAR, bool V2>
+int launch_layout(bool vel, const MergedArgs& a, cudaStream_t stream) {
+  const dim3 grid((unsigned)((a.Ls + kThreads - 1) / kThreads), NPAR);
+  if (vel) {
+    merged_vel_kernel<DIM, NP, NFP, NPAR, V2><<<grid, kThreads, 0, stream>>>(a);
+  } else if (a.o_C < 0) {
+    merged_stress_kernel<DIM, NP, NFP, NPAR, false, V2>
+        <<<grid, kThreads, 0, stream>>>(a);
+  } else {
+    if constexpr (NPAR == 1)
+      merged_stress_kernel<DIM, NP, NFP, NPAR, true, V2>
+          <<<grid, kThreads, 0, stream>>>(a);
+    else
+      return -1;  // the packed layout is isotropic only
+  }
   return (int)cudaGetLastError();
 }
 
-// Every (dim, n_p, n_fp) of SEIGEN_DISPATCH_SHAPES; -1 for another shape.
+// op: 0 K1, 1 K2, 2 K8, 3 K9.
+template <int DIM, int NP, int NFP, int NPAR>
+int launch(int op, const MergedArgs& a, cudaStream_t stream) {
+  if (op < 2) return launch_layout<DIM, NP, NFP, NPAR, false>(op == 0, a, stream);
+  return launch_layout<DIM, NP, NFP, NPAR, true>(op == 2, a, stream);
+}
+
+// Unpacked: every (dim, n_p, n_fp) of SEIGEN_DISPATCH_SHAPES; packed
+// (a->n_par == 2): the P1 triangle and tetrahedron.  -1 for another shape.
 int dispatch(int op, const MergedArgs* a, int dim, int n_p, int n_fp,
              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SEIGEN_LAUNCH(D, P, F) return launch<D, P, F>(op, *a, s)
+  if (a->n_par == 2) {
+    switch (dim * 10000 + n_p * 100 + n_fp) {
+      case 20302: return launch<2, 3, 2, 2>(op, *a, s);
+      case 30403: return launch<3, 4, 3, 2>(op, *a, s);
+      default: return -1;
+    }
+  }
+  if (a->n_par != 1) return -1;
+#define SEIGEN_LAUNCH(D, P, F) return launch<D, P, F, 1>(op, *a, s)
   SEIGEN_DISPATCH_SHAPES(dim, n_p, n_fp, SEIGEN_LAUNCH)
 #undef SEIGEN_LAUNCH
 }
@@ -451,6 +503,15 @@ int seigen_fused_vel2(const MergedArgs* a, int dim, int n_p, int n_fp,
 int seigen_fused_stress2(const MergedArgs* a, int dim, int n_p, int n_fp,
                          void* stream) {
   return dispatch(3, a, dim, n_p, n_fp, stream);
+}
+
+// K11: the P1 pack probe's velocity operator (the packed 3D P1 K8 with the
+// probe's 1/rho rows, a->irho_par = 4); -1 for any other layout or shape.
+int seigen_p1_pack_vel(const MergedArgs* a, int dim, int n_p, int n_fp,
+                       void* stream) {
+  if (a->n_par != 2 || dim * 10000 + n_p * 100 + n_fp != 30403) return -1;
+  return launch_layout<3, 4, 3, 2, true>(
+      true, *a, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 """v2 exchange-fused LF operators — CUDA kernels K8/K9 and their plain twins.
 
 Port of ``seigen_tpu/ops/fused_kernels.py:vel2_op`` / ``stress2_op`` (the
-v2 lane pipeline, unpacked).  An operator reads the traces of its input
+v2 lane pipeline).  An operator reads the traces of its input
 that the trace exchange (solver/lane_fused.py) has already put in CONSUMER
 order — signed neighbour tractions for the velocity operator, neighbour
 velocities for the stress operator, the own value on boundary faces — at
@@ -12,14 +12,17 @@ Layout (the JAX package's, so arrays compare row for row):
   state arrays (C*npp, E), lanes class-major, no padding;
   trace arrays (dim*ftpp, E), component-major rows c*ftpp + f*n_fp + k,
   pad rows ftp..ftpp of each component zero.
+On packed P1 operator data (n_par = 2, ops/fused_kernels.py) a lane holds
+two elements: state rows c*npp + par*4 + i and trace rows
+c*ftpp + par*ftq + f*n_fp + k, ftq = nf*n_fp.
 
 The physics is that of the merged operators, written once in
 ops/merged_kernels.py:vel_body / stress_body; the kernels are the V2
 instantiations of K1/K2 (csrc/merged_kernels.cu).  ``vel2_op``/``stress2_op``
 launch K8/K9 for CUDA tensors and run ``vel2_op_ref``/``stress2_op_ref`` for
 CPU tensors.  Launch counts: ``VEL2_KERNEL.launches``,
-``STRESS2_KERNEL.launches`` and ``STRESS2_KERNEL.launches_c`` (general Hooke
-law).  Source injection happens outside these operators (the v2 runner
+``STRESS2_KERNEL.launches``, ``STRESS2_KERNEL.launches_c`` (general Hooke
+law) and ``launches_pk`` of both (packed layout).  Source injection happens outside these operators (the v2 runner
 scatters it into the field and the traces).
 """
 
@@ -32,7 +35,8 @@ from .merged_kernels import MergedKernel, stress_body, vel_body
 
 
 def exchanged_rows(d: FusedOpData, tr):
-    """(dim*ftpp, E) consumer-order traces -> (dim, ftp, E)."""
+    """(dim*ftpp, E) consumer-order traces -> (dim, ftp, E) (packed: rows
+    par*ftq + f*n_fp + k of each component)."""
     return tr.reshape(d.dim, d.ftpp, -1)[:, : d.ftp]
 
 

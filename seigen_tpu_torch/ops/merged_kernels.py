@@ -11,15 +11,22 @@ Layout (both the plain version and the kernel):
   state arrays (C*npp, Ls), Ls = m*NC — class-major lanes, no padding;
   trace arrays (nf*rtf, Ls), face-major rows f*rtf + c*n_fp + k, rows
   dim*n_fp..rtf of each face block are zero.
+The packed P1 layout (operator data with n_par = 2, ops/fused_kernels.py)
+pairs the original classes (2u, 2u+1) onto packed class u, so Ls =
+(m/2)*NC: state rows c*npp + par*4 + i, and each face block of the traces
+splits into two parity blocks of rtq rows, f*rtf + par*rtq + c*n_fp + k
+(rtf = 2*rtq).
 This is the JAX package's layout whenever its lane block divides NC, so
-the arrays compare row for row (tests/test_torch_merged_ops.py).
+the arrays compare row for row (tests/test_torch_merged_ops.py,
+tests/test_torch_packed.py).
 
 ``vel_merged``/``stress_merged`` launch the CUDA kernels
 (csrc/merged_kernels.cu) for CUDA tensors and run the plain PyTorch
 versions ``vel_merged_ref``/``stress_merged_ref`` for CPU tensors.  Each
 kernel keeps a launch count (``VEL_KERNEL.launches``,
 ``STRESS_KERNEL.launches``; ``launches_c`` counts those of them that ran
-the general Hooke law of a ``C`` section, see ops/fused_kernels.py).
+the general Hooke law of a ``C`` section, see ops/fused_kernels.py, and
+``launches_pk`` those that ran the packed P1 layout).
 
 The physics is written once, in ``vel_body``/``stress_body``, as in the
 JAX package (``_vel2_body``/``_stress2_body`` behind both its merged and
@@ -49,23 +56,30 @@ from .structured_exchange import StructuredExchange
 class MergedPlan:
     """Static exchange plan of the merged operators (device tensors).
 
-    Per (class t, face f): producer class t2, producer face f2, node
-    permutation pi and flat lane shift s.  ``table`` packs them for the
-    kernel as (m, nf, 3 + n_fp) int32 rows [t2, f2, s, pi...];
+    Per ORIGINAL class t and face f: producer class t2, producer face f2,
+    node permutation pi and flat lane shift s.  ``table`` packs them for
+    the kernel as (n_par*m, nf, 3 + n_fp) int32 rows [t2, f2, s, pi...];
     ``gather`` is the plain version's flat index of the component-0
-    neighbour trace of every (face node, lane), its lane clamped into the
-    producer class (boundary faces never use it).  The kernels' element
-    tables are the operator data's (``FusedOpData.tables``).
+    neighbour trace of every consumer face-node row and lane, its lane
+    clamped into the producer class (boundary faces never use it).  The
+    kernels' element tables are the operator data's
+    (``FusedOpData.tables``).
+
+    Packed (n_par = 2): lanes hold packed classes u = t // 2, and the
+    consumer of original class t = 2u + par reads its producer t2 at lane
+    (t2 // 2)*NC + j + s, rows f2*rtf + (t2 % 2)*rtq + c*n_fp + pi[k].
     """
 
-    m: int
+    m: int  # classes on the lanes (packed: pairs of original classes)
     nf: int
     n_fp: int
     NC: int
     pay: int  # payload components per face (LF: dim; upwind: 2*dim)
-    rtf: int  # trace rows per face = roundup(pay*n_fp, 8)
-    table: torch.Tensor  # (m, nf, 3 + n_fp) int32
-    gather: torch.Tensor  # (nf*n_fp, Ls) int64 into the flat trace array
+    rtf: int  # trace rows per face = n_par * rtq
+    rtq: int  # rows of one parity's face block, roundup(pay*n_fp, 8)
+    n_par: int  # elements per lane
+    table: torch.Tensor  # (n_par*m, nf, 3 + n_fp) int32
+    gather: torch.Tensor  # (ftp, Ls) int64 into the flat trace array
 
     @property
     def Ls(self):
@@ -73,28 +87,34 @@ class MergedPlan:
 
 
 def build_merged_plan(ex: StructuredExchange, d: FusedOpData,
-                      pay: int | None = None) -> MergedPlan | None:
+                      pay: int | None = None,
+                      n_par: int = 1) -> MergedPlan | None:
     """The merged-operator plan, or None when the mesh's neighbour lanes
     are not a fixed flat shift per (class, face) (periodic meshes, ambiguous
-    wrap shifts).  ``pay``: trace payload components per face (default
-    d.dim, the LF operators; the upwind Riemann operator carries 2*dim,
-    velocity AND traction rows)."""
+    wrap shifts) or, with ``n_par`` = 2 (the packed P1 layout), when the
+    class count is odd.  ``pay``: trace payload components per face
+    (default d.dim, the LF operators; the upwind Riemann operator carries
+    2*dim, velocity AND traction rows)."""
     from ..solver.lane_fused import _canonical_shift, _flat_strides, \
         derive_pairing
 
     if ex.self_mask.size and not ex.self_mask.any():
         return None  # periodic: wrap planes are not boundary-masked
-    m, nf, nfp = ex.m, ex.n_faces, ex.n_fp
+    if ex.m % n_par:
+        return None
+    nf, nfp = ex.n_faces, ex.n_fp
+    m = ex.m // n_par
     NC = int(np.prod(ex.grid))
     Ls = m * NC
     pay = d.dim if pay is None else pay
-    rtf = _rup(pay * nfp, 8)
+    rtq = _rup(pay * nfp, 8)
+    rtf = n_par * rtq
     strides = _flat_strides(ex.grid)
 
     f2, pi = derive_pairing(ex)
     t2 = np.asarray(ex.nbr_class, dtype=np.int64)
-    shift = np.zeros((m, nf), dtype=np.int64)
-    for t in range(m):
+    shift = np.zeros((ex.m, nf), dtype=np.int64)
+    for t in range(ex.m):
         for f in range(nf):
             off = _canonical_shift(ex, t, f)
             if off is None:
@@ -104,18 +124,21 @@ def build_merged_plan(ex: StructuredExchange, d: FusedOpData,
     table = np.concatenate(
         [t2[..., None], f2[..., None], shift[..., None], pi], axis=2)
     j = np.arange(NC)
-    gather = np.zeros((nf, nfp, Ls), dtype=np.int64)
-    for t in range(m):
+    gather = np.zeros((n_par, nf, nfp, Ls), dtype=np.int64)
+    for t in range(ex.m):
+        u, par = divmod(t, n_par)
         for f in range(nf):
-            lane = t2[t, f] * NC + np.clip(j + shift[t, f], 0, NC - 1)
-            row = f2[t, f] * rtf + pi[t, f]
-            gather[f, :, t * NC : (t + 1) * NC] = (
+            tn = t2[t, f]
+            lane = (tn // n_par) * NC + np.clip(j + shift[t, f], 0, NC - 1)
+            row = f2[t, f] * rtf + (tn % n_par) * rtq + pi[t, f]
+            gather[par, f, :, u * NC : (u + 1) * NC] = (
                 row[:, None] * Ls + lane[None, :])
     dev = d.geo.device
     return MergedPlan(
-        m=m, nf=nf, n_fp=nfp, NC=NC, pay=pay, rtf=rtf,
+        m=m, nf=nf, n_fp=nfp, NC=NC, pay=pay, rtf=rtf, rtq=rtq, n_par=n_par,
         table=torch.as_tensor(table, device=dev).to(torch.int32).contiguous(),
-        gather=torch.as_tensor(gather.reshape(nf * nfp, Ls), device=dev),
+        gather=torch.as_tensor(gather.reshape(n_par * nf * nfp, Ls),
+                               device=dev),
     )
 
 
@@ -123,10 +146,40 @@ def build_merged_plan(ex: StructuredExchange, d: FusedOpData,
 # plain PyTorch versions
 
 
+def _face_index(d: FusedOpData, device):
+    """The 8-row section row of each face-node row par*ftq + f*n_fp + k:
+    par*4 + f."""
+    f = torch.arange(d.nf, device=device).repeat_interleave(d.n_fp)
+    return torch.cat([par * 4 + f for par in range(d.n_par)])
+
+
 def _face_rows(d: FusedOpData, geo, off):
     """(ftp, Ls) face-node expansion of a per-face geo section."""
-    rep = torch.arange(d.nf, device=geo.device).repeat_interleave(d.n_fp)
-    return geo[off + rep]
+    return geo[off + _face_index(d, geo.device)]
+
+
+def _geo_rows(d: FusedOpData, geo):
+    """Per-lane geometry and material operands of the operators: (g(r, k)
+    the Ginv entry, irho, lam, mu as node rows, lam_f, mu_f as face-node
+    rows).  Unpacked they are geo rows broadcast over the rows; packed
+    (n_par = 2) each is expanded to per-row (npp or ftp, Ls) operands by
+    the one-hot ``gexp`` product over the compact ginv and mat rows (the
+    JAX package's ``fused_kernels.py:_geo_rows``)."""
+    dim, npp = d.dim, d.npp
+    o_ginv, o_mat = d.off[0], d.off[5]
+    if d.gexp is None:
+        lam, mu = geo[o_mat + 1], geo[o_mat + 2]
+        return (lambda r, k: geo[o_ginv + r * dim + k], geo[o_mat], lam, mu,
+                lam, mu)
+    gci = _rup(2 * dim * dim)
+    gm = torch.matmul(d.gexp, torch.cat(
+        [geo[o_ginv : o_ginv + gci], geo[o_mat : o_mat + 8]]))
+    G = dim * dim * npp
+    f0 = G + 3 * npp
+    return (lambda r, k: gm[(r * dim + k) * npp : (r * dim + k + 1) * npp],
+            gm[G : G + npp], gm[G + npp : G + 2 * npp],
+            gm[G + 2 * npp : f0], gm[f0 : f0 + d.ftp],
+            gm[f0 + d.ftpp : f0 + d.ftpp + d.ftp])
 
 
 def _own_mask(d: FusedOpData, mask):
@@ -151,13 +204,14 @@ def _restrict(d: FusedOpData, x):
 
 def _emit(plan: MergedPlan, d: FusedOpData, tr):
     """(C, ftp, L) component traces -> (nf*rtf, L) face-major rows
-    f*rtf + c*n_fp + k, pad rows 0 (C <= plan.pay)."""
+    f*rtf + par*rtq + c*n_fp + k, pad rows 0 (C <= plan.pay)."""
     C, Ls = tr.shape[0], tr.shape[-1]
-    out = torch.zeros((plan.nf, plan.rtf, Ls), dtype=tr.dtype,
+    n_par, nf, nfp = plan.n_par, d.nf, d.n_fp
+    out = torch.zeros((nf, n_par, plan.rtq, Ls), dtype=tr.dtype,
                       device=tr.device)
-    blk = tr.reshape(C, d.nf, d.n_fp, Ls).transpose(0, 1)
-    out[:, : C * d.n_fp] = blk.reshape(d.nf, C * d.n_fp, Ls)
-    return out.reshape(plan.nf * plan.rtf, Ls)
+    blk = tr.reshape(C, n_par, nf, nfp, Ls).permute(2, 1, 0, 3, 4)
+    out[:, :, : C * nfp] = blk.reshape(nf, n_par, C * nfp, Ls)
+    return out.reshape(nf * plan.rtf, Ls)
 
 
 def _epilogue(res, axpy, dt, c3, damp, inject, C, npp):
@@ -188,8 +242,9 @@ def vel_body(d: FusedOpData, sig_lm, neighbour, emit, axpy=None, dt=0.0,
     operator returns.  axpy / inject: see vel_merged."""
     dim, npp, Ls = d.dim, d.npp, sig_lm.shape[1]
     V = voigt_map(dim)
-    o_ginv, o_nrm, o_scb, o_bfs, _, o_mat = d.off[:6]
+    o_nrm, o_scb, o_bfs = d.off[1:4]
     geo = d.geo
+    g, irho = _geo_rows(d, geo)[:2]
     S = sig_lm.reshape(d.n_sig, npp, Ls)
     der = _derivs(d, S)
     own = _restrict(d, S)
@@ -200,10 +255,9 @@ def vel_body(d: FusedOpData, sig_lm, neighbour, emit, axpy=None, dt=0.0,
     flux = scb * neighbour(t_own) + bfs * t_own
     surf = torch.matmul(d.lift[:, : d.ftp], flux)  # (dim, npp, Ls)
     div = torch.stack([
-        sum(geo[o_ginv + r * dim + k] * der[r, V[c, k]]
-            for k in range(dim) for r in range(dim))
+        sum(g(r, k) * der[r, V[c, k]] for k in range(dim) for r in range(dim))
         for c in range(dim)])
-    res = geo[o_mat] * (div + surf)
+    res = irho * (div + surf)
     res = _epilogue(res, axpy, dt, c3, None, inject, dim, npp)
     return res.reshape(dim * npp, Ls), emit(_restrict(d, res))
 
@@ -262,24 +316,24 @@ def stress_body(d: FusedOpData, u_lm, neighbour, emit, axpy=None, dt=0.0,
     out = damp*(s + dt*sh1 + c3*ds)."""
     dim, npp, Ls = d.dim, d.npp, u_lm.shape[1]
     V = voigt_map(dim)
-    o_ginv, o_nrm, o_scb, _, o_dfs, o_mat = d.off[:6]
+    o_nrm, o_scb, _, o_dfs = d.off[1:5]
     geo = d.geo
     U = u_lm.reshape(dim, npp, Ls)
     der = _derivs(d, U)
     own = _restrict(d, U)
     nrm = [_face_rows(d, geo, o_nrm + 8 * k) for k in range(dim)]
     scb, dfs = _face_rows(d, geo, o_scb), _face_rows(d, geo, o_dfs)
-    lam, mu = geo[o_mat + 1], geo[o_mat + 2]
+    g, _, lam, mu, lam_f, mu_f = _geo_rows(d, geo)
     o_C = d.off[6]
     cmat = geo[o_C : o_C + 8 * d.n_sig] if o_C >= 0 else None
 
     def grad(k, c):  # d u_c / d x_k
-        return sum(geo[o_ginv + r * dim + k] * der[r, c] for r in range(dim))
+        return sum(g(r, k) * der[r, c] for r in range(dim))
 
     vol = torch.stack(hooke_rows(dim, lam, mu, cmat,
                                  lambda c, k: grad(k, c)))
     jump = scb * neighbour(own) + dfs * own
-    face = torch.stack(hooke_rows(dim, lam, mu, cmat,
+    face = torch.stack(hooke_rows(dim, lam_f, mu_f, cmat,
                                   lambda c, k: nrm[k] * jump[c]))
     res = vol + torch.matmul(d.lift[:, : d.ftp], face)
     damp = d.damp if axpy is not None else None
@@ -315,8 +369,9 @@ class MergedArgs(ctypes.Structure):
         "field", "trs", "geo", "mask", "ax0", "ax1", "damp", "inj0", "inj1",
         "plan", "dr", "lift", "fnodes", "out", "trout")] + [
         ("Ls", ctypes.c_longlong)] + [(n, ctypes.c_int) for n in (
-            "NC", "npp", "rtf", "o_ginv", "o_nrm", "o_scb", "o_bfs", "o_dfs",
-            "o_mat", "o_C", "axpy", "n_inj")] + [(n, ctypes.c_float) for n in (
+            "NC", "npp", "rtf", "rtq", "n_par", "irho_par", "o_ginv",
+            "o_nrm", "o_scb", "o_bfs", "o_dfs", "o_mat", "o_C", "axpy",
+            "n_inj")] + [(n, ctypes.c_float) for n in (
                 "dt", "c3", "r0", "r1")]
 
 
@@ -337,9 +392,10 @@ class MergedKernel:
     with its launch counts: ``launches`` grows by one per kernel launch and
     nowhere else; ``launches_c`` counts the launches among them that ran
     the general Hooke law (a stress operator on operator data with a ``C``
-    section).  Calling it launches a merged operator (K1/K2) on the
-    producer trace array of its plan; ops/fused_ops.py binds the v2
-    operators (K8/K9) through ``launch``."""
+    section), ``launches_pk`` those that ran the packed P1 instantiation
+    (operator data with n_par = 2).  Calling it launches a merged operator
+    (K1/K2) on the producer trace array of its plan; ops/fused_ops.py
+    binds the v2 operators (K8/K9) through ``launch``."""
 
     def __init__(self, symbol: str, name: str, vel: bool):
         self.symbol = symbol
@@ -347,6 +403,7 @@ class MergedKernel:
         self.vel = vel
         self.launches = 0
         self.launches_c = 0
+        self.launches_pk = 0
         self._fn = None
 
     def _function(self):
@@ -376,11 +433,14 @@ class MergedKernel:
                            c3=c3, inject=inject)
 
     def launch(self, d: FusedOpData, field, trs, tr_rows, rtf, plan=None,
-               mask=None, axpy=None, damp=None, dt=0.0, c3=0.0, inject=None):
+               mask=None, axpy=None, damp=None, dt=0.0, c3=0.0, inject=None,
+               irho_par=1):
         """Check the operands and launch: traces in and out have tr_rows
         rows, ``rtf`` is the kernel's row stride of a trace block (merged:
         rows per face; v2: rows per component); ``plan`` and ``mask`` only
-        for the merged layout."""
+        for the merged layout.  ``irho_par``: the row distance of the two
+        parities' 1/rho rows in the packed layout (FusedOpData: 1, the P1
+        pack probe's geo: 4)."""
         inject = list(inject or ())
         if len(inject) > 2:
             raise ValueError("the kernels take at most 2 dense source groups")
@@ -389,9 +449,10 @@ class MergedKernel:
             raise ValueError(f"{self.name}: the kernel takes CUDA tensors, "
                              f"got {dev}")
         Ls = field.shape[-1]
-        if plan is not None and Ls != plan.Ls:
-            raise ValueError(f"{self.name}: {Ls} lanes, the plan has "
-                             f"{plan.Ls}")
+        if plan is not None and (Ls, d.n_par) != (plan.Ls, plan.n_par):
+            raise ValueError(f"{self.name}: {Ls} lanes of {d.n_par} "
+                             f"element(s), the plan has {plan.Ls} of "
+                             f"{plan.n_par}")
         C_in, C_out = (d.n_sig, d.dim) if self.vel else (d.dim, d.n_sig)
         checks = [(field, C_in * d.npp), (trs, tr_rows), (d.geo, None)]
         checks += [(mask, 8)] if plan is not None else []
@@ -406,6 +467,9 @@ class MergedKernel:
         if o_C >= 0 and o_C + 8 * d.n_sig > d.geo.shape[0]:
             raise ValueError(f"{self.name}: geo has {d.geo.shape[0]} rows, "
                              f"its C section needs {o_C + 8 * d.n_sig}")
+        if o_C >= 0 and d.n_par != 1:
+            raise ValueError(f"{self.name}: the packed layout is isotropic "
+                             "only")
         out = torch.empty((C_out * d.npp, Ls), dtype=field.dtype, device=dev)
         trout = torch.empty((tr_rows, Ls), dtype=field.dtype, device=dev)
         ptr = (lambda x: None if x is None else x.data_ptr())
@@ -421,8 +485,9 @@ class MergedKernel:
             dr=ptr(kt.dr), lift=ptr(kt.lift), fnodes=ptr(kt.fnodes),
             out=ptr(out), trout=ptr(trout),
             Ls=Ls, NC=plan.NC if plan is not None else Ls, npp=d.npp,
-            rtf=rtf, o_ginv=o[0], o_nrm=o[1], o_scb=o[2], o_bfs=o[3],
-            o_dfs=o[4], o_mat=o[5],
+            rtf=rtf, rtq=plan.rtq if plan is not None else rtf,
+            n_par=d.n_par, irho_par=irho_par, o_ginv=o[0], o_nrm=o[1],
+            o_scb=o[2], o_bfs=o[3], o_dfs=o[4], o_mat=o[5],
             o_C=o_C, axpy=int(axpy is not None), n_inj=len(inject),
             dt=float(dt), c3=float(c3),
             r0=float(inject[0][1]) if len(inject) > 0 else 0.0,
@@ -433,10 +498,11 @@ class MergedKernel:
                                stream)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: " + (
-                f"no instantiation for dim={d.dim} n_p={d.n_p}" if err == -1
-                else f"cudaError {err}"))
+                f"no instantiation for dim={d.dim} n_p={d.n_p} "
+                f"n_par={d.n_par}" if err == -1 else f"cudaError {err}"))
         self.launches += 1
         self.launches_c += int(o_C >= 0)
+        self.launches_pk += int(d.n_par == 2)
         return out, trout
 
 

@@ -1,12 +1,15 @@
 """Exchange-in-kernel lane-major LF4 solver (structured meshes).
 
-Port of ``seigen_tpu/solver/lane_merged.py:MergedLaneRunner`` (unpacked;
-isotropic, or with ``stiffness=`` a Voigt stiffness per element).  The state
-lives in the class-major lane layout for the whole run — u: (dim*npp, Ls),
-sigma: (n_sig*npp, Ls), Ls = m*NC — and every
-operator reads the producer trace arrays of its input directly
-(ops/merged_kernels.py), so a step is six operator launches plus one damping
-multiply of u.  The traction traces of sigma ride the step carry.
+Port of ``seigen_tpu/solver/lane_merged.py:MergedLaneRunner`` (isotropic, or
+with ``stiffness=`` a Voigt stiffness per element; ``packed=`` the P1
+two-elements-per-lane layout).  The state lives in the class-major lane
+layout for the whole run — u: (dim*npp, Ls), sigma: (n_sig*npp, Ls), Ls =
+m*NC — and every operator reads the producer trace arrays of its input
+directly (ops/merged_kernels.py), so a step is six operator launches plus
+one damping multiply of u.  The traction traces of sigma ride the step
+carry.  Packed, the classes (2u, 2u+1) share the lanes of packed class u,
+the element of class 2u + par on rows par*4 + i of each 8-row block (Ls =
+m*NC/2; ops/fused_kernels.py:build_packed_fused_data).
 
 ``impl="kernel"`` runs the CUDA kernels (CUDA tensors only);
 ``impl="reference"`` runs their plain PyTorch versions on any device.  The
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 
 from ..ops.elastic import ElasticParams, voigt_map
-from ..ops.fused_kernels import build_fused_data
+from ..ops.fused_kernels import build_fused_data, build_packed_fused_data
 from ..ops.merged_kernels import (
     _emit,
     build_merged_plan,
@@ -33,7 +36,7 @@ from ..ops.merged_kernels import (
     vel_merged_ref,
 )
 from ..ops.structured_exchange import StructuredExchange
-from .lane_major import class_major_perm, from_lm, resolve_impl, to_lm
+from .lane_major import class_major_perm, resolve_impl
 from .receivers import ReceiverData
 from .source import SourceData, ricker
 from .timestep import State, compose_lf_step_traced, inject_columns, \
@@ -58,13 +61,20 @@ class MergedLaneRunner:
         record_pressure: bool = False,
         impl: str | None = None,
         stiffness=None,
+        packed: bool | str = False,
     ):
         """``stiffness``: optional (n_sig, n_sig) or (E, n_sig, n_sig)
         Voigt stiffness in p's element order (ops/anisotropic.py
         conventions): the stress operator then takes the general Hooke
         law over the ``C`` section of the operator data.
         ``record_pressure``: the seismograms get a last column, the
-        pressure -tr(sigma)/dim at each receiver."""
+        pressure -tr(sigma)/dim at each receiver.  ``packed``: True runs
+        the P1 two-elements-per-lane layout (isotropic, an even class
+        count; ValueError otherwise), "auto" takes it wherever it applies
+        (P1, no stiffness, even class count)."""
+        if packed == "auto":
+            packed = (p.n_p <= 4 and p.n_faces <= 4 and stiffness is None
+                      and ex.m % 2 == 0)
         self.record_pressure = record_pressure
         self.impl = impl = resolve_impl(impl, p.device)
         self._vel_op = vel_merged if impl == "kernel" else vel_merged_ref
@@ -72,16 +82,20 @@ class MergedLaneRunner:
                            else stress_merged_ref)
         self._dt_f = float(dt)
         self._c3_f = float(dt) ** 3 / 24.0
-        self._setup_core(p, ex, dt, damp=damp, stiffness=stiffness)
+        self._setup_core(p, ex, dt, damp=damp, stiffness=stiffness,
+                         packed=bool(packed))
         self._build_sources(src)
         self._build_receivers(receivers)
         self._lf = self._compose_step()
 
-    def _setup_core(self, p, ex, dt, damp=None, pay=None, stiffness=None):
+    def _setup_core(self, p, ex, dt, damp=None, pay=None, stiffness=None,
+                    packed=False):
         """Class-major permutation, merged plan (``_build_plan``), placed
         geo/mask, face-node normal expansion + restriction matrix (also used
-        by the upwind RK4 and the v2 runner).  pay: trace payload components
-        per face (default dim)."""
+        by the upwind RK4 and the v2 runner, unpacked).  pay: trace payload
+        components per face (default dim).  packed: the P1
+        two-elements-per-lane layout, class 2u + par on parity par of
+        packed class u."""
         self.p = p
         self.ex = ex
         self.device = p.device
@@ -89,46 +103,80 @@ class MergedLaneRunner:
         self._npdt = numpy_dtype(p.dtype)
         self.dt = self._npdt(dt)
 
-        NC = int(np.prod(ex.grid))
-        old_of_new, new_of_old = class_major_perm(ex, p.Ginv.shape[0])
+        if packed and stiffness is not None:
+            raise ValueError("the packed layout is isotropic only")
+        if packed and ex.m % 2:
+            raise ValueError("the packed layout needs an even class count")
+        NC = self.NC = int(np.prod(ex.grid))
+        E = p.Ginv.shape[0]
+        old_of_new, new_of_old = class_major_perm(ex, E)
         self._old_of_new, self._new_of_old = old_of_new, new_of_old
-        perm = torch.as_tensor(old_of_new, device=p.device)
-
-        if damp is not None:
-            damp = torch.as_tensor(damp, device=p.device)[perm]
-        d = build_fused_data(p, damp=damp, stiffness=stiffness)
-        # lanes are class-major elements: permute the geo columns, the
-        # stiffness rows among them — stiffness went in in p's element
-        # order (damp was permuted above)
-        self.d = d = dataclasses.replace(d, geo=d.geo[:, perm].contiguous())
+        self.n_par = 2 if packed else 1
+        if packed:
+            # lane L of packed class u holds classes 2u and 2u+1; the geo
+            # and damp columns come out in that order
+            idx = np.arange(E).reshape(ex.m, NC)
+            pairs = [old_of_new[idx[par::2].reshape(-1)] for par in (0, 1)]
+            d = build_packed_fused_data(p, *pairs, damp=damp)
+        else:
+            pairs = [old_of_new]
+            perm = torch.as_tensor(old_of_new, device=p.device)
+            if damp is not None:
+                damp = torch.as_tensor(damp, device=p.device)[perm]
+            d = build_fused_data(p, damp=damp, stiffness=stiffness)
+            # lanes are class-major elements: permute the geo columns, the
+            # stiffness rows among them — stiffness went in in p's element
+            # order (damp was permuted above)
+            d = dataclasses.replace(d, geo=d.geo[:, perm].contiguous())
+        self.d = d
+        # the element of each (parity, lane), in p's order
+        self._pairs = [torch.as_tensor(pe, device=p.device) for pe in pairs]
         self.plan = self._build_plan(ex, d, pay)
 
-        # per-face boundary mask as lane rows (8, Ls)
-        mk = np.ones((8, ex.m * NC), dtype=np.float64)
+        # per-face boundary mask as lane rows (8, Ls): row par*4 + f of
+        # packed class t // 2 (unpacked: row f of class t)
+        Ls = E // self.n_par
+        mk = np.ones((8, Ls), dtype=np.float64)
         for t in range(ex.m):
+            u, par = divmod(t, self.n_par)
             for f in range(ex.n_faces):
-                mk[f, t * NC : (t + 1) * NC] = ex.self_mask[t, f].reshape(-1)
+                mk[par * 4 + f, u * NC : (u + 1) * NC] = (
+                    ex.self_mask[t, f].reshape(-1))
         self.mask = torch.as_tensor(mk, device=p.device).to(p.dtype)
 
-        # face-node-expanded normals for the initial traction extraction
+        # face-node-expanded normals for the initial traction extraction,
+        # rows par*ftq + f*n_fp + k
         rep = torch.arange(d.nf, device=p.device).repeat_interleave(d.n_fp)
-        nrm = p.normals[perm]  # (Ls, nf, dim)
-        self._nrm_exp = nrm[:, rep, :].permute(2, 1, 0).contiguous()
+        self._nrm_exp = torch.cat(
+            [p.normals[pe][:, rep, :].permute(2, 1, 0) for pe in self._pairs],
+            dim=1).contiguous()
         self._rmat = d.drr[d.dim * d.npp : d.dim * d.npp + d.ftp]
 
     def _build_plan(self, ex, d, pay):
-        plan = build_merged_plan(ex, d, pay=pay)
+        plan = build_merged_plan(ex, d, pay=pay, n_par=d.n_par)
         if plan is None:
             raise ValueError("mesh does not satisfy the merged-operator "
                              "constraints (see build_merged_plan)")
         return plan
 
+    # --- layout helpers ---
+    def _slane(self, e_new):
+        """Class-major element index -> its lane (packed: its pair's)."""
+        NC = self.NC
+        return (e_new // NC) // self.n_par * NC + e_new % NC
+
+    def _epar(self, e_new):
+        """Class-major element index -> its parity within the lane."""
+        return (e_new // self.NC) % self.n_par
+
     def _place_traces(self, tr):
         """(C, ftp, L) face-node traces -> the runner's trace layout
-        (face-major rows f*rtf + c*n_fp + k)."""
+        (face-major rows f*rtf + par*rtq + c*n_fp + k)."""
         return _emit(self.plan, self.d, tr)
 
     def _build_receivers(self, receivers):
+        """Receivers at their element's lane, the node weights on the rows
+        of its parity (the other rows' weights 0)."""
         if receivers is None:
             self.rcv = None
             return
@@ -136,9 +184,12 @@ class MergedLaneRunner:
         w = receivers.weights
         w8 = torch.zeros((w.shape[0], self.d.npp), dtype=self.dtype,
                          device=self.device)
-        w8[:, : self.d.n_p] = w.to(self.dtype)
+        rows = (4 * torch.as_tensor(self._epar(e_new), device=self.device)
+                [:, None] + torch.arange(self.d.n_p, device=self.device))
+        w8.scatter_(1, rows, w.to(self.dtype))
         self.rcv = ReceiverData(
-            elems=torch.as_tensor(e_new, device=self.device), weights=w8)
+            elems=torch.as_tensor(self._slane(e_new), device=self.device),
+            weights=w8)
 
     def _build_sources(self, src):
         """Sources grouped by wavelet.  With <= 2 groups (and
@@ -167,13 +218,20 @@ class MergedLaneRunner:
         vec_u, vec_s = host(src.vec_u), host(src.vec_s)  # (K, n_p, C)
         f0a, t0a, ampa = (np.broadcast_to(host(x), (K,))
                           for x in (src.f0, src.t0, src.amp))
+        e_new = self._new_of_old[elems_old]
+        # node rows of each source element's parity
+        par_k = self._epar(e_new)
         vu = np.zeros((d.dim, d.npp, K))
         vs = np.zeros((d.n_sig, d.npp, K))
-        vu[:, : d.n_p] = vec_u.transpose(2, 1, 0) * ampa
-        vs[:, : d.n_p] = vec_s.transpose(2, 1, 0) * ampa
+        for par in range(self.n_par):
+            kk = par_k == par
+            vu[:, par * 4 : par * 4 + d.n_p, kk] = (
+                vec_u[kk].transpose(2, 1, 0) * ampa[kk])
+            vs[:, par * 4 : par * 4 + d.n_p, kk] = (
+                vec_s[kk].transpose(2, 1, 0) * ampa[kk])
         vu = vu.reshape(d.dim * d.npp, K)
         vs = vs.reshape(d.n_sig * d.npp, K)
-        e_new = self._new_of_old[elems_old]
+        lanes = self._slane(e_new)
         groups: dict = {}
         for k in range(K):
             key = (round(float(f0a[k]), 12), round(float(t0a[k]), 12))
@@ -187,39 +245,57 @@ class MergedLaneRunner:
             for key, idx in groups.items():
                 Su = np.zeros((d.dim * d.npp, Ls))
                 Ss = np.zeros((d.n_sig * d.npp, Ls))
-                np.add.at(Su.T, e_new[idx], vu[:, idx].T)
-                np.add.at(Ss.T, e_new[idx], vs[:, idx].T)
+                np.add.at(Su.T, lanes[idx], vu[:, idx].T)
+                np.add.at(Ss.T, lanes[idx], vs[:, idx].T)
                 dense.append((dev(Su), dev(Ss)))
                 self._src_groups.append(key)
             self.src_dense = tuple(dense)
             return
 
         # face-node patches: velocity rows, and traction rows with the
-        # element's own normals
+        # element's own normals, on the face-node rows of its parity
         fn = np.array(p.fnodes).reshape(-1)
+        ftq = d.ftp // self.n_par
         nrm = host(p.normals)[elems_old][
-            :, np.repeat(np.arange(d.nf), d.n_fp)]  # (K, ftp, dim)
-        sf = vec_s[:, fn]  # (K, ftp, n_sig)
-        tru = vec_u[:, fn].transpose(2, 1, 0) * ampa  # (dim, ftp, K)
-        trt = np.stack([sum(nrm[..., dd] * sf[..., V[c, dd]]
-                            for dd in range(d.dim))
-                        for c in range(d.dim)]).transpose(0, 2, 1) * ampa
+            :, np.repeat(np.arange(d.nf), d.n_fp)]  # (K, ftq, dim)
+        sf = vec_s[:, fn]  # (K, ftq, n_sig)
+        tq_u = vec_u[:, fn].transpose(2, 1, 0) * ampa  # (dim, ftq, K)
+        tq_t = np.stack([sum(nrm[..., dd] * sf[..., V[c, dd]]
+                             for dd in range(d.dim))
+                         for c in range(d.dim)]).transpose(0, 2, 1) * ampa
+        tru = np.zeros((d.dim, d.ftp, K))
+        trt = np.zeros((d.dim, d.ftp, K))
+        for par in range(self.n_par):
+            kk = par_k == par
+            tru[:, par * ftq : (par + 1) * ftq, kk] = tq_u[..., kk]
+            trt[:, par * ftq : (par + 1) * ftq, kk] = tq_t[..., kk]
         for (f0g, t0g), idx in groups.items():
             self._src_groups.append((
-                f0g, t0g, torch.as_tensor(e_new[idx], device=self.device),
+                f0g, t0g, torch.as_tensor(lanes[idx], device=self.device),
                 dev(vu[:, idx]), dev(vs[:, idx]),
                 self._place_traces(dev(tru[..., idx])),
                 self._place_traces(dev(trt[..., idx]))))
 
     # --- state conversion ---
     def _to_lm(self, x):
-        """(E, n_p, C) standard -> (C*npp, Ls) class-major lanes."""
-        perm = torch.as_tensor(self._old_of_new, device=x.device)
-        return to_lm(x[perm], self.d.npp)
+        """(E, n_p, C) standard -> (C*npp, Ls) class-major lanes (packed:
+        the element of parity par on rows par*4 + i)."""
+        d = self.d
+        C = x.shape[2]
+        out = x.new_zeros((C, d.npp, x.shape[0] // self.n_par))
+        for par, pe in enumerate(self._pairs):
+            out[:, par * 4 : par * 4 + d.n_p] = x[pe.to(x.device)].permute(
+                2, 1, 0)
+        return out.reshape(C * d.npp, -1)
 
     def _from_lm(self, y, C):
-        inv = torch.as_tensor(self._new_of_old, device=y.device)
-        return from_lm(y, self.d.n_p, self.d.npp, C)[inv]
+        d = self.d
+        y = y.reshape(C, d.npp, -1)
+        out = y.new_empty((y.shape[-1] * self.n_par, d.n_p, C))
+        for par, pe in enumerate(self._pairs):
+            out[pe.to(y.device)] = y[:, par * 4 : par * 4 + d.n_p].permute(
+                2, 1, 0)
+        return out
 
     def to_lm_state(self, state: State):
         return self._to_lm(state.u), self._to_lm(state.s)

@@ -3,9 +3,9 @@
 ``setup_case`` must build the JAX bench's case (same mesh, parameters,
 source, sponge, dt; with ``scramble=True`` the same cell permutation);
 ``measure`` runs end to end on the CPU through the plain operator versions,
-for the lane runners at LF2 and LF4 and the v2 runner (LF4 only) too, and
-with ``vti=True`` through the general Hooke law (the upwind impls refuse
-it); ``main`` refuses to measure
+for the lane runners at LF2 and LF4, the v2 runner (LF4 only) and the
+packed P1 merged runner too, and with ``vti=True`` through the general
+Hooke law (the upwind impls refuse it); ``main`` refuses to measure
 without a CUDA device; the entry points default to the card; and importing
 the port never imports JAX.
 """
@@ -109,6 +109,32 @@ def test_measure_fused_on_cpu():
                            order=2)
 
 
+def test_measure_merged_pk_on_cpu(cases):
+    """impl "merged_pk" forces the packed P1 layout (plain "merged" stays
+    unpacked); it runs the bench's P1 case to the unpacked runner's state,
+    and refuses P2 and the VTI stiffness."""
+    dm, p, src, damp, dt, st = tbench.setup_case(
+        n=2, degree=1, dtype=torch.float64, device="cpu")
+    pk = tbench.make_runner("merged_pk", dm, p, src, damp, dt, "reference")
+    un = tbench.make_runner("merged", dm, p, src, damp, dt, "reference")
+    assert (pk.n_par, pk.plan.n_par, un.n_par) == (2, 2, 1)
+    assert pk.plan.Ls * 2 == un.plan.Ls == dm.num_elements
+    out_pk, out_un = pk.run(st, 2)[0], un.run(st, 2)[0]
+    assert out_un.u.abs().max() > 0
+    for a, b in ((out_pk.u, out_un.u), (out_pk.s, out_un.s)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10,
+                                   atol=1e-14)
+    res = tbench.measure(p, src, damp, dt, st, dm, n_steps=2,
+                         impl="merged_pk", kernel_impl="reference")
+    assert res.n_dof == dm.num_elements * dm.re.n_p * 9
+    assert np.isfinite(res.dof_updates_per_sec) and res.seconds > 0
+    with pytest.raises(ValueError, match="P1"):
+        tbench.make_runner("merged_pk", *cases[1][:5], "reference")
+    with pytest.raises(ValueError, match="vti"):
+        tbench.make_runner("merged_pk", dm, p, src, damp, dt, "reference",
+                           vti=True)
+
+
 @pytest.mark.parametrize("impl", ["merged", "lane", "lane_u", "fused"])
 def test_vti_bench_runs_the_general_hooke_law(impl):
     """``vti=True`` hands the runner the JAX bench's VTI stiffness (same
@@ -172,16 +198,24 @@ def test_profile_groups_kernels_and_needs_cuda(monkeypatch):
     names = {
         "void (anonymous namespace)::upwind_rhs_kernel<3, 20, 10>"
         "(UpwindArgs)": "upwind_rhs",
-        "void (anonymous namespace)::merged_vel_kernel<3, 20, 10>"
+        "void (anonymous namespace)::merged_vel_kernel<3, 20, 10, 1, false>"
         "(MergedArgs)": "merged_vel",
         "void (anonymous namespace)::lane_stress_kernel<3, 20, 10>"
         "(LaneArgs)": "lane_stress",
-        "void (anonymous namespace)::merged_vel_kernel<3, 20, 10, true>"
+        "void (anonymous namespace)::merged_vel_kernel<3, 20, 10, 1, true>"
         "(MergedArgs)": "fused_vel2",
-        "void (anonymous namespace)::merged_stress_kernel<3, 20, 10, true, "
-        "false>(MergedArgs)": "merged_stress",
-        "void (anonymous namespace)::merged_stress_kernel<3, 20, 10, true, "
-        "true>(MergedArgs)": "fused_stress2",
+        "void (anonymous namespace)::merged_stress_kernel<3, 20, 10, 1, "
+        "true, false>(MergedArgs)": "merged_stress",
+        "void (anonymous namespace)::merged_stress_kernel<3, 20, 10, 1, "
+        "true, true>(MergedArgs)": "fused_stress2",
+        "void (anonymous namespace)::merged_vel_kernel<3, 4, 3, 2, false>"
+        "(MergedArgs)": "merged_vel[pk]",
+        "void (anonymous namespace)::merged_stress_kernel<3, 4, 3, 2, "
+        "false, false>(MergedArgs)": "merged_stress[pk]",
+        "void (anonymous namespace)::merged_vel_kernel<3, 4, 3, 2, true>"
+        "(MergedArgs)": "fused_vel2[pk]",
+        "void (anonymous namespace)::merged_stress_kernel<2, 3, 2, 2, "
+        "false, true>(MergedArgs)": "fused_stress2[pk]",
         "void (anonymous namespace)::trace_exchange_kernel(ExchangeArgs)":
         "trace_exchange",
         "void at::native::_scatter_gather_elementwise_kernel<128, 4>":

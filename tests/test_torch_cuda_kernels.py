@@ -20,7 +20,12 @@ engine's K8 (fused_vel2: plain, axpy) and K9 (fused_stress2: plain, axpy +
 damp, and both with a per-element non-symmetric stiffness) on
 box_mesh(4, 4, 4) P2/P3 and rect_mesh(8, 8) P2, K10 (trace_exchange,
 tractions and velocities) on those meshes and their periodic twins, and
-FusedLaneRunner against its plain runner and the kernel merged runner.
+FusedLaneRunner against its plain runner and the kernel merged runner;
+the packed P1 layout (two elements per lane) of K1/K2 (every variant) and
+K8/K9 (plain, axpy, axpy + damp) on box_mesh(4, 4, 4) and rect_mesh(8, 8)
+P1, the packed kernel merged runner against the packed plain and the
+unpacked kernel runners (``launches_pk`` counts), and K11 (p1_pack_vel)
+against its plain version and the packed K8.
 These tests need a CUDA device and nvcc; elsewhere they skip.  On the GPU
 machine (which has no JAX, so the suite's conftest is not loaded):
 
@@ -719,3 +724,154 @@ def test_fused_runner_kernels_match_plain(fused_case, device, stiffness):
         for a, b in ((out_k.u, ref.u), (out_k.s, ref.s)):
             assert torch.isfinite(a).all()
             assert ((a - b).norm() / b.norm()).item() < 1e-5
+
+
+@pytest.fixture(scope="module", params=[3, 2], ids=["3D-P1", "2D-P1"])
+def packed_case(request, device):
+    """Packed (P1, two elements per lane) kernel merged runner on a
+    free-top, sponge-damped box_mesh(4, 4, 4) or rect_mesh(8, 8) with a
+    blob source, and numpy-seeded operands in its lane layout."""
+    dim = request.param
+    topo = box_mesh(4, 4, 4) if dim == 3 else rect_mesh(8, 8)
+    dm = build_discrete(topo, 1, bc_fn=absorbing_bc_fn(
+        ((0.0, 1.0),) * dim, free_sides=[(dim - 1, "hi")]))
+    p = build_params(dm, Material(1.0, 2.0, 1.0), device=device)
+    kw = dict(
+        damp=torch.as_tensor(sponge_mask(dm, [(0, "lo"), (0, "hi")],
+                                         width=0.3), device=device).float(),
+        src=build_sources(dm, [PointSource(
+            position=(0.5,) * (dim - 1) + (0.7,), f0=4.0, radius=0.25)],
+            device=device))
+    runner = MergedLaneRunner(p, detect_structured(dm), 0.01, impl="kernel",
+                              packed=True, **kw)
+    d, plan = runner.d, runner.plan
+    assert d.n_par == 2 and plan.n_par == 2
+    rng = np.random.default_rng(60 + dim)
+
+    def rows(C, used, pad, n):  # live rows of each parity block
+        a = rng.standard_normal((n, C, 2, pad, plan.Ls)).astype(np.float32)
+        a[:, :, :, used:] = 0.0
+        return torch.as_tensor(a.reshape(n, C * 2 * pad, plan.Ls),
+                               device=device)
+
+    data = {"vel": (rows(d.n_sig, d.n_p, 4, 1)[0], rows(d.dim, d.n_p, 4, 4)),
+            "stress": (rows(d.dim, d.n_p, 4, 1)[0],
+                       rows(d.n_sig, d.n_p, 4, 4)),
+            "trs": rows(d.nf, d.dim * d.n_fp, plan.rtq, 1)[0]}
+    return dm, p, kw, runner, data
+
+
+@pytest.mark.parametrize("op,variant", [
+    ("vel", "plain"), ("vel", "axpy"), ("vel", "inject1"), ("vel", "inject2"),
+    ("stress", "plain"), ("stress", "axpy_damp"), ("stress", "inject1"),
+    ("stress", "inject2")])
+def test_packed_merged_kernel_matches_plain(packed_case, op, variant):
+    *_, runner, data = packed_case
+    x, y = data[op]
+    kw = {}
+    if variant.startswith("axpy"):
+        kw = dict(axpy=(y[0], y[1]), dt=0.01, c3=0.01**3 / 24.0)
+    elif variant.startswith("inject"):
+        kw = dict(inject=[(y[2 + g], (0.7, -1.3)[g])
+                          for g in range(int(variant[-1]))])
+    fused, plain, kernel = ((mk.vel_merged, mk.vel_merged_ref,
+                             mk.VEL_KERNEL) if op == "vel" else
+                            (mk.stress_merged, mk.stress_merged_ref,
+                             mk.STRESS_KERNEL))
+    args = (runner.plan, runner.d, x, data["trs"], runner.mask)
+    n0, pk0 = kernel.launches, kernel.launches_pk
+    got = fused(*args, **kw)
+    ref = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert (kernel.launches - n0, kernel.launches_pk - pk0) == (1, 1)
+    for g, r in zip(got, ref):
+        _assert_close(g, r)
+
+
+@pytest.mark.parametrize("op,variant", [
+    ("vel", "plain"), ("vel", "axpy"), ("stress", "plain"),
+    ("stress", "axpy_damp")])
+def test_packed_fused_operator_kernels_match_plain(packed_case, device, op,
+                                                   variant):
+    *_, runner, _ = packed_case
+    d = runner.d
+    rng = np.random.default_rng(64)
+
+    def rows(C, used, pad):
+        a = rng.standard_normal((C, pad, d.E // 2)).astype(np.float32)
+        a[:, used:] = 0.0
+        return torch.as_tensor(a.reshape(C * pad, -1), device=device)
+
+    def state(C):  # rows c*8 + par*4 + i, i < n_p
+        a = rng.standard_normal((C, 2, 4, d.E // 2)).astype(np.float32)
+        a[:, :, d.n_p:] = 0.0
+        return torch.as_tensor(a.reshape(C * 8, -1), device=device)
+
+    c_in, c_out = (d.n_sig, d.dim) if op == "vel" else (d.dim, d.n_sig)
+    x, tr = state(c_in), rows(d.dim, d.ftp, d.ftpp)
+    okw = {}
+    if "axpy" in variant:
+        okw = dict(axpy=(state(c_out), state(c_out)), dt=0.01,
+                   c3=0.01**3 / 24)
+    fused, plain, kernel = ((fo.vel2_op, fo.vel2_op_ref, fo.VEL2_KERNEL)
+                            if op == "vel" else
+                            (fo.stress2_op, fo.stress2_op_ref,
+                             fo.STRESS2_KERNEL))
+    n0, pk0 = kernel.launches, kernel.launches_pk
+    got = fused(d, x, tr, **okw)
+    ref = plain(d, x, tr, **okw)
+    torch.cuda.synchronize()
+    assert (kernel.launches - n0, kernel.launches_pk - pk0) == (1, 1)
+    for g, r in zip(got, ref):
+        _assert_close(g, r)
+
+
+def test_packed_runner_kernels_match_plain(packed_case, device):
+    """Packed kernel runner against the packed plain runner and the
+    unpacked kernel runner: 3 + 3 packed launches a step, no unpacked."""
+    dm, p, kw, runner, _ = packed_case
+    dim, E, n_p = p.dim, dm.num_elements, dm.re.n_p
+    rng = np.random.default_rng(65)
+    st = State(u=torch.as_tensor(rng.standard_normal((E, n_p, dim)),
+                                 device=device).float(),
+               s=torch.as_tensor(rng.standard_normal((E, n_p, p.n_sig)),
+                                 device=device).float())
+    kernels = (mk.VEL_KERNEL, mk.STRESS_KERNEL)
+    n0 = [(k.launches, k.launches_pk) for k in kernels]
+    out_k, _ = runner.run(st, 4)
+    assert [(k.launches - a, k.launches_pk - b)
+            for k, (a, b) in zip(kernels, n0)] == [(12, 12), (12, 12)]
+    ex = runner.ex
+    out_r, _ = MergedLaneRunner(p, ex, 0.01, impl="reference", packed=True,
+                                **kw).run(st, 4)
+    out_u, _ = MergedLaneRunner(p, ex, 0.01, impl="kernel", **kw).run(st, 4)
+    for ref in (out_r, out_u):
+        for a, b in ((out_k.u, ref.u), (out_k.s, ref.s)):
+            assert torch.isfinite(a).all()
+            assert ((a - b).norm() / b.norm()).item() < 1e-5
+
+
+def test_pack_probe_kernel_matches_plain(device):
+    """K11 (p1_pack_vel) against packed_vel_op_ref on box_mesh(4, 4, 4) P1,
+    and against the packed K8 on FusedOpData with the probe's pairing."""
+    from seigen_tpu_torch.bench import p1_pack_probe as probe
+    from seigen_tpu_torch.ops.fused_kernels import build_fused_data
+
+    dm = build_discrete(box_mesh(4, 4, 4), 1)
+    p = build_params(dm, Material(1.3, 2.0, 1.0), device=device)
+    E = dm.num_elements
+    d = probe.build_packed_vel_data(p)
+    rng = np.random.default_rng(66)
+    sig = rng.standard_normal((E, 4, 6)).astype(np.float32)
+    trc = rng.standard_normal((E, 3, 12)).astype(np.float32)
+    sig_p = torch.as_tensor(probe.pack_state(sig, 4), device=device)
+    tr_p = torch.as_tensor(probe.pack_traces(trc), device=device)
+    n0 = probe.PACK_VEL_KERNEL.launches
+    got = probe.packed_vel_op(d, sig_p, tr_p)
+    ref = probe.packed_vel_op_ref(d, sig_p, tr_p)
+    pk8 = fo.vel2_op_ref(build_fused_data(p, packed=True), sig_p, tr_p)
+    torch.cuda.synchronize()
+    assert probe.PACK_VEL_KERNEL.launches == n0 + 1
+    for g, r, q in zip(got, ref, pk8):
+        _assert_close(g, r)
+        _assert_close(g, q)

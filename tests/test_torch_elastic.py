@@ -117,7 +117,8 @@ def test_fused_data_matches(case):
 
 def test_fused_data_refuses_unported_layouts(case):
     _, _, p_t = case
-    with pytest.raises(NotImplementedError):
+    # the packed layout is ported for P1 only (tests/test_torch_packed.py)
+    with pytest.raises(ValueError, match="P1"):
         tfused(p_t, packed=True)
     # the stiffness section is ported: n_sig sections of 8 rows after mat
     d = tfused(p_t, stiffness=np.eye(p_t.n_sig))
