@@ -13,16 +13,25 @@ Phases, each printing its own lines; any failure exits non-zero:
               upwind_rhs), lane_kernels.cu (K4 lane_vel, K5 lane_stress),
               lane_upwind_kernels.cu (K6 lane_upwind_rhs, K7
               lane_upwind_axpy) and trace_exchange.cu (K10
-              trace_exchange); print ptxas's registers, stack and spills.
+              trace_exchange); print ptxas's registers, stack and spills,
+              a line for each instantiation of the K1/K2 tile kernels
+              (each must report a 0 B stack frame and no spills), and
+              require K8, K9, K9-C (3D P3) and the packed K1/K2/K8/K9
+              (3D P1) at the registers and stack frames they had before
+              the tile kernels came (their code did not change).
 3. kernels  - every K1/K2 variant (vel plain/axpy/inject with 1 and 2
-              groups; stress plain/axpy+damp/inject with 1 and 2 groups)
-              against its plain PyTorch version on the card in float32, on
-              box_mesh(4, 4, 4) at P3 and P2.
+              groups; stress plain/axpy/axpy+damp/inject with 1 and 2
+              groups) against its plain PyTorch version on the card in
+              float32, at all eight element shapes: 3D P1-P4 on
+              box_mesh(5, 3, 4) and 2D P1-P4 on rect_mesh(14, 10), whose
+              60 and 35 lanes per class end every class in a ragged tile.
 4. runner   - the LF4 main path: MergedLaneRunner on the n=24 P3 explosive-
               source case (E = 82 944) for 10 steps from a numpy-seeded
               random state, kernels vs plain versions; launch counts,
-              finiteness; then every variant again at these shapes, with
-              each kernel's time beside its plain version's.
+              finiteness; then every variant again at these shapes, each
+              kernel variant's time beside its own bound (and the plain
+              variants' plain-version times), and the summed bound of an
+              LF4 step's six launches (2 plain + 1 axpy of each operator).
 5. bench    - seigen_tpu_torch.bench.throughput.main (100 steps, impl
               "merged") with the kernels and with the plain versions.
 6. upwind   - the upwind-RK4 lane path.  Every K3 variant (plain, 1 and 2
@@ -72,10 +81,11 @@ Phases, each printing its own lines; any failure exits non-zero:
 9. aniso    - the anisotropic (Voigt stiffness) path: the general Hooke
               law of K2 and K5 (their ANISO instantiations, counted by
               ``launches_c``).  With a per-element NON-symmetric random C:
-              K2 plain / axpy / axpy + damp / 1 and 2 source groups on
-              box_mesh(4, 4, 4) at P3 and P2 and rect_mesh(8, 8) P2, K5
-              modes TR and SEL on the same meshes and their scrambled
-              copies, each against its plain version.  With the bench's VTI
+              K2 plain / axpy / axpy + damp / 1 and 2 source groups at the
+              eight shapes and on the meshes of phase 3, K5 modes TR and
+              SEL on box_mesh(4, 4, 4) at P3 and P2 and rect_mesh(8, 8) P2
+              and their scrambled copies, each against its plain
+              version.  With the bench's VTI
               stiffness at n=24 P3: MergedLaneRunner, LaneMajorRunner (LF4)
               and UnstructuredLaneRunner (scrambled case, fused_select True
               and False) for 10 steps kernel vs plain (relative L2,
@@ -135,9 +145,10 @@ outputs that happen to be near zero, for the plain version as much as for
 the kernel.
 
 Each kernel's bound is the larger of its compulsory bytes (inputs read
-once, outputs written once, from the main path's shapes) over the H100's
-published 3.35 TB/s and its matrix-product FLOPs over the published 67
-TFLOP/s FP32 rate.  K10 does no arithmetic: its library yardstick is the
+once, outputs written once, from the main path's shapes; a K1/K2 variant
+counts its own axpy, damping and source rows) over the H100's published
+3.35 TB/s and its matrix-product FLOPs over the published 67 TFLOP/s FP32
+rate.  K10 does no arithmetic: its library yardstick is the
 gather alone (torch.take over the plain version's precomputed index, no
 sign), the one PyTorch call that moves the same bytes.
 
@@ -161,7 +172,6 @@ BENCH_STEPS = 100
 TIMING_REPS = 20
 EIGEN_MIN_ORDER = 2.8
 SH_WAVE_MAX_ERR = 0.02
-SIDES = [(0, "lo"), (0, "hi"), (1, "lo"), (1, "hi"), (2, "lo")]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peaks
 FP32_FLOPS_PER_S = 67e12
 KERNELS = {  # name -> (source, replaced TPU kernel)
@@ -211,6 +221,27 @@ PACKED_MODES = {  # packed P1 instantiation -> (kernel, replaced TPU kernel)
 # the launches_pk counts
 PK_COUNTS = ("merged_vel_pk", "merged_stress_pk", "fused_vel2_pk",
              "fused_stress2_pk")
+# (dim, degree) of the eight element shapes of the K1/K2 tile kernels
+SHAPES = ((3, 1), (3, 2), (3, 3), (3, 4), (2, 1), (2, 2), (2, 3), (2, 4))
+# ptxas (registers, stack frame bytes) of instantiations whose code the
+# tile kernels left unchanged, as built before them: K8, K9, K9-C at 3D
+# P3; the packed K1, K2, K8, K9 at 3D P1
+PTXAS_PINS = {
+    "fused_vel2 3D P3": ("merged_vel_kernelILi3ELi20ELi10ELi1ELb1EE", 56,
+                         480),
+    "fused_stress2 3D P3": (
+        "merged_stress_kernelILi3ELi20ELi10ELi1ELb0ELb1EE", 128, 592),
+    "fused_stress2[C] 3D P3": (
+        "merged_stress_kernelILi3ELi20ELi10ELi1ELb1ELb1EE", 72, 496),
+    "merged_vel[pk] 3D P1": ("merged_vel_kernelILi3ELi4ELi3ELi2ELb0EE", 32,
+                             240),
+    "merged_stress[pk] 3D P1": (
+        "merged_stress_kernelILi3ELi4ELi3ELi2ELb0ELb0EE", 48, 336),
+    "fused_vel2[pk] 3D P1": ("merged_vel_kernelILi3ELi4ELi3ELi2ELb1EE", 46,
+                             144),
+    "fused_stress2[pk] 3D P1": (
+        "merged_stress_kernelILi3ELi4ELi3ELi2ELb0ELb1EE", 48, 256),
+}
 
 
 def log(msg: str):
@@ -247,24 +278,98 @@ class Check:
         self.worst[kname] = max(self.worst.get(kname, 0.0), max_err)
 
 
-def make_case(n, degree, device):
-    """A free-top, sponge-damped box case and its kernel runner."""
+def small_merged_runner(dim, degree, device, stiffness_seed=None):
+    """A kernel MergedLaneRunner on a free-top, sponge-damped
+    box_mesh(5, 3, 4) (3D, 60 lanes per class) or rect_mesh(14, 10) (2D,
+    35 lanes per class); with ``stiffness_seed`` a per-element random
+    stiffness (the general Hooke law)."""
     import torch
 
-    from seigen_tpu_torch.mesh import box_mesh, build_discrete
+    from seigen_tpu_torch.mesh import box_mesh, build_discrete, rect_mesh
     from seigen_tpu_torch.ops import Material, build_params
     from seigen_tpu_torch.ops.structured_exchange import detect_structured
     from seigen_tpu_torch.solver.damping import absorbing_bc_fn, sponge_mask
     from seigen_tpu_torch.solver.lane_merged import MergedLaneRunner
 
-    ext = ((0.0, 1.0),) * 3
-    dm = build_discrete(box_mesh(n, n, n), degree,
-                        bc_fn=absorbing_bc_fn(ext, free_sides=[(2, "hi")]))
+    topo = box_mesh(5, 3, 4) if dim == 3 else rect_mesh(14, 10)
+    dm = build_discrete(topo, degree, bc_fn=absorbing_bc_fn(
+        ((0.0, 1.0),) * dim, free_sides=[(dim - 1, "hi")]))
     p = build_params(dm, Material(1.0, 2.0, 1.0), dtype=torch.float32,
                      device=device)
-    damp = torch.as_tensor(sponge_mask(dm, SIDES, width=0.3), device=device)
-    return MergedLaneRunner(p, detect_structured(dm), 0.01,
-                            damp=damp.float(), impl="kernel")
+    damp = torch.as_tensor(sponge_mask(dm, [(0, "lo"), (0, "hi")],
+                                       width=0.3), device=device).float()
+    C = (None if stiffness_seed is None else
+         random_stiffness(dm.num_elements, p.n_sig, stiffness_seed))
+    return MergedLaneRunner(p, detect_structured(dm), 0.01, damp=damp,
+                            impl="kernel", stiffness=C)
+
+
+def shape_nodes(dim, degree):
+    """(n_p, n_fp) of the P``degree`` triangle or tetrahedron."""
+    k = degree
+    if dim == 2:
+        return (k + 1) * (k + 2) // 2, k + 1
+    return (k + 1) * (k + 2) * (k + 3) // 6, (k + 1) * (k + 2) // 2
+
+
+def ptxas_entries(lib):
+    """{mangled entry: (registers, stack frame, spill store, spill load
+    bytes)} of a library's ptxas report."""
+    import re
+
+    out, name, frame = {}, None, None
+    for ln in lib.ptxas_report().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name, frame = m.group(1), None
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            frame = tuple(int(g) for g in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name is not None and frame is not None:
+            out[name] = (int(m.group(1)), *frame)
+            name = None
+    return out
+
+
+def ptxas_entry(entries, key):
+    hits = [v for k, v in entries.items() if key in k]
+    if len(hits) != 1:
+        raise AssertionError(f"ptxas: {len(hits)} entries match {key}")
+    return hits[0]
+
+
+def check_ptxas():
+    """Phase 2: a line for each K1/K2 tile instantiation, which must keep
+    no local memory (0 B stack frame, no spills), and the pinned registers
+    and stack frames of PTXAS_PINS."""
+    from seigen_tpu_torch.ops import merged_kernels as mk
+
+    entries = ptxas_entries(mk.LIBRARY)
+    for dim, degree in SHAPES:
+        n_p, n_fp = shape_nodes(dim, degree)
+        for label, vel, aniso in (("merged_vel", 1, 0),
+                                  ("merged_stress", 0, 0),
+                                  ("merged_stress[C]", 0, 1)):
+            regs, stack, st, ld = ptxas_entry(
+                entries, f"merged_tile_kernelILi{dim}ELi{n_p}ELi{n_fp}ELb"
+                f"{vel}ELb{aniso}EE")
+            log(f"[build] tile {label} {dim}D P{degree}: {regs} registers, "
+                f"{stack} B stack frame, {st} B spill stores, {ld} B spill "
+                "loads")
+            if (stack, st, ld) != (0, 0, 0):
+                raise AssertionError(f"ptxas tile {label} {dim}D P{degree}: "
+                                     "local memory")
+    for label, (key, regs, stack) in PTXAS_PINS.items():
+        got = ptxas_entry(entries, key)
+        log(f"[build] {label}: {got[0]} registers, {got[1]} B stack frame "
+            f"(pinned {regs}, {stack})")
+        if got[:2] != (regs, stack):
+            raise AssertionError(f"ptxas {label}: {got[:2]}, pinned "
+                                 f"{(regs, stack)}")
 
 
 def variant_inputs(runner, seed):
@@ -293,8 +398,9 @@ def variant_inputs(runner, seed):
 
 
 VARIANTS = (("vel", "plain"), ("vel", "axpy"), ("vel", "inject1"),
-            ("vel", "inject2"), ("stress", "plain"), ("stress", "axpy_damp"),
-            ("stress", "inject1"), ("stress", "inject2"))
+            ("vel", "inject2"), ("stress", "plain"), ("stress", "axpy"),
+            ("stress", "axpy_damp"), ("stress", "inject1"),
+            ("stress", "inject2"))
 
 
 def variant_call(runner, x, op, variant):
@@ -357,16 +463,16 @@ def time_ms(fn, reps=TIMING_REPS):
     return start.elapsed_time(stop) / reps
 
 
-def bound(d, plan, kname, aniso=False):
-    """(bound_ms, "bytes" | "operations") of one plain launch of a kernel
-    at these shapes: compulsory bytes (state rows n_p per component, the
-    neighbour payload rows, the geo/impedance/mask rows the operator reads,
-    each per element: n_par of them a lane; the full output and trace
-    arrays written) over the memory rate, and the Dr and LIFT
-    matrix-product FLOPs of every element over the FP32 rate.  aniso: K2
-    reads the n_sig^2 stiffness rows instead of lambda and mu."""
+def bound_rows(d, plan, kname, aniso=False, variant="plain"):
+    """Float rows per lane that one launch must move: the live rows of its
+    input (n_p per component), the neighbour payload rows, the
+    geo/impedance/mask rows the operator reads, each per element (n_par of
+    them a lane), and the variant's own operands — the axpy rows ax0 and
+    ax1 (C_out x n_p live rows each), the damping rows (n_p) and the dense
+    source rows (C_out x n_p a group) — plus the full output and trace
+    arrays written.  aniso: K2 reads the n_sig^2 stiffness rows instead of
+    lambda and mu."""
     dim, n_p, nf, nfp, npp = d.dim, d.n_p, d.nf, d.n_fp, d.npp
-    n_par = d.n_par
     nft = nf * nfp
     geo = dim * dim + dim * nf  # Ginv, normals
     if kname == "merged_vel":  # sigma in, u out; scb, bfs, 1/rho
@@ -377,9 +483,25 @@ def bound(d, plan, kname, aniso=False):
     else:  # u, sigma in and out; scb, 1/rho, lam, mu; 4*nf + 2 uwg rows
         c_in = c_out = dim + d.n_sig
         geo += nf + 3 + 4 * nf + 2
-    rows = n_par * (c_in * n_p + plan.pay * nft + geo + nf) \
+    extra = 0
+    if variant.startswith("axpy"):
+        extra += 2 * c_out * n_p + (n_p if variant == "axpy_damp" else 0)
+    elif variant.startswith("inject"):
+        extra += int(variant[-1]) * c_out * n_p
+    return d.n_par * (c_in * n_p + plan.pay * nft + geo + nf + extra) \
         + c_out * npp + nf * plan.rtf
-    flops = 2 * n_par * (c_out * dim * n_p * n_p + c_out * n_p * nft)
+
+
+def bound(d, plan, kname, aniso=False, variant="plain"):
+    """(bound_ms, "bytes" | "operations") of one launch of a kernel
+    variant at these shapes: the bytes of ``bound_rows`` over the memory
+    rate, and the Dr and LIFT matrix-product FLOPs of every element over
+    the FP32 rate."""
+    dim, n_p, nft = d.dim, d.n_p, d.nf * d.n_fp
+    c_out = {"merged_vel": dim, "merged_stress": d.n_sig}.get(
+        kname, dim + d.n_sig)
+    rows = bound_rows(d, plan, kname, aniso, variant)
+    flops = 2 * d.n_par * (c_out * dim * n_p * n_p + c_out * n_p * nft)
     t_bytes = 4.0 * rows * plan.Ls / HBM_BYTES_PER_S * 1e3
     t_ops = float(flops) * plan.Ls / FP32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1144,18 +1266,15 @@ def random_stiffness(E, n_sig, seed):
 
 
 def small_aniso_runners(dim, degree, dev):
-    """Kernel runners with a per-element random stiffness on a free-top,
-    sponge-damped box_mesh(4, 4, 4) (3D) or rect_mesh(8, 8) (2D):
-    (MergedLaneRunner, UnstructuredLaneRunner on the same mesh,
-    UnstructuredLaneRunner on a scrambled copy)."""
+    """Kernel runners with a per-element random stiffness on a free-top
+    box_mesh(4, 4, 4) (3D) or rect_mesh(8, 8) (2D):
+    (UnstructuredLaneRunner on the mesh, UnstructuredLaneRunner on a
+    scrambled copy)."""
     import numpy as np
-    import torch
 
     from seigen_tpu_torch.mesh import box_mesh, build_discrete, rect_mesh
     from seigen_tpu_torch.ops import Material, build_params
-    from seigen_tpu_torch.ops.structured_exchange import detect_structured
-    from seigen_tpu_torch.solver.damping import absorbing_bc_fn, sponge_mask
-    from seigen_tpu_torch.solver.lane_merged import MergedLaneRunner
+    from seigen_tpu_torch.solver.damping import absorbing_bc_fn
     from seigen_tpu_torch.solver.lane_unstructured import \
         UnstructuredLaneRunner
 
@@ -1170,13 +1289,6 @@ def small_aniso_runners(dim, degree, dev):
         dm = build_discrete(t, degree, bc_fn=bc)
         p = build_params(dm, mat, device=dev)
         C = random_stiffness(dm.num_elements, p.n_sig, 90 + i)
-        if i == 0:
-            damp = torch.as_tensor(
-                sponge_mask(dm, [(0, "lo"), (0, "hi")], width=0.3),
-                device=dev).float()
-            out.append(MergedLaneRunner(p, detect_structured(dm), 0.01,
-                                        damp=damp, impl="kernel",
-                                        stiffness=C))
         out.append(UnstructuredLaneRunner(
             p, 0.01, centroids=dm.coords.mean(axis=1), impl="kernel",
             stiffness=C))
@@ -1350,12 +1462,16 @@ def phase_aniso(dev, case, st, scase, sst, check, n=24):
         UnstructuredLaneRunner
 
     t0 = time.perf_counter()
-    for dim, degree in ((3, 3), (3, 2), (2, 2)):
-        merged, lane_u, lane_us = small_aniso_runners(dim, degree, dev)
+    for dim, degree in SHAPES:
+        merged = small_merged_runner(dim, degree, dev, stiffness_seed=90)
         tag = f"{dim}D P{degree}"
-        log(f"[aniso] {tag}: E {lane_u.E}, C section at geo row "
+        log(f"[aniso] {tag}: NC {merged.plan.NC}, C section at geo row "
             f"{merged.d.off[6]} of {merged.d.off[7]}")
-        compare_merged_aniso(merged, check, tag, 80 + degree)
+        compare_merged_aniso(merged, check, tag, 80 + 10 * dim + degree)
+    for dim, degree in ((3, 3), (3, 2), (2, 2)):
+        lane_u, lane_us = small_aniso_runners(dim, degree, dev)
+        tag = f"{dim}D P{degree}"
+        log(f"[aniso] {tag}: E {lane_u.E}")
         compare_lane_aniso(lane_u, check, tag, 82 + degree)
         compare_lane_aniso(lane_us, check, f"{tag} scrambled", 84 + degree)
     log(f"[aniso] all small-mesh general-law modes agree "
@@ -1418,6 +1534,13 @@ def phase_aniso(dev, case, st, scase, sst, check, n=24):
                                  time_ms(lambda: plain(*args, **kw)))
     bounds["merged_stress[C]"] = bound(run_k.d, run_k.plan, "merged_stress",
                                        aniso=True)
+    kern, plain, args, kw = variant_call(run_k, x, "stress", "axpy_damp")
+    t = time_ms(lambda: kern(*args, **kw))
+    b = bound(run_k.d, run_k.plan, "merged_stress", aniso=True,
+              variant="axpy_damp")
+    log(f"[aniso] merged_stress[C] (axpy_damp) at n={n} P3: kernel {t:.4f} "
+        f"ms, bound {b[0]:.4f} ms ({b[1]}), {100 * b[0] / t:.1f}% of the "
+        "bound")
     del run_k, x, args, kw
     for name, mode in (("lane_stress[C,TR]", "TR"),
                        ("lane_stress[C,SEL]", "SEL stress")):
@@ -1985,15 +2108,18 @@ def main() -> int:
         for ln in lib.ptxas_report().splitlines():
             if "registers" in ln or "spill" in ln or "Compiling" in ln:
                 log(f"  ptxas: {ln.strip()}")
+    check_ptxas()
     log(f"[build] phase {wall:.1f} s")
 
     # 3. kernels vs plain versions on small meshes
     check = Check()
     t0 = time.perf_counter()
-    for degree in (3, 2):
-        runner = make_case(4, degree, dev)
-        log(f"[kernels] box_mesh(4,4,4) P{degree}: Ls {runner.plan.Ls}")
-        compare_variants(runner, check, f"P{degree}", seed=degree)
+    for dim, degree in SHAPES:
+        runner = small_merged_runner(dim, degree, dev)
+        log(f"[kernels] {dim}D P{degree}: NC {runner.plan.NC}, Ls "
+            f"{runner.plan.Ls}")
+        compare_variants(runner, check, f"{dim}D P{degree}",
+                         seed=10 * dim + degree)
     log(f"[kernels] all variants agree ({time.perf_counter() - t0:.1f} s)")
 
     # 4. runner: the main path at full width
@@ -2027,18 +2153,31 @@ def main() -> int:
                   merged_stress=3 * RUNNER_STEPS)
     compare_states("runner", out_k, out_r)
 
-    # every variant at the main path's shapes, with kernel and plain times
+    # every variant at the main path's shapes: each kernel variant's time
+    # beside its own bound, the plain variants' plain-version times
     x = compare_variants(run_k, check, "n=24 P3", seed=24)
     times, bounds = {}, {}
-    for op, variant in (("vel", "plain"), ("stress", "plain")):
+    for op, variant in VARIANTS:
         kern, plain, args, kw = variant_call(run_k, x, op, variant)
         kname = "merged_vel" if op == "vel" else "merged_stress"
-        times[kname] = (time_ms(lambda: kern(*args, **kw)),
-                        time_ms(lambda: plain(*args, **kw)))
-        bounds[kname] = bound(run_k.d, run_k.plan, kname)
-        log(f"[runner] {kname} ({variant}) at n=24 P3: kernel "
-            f"{times[kname][0]:.4f} ms, plain {times[kname][1]:.4f} ms, "
-            f"bound {bounds[kname][0]:.4f} ms ({bounds[kname][1]})")
+        t = time_ms(lambda: kern(*args, **kw))
+        b = bound(run_k.d, run_k.plan, kname, variant=variant)
+        line = (f"[runner] {kname} ({variant}) at n=24 P3: kernel {t:.4f} "
+                f"ms, bound {b[0]:.4f} ms ({b[1]}, "
+                f"{bound_rows(run_k.d, run_k.plan, kname, variant=variant)}"
+                f" rows a lane), {100 * b[0] / t:.1f}% of the bound")
+        if variant == "plain":
+            times[kname] = (t, time_ms(lambda: plain(*args, **kw)))
+            bounds[kname] = b
+            line += f"; plain {times[kname][1]:.4f} ms"
+        log(line)
+    step = sum(k * bound(run_k.d, run_k.plan, kname, variant=v)[0]
+               for kname, v, k in (("merged_vel", "plain", 2),
+                                   ("merged_vel", "axpy", 1),
+                                   ("merged_stress", "plain", 2),
+                                   ("merged_stress", "axpy_damp", 1)))
+    log(f"[runner] bound of an LF4 step's six K1/K2 launches (2 plain + 1 "
+        f"axpy of each): {step:.4f} ms")
     log(f"[runner] phase {time.perf_counter() - t0:.1f} s")
 
     # 5. bench: kernels and plain versions on the same case

@@ -88,10 +88,15 @@ def _last_bool(name: str) -> bool:
 
 
 def kernel_group(name: str) -> str:
-    """The port's operator kernels by name (K1/K2/K8/K9 of the packed P1
-    layout, template NPAR = 2, with the suffix "[pk]"); PyTorch's
-    gather/index (the lane runners' trace exchanges), elementwise, copy and
-    matmul kernels as groups; anything else as "other"."""
+    """The port's operator kernels by name (K1/K2 of one element per lane
+    are the tile kernel, template <DIM, NP, NFP, VEL, ANISO>; K1/K2/K8/K9
+    of the packed P1 layout, template NPAR = 2, carry the suffix "[pk]");
+    PyTorch's gather/index (the lane runners' trace exchanges),
+    elementwise, copy and matmul kernels as groups; anything else as
+    "other"."""
+    if "merged_tile_kernel" in name:
+        return ("merged_vel" if _template_args(name)[3] in ("true", "(bool)1")
+                else "merged_stress")
     for k in OPERATOR_KERNELS:
         if k in name:
             if k == "lane_upwind_kernel":  # K7 is its AXPY = true instance

@@ -11,24 +11,79 @@
 // The physics is the same; the TPU layout devices (per-class pallas_calls,
 // lane blocks and their windows, one-hot MXU permutation and expansion
 // matmuls, bf16 three-pass dots) are gone.  One launch covers all classes,
-// one thread owns one lane (element), and the neighbour trace is an indexed
-// load at lane t2*NC + j + s, rows f2*rtf + c*n_fp + pi[k].
+// and the neighbour trace is read at lane t2*NC + j + s, rows f2*rtf +
+// c*n_fp + pi[k].
 //
 // What bounds it on the H100.  Per lane and operator the arithmetic is a
 // few thousand FP32 FMAs (Dr and LIFT products at P3), the compulsory
 // device-memory traffic ~2 KB (field in, traces in, geo, field and traces
-// out): at E = 83k that is ~0.2 GB, ~50 us at 3.35 TB/s, against a few
-// GFLOP, ~30 us at the 67 TFLOP/s FP32 rate, so the op sits near the
-// ridge.  This first version is bound by neither: every FMA takes its
-// table operand from shared memory (a broadcast load per FMA), and the
-// per-lane face data lives in local memory.  Design: the Dr/LIFT/fnodes
-// tables sit in shared memory once per block; lane loads and stores are
-// coalesced (consecutive threads, consecutive lanes); the volume term is
-// contracted over the Voigt/direction sums BEFORE the Dr product
-// (sum_r Dr_r @ w_r, one Dr pass per output component) to halve the FMAs;
-// the neighbour lane is clamped into its class and loaded only on
-// unmasked faces, so no load leaves [t2*NC, (t2+1)*NC).  Tensor-core
-// (wgmma) tiles and TMA staging are later work.
+// out): at E = 83k that is ~0.2 GB, ~50 us at 3.35 TB/s, against ~25 us of
+// FMAs at the 67 TFLOP/s FP32 rate, so the operators are bytes-bound once
+// the arithmetic is organised.
+//
+// Two designs live here.  The per-lane templates merged_vel_kernel and
+// merged_stress_kernel (the first design) give one thread one lane and run
+// K8/K9/K11 and the packed layout: there every FMA takes its table operand
+// from shared memory, the per-lane face arrays sit in local memory, and K2
+// repeats its volume product for each Voigt row.  K1 and K2 with one
+// element per lane (the LF4 main path) run the tile kernels of
+// merged_tile.cuh instead, designed for this card:
+//   - A block owns a tile of T consecutive lanes of ONE class (grid: tiles
+//     of a class x classes), so the neighbour rows of a (class, face) form
+//     one segment at the plan's fixed shift s; the last tile of a class is
+//     ragged and masked.  T is 32 at P2-P4 (64 or 128 at P1, for at least
+//     four warps a block).  At 3D P3 a block is 320 threads and takes
+//     36 KB of shared memory (K2), 49 KB (K2 ANISO) or 51 KB (K1); four
+//     blocks, 40 warps, fit an SM (K2: its 48 registers are the limit);
+//     the dynamic shared memory is raised above 48 KB per instantiation.
+//   - The grid is not persistent: the resident blocks of an SM overlap one
+//     tile's loads with another's arithmetic, and more warps an SM is what
+//     these kernels gain from.  A persistent grid double-buffering its
+//     staging holds only two or three blocks an SM (96-116 registers,
+//     twice the staging memory) and ran slower on every variant; so did
+//     reading the table through L1 instead of shared memory and capping
+//     the four-node K2 at 64 registers (spills); at 3D P3 two nodes a
+//     thread (48 registers, twice the warps) beat four on every plain
+//     variant.
+//   - The tile is staged by cp.async: the table, the input's live rows and
+//     the geo rows 16 bytes a copy (4 bytes, clamped per lane, in a ragged
+//     or misaligned tile), the neighbour's trace rows 16 bytes a copy where
+//     the face's shift keeps the segment aligned and inside its class, else
+//     4 bytes; consecutive threads copy consecutive lanes.  cp.async, not
+//     TMA: a TMA box needs a tensor map per (class, face) shift from the
+//     driver API, and the neighbour segments are short and unaligned.
+//   - The products are register-tiled: the table [Dr_1 .. Dr_dim | LIFT] is
+//     stored transposed (node index contiguous, padded to a multiple of 4,
+//     KernelTables.tile), and a thread owns RM = 2 nodes of one lane (4 for
+//     the smaller elements, merged_tile.cuh), so one 8-byte pair of the
+//     table (a warp-wide broadcast) and one operand per lane feed 2 FMAs
+//     per output component, and an operand feeds the FMAs of both nodes
+//     and of every component or direction it enters;
+//     threads run over (node group, lane), 1.66 M outputs a component at
+//     n=24 P3 instead of 83 k threads.
+//   - K2 takes the gradient first, as the plain version does: G_rc = Dr_r
+//     u_c (9 products, 3 600 FMAs at 3D P3), then per node and lane the
+//     physical gradient, the engineering strains and the Hooke law
+//     (isotropic, or the lane's 36 C entries), then the face term factored
+//     per face, sum_f F(f) . (LIFT_f @ jump) (3 840 FMAs against 4 800 for
+//     six LIFT passes), F_kc(f) = sum_d A_k[d,c] n_d formed in registers
+//     (isotropic) or per tile in shared memory (ANISO).  K1 forms w_rc =
+//     sum_d Ginv[r][d] sigma_V(c,d) over sigma's rows in place and the flux
+//     over the neighbour's, and runs one product [Dr_1 Dr_2 Dr_3 | LIFT] @
+//     [w_1c; w_2c; w_3c; flux_c] per component.
+//   - No local memory: face data, neighbour links and Hooke coefficients
+//     are shared-memory rows, register arrays are indexed under full
+//     unrolling only (ptxas: 0 B stack, 0 spills at every shape).
+//   - The epilogue (axpy, damping, dense injection, as finish_row) runs on
+//     a thread's own nodes in registers, its operands loaded up front, and
+//     stores coalesced rows; the output tile then goes to shared memory
+//     (over the dead input rows) for the trace emission, pad rows 0.
+//   - FP32 FFMA throughout.  TF32 is out: its 10-bit mantissa is the class
+//     of precision that failed the precision gate.  Tensor cores are not
+//     used: after the reorder K2 needs ~8 000 FMAs an element, ~20 us at
+//     the FP32 rate, under its ~48 us bytes bound, and n_p = 20 pads badly
+//     to wgmma's 64 rows; 3xTF32 mma.sync is the lever if the FMA pipe ever
+//     sets the pace.
 //
 // K8/K9 replace the v2 engine's Pallas kernels,
 //   K8  seigen_tpu/ops/fused_kernels.py:vel2_op    (:718 -> _vel2_kernel :520)
@@ -40,8 +95,8 @@
 // is row c*ftpp + f*n_fp + k of the lane itself, already signed and already
 // the own value on boundary faces (no plan, no sign, no mask), and the
 // emitted traces are written component-major, rows c*ftpp + f*n_fp + k, pad
-// rows 0.  Same arithmetic and bound as K1/K2.  V2 = false compiles to the
-// merged kernels exactly as before (the layout code sits under if constexpr).
+// rows 0.  Same arithmetic and bound as K1/K2.  The V2 = false, NPAR = 1
+// instantiation is not built: K1/K2 run the tile kernels there.
 //
 // The packed P1 layout (NPAR = 2; only the P1 triangle and tetrahedron are
 // instantiated) is the branch of the same Pallas kernels that runs on
@@ -76,6 +131,7 @@
 #include <cuda_runtime.h>
 
 #include "merged_common.cuh"
+#include "merged_tile.cuh"
 
 // Kernel arguments; mirrored field by field by the ctypes Structure
 // MergedArgs in seigen_tpu_torch/ops/merged_kernels.py.
@@ -96,6 +152,9 @@ struct MergedArgs {
   const float* dr;     // (dim, n_p, n_p) reference derivative matrices
   const float* lift;   // (n_p, nf*n_fp) LIFT
   const int* fnodes;   // (nf, n_fp) volume node of each face node
+  const float* tab;    // tile kernels' table (KernelTables.tile): rows
+                       // j*dim + r = Dr_r[., j], dim*n_p + q = LIFT[., q],
+                       // n_p padded to a multiple of 4
   float* out;          // (C*npp, Ls) operator output
   float* trout;        // traces of out: merged (nf*rtf, Ls) face-major,
                        // v2 (dim*ftpp, Ls) component-major
@@ -429,6 +488,36 @@ merged_stress_kernel(const MergedArgs a) {
           a.trout[((long long)c * a.rtf + q) * Ls + L] = 0.f;
 }
 
+// ------------------------------------------------ K1/K2, tiled (NPAR = 1) ---
+// One block per tile of T lanes of one class: blockIdx = (tile, class).
+template <int DIM, int NP, int NFP, bool VEL, bool ANISO>
+__global__ void
+__launch_bounds__(tile::Layout<DIM, NP, NFP, VEL, ANISO>::THREADS)
+merged_tile_kernel(const MergedArgs a) {
+  using LY = tile::Layout<DIM, NP, NFP, VEL, ANISO>;
+  extern __shared__ float4 s_dyn[];
+  if constexpr (VEL)
+    tile::vel_tile<LY>(a, reinterpret_cast<float*>(s_dyn));
+  else
+    tile::stress_tile<LY>(a, reinterpret_cast<float*>(s_dyn));
+}
+
+// The dynamic shared memory is raised above 48 KB once per instantiation;
+// an error there is returned like a launch error.
+template <int DIM, int NP, int NFP, bool VEL, bool ANISO>
+int launch_tile(const MergedArgs& a, cudaStream_t stream) {
+  using LY = tile::Layout<DIM, NP, NFP, VEL, ANISO>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      merged_tile_kernel<DIM, NP, NFP, VEL, ANISO>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, LY::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((unsigned)((a.NC + LY::T - 1) / LY::T),
+                  (unsigned)(a.Ls / a.NC));
+  merged_tile_kernel<DIM, NP, NFP, VEL, ANISO>
+      <<<grid, LY::THREADS, LY::BYTES, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <int DIM, int NP, int NFP, int NPAR, bool V2>
 int launch_layout(bool vel, const MergedArgs& a, cudaStream_t stream) {
   const dim3 grid((unsigned)((a.Ls + kThreads - 1) / kThreads), NPAR);
@@ -447,11 +536,19 @@ int launch_layout(bool vel, const MergedArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// op: 0 K1, 1 K2, 2 K8, 3 K9.
+// op: 0 K1, 1 K2, 2 K8, 3 K9.  K1/K2 with one element per lane run the
+// tile kernels; K8/K9 and the packed layout the per-lane templates.
 template <int DIM, int NP, int NFP, int NPAR>
 int launch(int op, const MergedArgs& a, cudaStream_t stream) {
-  if (op < 2) return launch_layout<DIM, NP, NFP, NPAR, false>(op == 0, a, stream);
-  return launch_layout<DIM, NP, NFP, NPAR, true>(op == 2, a, stream);
+  if (op >= 2)
+    return launch_layout<DIM, NP, NFP, NPAR, true>(op == 2, a, stream);
+  if constexpr (NPAR == 2) {
+    return launch_layout<DIM, NP, NFP, NPAR, false>(op == 0, a, stream);
+  } else {
+    if (op == 0) return launch_tile<DIM, NP, NFP, true, false>(a, stream);
+    if (a.o_C < 0) return launch_tile<DIM, NP, NFP, false, false>(a, stream);
+    return launch_tile<DIM, NP, NFP, false, true>(a, stream);
+  }
 }
 
 // Unpacked: every (dim, n_p, n_fp) of SEIGEN_DISPATCH_SHAPES; packed

@@ -65,12 +65,32 @@ def stiffness_array(stiffness, E: int, n_sig: int) -> np.ndarray:
 @dataclass(frozen=True)
 class KernelTables:
     """The element tables of the CUDA operator kernels, float32 on the
-    operator data's device: Dr (dim, n_p, n_p), LIFT (n_p, nf*n_fp) and the
-    volume node of each face node (nf, n_fp) int32."""
+    operator data's device: Dr (dim, n_p, n_p), LIFT (n_p, nf*n_fp), the
+    volume node of each face node (nf, n_fp) int32, and ``tile``, the
+    product table of the K1/K2 tile kernels (``tile_table``)."""
 
     dr: torch.Tensor
     lift: torch.Tensor
     fnodes: torch.Tensor
+    tile: torch.Tensor
+
+
+TILE_PAD = 4  # the tile kernels' table rows: n_p padded to a multiple of 4
+
+
+def tile_table(Dr, LIFT) -> np.ndarray:
+    """The product table [Dr_1 .. Dr_dim | LIFT], transposed, of the K1/K2
+    tile kernels: (dim*n_p + nf*n_fp, npi) with the node index i padded to
+    npi = roundup(n_p, TILE_PAD) (pad columns zero); row j*dim + r holds
+    Dr_r[i, j], row dim*n_p + q holds LIFT[i, q] (csrc/merged_tile.cuh
+    copies it in 16-byte pieces and reads a thread's nodes as pairs)."""
+    Dr, LIFT = np.asarray(Dr), np.asarray(LIFT)
+    dim, n_p = Dr.shape[0], Dr.shape[1]
+    npi = _rup(n_p, TILE_PAD)
+    tab = np.zeros((dim * n_p + LIFT.shape[1], npi))
+    tab[: dim * n_p, :n_p] = Dr.transpose(2, 0, 1).reshape(dim * n_p, n_p)
+    tab[dim * n_p :, :n_p] = LIFT.T
+    return tab
 
 
 @dataclass(frozen=True)
@@ -111,7 +131,8 @@ def _kernel_tables(p: ElasticParams) -> KernelTables:
             dtype)
 
     return KernelTables(dr=f32(_host(p.Dr)), lift=f32(_host(p.LIFT)),
-                        fnodes=f32(np.array(p.fnodes), torch.int32))
+                        fnodes=f32(np.array(p.fnodes), torch.int32),
+                        tile=f32(tile_table(_host(p.Dr), _host(p.LIFT))))
 
 
 def build_fused_data(p: ElasticParams, damp=None, stiffness=None,

@@ -204,6 +204,12 @@ def test_profile_groups_kernels_and_needs_cuda(monkeypatch):
         "(LaneArgs)": "lane_stress",
         "void (anonymous namespace)::merged_vel_kernel<3, 20, 10, 1, true>"
         "(MergedArgs)": "fused_vel2",
+        "void (anonymous namespace)::merged_tile_kernel<3, 20, 10, true, "
+        "false>(MergedArgs)": "merged_vel",
+        "void (anonymous namespace)::merged_tile_kernel<3, 20, 10, false, "
+        "false>(MergedArgs)": "merged_stress",
+        "void (anonymous namespace)::merged_tile_kernel<2, 6, 3, false, "
+        "true>(MergedArgs)": "merged_stress",
         "void (anonymous namespace)::merged_stress_kernel<3, 20, 10, 1, "
         "true, false>(MergedArgs)": "merged_stress",
         "void (anonymous namespace)::merged_stress_kernel<3, 20, 10, 1, "
@@ -255,9 +261,46 @@ def test_port_never_imports_jax():
             "seigen_tpu_torch.mesh.gmsh_io, seigen_tpu_torch.mesh.recover, "
             "seigen_tpu_torch.ops.lane_kernels, "
             "seigen_tpu_torch.ops.merged_kernels, "
-            "seigen_tpu_torch.ops.upwind_kernels; "
+            "seigen_tpu_torch.ops.upwind_kernels, "
+            "seigen_tpu_torch.bench.merged_ab; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'seigen_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, check=True)
     assert json.loads(out.stdout.strip().replace("'", '"')) == []
+
+
+def test_chip_smoke_bound_rows_at_3d_p3():
+    """chip_smoke.py's compulsory rows per lane of every K1/K2 variant at
+    3D P3 (the main path's element; the rows do not depend on the mesh's
+    size): the input's live rows, the neighbour traces, the geo rows and
+    the variant's axpy (C_out x n_p each), damping (n_p) and source
+    (C_out x n_p a group) rows, plus the outputs."""
+    import importlib.util
+
+    from seigen_tpu_torch.mesh import box_mesh, build_discrete
+    from seigen_tpu_torch.ops import Material, build_params
+    from seigen_tpu_torch.ops.structured_exchange import detect_structured
+    from seigen_tpu_torch.solver.lane_merged import MergedLaneRunner
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    dm = build_discrete(box_mesh(2, 2, 2), 3)
+    p = build_params(dm, Material(1.0, 2.0, 1.0), device="cpu")
+    r = MergedLaneRunner(p, detect_structured(dm), 0.01, impl="reference")
+    rows = {(k, v): smoke.bound_rows(r.d, r.plan, k, variant=v)
+            for k, vs in (("merged_vel", ("plain", "axpy", "inject1",
+                                          "inject2")),
+                          ("merged_stress", ("plain", "axpy", "axpy_damp",
+                                             "inject1", "inject2")))
+            for v in vs}
+    assert rows == {
+        ("merged_vel", "plain"): 474, ("merged_vel", "axpy"): 594,
+        ("merged_vel", "inject1"): 534, ("merged_vel", "inject2"): 594,
+        ("merged_stress", "plain"): 487, ("merged_stress", "axpy"): 727,
+        ("merged_stress", "axpy_damp"): 747,
+        ("merged_stress", "inject1"): 607,
+        ("merged_stress", "inject2"): 727}
+    assert smoke.bound_rows(r.d, r.plan, "merged_stress", aniso=True) == 521

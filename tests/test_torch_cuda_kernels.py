@@ -1,8 +1,12 @@
 """The CUDA merged operators against their plain versions, on the card.
 
 Every variant of K1 (merged_vel) and K2 (merged_stress) against
-vel_merged_ref / stress_merged_ref, and of K3 (upwind_rhs: plain, 1 and 2
-source groups, an acoustic vs = 0 half) against upwind_rhs_merged_ref, in
+vel_merged_ref / stress_merged_ref — and, through the tile kernels, at all
+eight element shapes (3D P1-P4 on box_mesh(5, 3, 4), 2D P1-P4 on
+rect_mesh(14, 10): ragged last tiles) with both Hooke laws, each launch
+counted on launches (and launches_c), never on launches_pk — and of K3
+(upwind_rhs: plain, 1 and 2 source groups, an acoustic vs = 0 half)
+against upwind_rhs_merged_ref, in
 float32 on box_mesh(4, 4, 4) at P2 and P3; every mode of K4 (lane_vel:
 SIG, TRAC, SEL) and K5 (lane_stress: TR, SEL) against its plain version on
 box_mesh(4, 4, 4) and its scrambled copy at P2 and P3; K6
@@ -160,6 +164,96 @@ def test_runner_kernels_match_plain(case, device):
     for a, b in ((out_k.u, out_r.u), (out_k.s, out_r.s)):
         assert torch.isfinite(a).all()
         assert ((a - b).norm() / b.norm()).item() < 1e-5
+
+
+# (dim, degree) of the eight element shapes of the tile kernels; the meshes
+# have NC = 60 (3D) and 35 (2D) lanes per class, so every class ends in a
+# ragged tile whatever the tile width (32, 64 or 128 lanes)
+SHAPES = [(3, 1), (3, 2), (3, 3), (3, 4), (2, 1), (2, 2), (2, 3), (2, 4)]
+SHAPE_CASES = ([("iso", "vel", v) for v in VARIANTS]
+               + [(law, "stress", v) for law in ("iso", "C")
+                  for v in ("plain", "axpy", "axpy_damp", "inject1",
+                            "inject2")])
+
+
+@pytest.fixture(scope="module", params=SHAPES,
+                ids=[f"{d}d-P{k}" for d, k in SHAPES])
+def shape_case(request, device):
+    """Kernel merged runners (isotropic, and with a per-element random
+    stiffness) on box_mesh(5, 3, 4) or rect_mesh(14, 10), and operands."""
+    dim, degree = request.param
+    topo = box_mesh(5, 3, 4) if dim == 3 else rect_mesh(14, 10)
+    dm = build_discrete(topo, degree, bc_fn=absorbing_bc_fn(
+        ((0.0, 1.0),) * dim, free_sides=[(dim - 1, "hi")]))
+    p = build_params(dm, Material(1.0, 2.0, 1.0), device=device)
+    damp = torch.as_tensor(sponge_mask(dm, [(0, "lo"), (0, "hi")],
+                                       width=0.3), device=device).float()
+    ex = detect_structured(dm)
+    runners = {law: MergedLaneRunner(
+        p, ex, 0.01, damp=damp, impl="kernel",
+        stiffness=(_random_stiffness(dm.num_elements, p.n_sig, 50)
+                   if law == "C" else None)) for law in ("iso", "C")}
+    d, plan = runners["iso"].d, runners["iso"].plan
+    rng = np.random.default_rng(10 * dim + degree)
+
+    def field(C, used, rows):
+        a = rng.standard_normal((C, rows, plan.Ls)).astype(np.float32)
+        a[:, used:] = 0.0
+        return torch.as_tensor(a.reshape(C * rows, plan.Ls), device=device)
+
+    data = {"vel": (field(d.n_sig, d.n_p, d.npp),
+                    [field(d.dim, d.n_p, d.npp) for _ in range(4)]),
+            "stress": (field(d.dim, d.n_p, d.npp),
+                       [field(d.n_sig, d.n_p, d.npp) for _ in range(4)]),
+            "trs": field(d.nf, d.dim * d.n_fp, plan.rtf)}
+    return runners, data
+
+
+def _shape_call(runners, data, law, op, variant):
+    """(kernel call, plain call, kernel binding) of one variant."""
+    import dataclasses
+
+    runner = runners[law]
+    d = runner.d
+    x, y = data[op]
+    kw = {}
+    if variant.startswith("axpy"):
+        kw = dict(axpy=(y[0], y[1]), dt=0.01, c3=0.01**3 / 24.0)
+        if variant == "axpy":  # the stress update without a sponge
+            d = dataclasses.replace(d, damp=None)
+    elif variant.startswith("inject"):
+        kw = dict(inject=[(y[2 + g], (0.7, -1.3)[g])
+                          for g in range(int(variant[-1]))])
+    fused, plain, kernel = ((mk.vel_merged, mk.vel_merged_ref,
+                             mk.VEL_KERNEL) if op == "vel" else
+                            (mk.stress_merged, mk.stress_merged_ref,
+                             mk.STRESS_KERNEL))
+    args = (runner.plan, d, x, data["trs"], runner.mask)
+    return (lambda: fused(*args, **kw)), (lambda: plain(*args, **kw)), kernel
+
+
+@pytest.mark.parametrize("law,op,variant", SHAPE_CASES)
+def test_tile_kernel_matches_plain_at_every_shape(shape_case, law, op,
+                                                  variant):
+    runners, data = shape_case
+    kern, plain, _ = _shape_call(runners, data, law, op, variant)
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        _assert_close(g, r)
+
+
+def test_tile_launches_count_on_the_merged_kernels(shape_case):
+    """One launch of K1 or K2 on unpacked data adds one to its ``launches``
+    (and, with a C section, to ``launches_c``), never to ``launches_pk``."""
+    runners, data = shape_case
+    for law, op in (("iso", "vel"), ("iso", "stress"), ("C", "stress")):
+        kern, _, kernel = _shape_call(runners, data, law, op, "plain")
+        before = (kernel.launches, kernel.launches_c, kernel.launches_pk)
+        kern()
+        torch.cuda.synchronize()
+        assert (kernel.launches, kernel.launches_c, kernel.launches_pk) == (
+            before[0] + 1, before[1] + int(law == "C"), before[2])
 
 
 UPWIND_VARIANTS = ["plain", "inject1", "inject2", "acoustic"]

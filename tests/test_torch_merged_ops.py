@@ -156,3 +156,23 @@ def test_kernel_wrappers_refuse_cpu_tensors(case):
         with pytest.raises(ValueError, match="CUDA tensors"):
             VEL_KERNEL(tr.plan, tr.d, x, trs, tr.mask)
     assert VEL_KERNEL.launches == n0
+
+
+@pytest.mark.parametrize("dim,degree", [(3, 3), (3, 2), (2, 1)])
+def test_tile_table_holds_dr_and_lift(dim, degree):
+    """KernelTables.tile, the K1/K2 tile kernels' product table: row
+    j*dim + r holds Dr_r[:, j], row dim*n_p + q holds LIFT[:, q], the node
+    index padded to a multiple of 4 with zeros."""
+    from seigen_tpu_torch.ops.fused_kernels import tile_table
+    from seigen_tpu_torch.refelem import ref_elem
+
+    re = ref_elem(dim, degree)
+    Dr, LIFT = np.asarray(re.Dr), np.asarray(re.LIFT)
+    n_p = Dr.shape[1]
+    tab = tile_table(Dr, LIFT)
+    assert tab.shape == (dim * n_p + LIFT.shape[1], -(-n_p // 4) * 4)
+    for r in range(dim):
+        for j in range(n_p):
+            np.testing.assert_array_equal(tab[j * dim + r, :n_p], Dr[r, :, j])
+    np.testing.assert_array_equal(tab[dim * n_p :, :n_p], LIFT.T)
+    assert not tab[:, n_p:].any()
