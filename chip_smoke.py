@@ -14,11 +14,12 @@ Phases, each printing its own lines; any failure exits non-zero:
               lane_upwind_kernels.cu (K6 lane_upwind_rhs, K7
               lane_upwind_axpy) and trace_exchange.cu (K10
               trace_exchange); print ptxas's registers, stack and spills,
-              a line for each instantiation of the K1/K2 tile kernels
-              (each must report a 0 B stack frame and no spills), and
-              require K8, K9, K9-C (3D P3) and the packed K1/K2/K8/K9
-              (3D P1) at the registers and stack frames they had before
-              the tile kernels came (their code did not change).
+              a line for each instantiation of the K1/K2, K3 and K7 tile
+              kernels (each must report a 0 B stack frame and no spills),
+              and require K8, K9, K9-C (3D P3), the packed K1/K2/K8/K9
+              (3D P1) and K6 (3D P3) at the registers and stack frames
+              they had before the tile kernels came (their code did not
+              change).
 3. kernels  - every K1/K2 variant (vel plain/axpy/inject with 1 and 2
               groups; stress plain/axpy/axpy+damp/inject with 1 and 2
               groups) against its plain PyTorch version on the card in
@@ -36,12 +37,14 @@ Phases, each printing its own lines; any failure exits non-zero:
               "merged") with the kernels and with the plain versions.
 6. upwind   - the upwind-RK4 lane path.  Every K3 variant (plain, 1 and 2
               source groups, an acoustic vs = 0 half) against
-              upwind_rhs_merged_ref on box_mesh(4, 4, 4) at P3 and P2;
+              upwind_rhs_merged_ref at the eight shapes on the meshes of
+              phase 3 (ragged last tiles);
               UpwindLaneRunner on the n=24 P3 case for 10 steps, kernel vs
               plain, elastic (blob source on the dense-group path, sponge)
               and viscoelastic (Q = 30/20, L = 3, scatter-source path):
               relative L2, launch counts (4 per step), finiteness; K3's
-              variants and times at these shapes; the bench (impl
+              variants at these shapes, each variant's time beside its own
+              bound; the bench (impl
               "upwind_lane", 100 steps) with the kernel and the plain
               version; the upwind eigenmode on periodic box_mesh(N, N, N),
               N = 4 and 8, P2, float64 through the einsum run_rk4 (the
@@ -64,10 +67,11 @@ Phases, each printing its own lines; any failure exits non-zero:
 8. upwind_u - the unstructured upwind-RK4 path.  K6 and every K7 mode
               (stage, final, final + sponge row, 1 and 2 dense source
               groups, panel emission in stage and final mode) against the
-              plain versions on scrambled box_mesh(4, 4, 4) at P3 and P2,
-              on scrambled rect_mesh(8, 8) P2 (where the gathered and the
-              emitted panel layouts differ: ftp 9, ftpp 16) and on an
-              acoustic vs = 0 half; UnstructuredUpwindRunner on the
+              plain versions at the eight shapes on scrambled copies of
+              the meshes of phase 3, on scrambled rect_mesh(8, 8) P2
+              (where the gathered and the emitted panel layouts differ:
+              ftp 9, ftpp 16) and on an acoustic vs = 0 half of scrambled
+              box_mesh(4, 4, 4) P2; UnstructuredUpwindRunner on the
               scrambled n=24 P3 case for 10 steps, kernel vs plain, with
               the default (fused-epilogue) stepper, panel_emit=True,
               fused_axpy=False and viscoelastic Q = 30/20: relative L2,
@@ -174,12 +178,13 @@ EIGEN_MIN_ORDER = 2.8
 SH_WAVE_MAX_ERR = 0.02
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peaks
 FP32_FLOPS_PER_S = 67e12
-KERNELS = {  # name -> (source, replaced TPU kernel)
-    "merged_vel": ("seigen_tpu_torch/csrc/merged_kernels.cu",
+KERNELS = {  # name -> (source, replaced TPU kernel); K1, K2, K3 and K7
+    # are the tile kernels of the two tile headers
+    "merged_vel": ("seigen_tpu_torch/csrc/merged_tile.cuh",
                    "seigen_tpu/ops/merged_kernels.py:542"),
-    "merged_stress": ("seigen_tpu_torch/csrc/merged_kernels.cu",
+    "merged_stress": ("seigen_tpu_torch/csrc/merged_tile.cuh",
                       "seigen_tpu/ops/merged_kernels.py:582"),
-    "upwind_rhs": ("seigen_tpu_torch/csrc/upwind_kernels.cu",
+    "upwind_rhs": ("seigen_tpu_torch/csrc/upwind_tile.cuh",
                    "seigen_tpu/ops/upwind_kernels.py:231"),
     "lane_vel": ("seigen_tpu_torch/csrc/lane_kernels.cu",
                  "seigen_tpu/ops/pallas_kernels.py:942"),
@@ -187,7 +192,7 @@ KERNELS = {  # name -> (source, replaced TPU kernel)
                     "seigen_tpu/ops/pallas_kernels.py:982"),
     "lane_upwind_rhs": ("seigen_tpu_torch/csrc/lane_upwind_kernels.cu",
                         "seigen_tpu/ops/pallas_kernels.py:848"),
-    "lane_upwind_axpy": ("seigen_tpu_torch/csrc/lane_upwind_kernels.cu",
+    "lane_upwind_axpy": ("seigen_tpu_torch/csrc/upwind_tile.cuh",
                          "seigen_tpu/ops/pallas_kernels.py:791"),
     "fused_vel2": ("seigen_tpu_torch/csrc/merged_kernels.cu",
                    "seigen_tpu/ops/fused_kernels.py:718"),
@@ -221,26 +226,42 @@ PACKED_MODES = {  # packed P1 instantiation -> (kernel, replaced TPU kernel)
 # the launches_pk counts
 PK_COUNTS = ("merged_vel_pk", "merged_stress_pk", "fused_vel2_pk",
              "fused_stress2_pk")
-# (dim, degree) of the eight element shapes of the K1/K2 tile kernels
+# (dim, degree) of the eight element shapes of the tile kernels
 SHAPES = ((3, 1), (3, 2), (3, 3), (3, 4), (2, 1), (2, 2), (2, 3), (2, 4))
-# ptxas (registers, stack frame bytes) of instantiations whose code the
-# tile kernels left unchanged, as built before them: K8, K9, K9-C at 3D
-# P3; the packed K1, K2, K8, K9 at 3D P1
+# the tile kernels' instantiations: label -> (library, mangled name prefix,
+# template arguments after the shape)
+TILE_PTXAS = {
+    "merged_vel": ("merged", "merged_tile_kernel", "Lb1ELb0EE"),
+    "merged_stress": ("merged", "merged_tile_kernel", "Lb0ELb0EE"),
+    "merged_stress[C]": ("merged", "merged_tile_kernel", "Lb0ELb1EE"),
+    "upwind_rhs": ("upwind", "upwind_tile_kernel", "EE"),
+    "lane_upwind_axpy": ("lane_upwind", "lane_upwind_tile_kernel", "EE"),
+}
+# ptxas (library, registers, stack frame bytes) of instantiations whose
+# code the tile kernels left unchanged, as built before them: K8, K9, K9-C
+# at 3D P3; the packed K1, K2, K8, K9 at 3D P1; K6 at 3D P3
 PTXAS_PINS = {
-    "fused_vel2 3D P3": ("merged_vel_kernelILi3ELi20ELi10ELi1ELb1EE", 56,
-                         480),
+    "fused_vel2 3D P3": ("merged", "merged_vel_kernelILi3ELi20ELi10ELi1ELb1EE",
+                         56, 480),
     "fused_stress2 3D P3": (
-        "merged_stress_kernelILi3ELi20ELi10ELi1ELb0ELb1EE", 128, 592),
+        "merged", "merged_stress_kernelILi3ELi20ELi10ELi1ELb0ELb1EE", 128,
+        592),
     "fused_stress2[C] 3D P3": (
-        "merged_stress_kernelILi3ELi20ELi10ELi1ELb1ELb1EE", 72, 496),
-    "merged_vel[pk] 3D P1": ("merged_vel_kernelILi3ELi4ELi3ELi2ELb0EE", 32,
+        "merged", "merged_stress_kernelILi3ELi20ELi10ELi1ELb1ELb1EE", 72,
+        496),
+    "merged_vel[pk] 3D P1": ("merged",
+                             "merged_vel_kernelILi3ELi4ELi3ELi2ELb0EE", 32,
                              240),
     "merged_stress[pk] 3D P1": (
-        "merged_stress_kernelILi3ELi4ELi3ELi2ELb0ELb0EE", 48, 336),
-    "fused_vel2[pk] 3D P1": ("merged_vel_kernelILi3ELi4ELi3ELi2ELb1EE", 46,
+        "merged", "merged_stress_kernelILi3ELi4ELi3ELi2ELb0ELb0EE", 48, 336),
+    "fused_vel2[pk] 3D P1": ("merged",
+                             "merged_vel_kernelILi3ELi4ELi3ELi2ELb1EE", 46,
                              144),
     "fused_stress2[pk] 3D P1": (
-        "merged_stress_kernelILi3ELi4ELi3ELi2ELb0ELb1EE", 48, 256),
+        "merged", "merged_stress_kernelILi3ELi4ELi3ELi2ELb0ELb1EE", 48, 256),
+    "lane_upwind_rhs 3D P3": ("lane_upwind",
+                              "lane_upwind_kernelILi3ELi20ELi10EE", 64,
+                              1072),
 }
 
 
@@ -343,28 +364,29 @@ def ptxas_entry(entries, key):
 
 
 def check_ptxas():
-    """Phase 2: a line for each K1/K2 tile instantiation, which must keep
-    no local memory (0 B stack frame, no spills), and the pinned registers
-    and stack frames of PTXAS_PINS."""
+    """Phase 2: a line for each tile instantiation of K1/K2, K3 and K7,
+    which must keep no local memory (0 B stack frame, no spills), and the
+    pinned registers and stack frames of PTXAS_PINS."""
+    from seigen_tpu_torch.ops import lane_upwind_kernels as luk
     from seigen_tpu_torch.ops import merged_kernels as mk
+    from seigen_tpu_torch.ops import upwind_kernels as uk
 
-    entries = ptxas_entries(mk.LIBRARY)
+    entries = {name: ptxas_entries(lib) for name, lib in (
+        ("merged", mk.LIBRARY), ("upwind", uk.LIBRARY),
+        ("lane_upwind", luk.LIBRARY))}
     for dim, degree in SHAPES:
         n_p, n_fp = shape_nodes(dim, degree)
-        for label, vel, aniso in (("merged_vel", 1, 0),
-                                  ("merged_stress", 0, 0),
-                                  ("merged_stress[C]", 0, 1)):
+        for label, (lib, kernel, rest) in TILE_PTXAS.items():
             regs, stack, st, ld = ptxas_entry(
-                entries, f"merged_tile_kernelILi{dim}ELi{n_p}ELi{n_fp}ELb"
-                f"{vel}ELb{aniso}EE")
+                entries[lib], f"{kernel}ILi{dim}ELi{n_p}ELi{n_fp}E{rest}")
             log(f"[build] tile {label} {dim}D P{degree}: {regs} registers, "
                 f"{stack} B stack frame, {st} B spill stores, {ld} B spill "
                 "loads")
             if (stack, st, ld) != (0, 0, 0):
                 raise AssertionError(f"ptxas tile {label} {dim}D P{degree}: "
                                      "local memory")
-    for label, (key, regs, stack) in PTXAS_PINS.items():
-        got = ptxas_entry(entries, key)
+    for label, (lib, key, regs, stack) in PTXAS_PINS.items():
+        got = ptxas_entry(entries[lib], key)
         log(f"[build] {label}: {got[0]} registers, {got[1]} B stack frame "
             f"(pinned {regs}, {stack})")
         if got[:2] != (regs, stack):
@@ -507,21 +529,22 @@ def bound(d, plan, kname, aniso=False, variant="plain"):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def small_upwind_runner(degree, device, acoustic):
-    """K3 runner on a free-top box_mesh(4, 4, 4): the bench material, or
-    vs = 0 where x < 0.5 (the acoustic guard of the Riemann states)."""
+def small_upwind_runner(dim, degree, device, acoustic):
+    """K3 runner on a free-top box_mesh(5, 3, 4) (3D, 60 lanes per class)
+    or rect_mesh(14, 10) (2D, 35): the bench material, or vs = 0 where
+    x < 0.5 (the acoustic guard of the Riemann states)."""
     import numpy as np
 
-    from seigen_tpu_torch.mesh import box_mesh, build_discrete
+    from seigen_tpu_torch.mesh import box_mesh, build_discrete, rect_mesh
     from seigen_tpu_torch.ops import Material, build_params, \
         build_upwind_data
     from seigen_tpu_torch.ops.structured_exchange import detect_structured
     from seigen_tpu_torch.solver.damping import absorbing_bc_fn
     from seigen_tpu_torch.solver.lane_upwind import UpwindLaneRunner
 
-    ext = ((0.0, 1.0),) * 3
-    dm = build_discrete(box_mesh(4, 4, 4), degree,
-                        bc_fn=absorbing_bc_fn(ext, free_sides=[(2, "hi")]))
+    topo = box_mesh(5, 3, 4) if dim == 3 else rect_mesh(14, 10)
+    dm = build_discrete(topo, degree, bc_fn=absorbing_bc_fn(
+        ((0.0, 1.0),) * dim, free_sides=[(dim - 1, "hi")]))
     vs = np.where(dm.coords.mean(axis=1)[:, 0] < 0.5, 0.0, 1.0) \
         if acoustic else 1.0
     mat = Material(1.0, 2.0, vs)
@@ -694,15 +717,15 @@ def phase_upwind(dev, case, st, check):
 
     t0 = time.perf_counter()
     variants = ("plain0", "inject1", "inject2")
-    for degree in (3, 2):
-        small = small_upwind_runner(degree, dev, acoustic=False)
-        log(f"[upwind] box_mesh(4,4,4) P{degree}: Ls {small.plan.Ls}, "
-            f"rtf {small.plan.rtf}")
-        compare_upwind(small, check, f"P{degree}", seed=10 + degree,
-                       variants=variants)
-        compare_upwind(small_upwind_runner(degree, dev, acoustic=True),
-                       check, f"P{degree} acoustic", seed=20 + degree,
-                       variants=("plain0",))
+    for dim, degree in SHAPES:
+        small = small_upwind_runner(dim, degree, dev, acoustic=False)
+        log(f"[upwind] {dim}D P{degree}: NC {small.plan.NC}, Ls "
+            f"{small.plan.Ls}, rtf {small.plan.rtf}")
+        compare_upwind(small, check, f"{dim}D P{degree}",
+                       seed=10 * dim + degree, variants=variants)
+        compare_upwind(small_upwind_runner(dim, degree, dev, acoustic=True),
+                       check, f"{dim}D P{degree} acoustic",
+                       seed=20 * dim + degree, variants=("plain0",))
     log(f"[upwind] all small-mesh variants agree "
         f"({time.perf_counter() - t0:.1f} s)")
 
@@ -730,11 +753,19 @@ def phase_upwind(dev, case, st, check):
     run_k = upwind_runner(case, "kernel")
     x = compare_upwind(run_k, check, "n=24 P3", seed=31, variants=variants)
     args = upwind_args(run_k, x)
-    times = (time_ms(lambda: uk.UPWIND_KERNEL(*args)),
-             time_ms(lambda: uk.upwind_rhs_merged_ref(*args)))
-    bnd = bound(run_k.d, run_k.plan, "upwind_rhs")
-    log(f"[upwind] upwind_rhs (plain) at n=24 P3: kernel {times[0]:.4f} "
-        f"ms, plain {times[1]:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+    for variant in variants:  # each variant's time beside its own bound
+        inj = x["inj"][: int(variant[-1])]
+        t = time_ms(lambda: uk.UPWIND_KERNEL(*args, inject=inj))
+        b = bound(run_k.d, run_k.plan, "upwind_rhs",
+                  variant="plain" if variant == "plain0" else variant)
+        line = (f"[upwind] upwind_rhs ({variant}) at n=24 P3: kernel "
+                f"{t:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
+                f"{100 * b[0] / t:.1f}% of the bound")
+        if variant == "plain0":
+            times = (t, time_ms(lambda: uk.upwind_rhs_merged_ref(*args)))
+            bnd = b
+            line += f"; plain {times[1]:.4f} ms"
+        log(line)
     del run_k, up_k, up_r
 
     for impl in ("kernel", "reference"):
@@ -1057,10 +1088,10 @@ def upwind_u_kernel_name(mode):
     return "lane_upwind_rhs" if mode == "rhs" else "lane_upwind_axpy"
 
 
-def small_upwind_u_runner(dim, degree, dev, acoustic=False):
-    """K6/K7 runner with a sponge on a scrambled free-top box_mesh(4, 4, 4)
-    (3D) or rect_mesh(8, 8) (2D): the bench material, or vs = 0 where
-    x < 0.5."""
+def small_upwind_u_runner(dim, degree, dev, acoustic=False, small=False):
+    """K6/K7 runner with a sponge on a scrambled free-top box_mesh(5, 3, 4)
+    (3D) or rect_mesh(14, 10) (2D), or with ``small`` box_mesh(4, 4, 4) or
+    rect_mesh(8, 8): the bench material, or vs = 0 where x < 0.5."""
     import dataclasses
 
     import numpy as np
@@ -1072,7 +1103,10 @@ def small_upwind_u_runner(dim, degree, dev, acoustic=False):
     from seigen_tpu_torch.solver.lane_upwind_u import \
         UnstructuredUpwindRunner
 
-    topo = box_mesh(4, 4, 4) if dim == 3 else rect_mesh(8, 8)
+    if small:
+        topo = box_mesh(4, 4, 4) if dim == 3 else rect_mesh(8, 8)
+    else:
+        topo = box_mesh(5, 3, 4) if dim == 3 else rect_mesh(14, 10)
     perm = np.random.default_rng(0).permutation(topo.num_cells)
     dm = build_discrete(
         dataclasses.replace(topo, cells=topo.cells[perm], structure=None),
@@ -1152,16 +1186,14 @@ def compare_upwind_u(runner, check, tag, seed, modes=tuple(UPWIND_U_MODES)):
     return x
 
 
-def upwind_u_bound(d, mode):
-    """(bound_ms, "bytes" | "operations") of one launch of K6 or a K7
-    mode: compulsory bytes (u and sigma, and for K7 the accumulator, the
-    base state, the sponge row and the dense patterns the mode reads, at
-    n_p rows per component; the selected rows of both panels; the geometry
-    counted per face as in ``lane_bound`` — Ginv, normals, Fscale, the
-    neighbour impedances, the combo and both sign rows — and the material
-    and own-impedance rows; the output, with the emitted panels, as
-    written) over the memory rate, and the Dr and LIFT FLOPs over the FP32
-    rate."""
+def upwind_u_rows(d, mode):
+    """Float rows per lane that one launch of K6 or a K7 mode must move:
+    u and sigma, and for K7 the accumulator, the base state, the sponge
+    row and the dense patterns the mode reads, at n_p rows per component;
+    the selected rows of both panels; the geometry counted per face as in
+    ``lane_bound`` — Ginv, normals, Fscale, the neighbour impedances, the
+    combo and both sign rows — and the material and own-impedance rows;
+    the output, with the emitted panels, as written."""
     dim, n_p, ftp, npp, nf = d.dim, d.n_p, d.ftp, d.npp, d.nf
     c = dim + d.n_sig
     spec = UPWIND_U_MODES[mode] or (False, False, 0, False)
@@ -1170,7 +1202,16 @@ def upwind_u_bound(d, mode):
     state_in = c * n_p * (1 + axpy + stage + n_inj) + (n_p if damp else 0)
     geo = dim * dim + dim * nf + nf + 3 + 2 * nf + 2 + 3 * nf
     out = c * npp * (2 if stage else 1) + (2 * dim * d.ftpp if emit else 0)
-    rows = state_in + 2 * dim * ftp + geo + out
+    return state_in + 2 * dim * ftp + geo + out
+
+
+def upwind_u_bound(d, mode):
+    """(bound_ms, "bytes" | "operations") of one launch of K6 or a K7
+    mode: the bytes of ``upwind_u_rows`` over the memory rate, and the Dr
+    and LIFT FLOPs over the FP32 rate."""
+    dim, n_p, ftp = d.dim, d.n_p, d.ftp
+    c = dim + d.n_sig
+    rows = upwind_u_rows(d, mode)
     flops = 2 * (c * dim * n_p * n_p + c * n_p * ftp)
     t_bytes = 4.0 * rows * d.E / HBM_BYTES_PER_S * 1e3
     t_ops = float(flops) * d.E / FP32_FLOPS_PER_S * 1e3
@@ -1188,13 +1229,16 @@ def phase_upwind_u(dev, scase, sst, check, n=24):
     from seigen_tpu_torch.ops import build_visco
 
     t0 = time.perf_counter()
-    for dim, degree, acoustic in ((3, 3, False), (3, 2, False),
-                                  (2, 2, False), (3, 2, True)):
-        small = small_upwind_u_runner(dim, degree, dev, acoustic)
-        tag = f"{dim}D P{degree}" + (" acoustic" if acoustic else "")
+    for dim, degree, acoustic, small_mesh in (
+            *((dim, degree, False, False) for dim, degree in SHAPES),
+            (2, 2, False, True), (3, 2, True, True)):
+        small = small_upwind_u_runner(dim, degree, dev, acoustic, small_mesh)
+        tag = (f"{dim}D P{degree}" + (" small" if small_mesh else "")
+               + (" acoustic" if acoustic else ""))
         log(f"[upwind_u] {tag}: E {small.E}, ftp {small.d.ftp}, ftpp "
             f"{small.d.ftpp}, {len(small.selcfg[7])} orientation groups")
-        compare_upwind_u(small, check, tag, 60 + 10 * dim + degree)
+        compare_upwind_u(small, check, tag,
+                         60 + 10 * dim + degree + 5 * small_mesh)
     log(f"[upwind_u] all small-mesh modes agree "
         f"({time.perf_counter() - t0:.1f} s)")
 
@@ -1239,7 +1283,9 @@ def phase_upwind_u(dev, scase, sst, check, n=24):
         b = upwind_u_bound(run_k.d, mode)
         kname = upwind_u_kernel_name(mode)
         log(f"[upwind_u] {kname} ({mode}) at n={n} P3: kernel {t[0]:.4f} "
-            f"ms, plain {t[1]:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+            f"ms, plain {t[1]:.4f} ms, bound {b[0]:.4f} ms ({b[1]}, "
+            f"{upwind_u_rows(run_k.d, mode)} rows a lane), "
+            f"{100 * b[0] / t[0]:.1f}% of the bound")
         if UPWIND_U_MAIN[kname] == mode:
             times[kname], bounds[kname] = t, b
     del run_k, k, x
@@ -2236,8 +2282,10 @@ def main() -> int:
 
     sources = dict(KERNELS)
     sources.update({m: (KERNELS[k][0], replaces)
-                    for modes in (ANISO_MODES, PACKED_MODES)
-                    for m, (k, replaces) in modes.items()})
+                    for m, (k, replaces) in ANISO_MODES.items()})
+    # the packed layout runs the per-lane templates, not the tile kernels
+    sources.update({m: ("seigen_tpu_torch/csrc/merged_kernels.cu", replaces)
+                    for m, (_, replaces) in PACKED_MODES.items()})
     kernels = [{"name": k, "route": "cuda", "source": src_file,
                 "replaces": replaces, "launches": launches[k],
                 "max_abs_err": check.worst[k], "ms": times[k][0],

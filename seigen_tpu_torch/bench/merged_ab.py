@@ -1,6 +1,7 @@
-"""K1 merged_vel and K2 merged_stress of two source trees, timed in turns.
+"""Operator kernels of two source trees, timed in turns.
 
     python -m seigen_tpu_torch.bench.merged_ab --trees parent=_archive/parent,change=.
+    python -m seigen_tpu_torch.bench.merged_ab --family upwind --trees ...
 
 Each tree is a checkout of the repository (``git archive <commit> | tar -x
 -C _archive/parent`` puts an older one beside this one).  The trees run in
@@ -13,9 +14,20 @@ runner's layout — K1 plain, axpy, 1 and 2 source groups; K2 plain, axpy,
 axpy + damping, 1 and 2 source groups, and with the bench's VTI stiffness
 (general Hooke law) plain and axpy + damping — with CUDA events (mean over
 ``--reps`` launches after 3 warm-up launches); then it runs the throughput
-bench (impl "merged", and with ``--vti``).  Each process prints one JSON
-line; the driver prints a table of each variant's mean over the turns of
-each tree, and the GPU's name and power limit.  Needs a CUDA device.
+bench (impl "merged", and with ``--vti``).
+
+``--family upwind`` times the two Godunov kernels instead: every variant
+of K3 upwind_rhs (plain, 1 and 2 source groups, and plain on an acoustic
+vs = 0 half of the mesh) on the bench case in the ``upwind_lane`` runner's
+layout, and K6 and every K7 mode (stage, final, final + sponge row, 1 and
+2 source groups, panel emission) on its scrambled copy in the
+``upwind_lane_u`` runner's layout; then the benches ``upwind_lane``,
+``upwind_lane_u`` and ``upwind_lane_u --panel-emit``, and in each tree's
+first turn ``profile_step.profile`` of the same three steps.
+
+Each process prints one JSON line; ``drive`` prints a table of each
+variant's mean over the turns of each tree, and the GPU's name and power
+limit.  Needs a CUDA device.
 
     python <this file> --worker --root DIR     # one tree, one JSON line
 """
@@ -33,21 +45,32 @@ VARIANTS = (("vel", "plain"), ("vel", "axpy"), ("vel", "inject1"),
             ("stress", "axpy_damp"), ("stress", "inject1"),
             ("stress", "inject2"), ("stress_c", "plain"),
             ("stress_c", "axpy_damp"))
+# K6 (None) or K7's (stage, damp, source groups, emit) of each mode
+UPWIND_U_MODES = {"rhs": None, "stage": (True, False, 0, False),
+                  "final": (False, False, 0, False),
+                  "final damp": (False, True, 0, False),
+                  "stage inject1": (True, False, 1, False),
+                  "final damp inject2": (False, True, 2, False),
+                  "stage emit": (True, False, 0, True),
+                  "final damp emit": (False, True, 0, True)}
+UPWIND_VARIANTS = (
+    *(("upwind_rhs", v) for v in ("plain", "inject1", "inject2",
+                                  "acoustic")),
+    *(("lane_upwind_rhs" if m == "rhs" else "lane_upwind_axpy", m)
+      for m in UPWIND_U_MODES))
+FAMILIES = {"merged": VARIANTS, "upwind": UPWIND_VARIANTS}
 
 
-def worker(root: str, n: int, degree: int, reps: int, bench_steps: int):
+def worker(root: str, n: int, degree: int, reps: int, bench_steps: int,
+           family: str = "merged", profile: bool = False):
     """Time the variants and run the benches of the tree at ``root``."""
     root = str(Path(root).resolve())
     here = str(Path(__file__).resolve().parent)
     sys.path[:] = [root] + [p for p in sys.path if p != here]
-    import dataclasses
-
-    import numpy as np
     import torch
 
     import seigen_tpu_torch
     from seigen_tpu_torch.bench import throughput
-    from seigen_tpu_torch.ops import merged_kernels as mk
 
     if not torch.cuda.is_available():
         raise RuntimeError("merged_ab times a CUDA device; none is available")
@@ -56,6 +79,40 @@ def worker(root: str, n: int, degree: int, reps: int, bench_steps: int):
                            f"tree at {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
+
+    def time_ms(fn):
+        for _ in range(3):
+            fn()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / reps
+
+    run = _merged_family if family == "merged" else _upwind_family
+    times, bench, profiles = run(throughput, dev, n, degree, bench_steps,
+                                 time_ms, profile)
+    name, limit = throughput.gpu_name_and_power_limit(0)
+    return {"root": root, "family": family, "gpu": name,
+            "power_limit": limit, "n": n, "degree": degree, "reps": reps,
+            "times_ms": times, "bench_dof_updates_per_s": bench,
+            "profiles": profiles}
+
+
+def _merged_family(throughput, dev, n, degree, bench_steps, time_ms,
+                   profile):
+    """K1/K2 variants, the merged benches (``profile`` unused)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.ops import merged_kernels as mk
+
     case = throughput.setup_case(n=n, degree=degree, device=dev)
     dm, p, src, damp, dt, _ = case
     runners = {v: throughput.make_runner("merged", dm, p, src, damp, dt,
@@ -98,40 +155,126 @@ def worker(root: str, n: int, degree: int, reps: int, bench_steps: int):
         args = (run.plan, od, x[base], x["trs"], run.mask)
         return lambda: kern(*args, **kw)
 
-    def time_ms(fn):
-        for _ in range(3):
-            fn()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(reps):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / reps
-
     times = {f"{op} {v}": time_ms(call(op, v)) for op, v in VARIANTS}
     bench = {}
     for vti in (False, True):
         rec = throughput.main(n=n, degree=degree, n_steps=bench_steps,
                               case=case, vti=vti)
         bench["merged --vti" if vti else "merged"] = rec["value"]
-    name, limit = throughput.gpu_name_and_power_limit(0)
-    return {"root": root, "gpu": name, "power_limit": limit,
-            "n": n, "degree": degree, "reps": reps, "times_ms": times,
-            "bench_dof_updates_per_s": bench}
+    return times, bench, {}
 
 
-def drive(trees, n, degree, reps, bench_steps):
-    """Run the workers in turns A, B, B, A and print the table."""
+def _upwind_family(throughput, dev, n, degree, bench_steps, time_ms,
+                   profile):
+    """K3 variants and K6/K7 modes, the upwind benches, and with
+    ``profile`` the step profiles of upwind_lane and upwind_lane_u (and
+    with --panel-emit)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.ops import build_params, build_upwind_data
+    from seigen_tpu_torch.ops import lane_upwind_kernels as luk
+    from seigen_tpu_torch.ops import upwind_kernels as uk
+    from seigen_tpu_torch.ops.structured_exchange import detect_structured
+    from seigen_tpu_torch.solver.lane_upwind import UpwindLaneRunner
+
+    rng = np.random.default_rng(31)
+
+    def rows(C, used, pad, lanes):
+        a = rng.standard_normal((C, pad, lanes)).astype(np.float32)
+        a[:, used:] = 0.0
+        return torch.as_tensor(a.reshape(C * pad, lanes), device=dev)
+
+    times = {}
+    case = throughput.setup_case(n=n, degree=degree, device=dev)
+    dm, p, src, damp, dt, _ = case
+    r = throughput.make_runner("upwind_lane", dm, p, src, damp, dt, "kernel")
+    mat = dataclasses.replace(throughput.BENCH_MAT, vs=np.where(
+        dm.coords.mean(axis=1)[:, 0] < 0.5, 0.0, throughput.BENCH_MAT.vs))
+    acoustic = UpwindLaneRunner(build_params(dm, mat, device=dev), r.ex,
+                                build_upwind_data(dm, mat, device=dev), dt,
+                                impl="kernel")
+    d, Ls = r.d, r.plan.Ls
+    u, s = rows(d.dim, d.n_p, d.npp, Ls), rows(d.n_sig, d.n_p, d.npp, Ls)
+    trs = rows(d.nf, 2 * d.dim * d.n_fp, r.plan.rtf, Ls)
+    inj = [(rows(d.dim, d.n_p, d.npp, Ls), rows(d.n_sig, d.n_p, d.npp, Ls),
+            (0.7, -1.3)[g]) for g in range(2)]
+    for v in ("plain", "inject1", "inject2", "acoustic"):
+        run = acoustic if v == "acoustic" else r
+        args = (run.plan, run.d, run.uwg, u, s, trs, run.mask)
+        kw = {"inject": inj[: int(v[-1])] if v.startswith("inject") else []}
+        times[f"upwind_rhs {v}"] = time_ms(
+            lambda: uk.UPWIND_KERNEL(*args, **kw))
+    bench = {"upwind_lane": throughput.main(
+        n=n, degree=degree, n_steps=bench_steps, impl="upwind_lane",
+        case=case)["value"]}
+    del r, acoustic, case, u, s, trs, inj
+
+    scase = throughput.setup_case(n=n, degree=degree, device=dev,
+                                  scramble=True)
+    dm, p, src, damp, dt, _ = scase
+    r = throughput.make_runner("upwind_lane_u", dm, p, src, damp, dt,
+                               "kernel")
+    d, E = r.d, r.d.E
+    state = [(rows(d.dim, d.n_p, d.npp, E), rows(d.n_sig, d.n_p, d.npp, E))
+             for _ in range(5)]
+    rows_pad = r.selcfg[5]
+    pan = [rows(d.nf, d.dim * d.ftp, rows_pad, E) for _ in range(2)]
+    pan_e = [rows(d.nf * d.dim, d.ftp, d.ftpp, E) for _ in range(2)]
+    for mode, spec in UPWIND_U_MODES.items():
+        emit = spec is not None and spec[3]
+        args = (d, r.uw, *state[0], *(pan_e if emit else pan), r.combo,
+                r.sign_u, r.sign_t,
+                luk.emitted_selcfg(r.selcfg) if emit else r.selcfg)
+        if spec is None:
+            kern, kw = luk.LANE_UPWIND_RHS, {}
+        else:
+            stage, dmp, n_inj, _ = spec
+            kern = luk.LANE_UPWIND_AXPY
+            args += (*state[1], 0.21)
+            kw = dict(base_u=state[2][0] if stage else None,
+                      base_s=state[2][1] if stage else None,
+                      cs=0.37 if stage else None,
+                      inject=[(*state[3 + g], (0.7, -1.3)[g])
+                              for g in range(n_inj)],
+                      damp_row=r.damp_u[: d.npp] if dmp else None,
+                      emit=emit)
+        name = "lane_upwind_rhs" if spec is None else "lane_upwind_axpy"
+        times[f"{name} {mode}"] = time_ms(lambda: kern(*args, **kw))
+    del r, state, pan, pan_e
+    for label, opts in (("upwind_lane_u", {}),
+                        ("upwind_lane_u --panel-emit", {"panel_emit": True})):
+        bench[label] = throughput.main(
+            n=n, degree=degree, n_steps=bench_steps, impl="upwind_lane_u",
+            case=scase, **opts)["value"]
+    del scase
+    profiles = {}
+    if profile:
+        from seigen_tpu_torch.bench import profile_step
+
+        for label, impl, opts in (
+                ("upwind_lane", "upwind_lane", {}),
+                ("upwind_lane_u", "upwind_lane_u", {}),
+                ("upwind_lane_u --panel-emit", "upwind_lane_u",
+                 {"panel_emit": True})):
+            profiles[label] = profile_step.profile(impl=impl, n=n,
+                                                   degree=degree, **opts)
+    return times, bench, profiles
+
+
+def drive(trees, n, degree, reps, bench_steps, family="merged"):
+    """Run the workers in turns A, B, B, A and print the table; the first
+    turn of each tree also profiles (family "upwind")."""
     (la, ra), (lb, rb) = trees
     order = ((la, ra), (lb, rb), (lb, rb), (la, ra))
     recs = []
-    for label, root in order:
+    for turn, (label, root) in enumerate(order):
         cmd = [sys.executable, str(Path(__file__).resolve()), "--worker",
                "--root", root, "--n", str(n), "--degree", str(degree),
-               "--reps", str(reps), "--bench-steps", str(bench_steps)]
+               "--reps", str(reps), "--bench-steps", str(bench_steps),
+               "--family", family] + (["--profile"] if turn < 2 else [])
         out = subprocess.run(cmd, capture_output=True, text=True)
         if out.returncode != 0:
             raise RuntimeError(f"worker {label} ({root}) failed:\n"
@@ -147,19 +290,28 @@ def drive(trees, n, degree, reps, bench_steps):
         vals = [get(r) for r in recs if r["label"] == label]
         return sum(vals) / len(vals), vals
 
-    print(f"{'variant':<22s} {la + ' ms':>12s} {lb + ' ms':>12s} "
+    print(f"{'variant':<36s} {la + ' ms':>12s} {lb + ' ms':>12s} "
           f"{lb + '/' + la:>10s}   each turn")
-    for op, v in VARIANTS:
+    for op, v in FAMILIES[family]:
         k = f"{op} {v}"
         ma, va = mean(la, lambda r: r["times_ms"][k])
         mb, vb = mean(lb, lambda r: r["times_ms"][k])
-        print(f"{k:<22s} {ma:12.4f} {mb:12.4f} {mb / ma:10.3f}   "
+        print(f"{k:<36s} {ma:12.4f} {mb:12.4f} {mb / ma:10.3f}   "
               f"{' '.join(f'{t:.4f}' for t in va + vb)}")
     for k in recs[0]["bench_dof_updates_per_s"]:
         ma, va = mean(la, lambda r: r["bench_dof_updates_per_s"][k])
         mb, vb = mean(lb, lambda r: r["bench_dof_updates_per_s"][k])
-        print(f"bench {k:<16s} {ma:12.4e} {mb:12.4e} {mb / ma:10.3f}   "
+        print(f"bench {k:<30s} {ma:12.4e} {mb:12.4e} {mb / ma:10.3f}   "
               f"{' '.join(f'{t:.4e}' for t in va + vb)}  DOF-updates/s")
+    for rec in recs:
+        for impl, prof in rec["profiles"].items():
+            top = list(prof["device_ms_per_step_by_group"].items())[:4]
+            print(f"profile {rec['label']} {impl}: wall "
+                  f"{prof['wall_ms_per_step']:.4f} ms, enqueue "
+                  f"{prof['host_enqueue_ms_per_step']:.4f}, device busy "
+                  f"{prof['device_busy_ms_per_step']:.4f}, idle "
+                  f"{prof['device_idle_share']:.3f}; "
+                  + ", ".join(f"{g} {t:.4f}" for g, t in top))
 
 
 def main(argv=None):
@@ -173,15 +325,20 @@ def main(argv=None):
     ap.add_argument("--degree", type=int, default=3)
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--bench-steps", type=int, default=100)
+    ap.add_argument("--family", default="merged", choices=tuple(FAMILIES),
+                    help="merged: K1/K2; upwind: K3, K6/K7 (and profiles)")
+    ap.add_argument("--profile", action="store_true",
+                    help="worker: also profile the upwind steps")
     a = ap.parse_args(argv)
     if a.worker:
         print(json.dumps(worker(a.root, a.n, a.degree, a.reps,
-                                a.bench_steps)), flush=True)
+                                a.bench_steps, a.family, a.profile)),
+              flush=True)
         return
     trees = [tuple(t.split("=", 1)) for t in a.trees.split(",")]
     if len(trees) != 2:
         raise SystemExit("--trees takes two label=root pairs")
-    drive(trees, a.n, a.degree, a.reps, a.bench_steps)
+    drive(trees, a.n, a.degree, a.reps, a.bench_steps, a.family)
 
 
 if __name__ == "__main__":

@@ -71,9 +71,13 @@ def copy_bandwidth(device, n_bytes=1 << 30, reps=10) -> float:
 
 
 OPERATOR_KERNELS = ("merged_vel_kernel", "merged_stress_kernel",
-                    "lane_upwind_kernel", "upwind_rhs_kernel",
                     "lane_vel_kernel", "lane_stress_kernel",
                     "trace_exchange_kernel")
+# K7, K6 and K3 by symbol, in this order ("upwind_tile_kernel" is a part
+# of K7's symbol)
+UPWIND_KERNELS = (("lane_upwind_tile_kernel", "lane_upwind_axpy"),
+                  ("lane_upwind_kernel", "lane_upwind_rhs"),
+                  ("upwind_tile_kernel", "upwind_rhs"))
 
 
 def _template_args(name: str) -> list:
@@ -90,18 +94,19 @@ def _last_bool(name: str) -> bool:
 def kernel_group(name: str) -> str:
     """The port's operator kernels by name (K1/K2 of one element per lane
     are the tile kernel, template <DIM, NP, NFP, VEL, ANISO>; K1/K2/K8/K9
-    of the packed P1 layout, template NPAR = 2, carry the suffix "[pk]");
+    of the packed P1 layout, template NPAR = 2, carry the suffix "[pk]";
+    K3 and K7 are the upwind tile kernels, K6 the per-lane one);
     PyTorch's gather/index (the lane runners' trace exchanges),
     elementwise, copy and matmul kernels as groups; anything else as
     "other"."""
     if "merged_tile_kernel" in name:
         return ("merged_vel" if _template_args(name)[3] in ("true", "(bool)1")
                 else "merged_stress")
+    for k, group in UPWIND_KERNELS:
+        if k in name:
+            return group
     for k in OPERATOR_KERNELS:
         if k in name:
-            if k == "lane_upwind_kernel":  # K7 is its AXPY = true instance
-                return ("lane_upwind_axpy" if _last_bool(name)
-                        else "lane_upwind_rhs")
             if k.startswith("merged_"):
                 pk = "[pk]" if _template_args(name)[3] == "2" else ""
                 if _last_bool(name):  # V2: K8/K9

@@ -8,12 +8,12 @@
 // both over the body _upwind_rows_sel.  The physics is the JAX kernels';
 // the TPU layout devices (lane blocks, MXU [Dr; R] products, the
 // where-chain over statically permuted panel views, RK4 coefficients baked
-// in as immediates, the wavelet value as an (8, E) array) are gone.  One
-// thread owns one lane (element).  The plus-side velocity and traction of
-// face f come from two raw panel arrays through the lane's combo code
-// (lane_select.cuh), times the per-face sign rows, which carry the ghost
-// coefficients on self-paired boundary faces (+1 / -1 inside).  Then, as
-// K3 (upwind_kernels.cu) and with its Riemann states (merged_common.cuh):
+// in as immediates, the wavelet value as an (8, E) array) are gone.  The
+// plus-side velocity and traction of face f come from two raw panel arrays
+// through the lane's combo code (lane_select.cuh), times the per-face sign
+// rows, which carry the ghost coefficients on self-paired boundary faces
+// (+1 / -1 inside).  Then, as K3 (upwind_kernels.cu) and with its Riemann
+// states (merged_common.cuh):
 //   du = (1/rho)(div sigma + LIFT(Fscale (t* - t-)))
 //   ds = Hooke(grad u) + LIFT(Fscale Hooke_f(u* - u-))
 // K6 writes [du; ds].  K7 adds the dense source groups (k += r_g S_g) and
@@ -25,32 +25,57 @@
 //   TU rows c*ftpp + f*n_fp + k = u'_c at the face node
 //   TT rows c*ftpp + f*n_fp + k = sum_d n_d s'_{V[c,d]} (own normals)
 // pad rows zero, so the next launch needs only the nf lane takes of them.
-// The emission is a second pass over the lane's own just-written rows: a
-// register array indexed by fnodes would go to local memory.
 // Outputs never alias inputs (stage 1 passes one tensor as stage input,
 // base and accumulator; the wrapper allocates a fresh output).
 //
 // What bounds it on the H100.  Per lane at 3D P3 the compulsory traffic of
-// K6 is ~690 floats (u 60, sigma 120, two panels 240, geometry, impedance,
-// combo and sign rows ~50 in; 216 out), ~0.23 GB a launch at E = 83k, ~68
-// us at 3.35 TB/s; K7 reads the base and the accumulator and writes twice
-// as much in stage mode (~1270 floats, ~126 us).  The arithmetic is ~36
-// kFLOP per lane, ~45 us at the 67 TFLOP/s FP32 rate: bytes bound.  Like
-// K1-K5 this first version is bound by neither: every FMA takes its table
-// operand from shared memory and the two per-lane Riemann correction
-// arrays live in local memory.  Design as K3: tables in shared memory once
-// per block, coalesced lane loads and stores, one Dr pass per output
-// component, one face-node loop for both corrections; the face geometry
-// (normals, Fscale, neighbour impedances) is read once per face from the
-// face-node-expanded rows.
+// K6 is ~690 floats (u 60, sigma 120, two panels' selected rows 240,
+// geometry, impedance, combo and sign rows ~50 in; 216 out), ~0.23 GB a
+// launch at E = 83k, ~68 us at 3.35 TB/s; K7 reads the base and the
+// accumulator and writes twice as much in stage mode (~1270 floats, ~126
+// us).  The arithmetic is ~36 kFLOP per lane in the first design's order,
+// ~20 kFLOP after the tile kernel's reorder, ~30 us at the 67 TFLOP/s FP32
+// rate: bytes bound.
+//
+// Two designs live here.  K6 keeps the first design, one thread per lane:
+// tables in shared memory once per block, every FMA taking its table
+// operand from there, the two per-lane Riemann correction arrays in local
+// memory, one Dr pass per output component.  K7 runs the tile kernel of
+// upwind_tile.cuh, designed for this card as K1/K2's (merged_tile.cuh):
+//   - A block owns a tile of T consecutive lanes (T 32 at 3D P2-P4 and 2D
+//     P3-P4, 64 or 128 below, for at least four warps a block; the last
+//     tile ragged at E) and stages, by cp.async into dynamic shared memory,
+//     the table, the live rows of u and sigma, the per-lane geometry
+//     (Ginv, and of each face its first face-node row of the normals,
+//     Fscale and neighbour impedances, its two sign rows) and the selected
+//     panel rows: each lane copies its own rows f*rows_pad + c*cstride +
+//     g*n_fp + perms[pi][k] of its own column, 4 bytes a copy, the
+//     permutation applied as they are fetched.  Within a tile a face's
+//     combo code takes one to three values, so the lanes' rows share
+//     sectors; staging every candidate row of a panel would read nf times
+//     as many bytes.  At 3D P3 a block is 320 threads and ~74 KB.
+//   - The Riemann corrections overwrite the selected rows in place, then
+//     sigma's rows are contracted with Ginv in place (w_rc), and the
+//     products are register-tiled over (node group, lane) on the transposed
+//     table (KernelTables.tile, LaneOpData.ktile): velocity [Dr | LIFT] @
+//     [w; dtf], stress gradient-first with the face term factored per
+//     face, as K1/K2.
+//   - The epilogue (sources, stage/final axpys, sponge row) runs on a
+//     thread's own nodes in registers; with emit the emitted state goes to
+//     shared memory and the panels are written from there.
+//   - No local memory: ptxas shows a 0 B stack and no spills at every
+//     shape (chip_smoke.py phase 2).  FP32 FFMA throughout.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (seigen_tpu_torch/ops/cuda_build.py, at first use).
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "lane_select.cuh"
 #include "merged_common.cuh"
+#include "upwind_tile.cuh"
 
 // Kernel arguments; mirrored field by field by the ctypes Structure
 // LaneUpwindArgs in seigen_tpu_torch/ops/lane_upwind_kernels.py.  Lane rows
@@ -82,9 +107,12 @@ struct LaneUpwindArgs {
   const float* inj_s0;
   const float* inj_u1;  // K7 dense source group 1
   const float* inj_s1;
-  const float* dr;      // (dim, n_p, n_p) reference derivative matrices
-  const float* lift;    // (n_p, nf*n_fp) LIFT
+  const float* dr;      // K6: (dim, n_p, n_p) reference derivative matrices
+  const float* lift;    // K6: (n_p, nf*n_fp) LIFT
   const int* fnodes;    // (nf, n_fp) volume node of each face node
+  const float* tab;     // K7: the tile table (LaneOpData.ktile): rows
+                        // j*dim + r = Dr_r[., j], dim*n_p + q = LIFT[., q],
+                        // n_p padded to a multiple of 4
   float* out;           // K6 ((dim+n_sig)*npp, E); K7 see above
   long long E;          // lanes (elements)
   int npp;              // node rows per component (n_p rounded up to 8)
@@ -103,34 +131,16 @@ namespace {
 
 using namespace seigen;
 
+// ---------------------------------------------------- K6, first design ---
 // One RHS value k of row r = comp*npp + i of the u block (block 0) or the
-// sigma block (block 1), into the output.  K6: out = k.  K7: k gains the
-// dense source groups, then the RK4 epilogue.
-template <bool AXPY>
+// sigma block (block 1), into the output.
 __device__ __forceinline__ void store_row(const LaneUpwindArgs& a, long long L,
-                                          int block, int r, int i, int nu,
-                                          int ns, float k) {
+                                          int block, int r, int nu, float k) {
   const size_t E = (size_t)a.E;
-  const size_t idx = (size_t)r * E + L;
-  const size_t o = idx + (block ? (size_t)nu * E : 0);
-  if (!AXPY) {
-    a.out[o] = k;
-    return;
-  }
-  if (a.n_inj > 0) k += a.r0 * (block ? a.inj_s0 : a.inj_u0)[idx];
-  if (a.n_inj > 1) k += a.r1 * (block ? a.inj_s1 : a.inj_u1)[idx];
-  const float acc = (block ? a.acc_s : a.acc_u)[idx];
-  if (a.stage) {
-    a.out[o] = (block ? a.base_s : a.base_u)[idx] + a.cs * k;
-    a.out[o + (size_t)(nu + ns) * E] = acc + a.wa * k;
-  } else {
-    float v = acc + a.wa * k;
-    if (a.damp != nullptr) v *= a.damp[(size_t)i * E + L];
-    a.out[o] = v;
-  }
+  a.out[(size_t)r * E + L + (block ? (size_t)nu * E : 0)] = k;
 }
 
-template <int DIM, int NP, int NFP, bool AXPY>
+template <int DIM, int NP, int NFP>
 __global__ void __launch_bounds__(kThreads)
 lane_upwind_kernel(const LaneUpwindArgs a) {
   using S = Shape<DIM, NP, NFP>;
@@ -146,7 +156,7 @@ lane_upwind_kernel(const LaneUpwindArgs a) {
   if (L >= a.E) return;
   const long long E = a.E;
   const int npp = a.npp, ftpp = a.ftpp;
-  const int nu = DIM * npp, ns = NSIG * npp;
+  const int nu = DIM * npp;
   auto row = [&](const float* x, long long r) { return x[r * E + L]; };
   auto uf = [&](int c, int i) { return row(a.u, c * npp + i); };
   auto sf = [&](int c, int i) { return row(a.s, c * npp + i); };
@@ -231,9 +241,9 @@ lane_upwind_kernel(const LaneUpwindArgs a) {
     }
 #pragma unroll
     for (int i = 0; i < NP; ++i)
-      store_row<AXPY>(a, L, 0, c * npp + i, i, nu, ns, irho * acc[i]);
+      store_row(a, L, 0, c * npp + i, nu, irho * acc[i]);
     for (int i = NP; i < npp; ++i)
-      store_row<AXPY>(a, L, 0, c * npp + i, i, nu, ns, 0.f);
+      store_row(a, L, 0, c * npp + i, nu, 0.f);
   }
 
   // stress: ds_k = sum_r Dr_r @ (sum_c B[r][c] u_c) + LIFT @ (F_k . duf),
@@ -279,56 +289,215 @@ lane_upwind_kernel(const LaneUpwindArgs a) {
     }
 #pragma unroll
     for (int i = 0; i < NP; ++i)
-      store_row<AXPY>(a, L, 1, k * npp + i, i, nu, ns, acc[i]);
+      store_row(a, L, 1, k * npp + i, nu, acc[i]);
     for (int i = NP; i < npp; ++i)
-      store_row<AXPY>(a, L, 1, k * npp + i, i, nu, ns, 0.f);
+      store_row(a, L, 1, k * npp + i, nu, 0.f);
   }
+}
 
-  // own-face panels of the emitted state: rows [0, nu + ns) of the output
-  // in both modes, reread by the lane that wrote them
-  if (AXPY && a.emit) {
-    const float* eu = a.out + L;
-    const float* es = a.out + (long long)nu * E + L;
-    float* TU = a.out + (long long)(a.stage ? 2 : 1) * (nu + ns) * E + L;
-    float* TT = TU + (long long)DIM * ftpp * E;
-#pragma unroll 1
-    for (int f = 0; f < NF; ++f) {
-      float n[DIM];
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) n[d] = row(a.nrm, d * ftpp + f * NFP);
-#pragma unroll 1
-      for (int kk = 0; kk < NFP; ++kk) {
-        const int q = f * NFP + kk;
-        const int node = s_fn[q];
-        float sv[NSIG];
-#pragma unroll
-        for (int c = 0; c < NSIG; ++c) sv[c] = es[(long long)(c * npp + node) * E];
-#pragma unroll
-        for (int c = 0; c < DIM; ++c) {
-          TU[(long long)(c * ftpp + q) * E] = eu[(long long)(c * npp + node) * E];
-          float t = 0.f;
-#pragma unroll
-          for (int d = 0; d < DIM; ++d) t += n[d] * sv[voigt<DIM>(c, d)];
-          TT[(long long)(c * ftpp + q) * E] = t;
-        }
-      }
-    }
-    for (int c = 0; c < DIM; ++c)
-      for (int q = NFT; q < ftpp; ++q) {
-        TU[(long long)(c * ftpp + q) * E] = 0.f;
-        TT[(long long)(c * ftpp + q) * E] = 0.f;
-      }
+// ----------------------------------------------------------- K7, tiled ---
+template <int DIM, int NP, int NFP>
+using K7Layout = uptile::Layout<DIM, NP, NFP, false>;
+
+// Global row (at lane 0) of local geo row r: the face rows are the first
+// face-node row f*n_fp of the expanded sections.
+template <class LY>
+__device__ __forceinline__ const float* k7_geo_row(const LaneUpwindArgs& a,
+                                                   int r) {
+  constexpr int NF = LY::NF, NFP = LY::NFP;
+  const long long E = a.E;
+  if (r < LY::G_NRM) return a.ginv + r * E;
+  if (r < LY::G_FSC) {
+    const int q = r - LY::G_NRM;
+    return a.nrm + ((long long)(q / NF) * a.ftpp + (q % NF) * NFP) * E;
   }
+  if (r < LY::G_ZPN) return a.fsc + (long long)(r - LY::G_FSC) * NFP * E;
+  if (r < LY::G_ZSN) return a.zpn + (long long)(r - LY::G_ZPN) * NFP * E;
+  if (r < LY::G_GU) return a.zsn + (long long)(r - LY::G_ZSN) * NFP * E;
+  if (r < LY::G_GT) return a.sign_u + (long long)(r - LY::G_GU) * E;
+  if (r < LY::G_MAT) return a.sign_t + (long long)(r - LY::G_GT) * E;
+  if (r == LY::G_MAT) return a.irho;
+  if (r == LY::G_MAT + 1) return a.lam;
+  if (r == LY::G_MAT + 2) return a.mu;
+  return a.zown + (long long)(r - LY::G_ZOWN) * E;
+}
+
+// The selected panel rows of this thread's lane: u+ to NB rows c*NFT + q,
+// t+ to (DIM + c)*NFT + q, node slot perms[pi][k] read into slot k.
+template <class LY>
+__device__ __forceinline__ void k7_stage_panels(const LaneUpwindArgs& a,
+                                                const uptile::Tile& tl,
+                                                float* sm) {
+  constexpr int DIM = LY::DIM, NFP = LY::NFP, NFT = LY::NFT, T = LY::T;
+  const long long E = a.E;
+  float* dst = sm + LY::OFF_NB + tl.l;
+#pragma unroll 1
+  for (int f = 0; f < LY::NF; ++f) {
+    const int code = __ldg(a.combo + f * E + tl.own);
+    const int g = code / a.G, pi = code - g * a.G;
+    const long long rb = (long long)f * a.rows_pad + g * NFP;
+    const int* perm = a.perms + pi * NFP;
+    for (int rr = tl.ig; rr < 2 * DIM * NFP; rr += LY::NG) {
+      const int w = rr / (DIM * NFP), c = rr / NFP % DIM, k = rr % NFP;
+      const float* src = (w ? a.pt : a.pu) +
+                         (rb + (long long)c * a.cstride + __ldg(perm + k)) * E +
+                         tl.own;
+      tile::cp_async4(dst + ((w * DIM + c) * NFT + f * NFP + k) * T, src);
+    }
+  }
+}
+
+// The epilogue of one block of C components (blk 0: u, 1: sigma) on this
+// thread's nodes: sources, then stage mode [base + cs k | acc + wa k] or
+// final mode (acc + wa k) * sponge; v becomes the emitted state.  The pad
+// rows npp > NP take the epilogue of k = 0.
+template <class LY, int C>
+__device__ __forceinline__ void k7_finish(const LaneUpwindArgs& a,
+                                          const uptile::Tile& tl, int i0,
+                                          float (&v)[C][LY::RM], int blk) {
+  constexpr int RM = LY::RM, NP = LY::NP;
+  if (!tl.live) return;
+  const long long E = a.E, L = tl.lane0 + tl.l;
+  const int npp = a.npp;
+  const size_t o = blk ? (size_t)LY::DIM * npp * E : 0;
+  const size_t half = (size_t)(LY::DIM + LY::NSIG) * npp * E;
+  const float* s0p = blk ? a.inj_s0 : a.inj_u0;
+  const float* s1p = blk ? a.inj_s1 : a.inj_u1;
+  const float* accp = blk ? a.acc_s : a.acc_u;
+  const float* basep = blk ? a.base_s : a.base_u;
+  const bool stage = a.stage != 0;
+  const bool damp = !stage && a.damp != nullptr;
+  auto finish = [&](float k, size_t idx, int i, float x0, float x1, float s0,
+                    float s1) {
+    if (a.n_inj > 0) k += a.r0 * s0;
+    if (a.n_inj > 1) k += a.r1 * s1;
+    float e;
+    if (stage) {
+      e = x1 + a.cs * k;
+      a.out[o + half + idx] = x0 + a.wa * k;
+    } else {
+      e = x0 + a.wa * k;
+      if (damp) e *= __ldg(a.damp + (size_t)i * E + L);
+    }
+    a.out[o + idx] = e;
+    return e;
+  };
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    float x0[RM], x1[RM], s0[RM], s1[RM];
+#pragma unroll
+    for (int ii = 0; ii < RM; ++ii) {
+      const size_t idx = ((size_t)c * npp + i0 + ii) * E + L;
+      const bool in = i0 + ii < NP;
+      x0[ii] = in ? __ldg(accp + idx) : 0.f;
+      x1[ii] = in && stage ? __ldg(basep + idx) : 0.f;
+      s0[ii] = in && a.n_inj > 0 ? __ldg(s0p + idx) : 0.f;
+      s1[ii] = in && a.n_inj > 1 ? __ldg(s1p + idx) : 0.f;
+    }
+#pragma unroll
+    for (int ii = 0; ii < RM; ++ii)
+      if (i0 + ii < NP)
+        v[c][ii] = finish(v[c][ii], ((size_t)c * npp + i0 + ii) * E + L,
+                          i0 + ii, x0[ii], x1[ii], s0[ii], s1[ii]);
+  }
+  const int pad = npp - NP;
+  for (int r = tl.ig; r < C * pad; r += LY::NG) {
+    const int i = NP + r % pad;
+    const size_t idx = ((size_t)(r / pad) * npp + i) * E + L;
+    finish(0.f, idx, i, accp[idx], stage ? basep[idx] : 0.f,
+           a.n_inj > 0 ? s0p[idx] : 0.f, a.n_inj > 1 ? s1p[idx] : 0.f);
+  }
+}
+
+// The own-face panels of the emitted state from the output tile: TU rows
+// c*ftpp + q = u_c, TT rows c*ftpp + q = n . sigma, pad rows 0.
+template <class LY>
+__device__ __forceinline__ void k7_emit(const LaneUpwindArgs& a,
+                                        const uptile::Tile& tl,
+                                        const float* sm) {
+  constexpr int DIM = LY::DIM, NFT = LY::NFT;
+  if (!tl.live) return;
+  const long long E = a.E, L = tl.lane0 + tl.l;
+  const int ftpp = a.ftpp;
+  float* TU = a.out +
+              (size_t)(a.stage ? 2 : 1) * (DIM + LY::NSIG) * a.npp * E + L;
+  float* TT = TU + (size_t)DIM * ftpp * E;
+  for (int q = tl.ig; q < NFT; q += LY::NG) {
+    float uq[DIM], tq[DIM];
+    uptile::face_values<LY>(tl, sm, q, uq, tq);
+#pragma unroll
+    for (int c = 0; c < DIM; ++c) {
+      TU[(size_t)(c * ftpp + q) * E] = uq[c];
+      TT[(size_t)(c * ftpp + q) * E] = tq[c];
+    }
+  }
+  const int pad = ftpp - NFT;
+  for (int r = tl.ig; r < 2 * DIM * pad; r += LY::NG) {
+    const int c = r / pad % DIM, q = NFT + r % pad;
+    (r < DIM * pad ? TU : TT)[(size_t)(c * ftpp + q) * E] = 0.f;
+  }
+}
+
+// One block per tile of T lanes.
+template <int DIM, int NP, int NFP>
+__global__ void __launch_bounds__(K7Layout<DIM, NP, NFP>::THREADS)
+lane_upwind_tile_kernel(const LaneUpwindArgs a) {
+  using LY = K7Layout<DIM, NP, NFP>;
+  constexpr int RM = LY::RM, NSIG = LY::NSIG;
+  extern __shared__ float4 s_dyn[];
+  float* sm = reinterpret_cast<float*>(s_dyn);
+  const uptile::Tile tl = uptile::make_tile<LY>(a.E);
+  const uintptr_t ptrs =
+      (uintptr_t)a.u | (uintptr_t)a.s | (uintptr_t)a.ginv | (uintptr_t)a.nrm |
+      (uintptr_t)a.fsc | (uintptr_t)a.zpn | (uintptr_t)a.zsn |
+      (uintptr_t)a.sign_u | (uintptr_t)a.sign_t | (uintptr_t)a.irho |
+      (uintptr_t)a.lam | (uintptr_t)a.mu | (uintptr_t)a.zown;
+  const bool vec = tl.nvalid == LY::T && (a.E & 3) == 0 && (ptrs & 15) == 0;
+  uptile::stage_state<LY>(tl, sm, a.u, a.s, a.tab, a.fnodes, a.npp, a.E, vec,
+                          [&](int r) { return k7_geo_row<LY>(a, r); });
+  k7_stage_panels<LY>(a, tl, sm);
+  uptile::finish_stage();
+  uptile::riemann<LY>(tl, sm);
+  uptile::contract_sigma<LY>(tl, sm);
+  const int i0 = tl.ig * RM;
+  float v[DIM][RM], sig[NSIG][RM];
+  uptile::vel_product<LY>(tl, sm, i0, v);
+  k7_finish<LY, DIM>(a, tl, i0, v, 0);
+  uptile::stress_product<LY>(tl, sm, i0, sig);
+  k7_finish<LY, NSIG>(a, tl, i0, sig, 1);
+  if (a.emit) {
+    uptile::store_out_tile<LY>(tl, sm, i0, v, sig);
+    k7_emit<LY>(a, tl, sm);
+  }
+}
+
+// K6: one thread a lane.
+template <int DIM, int NP, int NFP>
+int launch_rhs(const LaneUpwindArgs& a, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((a.E + kThreads - 1) / kThreads);
+  lane_upwind_kernel<DIM, NP, NFP><<<blocks, kThreads, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// K7: the dynamic shared memory is raised above 48 KB once per
+// instantiation; an error there is returned like a launch error.
+template <int DIM, int NP, int NFP>
+int launch_tile(const LaneUpwindArgs& a, cudaStream_t stream) {
+  using LY = K7Layout<DIM, NP, NFP>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      lane_upwind_tile_kernel<DIM, NP, NFP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, LY::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  const unsigned blocks = (unsigned)((a.E + LY::T - 1) / LY::T);
+  lane_upwind_tile_kernel<DIM, NP, NFP>
+      <<<blocks, LY::THREADS, LY::BYTES, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <int DIM, int NP, int NFP>
 int launch(bool axpy, const LaneUpwindArgs& a, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((a.E + kThreads - 1) / kThreads);
-  if (axpy)
-    lane_upwind_kernel<DIM, NP, NFP, true><<<blocks, kThreads, 0, stream>>>(a);
-  else
-    lane_upwind_kernel<DIM, NP, NFP, false><<<blocks, kThreads, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+  return axpy ? launch_tile<DIM, NP, NFP>(a, stream)
+              : launch_rhs<DIM, NP, NFP>(a, stream);
 }
 
 // Every (dim, n_p, n_fp) of SEIGEN_DISPATCH_SHAPES; -1 for another shape,
@@ -339,7 +508,8 @@ int dispatch(bool axpy, const LaneUpwindArgs* a, int dim, int n_p, int n_fp,
       a->sign_t == nullptr || a->G < 1 || a->G > kMaxPerms || a->cstride < 1)
     return -2;
   if (axpy) {
-    if (a->acc_u == nullptr || a->acc_s == nullptr) return -2;
+    if (a->tab == nullptr || a->acc_u == nullptr || a->acc_s == nullptr)
+      return -2;
     if (a->stage && (a->base_u == nullptr || a->base_s == nullptr ||
                      a->damp != nullptr))
       return -2;

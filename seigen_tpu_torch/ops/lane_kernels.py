@@ -41,7 +41,7 @@ import torch
 
 from .cuda_build import CudaLibrary
 from .elastic import ElasticParams, voigt_map
-from .fused_kernels import _rup, stiffness_array
+from .fused_kernels import _rup, stiffness_array, tile_table
 from .merged_kernels import check_operands, hooke_rows
 
 # trace-source modes of the kernels (run-time flag, csrc/lane_kernels.cu)
@@ -68,6 +68,8 @@ class LaneOpData:
     kdr: torch.Tensor  # (dim, n_p, n_p) float32 kernel table
     klift: torch.Tensor  # (n_p, ftp) float32 kernel table
     kfn: torch.Tensor  # (nf, n_fp) int32 face node ids
+    ktile: torch.Tensor  # float32 product table of the K7 tile kernel
+    #                      (fused_kernels.tile_table)
     dim: int
     n_p: int
     npp: int  # n_p padded to 8
@@ -139,6 +141,8 @@ def build_lane_data(p: ElasticParams) -> LaneOpData:
         kdr=dev(host(p.Dr), torch.float32).contiguous(),
         klift=dev(host(p.LIFT), torch.float32).contiguous(),
         kfn=dev(np.array(p.fnodes), torch.int32).contiguous(),
+        ktile=dev(tile_table(host(p.Dr), host(p.LIFT)),
+                  torch.float32).contiguous(),
         dim=dim, n_p=n_p, npp=npp, ftp=ftp, ftpp=ftpp, n_sig=p.n_sig, E=E,
         nf=nf, n_fp=n_fp,
     )

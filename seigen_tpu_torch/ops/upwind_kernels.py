@@ -188,7 +188,8 @@ class UpwindArgs(ctypes.Structure):
 
     _fields_ = [(n, _P) for n in (
         "u", "s", "trs", "geo", "uwg", "mask", "inj_u0", "inj_s0", "inj_u1",
-        "inj_s1", "plan", "dr", "lift", "fnodes", "du", "ds", "trout")] + [
+        "inj_s1", "plan", "dr", "lift", "fnodes", "tab", "du", "ds",
+        "trout")] + [
         ("Ls", ctypes.c_longlong)] + [(n, ctypes.c_int) for n in (
             "NC", "npp", "rtf", "o_ginv", "o_nrm", "o_scb", "o_mat",
             "n_inj")] + [(n, ctypes.c_float) for n in ("r0", "r1")]
@@ -258,7 +259,8 @@ class UpwindKernel:
             inj_u0=inj(0, 0), inj_s0=inj(0, 1), inj_u1=inj(1, 0),
             inj_s1=inj(1, 1), plan=plan.table.data_ptr(),
             dr=d.tables.dr.data_ptr(), lift=d.tables.lift.data_ptr(),
-            fnodes=d.tables.fnodes.data_ptr(), du=du.data_ptr(),
+            fnodes=d.tables.fnodes.data_ptr(),
+            tab=d.tables.tile.data_ptr(), du=du.data_ptr(),
             ds=ds.data_ptr(), trout=trout.data_ptr(),
             Ls=Ls, NC=plan.NC, npp=d.npp, rtf=plan.rtf, o_ginv=o[0],
             o_nrm=o[1], o_scb=o[2], o_mat=o[5], n_inj=len(inject),
@@ -271,6 +273,7 @@ class UpwindKernel:
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: " + (
                 f"no instantiation for dim={d.dim} n_p={d.n_p}" if err == -1
+                else "bad arguments" if err == -2
                 else f"cudaError {err}"))
         self.launches += 1
         return du, ds, trout

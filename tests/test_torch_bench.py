@@ -196,8 +196,12 @@ def test_profile_groups_kernels_and_needs_cuda(monkeypatch):
     from seigen_tpu_torch.bench import profile_step as ps
 
     names = {
-        "void (anonymous namespace)::upwind_rhs_kernel<3, 20, 10>"
+        "void (anonymous namespace)::upwind_tile_kernel<3, 20, 10>"
         "(UpwindArgs)": "upwind_rhs",
+        "void (anonymous namespace)::lane_upwind_tile_kernel<3, 20, 10>"
+        "(LaneUpwindArgs)": "lane_upwind_axpy",
+        "void (anonymous namespace)::lane_upwind_kernel<3, 20, 10>"
+        "(LaneUpwindArgs)": "lane_upwind_rhs",
         "void (anonymous namespace)::merged_vel_kernel<3, 20, 10, 1, false>"
         "(MergedArgs)": "merged_vel",
         "void (anonymous namespace)::lane_stress_kernel<3, 20, 10>"
@@ -304,3 +308,40 @@ def test_chip_smoke_bound_rows_at_3d_p3():
         ("merged_stress", "inject1"): 607,
         ("merged_stress", "inject2"): 727}
     assert smoke.bound_rows(r.d, r.plan, "merged_stress", aniso=True) == 521
+
+
+def test_chip_smoke_upwind_bound_rows_at_3d_p3():
+    """chip_smoke.py's compulsory rows per lane at 3D P3 of every K3
+    variant (``bound_rows``: u and sigma's live rows, the payload of every
+    face, 46 geo/impedance/ghost rows, the mask, a group's C x n_p source
+    rows, and du, ds and the payload traces written) and of K6 and every
+    K7 mode (``upwind_u_rows``: the state and the mode's accumulator, base,
+    sponge and source rows, both panels' selected rows, 50 geometry rows,
+    the output and the emitted panels)."""
+    import importlib.util
+
+    from seigen_tpu_torch.mesh import box_mesh, build_discrete
+    from seigen_tpu_torch.ops import Material, build_params, \
+        build_upwind_data
+    from seigen_tpu_torch.ops.lane_kernels import build_lane_data
+    from seigen_tpu_torch.ops.structured_exchange import detect_structured
+    from seigen_tpu_torch.solver.lane_upwind import UpwindLaneRunner
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    dm = build_discrete(box_mesh(2, 2, 2), 3)
+    mat = Material(1.0, 2.0, 1.0)
+    p = build_params(dm, mat, device="cpu")
+    r = UpwindLaneRunner(p, detect_structured(dm),
+                         build_upwind_data(dm, mat, device="cpu"), 0.01,
+                         impl="reference")
+    assert {v: smoke.bound_rows(r.d, r.plan, "upwind_rhs", variant=v)
+            for v in ("plain", "inject1", "inject2")} == {
+        "plain": 942, "inject1": 1122, "inject2": 1302}
+    d = build_lane_data(p)
+    assert {m: smoke.upwind_u_rows(d, m) for m in smoke.UPWIND_U_MODES} == {
+        "rhs": 686, "stage": 1262, "final": 866, "final damp": 886,
+        "stage inject1": 1442, "final damp inject2": 1246,
+        "stage emit": 1502, "final damp emit": 1126}

@@ -7,12 +7,15 @@ rect_mesh(14, 10): ragged last tiles) with both Hooke laws, each launch
 counted on launches (and launches_c), never on launches_pk — and of K3
 (upwind_rhs: plain, 1 and 2 source groups, an acoustic vs = 0 half)
 against upwind_rhs_merged_ref, in
-float32 on box_mesh(4, 4, 4) at P2 and P3; every mode of K4 (lane_vel:
-SIG, TRAC, SEL) and K5 (lane_stress: TR, SEL) against its plain version on
-box_mesh(4, 4, 4) and its scrambled copy at P2 and P3; K6
-(lane_upwind_rhs) and every mode of K7 (lane_upwind_axpy: stage, final,
-sponge row, 1 and 2 dense groups, panel emission) on scrambled
-box_mesh(4, 4, 4) at P2 and P3 and scrambled rect_mesh(8, 8) P2; the
+float32 on box_mesh(4, 4, 4) at P2 and P3 and, through its tile kernel,
+at the eight shapes on the meshes above, each launch counted; every mode
+of K4 (lane_vel: SIG, TRAC, SEL) and K5 (lane_stress: TR, SEL) against its
+plain version on box_mesh(4, 4, 4) and its scrambled copy at P2 and P3;
+K6 (lane_upwind_rhs) and every mode of K7 (lane_upwind_axpy: stage,
+final, sponge row, 1 and 2 dense groups, panel emission) on scrambled
+box_mesh(4, 4, 4) at P2 and P3 and scrambled rect_mesh(8, 8) P2, and K7's
+modes through its tile kernel at the eight shapes on scrambled copies of
+the meshes above, each launch counted on K7 and not on K6; the
 kernel runners (merged LF4, upwind RK4 elastic and viscoelastic, lane LF2,
 lane_u LF4 with both select paths, upwind_lane_u with its three steppers
 and viscoelastic) against the plain runners for a few steps, with their
@@ -335,6 +338,66 @@ def test_upwind_runner_kernel_matches_plain(upwind_case, device, visco):
         assert ((a - b).norm() / b.norm()).item() < 1e-5
 
 
+@pytest.fixture(scope="module", params=SHAPES,
+                ids=[f"{d}d-P{k}" for d, k in SHAPES])
+def upwind_shape_case(request, device):
+    """K3 kernel runners on free-top box_mesh(5, 3, 4) or rect_mesh(14, 10)
+    (ragged last tiles): the bench material and one with vs = 0 where
+    x < 0.5, and numpy-seeded operands."""
+    dim, degree = request.param
+    topo = box_mesh(5, 3, 4) if dim == 3 else rect_mesh(14, 10)
+    dm = build_discrete(topo, degree, bc_fn=absorbing_bc_fn(
+        ((0.0, 1.0),) * dim, free_sides=[(dim - 1, "hi")]))
+    vs = np.where(dm.coords.mean(axis=1)[:, 0] < 0.5, 0.0, 1.0)
+    runners = {name: UpwindLaneRunner(
+        build_params(dm, mat, device=device), detect_structured(dm),
+        build_upwind_data(dm, mat, device=device), 0.01, impl="kernel")
+        for name, mat in (("elastic", Material(1.0, 2.0, 1.0)),
+                          ("acoustic", Material(1.0, 2.0, vs)))}
+    d, plan = runners["elastic"].d, runners["elastic"].plan
+    rng = np.random.default_rng(10 * dim + degree)
+
+    def field(C, used, rows):
+        a = rng.standard_normal((C, rows, plan.Ls)).astype(np.float32)
+        a[:, used:] = 0.0
+        return torch.as_tensor(a.reshape(C * rows, plan.Ls), device=device)
+
+    data = {"u": field(d.dim, d.n_p, d.npp),
+            "s": field(d.n_sig, d.n_p, d.npp),
+            "trs": field(d.nf, 2 * d.dim * d.n_fp, plan.rtf),
+            "inj": [(field(d.dim, d.n_p, d.npp), field(d.n_sig, d.n_p, d.npp),
+                     (0.7, -1.3)[g]) for g in range(2)]}
+    return runners, data
+
+
+@pytest.mark.parametrize("variant", UPWIND_VARIANTS)
+def test_upwind_tile_kernel_matches_plain_at_every_shape(upwind_shape_case,
+                                                         variant):
+    runners, x = upwind_shape_case
+    r = runners["acoustic" if variant == "acoustic" else "elastic"]
+    n_inj = int(variant[-1]) if variant.startswith("inject") else 0
+    args = (r.plan, r.d, r.uwg, x["u"], x["s"], x["trs"], r.mask)
+    got = uk.upwind_rhs_merged(*args, inject=x["inj"][:n_inj])
+    ref = uk.upwind_rhs_merged_ref(*args, inject=x["inj"][:n_inj])
+    torch.cuda.synchronize()
+    for g, r_ in zip(got, ref):  # du, ds, payload traces
+        _assert_close(g, r_)
+
+
+def test_upwind_tile_launches_count_on_upwind_rhs(upwind_shape_case):
+    """One K3 launch adds one to UPWIND_KERNEL.launches and nothing to the
+    unstructured upwind kernels' counts."""
+    runners, x = upwind_shape_case
+    r = runners["elastic"]
+    before = (uk.UPWIND_KERNEL.launches, luk.LANE_UPWIND_RHS.launches,
+              luk.LANE_UPWIND_AXPY.launches)
+    uk.upwind_rhs_merged(r.plan, r.d, r.uwg, x["u"], x["s"], x["trs"],
+                         r.mask, inject=x["inj"][:1])
+    torch.cuda.synchronize()
+    assert (uk.UPWIND_KERNEL.launches, luk.LANE_UPWIND_RHS.launches,
+            luk.LANE_UPWIND_AXPY.launches) == (before[0] + 1, *before[1:])
+
+
 @pytest.fixture(scope="module", params=[2, 3], ids=["P2", "P3"])
 def lane_case(request, device):
     """Lane kernel runners on box_mesh(4, 4, 4) (structured, LF2) and on a
@@ -492,10 +555,9 @@ UPWIND_U_MODES = {  # mode -> None (K6) or K7's (stage, damp, groups, emit)
     "final_damp_emit": (False, True, 0, True)}
 
 
-@pytest.mark.parametrize("mode", list(UPWIND_U_MODES))
-def test_lane_upwind_kernel_matches_plain(upwind_u_case, mode):
-    *_, make, x = upwind_u_case
-    r = make("kernel")
+def _upwind_u_call(r, x, mode):
+    """(public operator, plain version, kernel binding, args, kwargs) of
+    K6 or one K7 mode on the runner's data and the operands x."""
     d = r.d
     spec = UPWIND_U_MODES[mode]
     emit = spec is not None and spec[3]
@@ -518,6 +580,13 @@ def test_lane_upwind_kernel_matches_plain(upwind_u_case, mode):
                   inject=[(*x["S"][g], (0.7, -1.3)[g])
                           for g in range(n_inj)],
                   damp_row=r.damp_u[: d.npp] if damp else None, emit=emit)
+    return fused, plain, kernel, args, kw
+
+
+@pytest.mark.parametrize("mode", list(UPWIND_U_MODES))
+def test_lane_upwind_kernel_matches_plain(upwind_u_case, mode):
+    *_, make, x = upwind_u_case
+    fused, plain, kernel, args, kw = _upwind_u_call(make("kernel"), x, mode)
     n0 = kernel.launches
     got = fused(*args, **kw)  # dispatches to the kernel for CUDA tensors
     ref = plain(*args, **kw)
@@ -550,6 +619,75 @@ def test_upwind_u_runner_kernels_match_plain(upwind_u_case, device, name,
     for a, b in ((out_k.u, out_r.u), (out_k.s, out_r.s)):
         assert torch.isfinite(a).all()
         assert ((a - b).norm() / b.norm()).item() < 1e-5
+
+
+@pytest.fixture(scope="module", params=SHAPES,
+                ids=[f"{d}d-P{k}" for d, k in SHAPES])
+def upwind_u_shape_case(request, device):
+    """A kernel upwind_lane_u runner with a sponge on scrambled free-top
+    box_mesh(5, 3, 4) or rect_mesh(14, 10) (ragged last tiles), and
+    numpy-seeded K6/K7 operands (panels in both layouts)."""
+    import dataclasses
+
+    dim, degree = request.param
+    topo = box_mesh(5, 3, 4) if dim == 3 else rect_mesh(14, 10)
+    perm = np.random.default_rng(0).permutation(topo.num_cells)
+    dm = build_discrete(
+        dataclasses.replace(topo, cells=topo.cells[perm], structure=None),
+        degree, bc_fn=absorbing_bc_fn(((0.0, 1.0),) * dim,
+                                      free_sides=[(dim - 1, "hi")]))
+    mat = Material(1.0, 2.0, 1.0)
+    r = UnstructuredUpwindRunner(
+        build_params(dm, mat, device=device),
+        build_upwind_data(dm, mat, device=device), 0.01,
+        damp=sponge_mask(dm, [(0, "lo")], width=0.3), impl="kernel",
+        centroids=dm.coords.mean(axis=1))
+    d = r.d
+    rng = np.random.default_rng(60 + 10 * dim + degree)
+
+    def rows(C, used, pad):
+        a = rng.standard_normal((C, pad, d.E)).astype(np.float32)
+        a[:, used:] = 0.0
+        return torch.as_tensor(a.reshape(C * pad, d.E), device=device)
+
+    def state():
+        return rows(d.dim, d.n_p, d.npp), rows(d.n_sig, d.n_p, d.npp)
+
+    rows_pad = r.selcfg[5]
+    data = {"x": state(), "base": state(), "acc": state(),
+            "S": [state(), state()],
+            "p": [rows(d.nf, d.dim * d.ftp, rows_pad) for _ in range(2)],
+            "p_e": [rows(d.nf * d.dim, d.ftp, d.ftpp) for _ in range(2)]}
+    return r, data
+
+
+@pytest.mark.parametrize("mode", [m for m in UPWIND_U_MODES if m != "rhs"])
+def test_lane_upwind_tile_kernel_matches_plain_at_every_shape(
+        upwind_u_shape_case, mode):
+    r, x = upwind_u_shape_case
+    fused, plain, _, args, kw = _upwind_u_call(r, x, mode)
+    got = fused(*args, **kw)
+    ref = plain(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_close(got, ref)
+
+
+def test_lane_upwind_tile_launches_count_on_k7(upwind_u_shape_case):
+    """One K7 launch (the tile kernel) adds one to LANE_UPWIND_AXPY and
+    nothing to LANE_UPWIND_RHS (K6) or UPWIND_KERNEL (K3), and a K6 launch
+    the other way round."""
+    r, x = upwind_u_shape_case
+
+    def counts():
+        return (luk.LANE_UPWIND_AXPY.launches, luk.LANE_UPWIND_RHS.launches,
+                uk.UPWIND_KERNEL.launches)
+
+    for mode, step in (("stage_inject1", (1, 0, 0)), ("rhs", (0, 1, 0))):
+        fused, _, _, args, kw = _upwind_u_call(r, x, mode)
+        before = counts()
+        fused(*args, **kw)
+        torch.cuda.synchronize()
+        assert counts() == tuple(b + k for b, k in zip(before, step))
 
 
 # --- the general Hooke law (per-element Voigt stiffness) of K2 and K5 ---

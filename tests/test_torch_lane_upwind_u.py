@@ -470,3 +470,27 @@ def test_bench_measures_upwind_lane_u_on_cpu(opts):
     assert np.isfinite(res.dof_updates_per_sec) and res.seconds > 0
     assert tbench.scheme_name("upwind_lane_u", 4) == "RK4"
     assert tbench.scheme_name("lane_u", 4) == "LF4"
+
+
+@pytest.mark.parametrize("dim,degree", [(3, 3), (3, 2), (2, 1)])
+def test_lane_tile_table_holds_dr_and_lift(dim, degree):
+    """LaneOpData.ktile, the K7 tile kernel's product table in float32:
+    row j*dim + r holds Dr_r[:, j], row dim*n_p + q holds LIFT[:, q], the
+    node index padded to a multiple of 4 with zeros."""
+    from seigen_tpu_torch.ops.lane_kernels import build_lane_data
+
+    topo = tmesh.box_mesh(1, 1, 1) if dim == 3 else tmesh.rect_mesh(2, 2)
+    p = tops.build_params(tmesh.build_discrete(topo, degree),
+                          tops.Material(1.0, 2.0, 1.0), device="cpu")
+    d = build_lane_data(p)
+    Dr = p.Dr.double().numpy().astype(np.float32)
+    LIFT = p.LIFT.double().numpy().astype(np.float32)
+    n_p = Dr.shape[1]
+    assert d.ktile.dtype == torch.float32 and d.ktile.is_contiguous()
+    tab = d.ktile.numpy()
+    assert tab.shape == (dim * n_p + LIFT.shape[1], -(-n_p // 4) * 4)
+    for r in range(dim):
+        for j in range(n_p):
+            np.testing.assert_array_equal(tab[j * dim + r, :n_p], Dr[r, :, j])
+    np.testing.assert_array_equal(tab[dim * n_p :, :n_p], LIFT.T)
+    assert not tab[:, n_p:].any()
