@@ -14,12 +14,12 @@ Phases, each printing its own lines; any failure exits non-zero:
               lane_upwind_kernels.cu (K6 lane_upwind_rhs, K7
               lane_upwind_axpy) and trace_exchange.cu (K10
               trace_exchange); print ptxas's registers, stack and spills,
-              a line for each instantiation of the K1/K2, K3 and K7 tile
-              kernels (each must report a 0 B stack frame and no spills),
-              and require K8, K9, K9-C (3D P3), the packed K1/K2/K8/K9
-              (3D P1) and K6 (3D P3) at the registers and stack frames
-              they had before the tile kernels came (their code did not
-              change).
+              a line for each instantiation of the tile kernels — K1, K2,
+              K2-C, K9, K9-C, K3, K6 and K7 at the eight element shapes
+              (each must report a 0 B stack frame and no spills) — and
+              require K8 (3D P3) and the packed K1/K2/K8/K9 (3D P1) at the
+              registers and stack frames they had before the tile kernels
+              came (their code did not change).
 3. kernels  - every K1/K2 variant (vel plain/axpy/inject with 1 and 2
               groups; stress plain/axpy/axpy+damp/inject with 1 and 2
               groups) against its plain PyTorch version on the card in
@@ -64,7 +64,8 @@ Phases, each printing its own lines; any failure exits non-zero:
               versions; the LF4 eigenmode through the kernels on periodic
               box_mesh(N, N, N), N = 4 and 8, P2, float32: L2(u) per N
               and the observed order, which must exceed 2.8.
-8. upwind_u - the unstructured upwind-RK4 path.  K6 and every K7 mode
+8. upwind_u - the unstructured upwind-RK4 path (K6 and K7 are the two
+              instantiations of one tile kernel).  K6 and every K7 mode
               (stage, final, final + sponge row, 1 and 2 dense source
               groups, panel emission in stage and final mode) against the
               plain versions at the eight shapes on scrambled copies of
@@ -106,16 +107,19 @@ Phases, each printing its own lines; any failure exits non-zero:
               must launch no general-law kernel.
 10. fused   - the v2 exchange-fused LF4 engine.  K8 (plain, axpy) and K9
               (plain, axpy + sponge, and both with a per-element
-              NON-symmetric C) against their plain versions, K10 (traction
-              and velocity traces) against the plain gather, on
-              box_mesh(4, 4, 4) at P3 and P2 and rect_mesh(8, 8) P2; K10
-              also on their periodic twins.  FusedLaneRunner on the n=24
+              NON-symmetric C) against their plain versions at the eight
+              element shapes on the meshes of phase 3 (ragged last tiles
+              of K9's tile kernel) and on box_mesh(4, 4, 4) at P3 and P2
+              and rect_mesh(8, 8) P2; K10 (traction and velocity traces)
+              against the plain gather on the last three and on their
+              periodic twins.  FusedLaneRunner on the n=24
               P3 case for 10 steps: kernel vs plain and vs phase 4's kernel
               MergedLaneRunner (relative L2, finiteness), exactly 3 K8 + 3
               K9 + 6 K10 launches a step and no K1/K2; the same with the
               bench's VTI stiffness (3 general-law K9 a step, no isotropic
               one).  K8, K9, K9-C and K10 times beside their plain versions
-              and bounds, and for K10 one torch.take over the plain
+              and bounds (every K8/K9 variant beside its own bound), and
+              for K10 one torch.take over the plain
               version's index (library_ms); the bench (impl "fused" with
               the kernels and the plain versions, and --vti); the LF4
               eigenmode through K8/K9/K10 on periodic box_mesh(N, N, N),
@@ -178,8 +182,8 @@ EIGEN_MIN_ORDER = 2.8
 SH_WAVE_MAX_ERR = 0.02
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peaks
 FP32_FLOPS_PER_S = 67e12
-KERNELS = {  # name -> (source, replaced TPU kernel); K1, K2, K3 and K7
-    # are the tile kernels of the two tile headers
+KERNELS = {  # name -> (source, replaced TPU kernel); K1, K2, K3, K6, K7
+    # and K9 are the tile kernels of the two tile headers
     "merged_vel": ("seigen_tpu_torch/csrc/merged_tile.cuh",
                    "seigen_tpu/ops/merged_kernels.py:542"),
     "merged_stress": ("seigen_tpu_torch/csrc/merged_tile.cuh",
@@ -190,13 +194,13 @@ KERNELS = {  # name -> (source, replaced TPU kernel); K1, K2, K3 and K7
                  "seigen_tpu/ops/pallas_kernels.py:942"),
     "lane_stress": ("seigen_tpu_torch/csrc/lane_kernels.cu",
                     "seigen_tpu/ops/pallas_kernels.py:982"),
-    "lane_upwind_rhs": ("seigen_tpu_torch/csrc/lane_upwind_kernels.cu",
+    "lane_upwind_rhs": ("seigen_tpu_torch/csrc/upwind_tile.cuh",
                         "seigen_tpu/ops/pallas_kernels.py:848"),
     "lane_upwind_axpy": ("seigen_tpu_torch/csrc/upwind_tile.cuh",
                          "seigen_tpu/ops/pallas_kernels.py:791"),
     "fused_vel2": ("seigen_tpu_torch/csrc/merged_kernels.cu",
                    "seigen_tpu/ops/fused_kernels.py:718"),
-    "fused_stress2": ("seigen_tpu_torch/csrc/merged_kernels.cu",
+    "fused_stress2": ("seigen_tpu_torch/csrc/merged_tile.cuh",
                       "seigen_tpu/ops/fused_kernels.py:759"),
     "trace_exchange": ("seigen_tpu_torch/csrc/trace_exchange.cu",
                        "seigen_tpu/solver/lane_fused.py:247"),
@@ -231,37 +235,31 @@ SHAPES = ((3, 1), (3, 2), (3, 3), (3, 4), (2, 1), (2, 2), (2, 3), (2, 4))
 # the tile kernels' instantiations: label -> (library, mangled name prefix,
 # template arguments after the shape)
 TILE_PTXAS = {
-    "merged_vel": ("merged", "merged_tile_kernel", "Lb1ELb0EE"),
-    "merged_stress": ("merged", "merged_tile_kernel", "Lb0ELb0EE"),
-    "merged_stress[C]": ("merged", "merged_tile_kernel", "Lb0ELb1EE"),
+    "merged_vel": ("merged", "merged_tile_kernel", "Lb1ELb0ELb0EE"),
+    "merged_stress": ("merged", "merged_tile_kernel", "Lb0ELb0ELb0EE"),
+    "merged_stress[C]": ("merged", "merged_tile_kernel", "Lb0ELb1ELb0EE"),
+    "fused_stress2": ("merged", "merged_tile_kernel", "Lb0ELb0ELb1EE"),
+    "fused_stress2[C]": ("merged", "merged_tile_kernel", "Lb0ELb1ELb1EE"),
     "upwind_rhs": ("upwind", "upwind_tile_kernel", "EE"),
-    "lane_upwind_axpy": ("lane_upwind", "lane_upwind_tile_kernel", "EE"),
+    "lane_upwind_rhs": ("lane_upwind", "lane_upwind_tile_kernel", "Lb0EE"),
+    "lane_upwind_axpy": ("lane_upwind", "lane_upwind_tile_kernel", "Lb1EE"),
 }
 # ptxas (library, registers, stack frame bytes) of instantiations whose
-# code the tile kernels left unchanged, as built before them: K8, K9, K9-C
-# at 3D P3; the packed K1, K2, K8, K9 at 3D P1; K6 at 3D P3
+# code the tile kernels left unchanged, as built before them: K8 at 3D P3;
+# the packed K1, K2, K8, K9 at 3D P1
 PTXAS_PINS = {
     "fused_vel2 3D P3": ("merged", "merged_vel_kernelILi3ELi20ELi10ELi1ELb1EE",
                          56, 480),
-    "fused_stress2 3D P3": (
-        "merged", "merged_stress_kernelILi3ELi20ELi10ELi1ELb0ELb1EE", 128,
-        592),
-    "fused_stress2[C] 3D P3": (
-        "merged", "merged_stress_kernelILi3ELi20ELi10ELi1ELb1ELb1EE", 72,
-        496),
     "merged_vel[pk] 3D P1": ("merged",
                              "merged_vel_kernelILi3ELi4ELi3ELi2ELb0EE", 32,
                              240),
     "merged_stress[pk] 3D P1": (
-        "merged", "merged_stress_kernelILi3ELi4ELi3ELi2ELb0ELb0EE", 48, 336),
+        "merged", "merged_stress_kernelILi3ELi4ELi3ELi2ELb0EE", 48, 336),
     "fused_vel2[pk] 3D P1": ("merged",
                              "merged_vel_kernelILi3ELi4ELi3ELi2ELb1EE", 46,
                              144),
     "fused_stress2[pk] 3D P1": (
-        "merged", "merged_stress_kernelILi3ELi4ELi3ELi2ELb0ELb1EE", 48, 256),
-    "lane_upwind_rhs 3D P3": ("lane_upwind",
-                              "lane_upwind_kernelILi3ELi20ELi10EE", 64,
-                              1072),
+        "merged", "merged_stress_kernelILi3ELi4ELi3ELi2ELb1EE", 48, 256),
 }
 
 
@@ -364,9 +362,9 @@ def ptxas_entry(entries, key):
 
 
 def check_ptxas():
-    """Phase 2: a line for each tile instantiation of K1/K2, K3 and K7,
-    which must keep no local memory (0 B stack frame, no spills), and the
-    pinned registers and stack frames of PTXAS_PINS."""
+    """Phase 2: a line for each tile instantiation of K1/K2/K9, K3 and
+    K6/K7, which must keep no local memory (0 B stack frame, no spills),
+    and the pinned registers and stack frames of PTXAS_PINS."""
     from seigen_tpu_torch.ops import lane_upwind_kernels as luk
     from seigen_tpu_torch.ops import merged_kernels as mk
     from seigen_tpu_torch.ops import upwind_kernels as uk
@@ -1639,10 +1637,11 @@ FUSED_VARIANTS = {  # check name -> (op, variant)
     "fused_stress2[C]": (("stress", "plain"), ("stress", "axpy_damp"))}
 
 
-def small_fused_runners(dim, degree, dev):
+def small_fused_runners(dim, degree, dev, ragged=False):
     """Kernel FusedLaneRunners on a free-top, sponge-damped box_mesh(4, 4,
-    4) (3D) or rect_mesh(8, 8) (2D): isotropic, with a per-element random
-    stiffness, and on the periodic twin of the mesh."""
+    4) (3D) or rect_mesh(8, 8) (2D), or with ``ragged`` on phase 3's
+    box_mesh(5, 3, 4) or rect_mesh(14, 10): isotropic, with a per-element
+    random stiffness, and (not ragged) on the periodic twin of the mesh."""
     import torch
 
     from seigen_tpu_torch.mesh import box_mesh, build_discrete, rect_mesh
@@ -1651,9 +1650,14 @@ def small_fused_runners(dim, degree, dev):
     from seigen_tpu_torch.solver.damping import absorbing_bc_fn, sponge_mask
     from seigen_tpu_torch.solver.lane_fused import FusedLaneRunner
 
-    topo, per = ((box_mesh(4, 4, 4), box_mesh(4, 4, 4, periodic=(0, 1, 2)))
-                 if dim == 3 else
-                 (rect_mesh(8, 8), rect_mesh(8, 8, periodic=(0, 1))))
+    if ragged:
+        topo, per = (box_mesh(5, 3, 4) if dim == 3 else rect_mesh(14, 10),
+                     None)
+    else:
+        topo, per = ((box_mesh(4, 4, 4),
+                      box_mesh(4, 4, 4, periodic=(0, 1, 2)))
+                     if dim == 3 else
+                     (rect_mesh(8, 8), rect_mesh(8, 8, periodic=(0, 1))))
     mat = Material(1.0, 2.0, 1.0)
     dm = build_discrete(topo, degree, bc_fn=absorbing_bc_fn(
         ((0.0, 1.0),) * dim, free_sides=[(dim - 1, "hi")]))
@@ -1662,12 +1666,15 @@ def small_fused_runners(dim, degree, dev):
     damp = torch.as_tensor(sponge_mask(dm, [(0, "lo"), (0, "hi")],
                                        width=0.3), device=dev).float()
     C = random_stiffness(dm.num_elements, p.n_sig, 95)
-    dm_per = build_discrete(per, degree)
+    twin = None
+    if per is not None:
+        dm_per = build_discrete(per, degree)
+        twin = FusedLaneRunner(build_params(dm_per, mat, device=dev),
+                               detect_structured(dm_per), 0.01,
+                               impl="kernel")
     return (FusedLaneRunner(p, ex, 0.01, damp=damp, impl="kernel"),
             FusedLaneRunner(p, ex, 0.01, damp=damp, impl="kernel",
-                            stiffness=C),
-            FusedLaneRunner(build_params(dm_per, mat, device=dev),
-                            detect_structured(dm_per), 0.01, impl="kernel"))
+                            stiffness=C), twin)
 
 
 def fused_inputs(d, dev, seed):
@@ -1746,29 +1753,43 @@ def compare_exchange(runner, check, tag, seed):
               got, ref)
 
 
-def fused_bound(d, kname, aniso=False):
-    """(bound_ms, "bytes" | "operations") of one plain launch of K8, K9 or
-    K10 at these shapes.  K8/K9: state rows n_p per component, the dim*ftp
-    consumer trace rows, the geometry once per face (Ginv, normals, scb,
-    bfs or dfs) and the material rows (1/rho; lambda and mu, or the n_sig^2
-    stiffness rows), each per element (n_par of them a lane), the output
-    at npp and its dim*ftpp trace rows written; the Dr and LIFT FLOPs.
-    K10: dim*ftp rows and nf mask rows read, dim*ftpp rows written, no
-    arithmetic."""
+def fused_rows(d, kname, aniso=False, variant="plain"):
+    """Float rows per lane that one launch of a K8/K9 variant or of K10
+    must move.  K8/K9: state rows n_p per component, the dim*ftp consumer
+    trace rows, the geometry once per face (Ginv, normals, scb, bfs or dfs)
+    and the material rows (1/rho; lambda and mu, or the n_sig^2 stiffness
+    rows), and the variant's own axpy rows (2 x C_out x n_p) and sponge
+    row (n_p), each per element (n_par of them a lane); the output at npp
+    and its dim*ftpp trace rows written.  K10: dim*ftp rows and nf mask
+    rows read, dim*ftpp rows written."""
     dim, n_p, nf, npp, n_sig = d.dim, d.n_p, d.nf, d.npp, d.n_sig
-    n_par = d.n_par
-    ftp, ftpp = d.ftp // n_par, d.ftpp
+    ftp, ftpp = d.ftp // d.n_par, d.ftpp
     if kname == "trace_exchange":
-        rows, flops = dim * ftp + nf + dim * ftpp, 0
+        return dim * ftp + nf + dim * ftpp
+    geo = dim * dim + dim * nf + 2 * nf
+    if kname == "fused_vel2":
+        c_in, c_out, geo = n_sig, dim, geo + 1
     else:
-        geo = dim * dim + dim * nf + 2 * nf
-        if kname == "fused_vel2":
-            c_in, c_out, geo = n_sig, dim, geo + 1
-        else:
-            c_in, c_out = dim, n_sig
-            geo += n_sig * n_sig if aniso else 2
-        rows = n_par * (c_in * n_p + dim * ftp + geo) + c_out * npp \
-            + dim * ftpp
+        c_in, c_out = dim, n_sig
+        geo += n_sig * n_sig if aniso else 2
+    extra = 0
+    if variant.startswith("axpy"):
+        extra = 2 * c_out * n_p + (n_p if variant == "axpy_damp" else 0)
+    return d.n_par * (c_in * n_p + dim * ftp + geo + extra) + c_out * npp \
+        + dim * ftpp
+
+
+def fused_bound(d, kname, aniso=False, variant="plain"):
+    """(bound_ms, "bytes" | "operations") of one launch of a K8/K9 variant
+    or of K10 at these shapes: the bytes of ``fused_rows`` over the memory
+    rate, and the Dr and LIFT FLOPs over the FP32 rate (K10 does no
+    arithmetic)."""
+    dim, n_p, n_par = d.dim, d.n_p, d.n_par
+    ftp = d.ftp // n_par
+    rows = fused_rows(d, kname, aniso, variant)
+    flops = 0
+    if kname != "trace_exchange":
+        c_out = dim if kname == "fused_vel2" else d.n_sig
         flops = 2 * n_par * (c_out * dim * n_p * n_p + c_out * n_p * ftp)
     lanes = d.E // n_par
     t_bytes = 4.0 * rows * lanes / HBM_BYTES_PER_S * 1e3
@@ -1788,6 +1809,12 @@ def phase_fused(dev, case, st, check, merged_out, n=24):
     from seigen_tpu_torch.solver import lane_fused as lf
 
     t0 = time.perf_counter()
+    for dim, degree in SHAPES:
+        iso, aniso, _ = small_fused_runners(dim, degree, dev, ragged=True)
+        tag = f"{dim}D P{degree} ragged"
+        log(f"[fused] {tag}: E {iso.d.E}, ftp {iso.d.ftp}, ftpp "
+            f"{iso.d.ftpp}")
+        compare_fused(iso, aniso, check, tag, 160 + 10 * dim + degree)
     for dim, degree in ((3, 3), (3, 2), (2, 2)):
         iso, aniso, per = small_fused_runners(dim, degree, dev)
         tag = f"{dim}D P{degree}"
@@ -1832,21 +1859,31 @@ def phase_fused(dev, case, st, check, merged_out, n=24):
             keep["fused"] = k
         del r, out_k, out_r
 
-    # K8, K9, K9-C and K10 at n=24 P3: check, kernel and plain times, bound
+    # every K8/K9 variant and K10 at n=24 P3: check, kernel time beside the
+    # variant's own bound, plain times of the plain variants
     times, bounds, library = {}, {}, {}
     run_k = keep["fused"]
     x = fused_inputs(run_k.d, dev, 150)
     for name, runner in (("fused_vel2", run_k), ("fused_stress2", run_k),
                          ("fused_stress2[C]", keep["fused_stress2[C]"])):
-        kern, plain = fused_call(runner, x, *FUSED_VARIANTS[name][0])
-        got, ref = kern(), plain()
-        torch.cuda.synchronize()
-        check(name, f"n={n} P3 {name} plain out", got[0], ref[0])
-        check(name, f"n={n} P3 {name} plain traces", got[1], ref[1])
-        times[name] = (time_ms(kern), time_ms(plain))
-        bounds[name] = fused_bound(runner.d, name.removesuffix("[C]"),
-                                   aniso=name.endswith("[C]"))
-        del got, ref
+        kname, aniso = name.removesuffix("[C]"), name.endswith("[C]")
+        for op, variant in FUSED_VARIANTS[name]:
+            kern, plain = fused_call(runner, x, op, variant)
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            check(name, f"n={n} P3 {name} {variant} out", got[0], ref[0])
+            check(name, f"n={n} P3 {name} {variant} traces", got[1], ref[1])
+            del got, ref
+            t = time_ms(kern)
+            b = fused_bound(runner.d, kname, aniso, variant)
+            rows = fused_rows(runner.d, kname, aniso, variant)
+            line = (f"[fused] {name} ({variant}) at n={n} P3: kernel "
+                    f"{t:.4f} ms, bound {b[0]:.4f} ms ({b[1]}, {rows} rows "
+                    f"a lane), {100 * b[0] / t:.1f}% of the bound")
+            if variant == "plain":
+                times[name], bounds[name] = (t, time_ms(plain)), b
+                line += f"; plain {times[name][1]:.4f} ms"
+            log(line)
     xp, tr = run_k.xplan, x["tr"]
     compare_exchange(run_k, check, f"n={n} P3", 151)
     times["trace_exchange"] = (

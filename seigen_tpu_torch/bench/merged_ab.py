@@ -2,6 +2,7 @@
 
     python -m seigen_tpu_torch.bench.merged_ab --trees parent=_archive/parent,change=.
     python -m seigen_tpu_torch.bench.merged_ab --family upwind --trees ...
+    python -m seigen_tpu_torch.bench.merged_ab --family fused --trees ...
 
 Each tree is a checkout of the repository (``git archive <commit> | tar -x
 -C _archive/parent`` puts an older one beside this one).  The trees run in
@@ -22,8 +23,16 @@ vs = 0 half of the mesh) on the bench case in the ``upwind_lane`` runner's
 layout, and K6 and every K7 mode (stage, final, final + sponge row, 1 and
 2 source groups, panel emission) on its scrambled copy in the
 ``upwind_lane_u`` runner's layout; then the benches ``upwind_lane``,
-``upwind_lane_u`` and ``upwind_lane_u --panel-emit``, and in each tree's
-first turn ``profile_step.profile`` of the same three steps.
+``upwind_lane_u``, ``upwind_lane_u --panel-emit`` and ``upwind_lane_u
+--no-fused-axpy`` (the glue stepper, K6), and in each tree's first turn
+``profile_step.profile`` of the same four steps.
+
+``--family fused`` times the v2 engine's operator kernels: every variant
+of K9 fused_stress2 that the ``fused`` step launches — plain, axpy, axpy
++ damping, and with the bench's VTI stiffness plain and axpy + damping —
+and K8 fused_vel2 plain and axpy, on the bench case in the ``fused``
+runner's layout; then the benches ``fused`` and ``fused --vti``, and in
+each tree's first turn ``profile_step.profile`` of the ``fused`` step.
 
 Each process prints one JSON line; ``drive`` prints a table of each
 variant's mean over the turns of each tree, and the GPU's name and power
@@ -58,7 +67,27 @@ UPWIND_VARIANTS = (
                                   "acoustic")),
     *(("lane_upwind_rhs" if m == "rhs" else "lane_upwind_axpy", m)
       for m in UPWIND_U_MODES))
-FAMILIES = {"merged": VARIANTS, "upwind": UPWIND_VARIANTS}
+FUSED_VARIANTS = (("fused_stress2", "plain"), ("fused_stress2", "axpy"),
+                  ("fused_stress2", "axpy_damp"),
+                  ("fused_stress2[C]", "plain"),
+                  ("fused_stress2[C]", "axpy_damp"),
+                  ("fused_vel2", "plain"), ("fused_vel2", "axpy"))
+FAMILIES = {"merged": VARIANTS, "upwind": UPWIND_VARIANTS,
+            "fused": FUSED_VARIANTS}
+# each family's benches: label (the bench's command line) -> impl, options,
+# and whether the first turn of each tree profiles that step
+STEPS = {
+    "merged": (("merged", "merged", {}, False),
+               ("merged --vti", "merged", {"vti": True}, False)),
+    "upwind": (("upwind_lane", "upwind_lane", {}, True),
+               ("upwind_lane_u", "upwind_lane_u", {}, True),
+               ("upwind_lane_u --panel-emit", "upwind_lane_u",
+                {"panel_emit": True}, True),
+               ("upwind_lane_u --no-fused-axpy", "upwind_lane_u",
+                {"fused_axpy": False}, True)),
+    "fused": (("fused", "fused", {}, True),
+              ("fused --vti", "fused", {"vti": True}, False)),
+}
 
 
 def worker(root: str, n: int, degree: int, reps: int, bench_steps: int,
@@ -93,9 +122,11 @@ def worker(root: str, n: int, degree: int, reps: int, bench_steps: int,
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / reps
 
-    run = _merged_family if family == "merged" else _upwind_family
-    times, bench, profiles = run(throughput, dev, n, degree, bench_steps,
-                                 time_ms, profile)
+    run = {"merged": _merged_family, "upwind": _upwind_family,
+           "fused": _fused_family}[family]
+    times, cases = run(throughput, dev, n, degree, time_ms)
+    bench, profiles = _steps(throughput, family, cases, n, degree,
+                             bench_steps, profile)
     name, limit = throughput.gpu_name_and_power_limit(0)
     return {"root": root, "family": family, "gpu": name,
             "power_limit": limit, "n": n, "degree": degree, "reps": reps,
@@ -103,9 +134,27 @@ def worker(root: str, n: int, degree: int, reps: int, bench_steps: int,
             "profiles": profiles}
 
 
-def _merged_family(throughput, dev, n, degree, bench_steps, time_ms,
-                   profile):
-    """K1/K2 variants, the merged benches (``profile`` unused)."""
+def _steps(throughput, family, cases, n, degree, bench_steps, profile):
+    """The family's benches (``STEPS``) on ``cases`` ({scrambled: the
+    bench case}), and with ``profile`` the step profiles it marks."""
+    bench, profiles = {}, {}
+    for label, impl, opts, _ in STEPS[family]:
+        case = cases[impl in throughput.SCRAMBLED_IMPLS]
+        bench[label] = throughput.main(n=n, degree=degree,
+                                       n_steps=bench_steps, impl=impl,
+                                       case=case, **opts)["value"]
+    if profile:
+        from seigen_tpu_torch.bench import profile_step
+
+        for label, impl, opts, prof in STEPS[family]:
+            if prof:
+                profiles[label] = profile_step.profile(
+                    impl=impl, n=n, degree=degree, **opts)
+    return bench, profiles
+
+
+def _merged_family(throughput, dev, n, degree, time_ms):
+    """K1/K2 variants; returns (times, {False: the bench case})."""
     import dataclasses
 
     import numpy as np
@@ -156,19 +205,12 @@ def _merged_family(throughput, dev, n, degree, bench_steps, time_ms,
         return lambda: kern(*args, **kw)
 
     times = {f"{op} {v}": time_ms(call(op, v)) for op, v in VARIANTS}
-    bench = {}
-    for vti in (False, True):
-        rec = throughput.main(n=n, degree=degree, n_steps=bench_steps,
-                              case=case, vti=vti)
-        bench["merged --vti" if vti else "merged"] = rec["value"]
-    return times, bench, {}
+    return times, {False: case}
 
 
-def _upwind_family(throughput, dev, n, degree, bench_steps, time_ms,
-                   profile):
-    """K3 variants and K6/K7 modes, the upwind benches, and with
-    ``profile`` the step profiles of upwind_lane and upwind_lane_u (and
-    with --panel-emit)."""
+def _upwind_family(throughput, dev, n, degree, time_ms):
+    """K3 variants and K6/K7 modes; returns (times, {False: the bench
+    case, True: its scrambled copy})."""
     import dataclasses
 
     import numpy as np
@@ -207,10 +249,7 @@ def _upwind_family(throughput, dev, n, degree, bench_steps, time_ms,
         kw = {"inject": inj[: int(v[-1])] if v.startswith("inject") else []}
         times[f"upwind_rhs {v}"] = time_ms(
             lambda: uk.UPWIND_KERNEL(*args, **kw))
-    bench = {"upwind_lane": throughput.main(
-        n=n, degree=degree, n_steps=bench_steps, impl="upwind_lane",
-        case=case)["value"]}
-    del r, acoustic, case, u, s, trs, inj
+    del r, acoustic, u, s, trs, inj
 
     scase = throughput.setup_case(n=n, degree=degree, device=dev,
                                   scramble=True)
@@ -243,30 +282,58 @@ def _upwind_family(throughput, dev, n, degree, bench_steps, time_ms,
                       emit=emit)
         name = "lane_upwind_rhs" if spec is None else "lane_upwind_axpy"
         times[f"{name} {mode}"] = time_ms(lambda: kern(*args, **kw))
-    del r, state, pan, pan_e
-    for label, opts in (("upwind_lane_u", {}),
-                        ("upwind_lane_u --panel-emit", {"panel_emit": True})):
-        bench[label] = throughput.main(
-            n=n, degree=degree, n_steps=bench_steps, impl="upwind_lane_u",
-            case=scase, **opts)["value"]
-    del scase
-    profiles = {}
-    if profile:
-        from seigen_tpu_torch.bench import profile_step
+    return times, {False: case, True: scase}
 
-        for label, impl, opts in (
-                ("upwind_lane", "upwind_lane", {}),
-                ("upwind_lane_u", "upwind_lane_u", {}),
-                ("upwind_lane_u --panel-emit", "upwind_lane_u",
-                 {"panel_emit": True})):
-            profiles[label] = profile_step.profile(impl=impl, n=n,
-                                                   degree=degree, **opts)
-    return times, bench, profiles
+
+def _fused_family(throughput, dev, n, degree, time_ms):
+    """K9 and K8 variants; returns (times, {False: the bench case})."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.ops import fused_ops as fo
+
+    case = throughput.setup_case(n=n, degree=degree, device=dev)
+    dm, p, src, damp, dt, _ = case
+    data = {v: throughput.make_runner("fused", dm, p, src, damp, dt,
+                                      "kernel", vti=v).d
+            for v in (False, True)}
+    d = data[False]
+    rng = np.random.default_rng(25)
+
+    def rows(C, used, pad):
+        a = rng.standard_normal((C, pad, d.E)).astype(np.float32)
+        a[:, used:] = 0.0
+        return torch.as_tensor(a.reshape(C * pad, d.E), device=dev)
+
+    tr = rows(d.dim, d.ftp, d.ftpp)
+    x = {"fused_vel2": rows(d.n_sig, d.n_p, d.npp),
+         "fused_stress2": rows(d.dim, d.n_p, d.npp)}
+    y = {"fused_vel2": tuple(rows(d.dim, d.n_p, d.npp) for _ in range(2)),
+         "fused_stress2": tuple(rows(d.n_sig, d.n_p, d.npp)
+                                for _ in range(2))}
+
+    def call(name, variant):
+        base = name.removesuffix("[C]")
+        od = data[name.endswith("[C]")]
+        kw = {}
+        if variant.startswith("axpy"):
+            kw = dict(axpy=y[base], dt=float(dt), c3=float(dt) ** 3 / 24.0)
+        if base == "fused_vel2":
+            return lambda: fo.VEL2_KERNEL(od, x[base], tr, **kw)
+        if variant == "axpy":  # the stress update without a sponge
+            od = dataclasses.replace(od, damp=None)
+        kw["damp"] = od.damp if variant == "axpy_damp" else None
+        return lambda: fo.STRESS2_KERNEL(od, x[base], tr, **kw)
+
+    times = {f"{op} {v}": time_ms(call(op, v)) for op, v in FUSED_VARIANTS}
+    return times, {False: case}
 
 
 def drive(trees, n, degree, reps, bench_steps, family="merged"):
     """Run the workers in turns A, B, B, A and print the table; the first
-    turn of each tree also profiles (family "upwind")."""
+    turn of each tree also profiles (the steps ``STEPS`` marks)."""
     (la, ra), (lb, rb) = trees
     order = ((la, ra), (lb, rb), (lb, rb), (la, ra))
     recs = []
@@ -326,9 +393,10 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--bench-steps", type=int, default=100)
     ap.add_argument("--family", default="merged", choices=tuple(FAMILIES),
-                    help="merged: K1/K2; upwind: K3, K6/K7 (and profiles)")
+                    help="merged: K1/K2; upwind: K3, K6/K7; fused: K9, K8 "
+                    "(and profiles)")
     ap.add_argument("--profile", action="store_true",
-                    help="worker: also profile the upwind steps")
+                    help="worker: also profile the steps STEPS marks")
     a = ap.parse_args(argv)
     if a.worker:
         print(json.dumps(worker(a.root, a.n, a.degree, a.reps,

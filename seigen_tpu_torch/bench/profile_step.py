@@ -73,11 +73,6 @@ def copy_bandwidth(device, n_bytes=1 << 30, reps=10) -> float:
 OPERATOR_KERNELS = ("merged_vel_kernel", "merged_stress_kernel",
                     "lane_vel_kernel", "lane_stress_kernel",
                     "trace_exchange_kernel")
-# K7, K6 and K3 by symbol, in this order ("upwind_tile_kernel" is a part
-# of K7's symbol)
-UPWIND_KERNELS = (("lane_upwind_tile_kernel", "lane_upwind_axpy"),
-                  ("lane_upwind_kernel", "lane_upwind_rhs"),
-                  ("upwind_tile_kernel", "upwind_rhs"))
 
 
 def _template_args(name: str) -> list:
@@ -86,30 +81,34 @@ def _template_args(name: str) -> list:
             name[name.index("<") + 1 : name.index(">")].split(",")]
 
 
-def _last_bool(name: str) -> bool:
-    """The value of the last template argument of a kernel name, a bool."""
-    return _template_args(name)[-1] in ("true", "(bool)1")
+def _is_true(arg: str) -> bool:
+    return arg in ("true", "(bool)1")
 
 
 def kernel_group(name: str) -> str:
-    """The port's operator kernels by name (K1/K2 of one element per lane
-    are the tile kernel, template <DIM, NP, NFP, VEL, ANISO>; K1/K2/K8/K9
-    of the packed P1 layout, template NPAR = 2, carry the suffix "[pk]";
-    K3 and K7 are the upwind tile kernels, K6 the per-lane one);
-    PyTorch's gather/index (the lane runners' trace exchanges),
-    elementwise, copy and matmul kernels as groups; anything else as
-    "other"."""
+    """The port's operator kernels by name: the tile kernels by their
+    template arguments — ``merged_tile_kernel<DIM, NP, NFP, VEL, ANISO,
+    V2>`` is K1 (VEL), K2, or with V2 K9; ``lane_upwind_tile_kernel<DIM,
+    NP, NFP, AXPY>`` is K7 (AXPY) or K6; ``upwind_tile_kernel`` is K3 —
+    and the per-lane templates, K8 and the packed P1 layout (NPAR = 2, the
+    suffix "[pk]"); PyTorch's gather/index (the lane runners' trace
+    exchanges), elementwise, copy and matmul kernels as groups; anything
+    else as "other"."""
     if "merged_tile_kernel" in name:
-        return ("merged_vel" if _template_args(name)[3] in ("true", "(bool)1")
-                else "merged_stress")
-    for k, group in UPWIND_KERNELS:
-        if k in name:
-            return group
+        vel, _, v2 = (_is_true(a) for a in _template_args(name)[3:6])
+        op = "vel" if vel else "stress"
+        return f"fused_{op}2" if v2 else f"merged_{op}"
+    if "lane_upwind_tile_kernel" in name:
+        return ("lane_upwind_axpy" if _is_true(_template_args(name)[3])
+                else "lane_upwind_rhs")
+    if "upwind_tile_kernel" in name:
+        return "upwind_rhs"
     for k in OPERATOR_KERNELS:
         if k in name:
             if k.startswith("merged_"):
-                pk = "[pk]" if _template_args(name)[3] == "2" else ""
-                if _last_bool(name):  # V2: K8/K9
+                args = _template_args(name)
+                pk = "[pk]" if args[3] == "2" else ""
+                if _is_true(args[-1]):  # V2: K8/K9
                     return ("fused_vel2" if k == "merged_vel_kernel"
                             else "fused_stress2") + pk
                 return k.removesuffix("_kernel") + pk

@@ -1,5 +1,7 @@
 // The in-operator (f2, pi) select of the unstructured lane operators
-// (lane_kernels.cu: K4/K5 mode SEL, lane_upwind_kernels.cu: K6/K7).
+// (lane_kernels.cu: K4/K5 mode SEL, through the helpers below;
+// lane_upwind_kernels.cu: K6/K7, which decode the same way while they
+// stage a tile).
 //
 // Neighbour traces arrive as raw per-face panels (nf*rows_pad, E): panel f
 // holds, for every lane, the own-face rows of the lane's neighbour across

@@ -33,15 +33,13 @@
 // geometry, impedance, combo and sign rows ~50 in; 216 out), ~0.23 GB a
 // launch at E = 83k, ~68 us at 3.35 TB/s; K7 reads the base and the
 // accumulator and writes twice as much in stage mode (~1270 floats, ~126
-// us).  The arithmetic is ~36 kFLOP per lane in the first design's order,
-// ~20 kFLOP after the tile kernel's reorder, ~30 us at the 67 TFLOP/s FP32
-// rate: bytes bound.
+// us).  The arithmetic is ~36 kFLOP per lane with one Dr pass per output
+// component, ~20 kFLOP after the tile kernel's reorder, ~30 us at the 67
+// TFLOP/s FP32 rate: bytes bound.
 //
-// Two designs live here.  K6 keeps the first design, one thread per lane:
-// tables in shared memory once per block, every FMA taking its table
-// operand from there, the two per-lane Riemann correction arrays in local
-// memory, one Dr pass per output component.  K7 runs the tile kernel of
-// upwind_tile.cuh, designed for this card as K1/K2's (merged_tile.cuh):
+// Both run the tile kernel of upwind_tile.cuh, designed for this card as
+// K1/K2's (merged_tile.cuh); a compile-time bool AXPY picks K7's epilogue
+// or K6's plain store, so neither instantiation carries the other's code:
 //   - A block owns a tile of T consecutive lanes (T 32 at 3D P2-P4 and 2D
 //     P3-P4, 64 or 128 below, for at least four warps a block; the last
 //     tile ragged at E) and stages, by cp.async into dynamic shared memory,
@@ -60,9 +58,10 @@
 //     table (KernelTables.tile, LaneOpData.ktile): velocity [Dr | LIFT] @
 //     [w; dtf], stress gradient-first with the face term factored per
 //     face, as K1/K2.
-//   - The epilogue (sources, stage/final axpys, sponge row) runs on a
-//     thread's own nodes in registers; with emit the emitted state goes to
-//     shared memory and the panels are written from there.
+//   - The epilogue runs on a thread's own nodes in registers and stores
+//     coalesced rows: K6 the operator values (pad rows 0); K7 the sources,
+//     stage/final axpys and sponge row, and with emit the emitted state
+//     goes to shared memory and the panels are written from there.
 //   - No local memory: ptxas shows a 0 B stack and no spills at every
 //     shape (chip_smoke.py phase 2).  FP32 FFMA throughout.
 //
@@ -107,10 +106,8 @@ struct LaneUpwindArgs {
   const float* inj_s0;
   const float* inj_u1;  // K7 dense source group 1
   const float* inj_s1;
-  const float* dr;      // K6: (dim, n_p, n_p) reference derivative matrices
-  const float* lift;    // K6: (n_p, nf*n_fp) LIFT
   const int* fnodes;    // (nf, n_fp) volume node of each face node
-  const float* tab;     // K7: the tile table (LaneOpData.ktile): rows
+  const float* tab;     // the tile table (LaneOpData.ktile): rows
                         // j*dim + r = Dr_r[., j], dim*n_p + q = LIFT[., q],
                         // n_p padded to a multiple of 4
   float* out;           // K6 ((dim+n_sig)*npp, E); K7 see above
@@ -131,179 +128,15 @@ namespace {
 
 using namespace seigen;
 
-// ---------------------------------------------------- K6, first design ---
-// One RHS value k of row r = comp*npp + i of the u block (block 0) or the
-// sigma block (block 1), into the output.
-__device__ __forceinline__ void store_row(const LaneUpwindArgs& a, long long L,
-                                          int block, int r, int nu, float k) {
-  const size_t E = (size_t)a.E;
-  a.out[(size_t)r * E + L + (block ? (size_t)nu * E : 0)] = k;
-}
-
+// ------------------------------------------------------- K6/K7, tiled ---
 template <int DIM, int NP, int NFP>
-__global__ void __launch_bounds__(kThreads)
-lane_upwind_kernel(const LaneUpwindArgs a) {
-  using S = Shape<DIM, NP, NFP>;
-  constexpr int NF = S::NF, NFT = S::NFT, NSIG = S::NSIG;
-  __shared__ float s_dr[DIM * NP * NP];
-  __shared__ float s_lift[NP * NFT];
-  __shared__ int s_fn[NFT];
-  __shared__ int s_perm[kMaxPerms * NFP];
-  load_perms<NFP>(a, s_perm);
-  load_tables<DIM, NP, NFP>(a, s_dr, s_lift, s_fn);
-
-  const long long L = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (L >= a.E) return;
-  const long long E = a.E;
-  const int npp = a.npp, ftpp = a.ftpp;
-  const int nu = DIM * npp;
-  auto row = [&](const float* x, long long r) { return x[r * E + L]; };
-  auto uf = [&](int c, int i) { return row(a.u, c * npp + i); };
-  auto sf = [&](int c, int i) { return row(a.s, c * npp + i); };
-
-  float g[DIM][DIM];
-#pragma unroll
-  for (int r = 0; r < DIM; ++r)
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) g[r][d] = row(a.ginv, r * DIM + d);
-  const float irho = row(a.irho, 0), lam = row(a.lam, 0), mu = row(a.mu, 0);
-  const float zp_m = row(a.zown, 0), zs_m = row(a.zown, 1);
-
-  // Riemann corrections per component and face node:
-  // dtf = Fscale (t* - t-), duf = Fscale (u* - u-)
-  float dtf[DIM][NFT], duf[DIM][NFT];
-#pragma unroll 1
-  for (int f = 0; f < NF; ++f) {
-    const int q0 = f * NFP;  // the face's rows are constant over its nodes
-    float n[DIM];
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) n[d] = row(a.nrm, d * ftpp + q0);
-    const float fsc = row(a.fsc, q0);
-    const FaceImpedance z =
-        face_impedance(zp_m, zs_m, row(a.zpn, q0), row(a.zsn, q0));
-    const float sgu = row(a.sign_u, f), sgt = row(a.sign_t, f);
-    const int* perm = nullptr;
-    const long long pbase = sel_face<NFP>(a, s_perm, f, L, &perm);
-#pragma unroll 1
-    for (int k = 0; k < NFP; ++k) {
-      const int node = s_fn[q0 + k];
-      float sv[NSIG], um[DIM], tm[DIM], up[DIM], tp[DIM];
-#pragma unroll
-      for (int c = 0; c < NSIG; ++c) sv[c] = sf(c, node);
-#pragma unroll
-      for (int c = 0; c < DIM; ++c) {
-        um[c] = uf(c, node);
-        float t = 0.f;
-#pragma unroll
-        for (int d = 0; d < DIM; ++d) t += n[d] * sv[voigt<DIM>(c, d)];
-        tm[c] = t;
-        const long long pr = pbase + c * a.cstride + perm[k];
-        up[c] = sgu * row(a.pu, pr);
-        tp[c] = sgt * row(a.pt, pr);
-      }
-      float dt[DIM], du[DIM];
-      riemann_corrections<DIM>(z, fsc, n, um, tm, up, tp, dt, du);
-#pragma unroll
-      for (int c = 0; c < DIM; ++c) {
-        dtf[c][q0 + k] = dt[c];
-        duf[c][q0 + k] = du[c];
-      }
-    }
-  }
-
-  // velocity: du_c = (1/rho)(sum_r Dr_r @ w_r + LIFT @ dtf_c),
-  // w_r = sum_d Ginv[r,d] sigma_{V[c,d]}
-#pragma unroll 1
-  for (int c = 0; c < DIM; ++c) {
-    float acc[NP];
-#pragma unroll
-    for (int i = 0; i < NP; ++i) acc[i] = 0.f;
-#pragma unroll 1
-    for (int jj = 0; jj < NP; ++jj) {
-      float sv[DIM];
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) sv[d] = sf(voigt<DIM>(c, d), jj);
-#pragma unroll
-      for (int r = 0; r < DIM; ++r) {
-        float w = 0.f;
-#pragma unroll
-        for (int d = 0; d < DIM; ++d) w += g[r][d] * sv[d];
-        const float* drc = s_dr + r * NP * NP + jj;
-#pragma unroll
-        for (int i = 0; i < NP; ++i) acc[i] += drc[i * NP] * w;
-      }
-    }
-#pragma unroll 1
-    for (int q = 0; q < NFT; ++q) {
-      const float fq = dtf[c][q];
-#pragma unroll
-      for (int i = 0; i < NP; ++i) acc[i] += s_lift[i * NFT + q] * fq;
-    }
-#pragma unroll
-    for (int i = 0; i < NP; ++i)
-      store_row(a, L, 0, c * npp + i, nu, irho * acc[i]);
-    for (int i = NP; i < npp; ++i)
-      store_row(a, L, 0, c * npp + i, nu, 0.f);
-  }
-
-  // stress: ds_k = sum_r Dr_r @ (sum_c B[r][c] u_c) + LIFT @ (F_k . duf),
-  // B[r][c] = sum_d A_k[d,c] Ginv[r,d], F_k[c] = sum_d A_k[d,c] n_d
-#pragma unroll 1
-  for (int k = 0; k < NSIG; ++k) {
-    float B[DIM][DIM];
-#pragma unroll
-    for (int r = 0; r < DIM; ++r) hooke_row<DIM>(k, lam, mu, g[r], B[r]);
-    float acc[NP];
-#pragma unroll
-    for (int i = 0; i < NP; ++i) acc[i] = 0.f;
-#pragma unroll 1
-    for (int jj = 0; jj < NP; ++jj) {
-      float uv[DIM];
-#pragma unroll
-      for (int c = 0; c < DIM; ++c) uv[c] = uf(c, jj);
-#pragma unroll
-      for (int r = 0; r < DIM; ++r) {
-        float w = 0.f;
-#pragma unroll
-        for (int c = 0; c < DIM; ++c) w += B[r][c] * uv[c];
-        const float* drc = s_dr + r * NP * NP + jj;
-#pragma unroll
-        for (int i = 0; i < NP; ++i) acc[i] += drc[i * NP] * w;
-      }
-    }
-#pragma unroll 1
-    for (int f = 0; f < NF; ++f) {
-      float n[DIM], F[DIM];
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) n[d] = row(a.nrm, d * ftpp + f * NFP);
-      hooke_row<DIM>(k, lam, mu, n, F);
-#pragma unroll 1
-      for (int kk = 0; kk < NFP; ++kk) {
-        const int q = f * NFP + kk;
-        float fq = 0.f;
-#pragma unroll
-        for (int c = 0; c < DIM; ++c) fq += F[c] * duf[c][q];
-#pragma unroll
-        for (int i = 0; i < NP; ++i) acc[i] += s_lift[i * NFT + q] * fq;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < NP; ++i)
-      store_row(a, L, 1, k * npp + i, nu, acc[i]);
-    for (int i = NP; i < npp; ++i)
-      store_row(a, L, 1, k * npp + i, nu, 0.f);
-  }
-}
-
-// ----------------------------------------------------------- K7, tiled ---
-template <int DIM, int NP, int NFP>
-using K7Layout = uptile::Layout<DIM, NP, NFP, false>;
+using TileLayout = uptile::Layout<DIM, NP, NFP, false>;
 
 // Global row (at lane 0) of local geo row r: the face rows are the first
 // face-node row f*n_fp of the expanded sections.
 template <class LY>
-__device__ __forceinline__ const float* k7_geo_row(const LaneUpwindArgs& a,
-                                                   int r) {
+__device__ __forceinline__ const float* tile_geo_row(const LaneUpwindArgs& a,
+                                                     int r) {
   constexpr int NF = LY::NF, NFP = LY::NFP;
   const long long E = a.E;
   if (r < LY::G_NRM) return a.ginv + r * E;
@@ -325,9 +158,9 @@ __device__ __forceinline__ const float* k7_geo_row(const LaneUpwindArgs& a,
 // The selected panel rows of this thread's lane: u+ to NB rows c*NFT + q,
 // t+ to (DIM + c)*NFT + q, node slot perms[pi][k] read into slot k.
 template <class LY>
-__device__ __forceinline__ void k7_stage_panels(const LaneUpwindArgs& a,
-                                                const uptile::Tile& tl,
-                                                float* sm) {
+__device__ __forceinline__ void stage_panels(const LaneUpwindArgs& a,
+                                             const uptile::Tile& tl,
+                                             float* sm) {
   constexpr int DIM = LY::DIM, NFP = LY::NFP, NFT = LY::NFT, T = LY::T;
   const long long E = a.E;
   float* dst = sm + LY::OFF_NB + tl.l;
@@ -438,11 +271,34 @@ __device__ __forceinline__ void k7_emit(const LaneUpwindArgs& a,
   }
 }
 
-// One block per tile of T lanes.
-template <int DIM, int NP, int NFP>
-__global__ void __launch_bounds__(K7Layout<DIM, NP, NFP>::THREADS)
+// K6's epilogue: the operator values of one block of C components (blk 0:
+// u, 1: sigma) on this thread's nodes to out, and its share of the pad rows
+// npp > NP as zeros.
+template <class LY, int C>
+__device__ __forceinline__ void k6_store(const LaneUpwindArgs& a,
+                                         const uptile::Tile& tl, int i0,
+                                         const float (&v)[C][LY::RM],
+                                         int blk) {
+  constexpr int NP = LY::NP;
+  if (!tl.live) return;
+  const long long E = a.E;
+  const int npp = a.npp;
+  float* out = a.out + (blk ? (size_t)LY::DIM * npp * E : 0) + tl.lane0 + tl.l;
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+#pragma unroll
+    for (int ii = 0; ii < LY::RM; ++ii)
+      if (i0 + ii < NP) out[((size_t)c * npp + i0 + ii) * E] = v[c][ii];
+  const int pad = npp - NP;
+  for (int r = tl.ig; r < C * pad; r += LY::NG)
+    out[((size_t)(r / pad) * npp + NP + r % pad) * E] = 0.f;
+}
+
+// One block per tile of T lanes; AXPY: K7, else K6.
+template <int DIM, int NP, int NFP, bool AXPY>
+__global__ void __launch_bounds__(TileLayout<DIM, NP, NFP>::THREADS)
 lane_upwind_tile_kernel(const LaneUpwindArgs a) {
-  using LY = K7Layout<DIM, NP, NFP>;
+  using LY = TileLayout<DIM, NP, NFP>;
   constexpr int RM = LY::RM, NSIG = LY::NSIG;
   extern __shared__ float4 s_dyn[];
   float* sm = reinterpret_cast<float*>(s_dyn);
@@ -454,50 +310,49 @@ lane_upwind_tile_kernel(const LaneUpwindArgs a) {
       (uintptr_t)a.lam | (uintptr_t)a.mu | (uintptr_t)a.zown;
   const bool vec = tl.nvalid == LY::T && (a.E & 3) == 0 && (ptrs & 15) == 0;
   uptile::stage_state<LY>(tl, sm, a.u, a.s, a.tab, a.fnodes, a.npp, a.E, vec,
-                          [&](int r) { return k7_geo_row<LY>(a, r); });
-  k7_stage_panels<LY>(a, tl, sm);
+                          [&](int r) { return tile_geo_row<LY>(a, r); });
+  stage_panels<LY>(a, tl, sm);
   uptile::finish_stage();
   uptile::riemann<LY>(tl, sm);
   uptile::contract_sigma<LY>(tl, sm);
   const int i0 = tl.ig * RM;
   float v[DIM][RM], sig[NSIG][RM];
   uptile::vel_product<LY>(tl, sm, i0, v);
-  k7_finish<LY, DIM>(a, tl, i0, v, 0);
+  if constexpr (AXPY)
+    k7_finish<LY, DIM>(a, tl, i0, v, 0);
+  else
+    k6_store<LY, DIM>(a, tl, i0, v, 0);
   uptile::stress_product<LY>(tl, sm, i0, sig);
-  k7_finish<LY, NSIG>(a, tl, i0, sig, 1);
-  if (a.emit) {
-    uptile::store_out_tile<LY>(tl, sm, i0, v, sig);
-    k7_emit<LY>(a, tl, sm);
+  if constexpr (AXPY) {
+    k7_finish<LY, NSIG>(a, tl, i0, sig, 1);
+    if (a.emit) {
+      uptile::store_out_tile<LY>(tl, sm, i0, v, sig);
+      k7_emit<LY>(a, tl, sm);
+    }
+  } else {
+    k6_store<LY, NSIG>(a, tl, i0, sig, 1);
   }
 }
 
-// K6: one thread a lane.
-template <int DIM, int NP, int NFP>
-int launch_rhs(const LaneUpwindArgs& a, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((a.E + kThreads - 1) / kThreads);
-  lane_upwind_kernel<DIM, NP, NFP><<<blocks, kThreads, 0, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// K7: the dynamic shared memory is raised above 48 KB once per
-// instantiation; an error there is returned like a launch error.
-template <int DIM, int NP, int NFP>
+// The dynamic shared memory is raised above 48 KB once per instantiation;
+// an error there is returned like a launch error.
+template <int DIM, int NP, int NFP, bool AXPY>
 int launch_tile(const LaneUpwindArgs& a, cudaStream_t stream) {
-  using LY = K7Layout<DIM, NP, NFP>;
+  using LY = TileLayout<DIM, NP, NFP>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      lane_upwind_tile_kernel<DIM, NP, NFP>,
+      lane_upwind_tile_kernel<DIM, NP, NFP, AXPY>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, LY::BYTES);
   if (attr != cudaSuccess) return (int)attr;
   const unsigned blocks = (unsigned)((a.E + LY::T - 1) / LY::T);
-  lane_upwind_tile_kernel<DIM, NP, NFP>
+  lane_upwind_tile_kernel<DIM, NP, NFP, AXPY>
       <<<blocks, LY::THREADS, LY::BYTES, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <int DIM, int NP, int NFP>
 int launch(bool axpy, const LaneUpwindArgs& a, cudaStream_t stream) {
-  return axpy ? launch_tile<DIM, NP, NFP>(a, stream)
-              : launch_rhs<DIM, NP, NFP>(a, stream);
+  return axpy ? launch_tile<DIM, NP, NFP, true>(a, stream)
+              : launch_tile<DIM, NP, NFP, false>(a, stream);
 }
 
 // Every (dim, n_p, n_fp) of SEIGEN_DISPATCH_SHAPES; -1 for another shape,
@@ -505,11 +360,11 @@ int launch(bool axpy, const LaneUpwindArgs& a, cudaStream_t stream) {
 int dispatch(bool axpy, const LaneUpwindArgs* a, int dim, int n_p, int n_fp,
              void* stream) {
   if (a->combo == nullptr || a->perms == nullptr || a->sign_u == nullptr ||
-      a->sign_t == nullptr || a->G < 1 || a->G > kMaxPerms || a->cstride < 1)
+      a->sign_t == nullptr || a->tab == nullptr || a->G < 1 ||
+      a->G > kMaxPerms || a->cstride < 1)
     return -2;
   if (axpy) {
-    if (a->tab == nullptr || a->acc_u == nullptr || a->acc_s == nullptr)
-      return -2;
+    if (a->acc_u == nullptr || a->acc_s == nullptr) return -2;
     if (a->stage && (a->base_u == nullptr || a->base_s == nullptr ||
                      a->damp != nullptr))
       return -2;

@@ -23,10 +23,11 @@
 //
 // Two designs live here.  The per-lane templates merged_vel_kernel and
 // merged_stress_kernel (the first design) give one thread one lane and run
-// K8/K9/K11 and the packed layout: there every FMA takes its table operand
-// from shared memory, the per-lane face arrays sit in local memory, and K2
-// repeats its volume product for each Voigt row.  K1 and K2 with one
-// element per lane (the LF4 main path) run the tile kernels of
+// K8, K11 and the packed layout (the stress template: isotropic, packed
+// only): there every FMA takes its table operand from shared memory, the
+// per-lane face arrays sit in local memory, and the stress kernel repeats
+// its volume product for each Voigt row.  K1 and K2 with one element per
+// lane (the LF4 main path), and K9 on the v2 path, run the tile kernels of
 // merged_tile.cuh instead, designed for this card:
 //   - A block owns a tile of T consecutive lanes of ONE class (grid: tiles
 //     of a class x classes), so the neighbour rows of a (class, face) form
@@ -91,12 +92,15 @@
 //       ANISO as K2)
 // which run the same _vel2_body / _stress2_body on traces exchanged
 // beforehand (solver/lane_fused.py, K10 in trace_exchange.cu).  They are the
-// V2 = true instantiations of the K1/K2 templates below: the neighbour value
-// is row c*ftpp + f*n_fp + k of the lane itself, already signed and already
-// the own value on boundary faces (no plan, no sign, no mask), and the
+// V2 = true instantiations of the K1/K2 templates: K8 of the per-lane
+// merged_vel_kernel, K9 of the tile kernel (merged_tile_kernel with VEL
+// false, V2 true, both Hooke laws).  The neighbour value is row c*ftpp +
+// f*n_fp + k of the lane itself, already signed and already the own value
+// on boundary faces (no plan, no shift, no sign, no mask: the tile kernel's
+// grid is one class of all Ls lanes, whose tiles take 16-byte copies when
+// whole and aligned, and its geo rows have no mask section), and the
 // emitted traces are written component-major, rows c*ftpp + f*n_fp + k, pad
-// rows 0.  Same arithmetic and bound as K1/K2.  The V2 = false, NPAR = 1
-// instantiation is not built: K1/K2 run the tile kernels there.
+// rows 0.  Same arithmetic and bound as K1/K2.
 //
 // The packed P1 layout (NPAR = 2; only the P1 triangle and tetrahedron are
 // instantiated) is the branch of the same Pallas kernels that runs on
@@ -115,8 +119,8 @@
 // producer t2 sits at lane (t2 / 2)*NC + j + s, rows f2*rtf + (t2 % 2)*rtq.
 // What packing saves on this card is device-memory traffic: the pad rows
 // 4..7 of every P1 state, damp and output block are neither read nor
-// written.  NPAR = 1 compiles to the unpacked kernels as before (the parity
-// is the constant 0).
+// written.  NPAR = 1 compiles to the unpacked K8 (the parity is the
+// constant 0).
 //
 // K11 p1_pack_vel replaces seigen_tpu/bench/p1_pack_probe.py:packed_vel_op
 // (:176 -> _packed_vel_kernel :121), the probe's packed P1/3D velocity
@@ -327,15 +331,13 @@ merged_vel_kernel(const MergedArgs a) {
 
 // ---------------------------------------------------------------- K2 ---
 // ds_k = sum_{d,c} A_k[d,c] (du_c/dx_d) + LIFT(sum_{d,c} A_k[d,c] n_d du*_c)
-// with A the Hooke tensor in Voigt row k — isotropic (lambda, mu), or with
-// ANISO the element's general Voigt stiffness, A_k[d,c] = C[k][voigt(c,d)],
-// whose row k is loaded from the geo C section inside the k loop — and
-// du*_c = scb * u+_c + dfs * u-_c (u+ = producer velocity trace, u- on
-// boundary faces).  Emits the traction traces n . sigma of the output.
-// ANISO is a template parameter so that the isotropic instantiation keeps
-// its registers.  V2: u+_c is the lane's own row of the exchanged traces
-// (K9).  NPAR = 2: the packed P1 layout (isotropic only), parity blockIdx.y.
-template <int DIM, int NP, int NFP, int NPAR, bool ANISO, bool V2>
+// with A the isotropic Hooke tensor (lambda, mu) in Voigt row k and du*_c
+// = scb * u+_c + dfs * u-_c (u+ = producer velocity trace, u- on boundary
+// faces).  Emits the traction traces n . sigma of the output.  V2: u+_c is
+// the lane's own row of the exchanged traces (K9).  Built for the packed
+// P1 layout only (NPAR = 2, isotropic, parity blockIdx.y): one element per
+// lane runs the tile kernel, both Hooke laws.
+template <int DIM, int NP, int NFP, int NPAR, bool V2>
 __global__ void __launch_bounds__(kThreads)
 merged_stress_kernel(const MergedArgs a) {
   using S = Shape<DIM, NP, NFP>;
@@ -359,9 +361,8 @@ merged_stress_kernel(const MergedArgs a) {
   for (int r = 0; r < DIM; ++r)
 #pragma unroll
     for (int d = 0; d < DIM; ++d) g[r][d] = geo(a.o_ginv + NPAR * (r * DIM + d) + par);
-  float lam = 0.f, mu = 0.f;
-  if constexpr (!ANISO)
-    lam = geo(a.o_mat + NPAR + par), mu = geo(a.o_mat + 2 * NPAR + par);
+  const float lam = geo(a.o_mat + NPAR + par);
+  const float mu = geo(a.o_mat + 2 * NPAR + par);
 
   FaceLinks<NF, NPAR> fl;
   if constexpr (!V2) face_links<NF, NFP, NPAR>(a, L, fl, par);
@@ -391,20 +392,9 @@ merged_stress_kernel(const MergedArgs a) {
   for (int k = 0; k < NSIG; ++k) {
     // B[r][c] = sum_d A_k[d,c] Ginv[r,d]: volume term = sum_r Dr_r @ w_r,
     // w_r = sum_c B[r][c] u_c
-    float Ck[NSIG];
-    if constexpr (ANISO) {
-#pragma unroll
-      for (int m = 0; m < NSIG; ++m) Ck[m] = geo(a.o_C + 8 * k + m);
-    }
-    auto hooke = [&](const float* v, float* w) {
-      if constexpr (ANISO)
-        voigt_row<DIM>(Ck, v, w);
-      else
-        hooke_row<DIM>(k, lam, mu, v, w);
-    };
     float B[DIM][DIM];
 #pragma unroll
-    for (int r = 0; r < DIM; ++r) hooke(g[r], B[r]);
+    for (int r = 0; r < DIM; ++r) hooke_row<DIM>(k, lam, mu, g[r], B[r]);
     float acc[NP];
 #pragma unroll
     for (int i = 0; i < NP; ++i) acc[i] = 0.f;
@@ -429,7 +419,7 @@ merged_stress_kernel(const MergedArgs a) {
       float n[DIM], F[DIM];
 #pragma unroll
       for (int d = 0; d < DIM; ++d) n[d] = geo(a.o_nrm + 8 * d + h + f);
-      hooke(n, F);
+      hooke_row<DIM>(k, lam, mu, n, F);
 #pragma unroll 1
       for (int kk = 0; kk < NFP; ++kk) {
         const int q = f * NFP + kk;
@@ -488,13 +478,13 @@ merged_stress_kernel(const MergedArgs a) {
           a.trout[((long long)c * a.rtf + q) * Ls + L] = 0.f;
 }
 
-// ------------------------------------------------ K1/K2, tiled (NPAR = 1) ---
+// ------------------------------------------- K1/K2/K9, tiled (NPAR = 1) ---
 // One block per tile of T lanes of one class: blockIdx = (tile, class).
-template <int DIM, int NP, int NFP, bool VEL, bool ANISO>
+template <int DIM, int NP, int NFP, bool VEL, bool ANISO, bool V2>
 __global__ void
-__launch_bounds__(tile::Layout<DIM, NP, NFP, VEL, ANISO>::THREADS)
+__launch_bounds__(tile::Layout<DIM, NP, NFP, VEL, ANISO, V2>::THREADS)
 merged_tile_kernel(const MergedArgs a) {
-  using LY = tile::Layout<DIM, NP, NFP, VEL, ANISO>;
+  using LY = tile::Layout<DIM, NP, NFP, VEL, ANISO, V2>;
   extern __shared__ float4 s_dyn[];
   if constexpr (VEL)
     tile::vel_tile<LY>(a, reinterpret_cast<float*>(s_dyn));
@@ -504,50 +494,59 @@ merged_tile_kernel(const MergedArgs a) {
 
 // The dynamic shared memory is raised above 48 KB once per instantiation;
 // an error there is returned like a launch error.
-template <int DIM, int NP, int NFP, bool VEL, bool ANISO>
+template <int DIM, int NP, int NFP, bool VEL, bool ANISO, bool V2>
 int launch_tile(const MergedArgs& a, cudaStream_t stream) {
-  using LY = tile::Layout<DIM, NP, NFP, VEL, ANISO>;
+  using LY = tile::Layout<DIM, NP, NFP, VEL, ANISO, V2>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      merged_tile_kernel<DIM, NP, NFP, VEL, ANISO>,
+      merged_tile_kernel<DIM, NP, NFP, VEL, ANISO, V2>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, LY::BYTES);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((unsigned)((a.NC + LY::T - 1) / LY::T),
                   (unsigned)(a.Ls / a.NC));
-  merged_tile_kernel<DIM, NP, NFP, VEL, ANISO>
+  merged_tile_kernel<DIM, NP, NFP, VEL, ANISO, V2>
       <<<grid, LY::THREADS, LY::BYTES, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int DIM, int NP, int NFP, int NPAR, bool V2>
-int launch_layout(bool vel, const MergedArgs& a, cudaStream_t stream) {
+// The per-lane templates, one thread a lane (K8, K11 and the packed
+// layout); the stress kernel has the isotropic law only.
+template <int DIM, int NP, int NFP, int NPAR, bool V2, bool VEL>
+int launch_lane(const MergedArgs& a, cudaStream_t stream) {
   const dim3 grid((unsigned)((a.Ls + kThreads - 1) / kThreads), NPAR);
-  if (vel) {
+  if constexpr (VEL) {
     merged_vel_kernel<DIM, NP, NFP, NPAR, V2><<<grid, kThreads, 0, stream>>>(a);
-  } else if (a.o_C < 0) {
-    merged_stress_kernel<DIM, NP, NFP, NPAR, false, V2>
-        <<<grid, kThreads, 0, stream>>>(a);
   } else {
-    if constexpr (NPAR == 1)
-      merged_stress_kernel<DIM, NP, NFP, NPAR, true, V2>
-          <<<grid, kThreads, 0, stream>>>(a);
-    else
-      return -1;  // the packed layout is isotropic only
+    if (a.o_C >= 0) return -1;
+    merged_stress_kernel<DIM, NP, NFP, NPAR, V2>
+        <<<grid, kThreads, 0, stream>>>(a);
   }
   return (int)cudaGetLastError();
 }
 
-// op: 0 K1, 1 K2, 2 K8, 3 K9.  K1/K2 with one element per lane run the
-// tile kernels; K8/K9 and the packed layout the per-lane templates.
+// op: 0 K1, 1 K2, 2 K8, 3 K9.  With one element per lane K1, K2 and K9 run
+// the tile kernels (a->o_C >= 0: the general Hooke law) and K8 its
+// per-lane template; the packed layout runs the per-lane templates.
 template <int DIM, int NP, int NFP, int NPAR>
 int launch(int op, const MergedArgs& a, cudaStream_t stream) {
-  if (op >= 2)
-    return launch_layout<DIM, NP, NFP, NPAR, true>(op == 2, a, stream);
   if constexpr (NPAR == 2) {
-    return launch_layout<DIM, NP, NFP, NPAR, false>(op == 0, a, stream);
+    switch (op) {
+      case 0: return launch_lane<DIM, NP, NFP, 2, false, true>(a, stream);
+      case 1: return launch_lane<DIM, NP, NFP, 2, false, false>(a, stream);
+      case 2: return launch_lane<DIM, NP, NFP, 2, true, true>(a, stream);
+      default: return launch_lane<DIM, NP, NFP, 2, true, false>(a, stream);
+    }
   } else {
-    if (op == 0) return launch_tile<DIM, NP, NFP, true, false>(a, stream);
-    if (a.o_C < 0) return launch_tile<DIM, NP, NFP, false, false>(a, stream);
-    return launch_tile<DIM, NP, NFP, false, true>(a, stream);
+    const bool aniso = a.o_C >= 0;
+    switch (op) {
+      case 0: return launch_tile<DIM, NP, NFP, true, false, false>(a, stream);
+      case 1:
+        return aniso ? launch_tile<DIM, NP, NFP, false, true, false>(a, stream)
+                     : launch_tile<DIM, NP, NFP, false, false, false>(a, stream);
+      case 2: return launch_lane<DIM, NP, NFP, 1, true, true>(a, stream);
+      default:
+        return aniso ? launch_tile<DIM, NP, NFP, false, true, true>(a, stream)
+                     : launch_tile<DIM, NP, NFP, false, false, true>(a, stream);
+    }
   }
 }
 
@@ -596,7 +595,8 @@ int seigen_fused_vel2(const MergedArgs* a, int dim, int n_p, int n_fp,
   return dispatch(2, a, dim, n_p, n_fp, stream);
 }
 
-// K9: K2 on consumer-ordered traces; a->o_C >= 0 as for K2.
+// K9: K2 on consumer-ordered traces (a->rtf = ftpp, a->NC = a->Ls, plan
+// and mask unused); a->o_C >= 0 as for K2.
 int seigen_fused_stress2(const MergedArgs* a, int dim, int n_p, int n_fp,
                          void* stream) {
   return dispatch(3, a, dim, n_p, n_fp, stream);
@@ -607,8 +607,8 @@ int seigen_fused_stress2(const MergedArgs* a, int dim, int n_p, int n_fp,
 int seigen_p1_pack_vel(const MergedArgs* a, int dim, int n_p, int n_fp,
                        void* stream) {
   if (a->n_par != 2 || dim * 10000 + n_p * 100 + n_fp != 30403) return -1;
-  return launch_layout<3, 4, 3, 2, true>(
-      true, *a, static_cast<cudaStream_t>(stream));
+  return launch_lane<3, 4, 3, 2, true, true>(
+      *a, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

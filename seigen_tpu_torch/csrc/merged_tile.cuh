@@ -1,8 +1,10 @@
 // Tile kernels of K1 merged_vel and K2 merged_stress for the merged layout
-// with one element per lane (merged_kernels.cu dispatches them; its head
-// note gives the design and the reasons).  A block owns T consecutive lanes
-// of one class and stages them in shared memory; a thread then owns RM
-// nodes of one lane in the node-by-lane products.
+// with one element per lane, and of K9 fused_stress2, K2's V2 instantiation
+// on the v2 engine's exchanged traces (merged_kernels.cu dispatches them;
+// its head note gives the design and the reasons).  A block owns T
+// consecutive lanes of one class (V2: of the one class of all Ls lanes) and
+// stages them in shared memory; a thread then owns RM nodes of one lane in
+// the node-by-lane products.
 //
 // Everything per lane that is indexed at run time (face data, neighbour
 // links, Hooke coefficients) lives in shared memory; register arrays are
@@ -37,7 +39,8 @@ namespace tile {
 //   IN   K1: NP x WS x T, sigma at rows j*WS + m, then w_rc at j*WS +
 //        r*DIM + c in place; K2: DIM x NP x T, u at rows c*NP + j
 //   NB   DIM x NFT x T the neighbour's trace at rows c*NFT + q, then the
-//        flux (K1) or the velocity jump (K2) in place
+//        flux (K1) or the velocity jump (K2) in place; V2: the lane's own
+//        rows c*rtf + q of the exchanged traces
 //   F    K2 ANISO: NF x NSIG x DIM x T, F_kc of face f at (f*NSIG + k)*DIM
 //        + c (the isotropic law forms it from lambda, mu and n in
 //        registers)
@@ -45,10 +48,12 @@ namespace tile {
 //   ints NFT face nodes
 // The output tile (COUT x NP x T, rows c*NP + i) takes the place of IN
 // (and NB) once the products have read them.
-template <int DIM_, int NP_, int NFP_, bool VEL_, bool ANISO_>
+// V2: the exchanged traces already hold the own value on boundary faces,
+// so there is no mask; the output's traces are emitted component-major.
+template <int DIM_, int NP_, int NFP_, bool VEL_, bool ANISO_, bool V2_>
 struct Layout {
   static constexpr int DIM = DIM_, NP = NP_, NFP = NFP_;
-  static constexpr bool VEL = VEL_, ANISO = ANISO_;
+  static constexpr bool VEL = VEL_, ANISO = ANISO_, V2 = V2_;
   using S = Shape<DIM, NP, NFP>;
   static constexpr int NF = S::NF, NFT = S::NFT, NSIG = S::NSIG;
   static constexpr int RM = DIM == 3 && NP >= 10 ? 2 : 4;
@@ -62,14 +67,14 @@ struct Layout {
   static constexpr int CIN = VEL ? NSIG : DIM;
   static constexpr int COUT = VEL ? DIM : NSIG;
   // geo rows: Ginv r*DIM + d; normals d*NF + f; scb f; bfs (K1) or dfs
-  // (K2) f; the own-trace mask f; material: 1/rho (K1), lambda and mu
-  // (K2), or C[k][m] at k*NSIG + m (K2 ANISO)
+  // (K2) f; the own-trace mask f (not V2); material: 1/rho (K1), lambda
+  // and mu (K2), or C[k][m] at k*NSIG + m (K2 ANISO)
   static constexpr int G_GINV = 0;
   static constexpr int G_NRM = DIM * DIM;
   static constexpr int G_SCB = G_NRM + DIM * NF;
   static constexpr int G_BFS = G_SCB + NF;
   static constexpr int G_MASK = G_BFS + NF;
-  static constexpr int G_MAT = G_MASK + NF;
+  static constexpr int G_MAT = G_MASK + (V2 ? 0 : NF);
   static constexpr int N_MAT = VEL ? 1 : (ANISO ? NSIG * NSIG : 2);
   static constexpr int GR = G_MAT + N_MAT;
   static constexpr int OFF_A = 0;
@@ -195,8 +200,9 @@ __device__ __forceinline__ const float* in_src(const Args& a, int r) {
 // lanes past nvalid loading the last live lane); and the neighbour's trace
 // rows f2*rtf + c*NFP + pi[k] at lanes t2*NC + j0 + s + l, clamped into
 // the class t2 (16 bytes a copy where the face's shift s keeps the
-// segment aligned and inside the class, else 4 bytes).  Consecutive
-// threads copy consecutive lanes.
+// segment aligned and inside the class, else 4 bytes), or with V2 the
+// lane's own rows c*rtf + q of the exchanged traces (as the input).
+// Consecutive threads copy consecutive lanes.
 template <class LY, class Args>
 __device__ __forceinline__ void stage(const Args& a, const Tile& tl,
                                       float* sm) {
@@ -230,28 +236,45 @@ __device__ __forceinline__ void stage(const Args& a, const Tile& tl,
       cp_async4(sm + LY::OFF_GEO + r * T + tl.l, geo_row<LY>(a, r) + own);
   }
   const bool vec_tr = vec && ((uintptr_t)a.trs & 15) == 0;
-#pragma unroll
-  for (int f = 0; f < LY::NF; ++f) {
-    const int* pe = a.plan + (tl.t * LY::NF + f) * (3 + NFP);
-    const int s = pe[2];
-    const float* base =
-        a.trs + (long long)pe[1] * a.rtf * Ls + (long long)pe[0] * a.NC;
-    float* dst = sm + LY::OFF_NB + f * NFP * T;
-    if (vec_tr && (s & 3) == 0 && tl.j0 + s >= 0 && tl.j0 + s + T <= a.NC) {
-      // the whole segment lies in the class, 16-byte aligned
-      for (int e = threadIdx.x; e < LY::DIM * NFP * Q; e += LY::THREADS) {
-        const int r = e / Q, l4 = (e % Q) * 4, c = r / NFP, k = r % NFP;
-        cp_async16(dst + (c * NFT + k) * T + l4,
-                   base + (long long)(c * NFP + pe[3 + k]) * Ls + tl.j0 + s +
-                       l4);
+  if constexpr (LY::V2) {
+    float* dst = sm + LY::OFF_NB;
+    auto src = [&](int r) {  // row r = c*NFT + q
+      return a.trs + ((long long)(r / NFT) * a.rtf + r % NFT) * Ls;
+    };
+    if (vec_tr) {
+      for (int e = threadIdx.x; e < LY::DIM * NFT * Q; e += LY::THREADS) {
+        const int r = e / Q, l4 = (e % Q) * 4;
+        cp_async16(dst + r * T + l4, src(r) + tl.lane0 + l4);
       }
     } else {
-      int jn = tl.j0 + tl.l + s;
-      jn = jn < 0 ? 0 : (jn >= a.NC ? a.NC - 1 : jn);
-      for (int r = tl.ig; r < LY::DIM * NFP; r += NG) {
-        const int c = r / NFP, k = r % NFP;
-        cp_async4(dst + (c * NFT + k) * T + tl.l,
-                  base + (long long)(c * NFP + pe[3 + k]) * Ls + jn);
+      const long long own = tl.lane0 + min(tl.l, tl.nvalid - 1);
+      for (int r = tl.ig; r < LY::DIM * NFT; r += NG)
+        cp_async4(dst + r * T + tl.l, src(r) + own);
+    }
+  } else {
+#pragma unroll
+    for (int f = 0; f < LY::NF; ++f) {
+      const int* pe = a.plan + (tl.t * LY::NF + f) * (3 + NFP);
+      const int s = pe[2];
+      const float* base =
+          a.trs + (long long)pe[1] * a.rtf * Ls + (long long)pe[0] * a.NC;
+      float* dst = sm + LY::OFF_NB + f * NFP * T;
+      if (vec_tr && (s & 3) == 0 && tl.j0 + s >= 0 && tl.j0 + s + T <= a.NC) {
+        // the whole segment lies in the class, 16-byte aligned
+        for (int e = threadIdx.x; e < LY::DIM * NFP * Q; e += LY::THREADS) {
+          const int r = e / Q, l4 = (e % Q) * 4, c = r / NFP, k = r % NFP;
+          cp_async16(dst + (c * NFT + k) * T + l4,
+                     base + (long long)(c * NFP + pe[3 + k]) * Ls + tl.j0 +
+                         s + l4);
+        }
+      } else {
+        int jn = tl.j0 + tl.l + s;
+        jn = jn < 0 ? 0 : (jn >= a.NC ? a.NC - 1 : jn);
+        for (int r = tl.ig; r < LY::DIM * NFP; r += NG) {
+          const int c = r / NFP, k = r % NFP;
+          cp_async4(dst + (c * NFT + k) * T + tl.l,
+                    base + (long long)(c * NFP + pe[3 + k]) * Ls + jn);
+        }
       }
     }
   }
@@ -335,8 +358,9 @@ __device__ __forceinline__ void store_tile(const Args& a, const Tile& tl,
   }
 }
 
-// Face-major traces of the output, rows f*rtf + c*NFP + k (pad rows 0):
-// the velocity itself (K1) or the traction n . sigma (K2) at face node k.
+// The traces of the output (pad rows 0): the velocity itself (K1) or the
+// traction n . sigma (K2) at face node q = f*NFP + k, face-major at rows
+// f*rtf + c*NFP + k, or with V2 component-major at rows c*rtf + q.
 template <class LY, class Args>
 __device__ __forceinline__ void emit(const Args& a, const Tile& tl,
                                      const float* sm) {
@@ -346,13 +370,15 @@ __device__ __forceinline__ void emit(const Args& a, const Tile& tl,
   const float* s_geo = sm + LY::OFF_GEO + tl.l;
   const int* s_fn = reinterpret_cast<const int*>(sm + LY::OFF_INT);
   const long long Ls = a.Ls, L = tl.lane0 + tl.l;
+  // row distance of the components of one face node
+  const size_t cs = (size_t)(LY::V2 ? a.rtf : NFP) * Ls;
   for (int q = tl.ig; q < LY::NFT; q += LY::NG) {
     const int f = q / NFP, node = s_fn[q];
-    float* tr = a.trout + ((size_t)f * a.rtf + q % NFP) * Ls + L;
+    float* tr = LY::V2 ? a.trout + (size_t)q * Ls + L
+                       : a.trout + ((size_t)f * a.rtf + q % NFP) * Ls + L;
     if constexpr (LY::VEL) {
 #pragma unroll
-      for (int c = 0; c < DIM; ++c)
-        tr[(size_t)c * NFP * Ls] = s_out[(c * NP + node) * T];
+      for (int c = 0; c < DIM; ++c) tr[c * cs] = s_out[(c * NP + node) * T];
     } else {
       float n[DIM], sv[LY::NSIG];
 #pragma unroll
@@ -365,13 +391,20 @@ __device__ __forceinline__ void emit(const Args& a, const Tile& tl,
         float t = 0.f;
 #pragma unroll
         for (int d = 0; d < DIM; ++d) t += n[d] * sv[voigt<DIM>(c, d)];
-        tr[(size_t)c * NFP * Ls] = t;
+        tr[c * cs] = t;
       }
     }
   }
-  const int pad = a.rtf - DIM * NFP;
-  for (int r = tl.ig; r < LY::NF * pad; r += LY::NG)
-    a.trout[((size_t)(r / pad) * a.rtf + DIM * NFP + r % pad) * Ls + L] = 0.f;
+  if constexpr (LY::V2) {  // rows NFT..rtf-1 of every component
+    const int pad = a.rtf - LY::NFT;
+    for (int r = tl.ig; r < DIM * pad; r += LY::NG)
+      a.trout[((size_t)(r / pad) * a.rtf + LY::NFT + r % pad) * Ls + L] = 0.f;
+  } else {  // rows DIM*NFP..rtf-1 of every face
+    const int pad = a.rtf - DIM * NFP;
+    for (int r = tl.ig; r < LY::NF * pad; r += LY::NG)
+      a.trout[((size_t)(r / pad) * a.rtf + DIM * NFP + r % pad) * Ls + L] =
+          0.f;
+  }
 }
 
 // K1: du_c = (1/rho) [Dr_1 .. Dr_DIM | LIFT] @ [w_1c; ..; w_DIMc; flux_c],
@@ -393,7 +426,8 @@ __device__ __forceinline__ void vel_tile(const Args& a, float* sm) {
   // or t- on a boundary face
   for (int q = tl.ig; q < NFT; q += NG) {
     const int f = q / NFP, node = s_fn[q];
-    const bool own_only = geo(LY::G_MASK + f) != 0.f;
+    bool own_only = false;
+    if constexpr (!LY::V2) own_only = geo(LY::G_MASK + f) != 0.f;
     const float scb = geo(LY::G_SCB + f), bfs = geo(LY::G_BFS + f);
     float n[DIM], sv[NSIG];
 #pragma unroll
@@ -497,7 +531,8 @@ __device__ __forceinline__ void stress_tile(const Args& a, float* sm) {
   // the jump at every face node (u+ = u- on a boundary face)
   for (int q = tl.ig; q < NFT; q += NG) {
     const int f = q / NFP, node = s_fn[q];
-    const bool own_only = geo(LY::G_MASK + f) != 0.f;
+    bool own_only = false;
+    if constexpr (!LY::V2) own_only = geo(LY::G_MASK + f) != 0.f;
     const float scb = geo(LY::G_SCB + f), dfs = geo(LY::G_BFS + f);
 #pragma unroll
     for (int c = 0; c < DIM; ++c) {

@@ -28,7 +28,7 @@
 // arithmetic is ~20 kFLOP per lane after the reorder below, ~25 us at the
 // 67 TFLOP/s FP32 rate: the op is bytes bound.
 //
-// Design: the tile kernel of upwind_tile.cuh, shared with K7, on the
+// Design: the tile kernel of upwind_tile.cuh, shared with K6/K7, on the
 // merged layout (the first design, one thread a lane with its Riemann
 // corrections in local memory, is gone):
 //   - A block owns a tile of T consecutive lanes of ONE class (grid: tiles

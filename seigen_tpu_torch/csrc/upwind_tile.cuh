@@ -1,10 +1,11 @@
 // Tile kernels of the coupled upwind (Godunov) operator: K3 upwind_rhs
-// (upwind_kernels.cu, the merged layout) and K7 lane_upwind_axpy
-// (lane_upwind_kernels.cu, the unstructured lane layout).  Both compute
+// (upwind_kernels.cu, the merged layout), and K6 lane_upwind_rhs and K7
+// lane_upwind_axpy (lane_upwind_kernels.cu, the unstructured lane layout).
+// All compute
 //   du = (1/rho)(div sigma + LIFT(Fscale (t* - t-)))
 //   ds = Hooke(grad u) + LIFT(Fscale Hooke_f(u* - u-))
 // and differ in where the plus-side traces come from (K3: the producer's
-// payload trace at the plan's shift; K7: the selected rows of two raw
+// payload trace at the plan's shift; K6/K7: the selected rows of two raw
 // panels), in the geometry rows and in the epilogue.  This header holds
 // what they share, on the pattern of merged_tile.cuh (K1/K2): a block owns
 // T consecutive lanes, stages them in shared memory, and a thread then owns
@@ -66,7 +67,7 @@ struct Layout {
   static constexpr int WS = DIM * DIM;
   static constexpr int NIN = (NSIG + DIM) * NP;  // staged state rows
   // geo rows: Ginv r*DIM + d; normals d*NF + f; Fscale (K3: scb = Fscale
-  // / 2) f; neighbour Zp, Zs f; ghost (K3) or sign (K7) of u+ and t+ f;
+  // / 2) f; neighbour Zp, Zs f; ghost (K3) or sign (K6/K7) of u+ and t+ f;
   // 1/rho, lambda, mu; own Zp, Zs; K3: the own-trace mask f
   static constexpr int G_GINV = 0;
   static constexpr int G_NRM = DIM * DIM;
@@ -92,7 +93,7 @@ struct Layout {
   static_assert(BYTES <= 227 * 1024, "shared memory of one block");
 };
 
-// The block's tile: first lane j0 of class blockIdx.y (K7: one class of
+// The block's tile: first lane j0 of class blockIdx.y (K6/K7: one class of
 // NC = E lanes), nvalid live lanes (the last tile is ragged); the thread's
 // lane l and node group ig (threadIdx.x = ig*T + l); own = the lane the
 // thread stages for, clamped to the last live one.

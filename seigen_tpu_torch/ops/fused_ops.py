@@ -18,9 +18,10 @@ c*ftpp + par*ftq + f*n_fp + k, ftq = nf*n_fp.
 
 The physics is that of the merged operators, written once in
 ops/merged_kernels.py:vel_body / stress_body; the kernels are the V2
-instantiations of K1/K2 (csrc/merged_kernels.cu).  ``vel2_op``/``stress2_op``
-launch K8/K9 for CUDA tensors and run ``vel2_op_ref``/``stress2_op_ref`` for
-CPU tensors.  Launch counts: ``VEL2_KERNEL.launches``,
+instantiations of K1/K2 (csrc/merged_kernels.cu): K8 of the per-lane
+velocity template, K9 of the stress tile kernel (csrc/merged_tile.cuh).
+``vel2_op``/``stress2_op`` launch K8/K9 for CUDA tensors and run
+``vel2_op_ref``/``stress2_op_ref`` for CPU tensors.  Launch counts: ``VEL2_KERNEL.launches``,
 ``STRESS2_KERNEL.launches``, ``STRESS2_KERNEL.launches_c`` (general Hooke
 law) and ``launches_pk`` of both (packed layout).  Source injection happens outside these operators (the v2 runner
 scatters it into the field and the traces).

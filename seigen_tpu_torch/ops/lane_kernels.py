@@ -68,7 +68,7 @@ class LaneOpData:
     kdr: torch.Tensor  # (dim, n_p, n_p) float32 kernel table
     klift: torch.Tensor  # (n_p, ftp) float32 kernel table
     kfn: torch.Tensor  # (nf, n_fp) int32 face node ids
-    ktile: torch.Tensor  # float32 product table of the K7 tile kernel
+    ktile: torch.Tensor  # float32 product table of the K6/K7 tile kernel
     #                      (fused_kernels.tile_table)
     dim: int
     n_p: int

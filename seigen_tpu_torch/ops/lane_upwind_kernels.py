@@ -206,7 +206,7 @@ class LaneUpwindArgs(ctypes.Structure):
         "u", "s", "pu", "pt", "combo", "sign_u", "sign_t", "perms", "ginv",
         "nrm", "fsc", "irho", "lam", "mu", "zpn", "zsn", "zown", "base_u",
         "base_s", "acc_u", "acc_s", "damp", "inj_u0", "inj_s0", "inj_u1",
-        "inj_s1", "dr", "lift", "fnodes", "tab", "out")] + [
+        "inj_s1", "fnodes", "tab", "out")] + [
         ("E", ctypes.c_longlong)] + [(n, ctypes.c_int) for n in (
             "npp", "ftpp", "rows_pad", "cstride", "G", "stage", "n_inj",
             "emit")] + [(n, ctypes.c_float) for n in (
@@ -295,8 +295,7 @@ class LaneUpwindKernel:
             zpn=ptr(zpn), zsn=ptr(zsn), zown=ptr(zown), base_u=ptr(base_u),
             base_s=ptr(base_s), acc_u=ptr(acc_u), acc_s=ptr(acc_s),
             damp=ptr(damp_row), inj_u0=inj(0, 0), inj_s0=inj(0, 1),
-            inj_u1=inj(1, 0), inj_s1=inj(1, 1), dr=ptr(d.kdr),
-            lift=ptr(d.klift), fnodes=ptr(d.kfn),
+            inj_u1=inj(1, 0), inj_s1=inj(1, 1), fnodes=ptr(d.kfn),
             tab=ptr(d.ktile), out=ptr(out),
             E=E, npp=d.npp, ftpp=d.ftpp, rows_pad=rows_pad, cstride=cstride,
             G=perm_t.shape[0], stage=int(stage), n_inj=len(inject),

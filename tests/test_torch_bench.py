@@ -198,34 +198,32 @@ def test_profile_groups_kernels_and_needs_cuda(monkeypatch):
     names = {
         "void (anonymous namespace)::upwind_tile_kernel<3, 20, 10>"
         "(UpwindArgs)": "upwind_rhs",
-        "void (anonymous namespace)::lane_upwind_tile_kernel<3, 20, 10>"
-        "(LaneUpwindArgs)": "lane_upwind_axpy",
-        "void (anonymous namespace)::lane_upwind_kernel<3, 20, 10>"
-        "(LaneUpwindArgs)": "lane_upwind_rhs",
-        "void (anonymous namespace)::merged_vel_kernel<3, 20, 10, 1, false>"
-        "(MergedArgs)": "merged_vel",
+        "void (anonymous namespace)::lane_upwind_tile_kernel<3, 20, 10, "
+        "true>(LaneUpwindArgs)": "lane_upwind_axpy",
+        "void (anonymous namespace)::lane_upwind_tile_kernel<3, 20, 10, "
+        "false>(LaneUpwindArgs)": "lane_upwind_rhs",
         "void (anonymous namespace)::lane_stress_kernel<3, 20, 10>"
         "(LaneArgs)": "lane_stress",
         "void (anonymous namespace)::merged_vel_kernel<3, 20, 10, 1, true>"
         "(MergedArgs)": "fused_vel2",
         "void (anonymous namespace)::merged_tile_kernel<3, 20, 10, true, "
-        "false>(MergedArgs)": "merged_vel",
+        "false, false>(MergedArgs)": "merged_vel",
         "void (anonymous namespace)::merged_tile_kernel<3, 20, 10, false, "
-        "false>(MergedArgs)": "merged_stress",
+        "false, false>(MergedArgs)": "merged_stress",
         "void (anonymous namespace)::merged_tile_kernel<2, 6, 3, false, "
-        "true>(MergedArgs)": "merged_stress",
-        "void (anonymous namespace)::merged_stress_kernel<3, 20, 10, 1, "
         "true, false>(MergedArgs)": "merged_stress",
-        "void (anonymous namespace)::merged_stress_kernel<3, 20, 10, 1, "
+        "void (anonymous namespace)::merged_tile_kernel<3, 20, 10, false, "
+        "false, true>(MergedArgs)": "fused_stress2",
+        "void (anonymous namespace)::merged_tile_kernel<2, 6, 3, false, "
         "true, true>(MergedArgs)": "fused_stress2",
         "void (anonymous namespace)::merged_vel_kernel<3, 4, 3, 2, false>"
         "(MergedArgs)": "merged_vel[pk]",
         "void (anonymous namespace)::merged_stress_kernel<3, 4, 3, 2, "
-        "false, false>(MergedArgs)": "merged_stress[pk]",
+        "false>(MergedArgs)": "merged_stress[pk]",
         "void (anonymous namespace)::merged_vel_kernel<3, 4, 3, 2, true>"
         "(MergedArgs)": "fused_vel2[pk]",
         "void (anonymous namespace)::merged_stress_kernel<2, 3, 2, 2, "
-        "false, true>(MergedArgs)": "fused_stress2[pk]",
+        "true>(MergedArgs)": "fused_stress2[pk]",
         "void (anonymous namespace)::trace_exchange_kernel(ExchangeArgs)":
         "trace_exchange",
         "void at::native::_scatter_gather_elementwise_kernel<128, 4>":
@@ -241,6 +239,45 @@ def test_profile_groups_kernels_and_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         ps.profile(n=2, degree=2)
+
+
+def test_merged_ab_family_tables():
+    """bench/merged_ab.py's tables: each family times its kernel variants
+    once each (fused: K9 plain, axpy, axpy + damp, K9-C, K8; upwind: K6
+    among K3/K7), and each bench's label is the throughput command line of
+    its impl and options; the first turn profiles the upwind steps and the
+    fused one."""
+    import argparse
+
+    from seigen_tpu_torch.bench import merged_ab as ab
+
+    assert set(ab.FAMILIES) == set(ab.STEPS) == {"merged", "upwind",
+                                                  "fused"}
+    for variants in ab.FAMILIES.values():
+        assert len(set(variants)) == len(variants)
+    assert ab.FAMILIES["fused"] == (
+        ("fused_stress2", "plain"), ("fused_stress2", "axpy"),
+        ("fused_stress2", "axpy_damp"), ("fused_stress2[C]", "plain"),
+        ("fused_stress2[C]", "axpy_damp"), ("fused_vel2", "plain"),
+        ("fused_vel2", "axpy"))
+    assert ("lane_upwind_rhs", "rhs") in ab.FAMILIES["upwind"]
+    ap = argparse.ArgumentParser()
+    tbench.add_vti_argument(ap)
+    tbench.add_upwind_u_arguments(ap)
+    for steps in ab.STEPS.values():
+        for label, impl, opts, _ in steps:
+            first, *flags = label.split()
+            a = ap.parse_args(flags)
+            assert first == impl and impl in tbench.IMPLS
+            assert opts == ({"vti": True} if a.vti else {}) | \
+                tbench.upwind_u_options(a)
+    profiled = {fam: [label for label, *_, prof in steps if prof]
+                for fam, steps in ab.STEPS.items()}
+    assert profiled == {
+        "merged": [], "fused": ["fused"],
+        "upwind": ["upwind_lane", "upwind_lane_u",
+                   "upwind_lane_u --panel-emit",
+                   "upwind_lane_u --no-fused-axpy"]}
 
 
 def test_entry_points_default_to_the_card():
@@ -345,3 +382,42 @@ def test_chip_smoke_upwind_bound_rows_at_3d_p3():
         "rhs": 686, "stage": 1262, "final": 866, "final damp": 886,
         "stage inject1": 1442, "final damp inject2": 1246,
         "stage emit": 1502, "final damp emit": 1126}
+
+
+def test_chip_smoke_fused_rows_at_3d_p3():
+    """chip_smoke.py's compulsory rows per lane at 3D P3 of every K8/K9
+    variant (``fused_rows``: the input's live rows, the dim*ftp exchanged
+    trace rows, 29 geometry rows and the material rows, the variant's axpy
+    (2 x C_out x n_p) and sponge (n_p) rows, the output and its traces)
+    and of K10."""
+    import importlib.util
+
+    from seigen_tpu_torch.mesh import box_mesh, build_discrete
+    from seigen_tpu_torch.ops import Material, build_params
+    from seigen_tpu_torch.ops.structured_exchange import detect_structured
+    from seigen_tpu_torch.solver.lane_fused import FusedLaneRunner
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    dm = build_discrete(box_mesh(2, 2, 2), 3)
+    p = build_params(dm, Material(1.0, 2.0, 1.0), device="cpu")
+    d = FusedLaneRunner(p, detect_structured(dm), 0.01,
+                        impl="reference").d
+    rows = {(k, v, c): smoke.fused_rows(d, k, aniso=c, variant=v)
+            for k, vs, cs in (("fused_vel2", ("plain", "axpy"), (False,)),
+                              ("fused_stress2", ("plain", "axpy",
+                                                 "axpy_damp"),
+                               (False, True)))
+            for v in vs for c in cs}
+    assert rows == {
+        ("fused_vel2", "plain", False): 462,
+        ("fused_vel2", "axpy", False): 582,
+        ("fused_stress2", "plain", False): 475,
+        ("fused_stress2", "axpy", False): 715,
+        ("fused_stress2", "axpy_damp", False): 735,
+        ("fused_stress2", "plain", True): 509,
+        ("fused_stress2", "axpy", True): 749,
+        ("fused_stress2", "axpy_damp", True): 769}
+    assert smoke.fused_rows(d, "trace_exchange") == 244

@@ -13,9 +13,9 @@ of K4 (lane_vel: SIG, TRAC, SEL) and K5 (lane_stress: TR, SEL) against its
 plain version on box_mesh(4, 4, 4) and its scrambled copy at P2 and P3;
 K6 (lane_upwind_rhs) and every mode of K7 (lane_upwind_axpy: stage,
 final, sponge row, 1 and 2 dense groups, panel emission) on scrambled
-box_mesh(4, 4, 4) at P2 and P3 and scrambled rect_mesh(8, 8) P2, and K7's
-modes through its tile kernel at the eight shapes on scrambled copies of
-the meshes above, each launch counted on K7 and not on K6; the
+box_mesh(4, 4, 4) at P2 and P3 and scrambled rect_mesh(8, 8) P2, and K6
+and K7's modes through their tile kernel at the eight shapes on scrambled
+copies of the meshes above, each launch counted on its own kernel; the
 kernel runners (merged LF4, upwind RK4 elastic and viscoelastic, lane LF2,
 lane_u LF4 with both select paths, upwind_lane_u with its three steppers
 and viscoelastic) against the plain runners for a few steps, with their
@@ -25,7 +25,10 @@ random stiffness on box_mesh(4, 4, 4) P2/P3 and rect_mesh(8, 8) P2, plus
 the three runners with a VTI stiffness (``launches_c`` counts); the v2
 engine's K8 (fused_vel2: plain, axpy) and K9 (fused_stress2: plain, axpy +
 damp, and both with a per-element non-symmetric stiffness) on
-box_mesh(4, 4, 4) P2/P3 and rect_mesh(8, 8) P2, K10 (trace_exchange,
+box_mesh(4, 4, 4) P2/P3 and rect_mesh(8, 8) P2, K9's tile kernel (plain,
+axpy, axpy + damp, both Hooke laws) at the eight shapes on the ragged
+meshes above, each launch counted on ``launches`` (and ``launches_c``),
+never on ``launches_pk``, K10 (trace_exchange,
 tractions and velocities) on those meshes and their periodic twins, and
 FusedLaneRunner against its plain runner and the kernel merged runner;
 the packed P1 layout (two elements per lane) of K1/K2 (every variant) and
@@ -661,7 +664,7 @@ def upwind_u_shape_case(request, device):
     return r, data
 
 
-@pytest.mark.parametrize("mode", [m for m in UPWIND_U_MODES if m != "rhs"])
+@pytest.mark.parametrize("mode", list(UPWIND_U_MODES))
 def test_lane_upwind_tile_kernel_matches_plain_at_every_shape(
         upwind_u_shape_case, mode):
     r, x = upwind_u_shape_case
@@ -923,6 +926,78 @@ def test_trace_exchange_kernel_matches_plain(fused_case, device, periodic,
     torch.cuda.synchronize()
     assert lf.TRACE_EXCHANGE.launches == n0 + 1
     assert torch.equal(got, ref)  # a permutation: exact
+
+
+@pytest.fixture(scope="module", params=SHAPES,
+                ids=[f"{d}d-P{k}" for d, k in SHAPES])
+def fused_shape_case(request, device):
+    """Operator data of kernel FusedLaneRunners (isotropic, and with a
+    per-element random stiffness) on box_mesh(5, 3, 4) or rect_mesh(14,
+    10) with a sponge (ragged last tiles), and numpy-seeded K9 operands."""
+    dim, degree = request.param
+    topo = box_mesh(5, 3, 4) if dim == 3 else rect_mesh(14, 10)
+    dm = build_discrete(topo, degree, bc_fn=absorbing_bc_fn(
+        ((0.0, 1.0),) * dim, free_sides=[(dim - 1, "hi")]))
+    p = build_params(dm, Material(1.0, 2.0, 1.0), device=device)
+    damp = torch.as_tensor(sponge_mask(dm, [(0, "lo"), (0, "hi")],
+                                       width=0.3), device=device).float()
+    ex = detect_structured(dm)
+    data = {law: lf.FusedLaneRunner(
+        p, ex, 0.01, damp=damp, impl="kernel",
+        stiffness=(_random_stiffness(dm.num_elements, p.n_sig, 54)
+                   if law == "C" else None)).d for law in ("iso", "C")}
+    d = data["iso"]
+    rng = np.random.default_rng(70 + 10 * dim + degree)
+    x = {"u": _rows(rng, d, d.dim, d.n_p, d.npp, device),
+         "tr": _rows(rng, d, d.dim, d.ftp, d.ftpp, device),
+         "axpy": tuple(_rows(rng, d, d.n_sig, d.n_p, d.npp, device)
+                       for _ in range(2))}
+    return data, x
+
+
+def _fused_stress_call(data, x, law, variant):
+    """(kernel call, plain call) of one K9 variant."""
+    import dataclasses
+
+    d = data[law]
+    kw = {}
+    if variant.startswith("axpy"):
+        kw = dict(axpy=x["axpy"], dt=0.01, c3=0.01**3 / 24.0)
+        if variant == "axpy":  # the stress update without a sponge
+            d = dataclasses.replace(d, damp=None)
+    return (lambda: fo.stress2_op(d, x["u"], x["tr"], **kw),
+            lambda: fo.stress2_op_ref(d, x["u"], x["tr"], **kw))
+
+
+@pytest.mark.parametrize("variant", ["plain", "axpy", "axpy_damp"])
+@pytest.mark.parametrize("law", ["iso", "C"])
+def test_fused_stress_tile_kernel_matches_plain_at_every_shape(
+        fused_shape_case, law, variant):
+    data, x = fused_shape_case
+    kern, plain = _fused_stress_call(data, x, law, variant)
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        _assert_close(g, r)
+
+
+def test_fused_stress_tile_launches_count_on_k9(fused_shape_case):
+    """One K9 launch (the tile kernel) adds one to its ``launches`` (and,
+    with a C section, to ``launches_c``), never to ``launches_pk``, and
+    nothing to K2's counts."""
+    data, x = fused_shape_case
+
+    def counts():
+        k9, k2 = fo.STRESS2_KERNEL, mk.STRESS_KERNEL
+        return (k9.launches, k9.launches_c, k9.launches_pk, k2.launches)
+
+    for law in ("iso", "C"):
+        kern, _ = _fused_stress_call(data, x, law, "axpy_damp")
+        before = counts()
+        kern()
+        torch.cuda.synchronize()
+        assert counts() == (before[0] + 1, before[1] + int(law == "C"),
+                            before[2], before[3])
 
 
 @pytest.mark.parametrize("stiffness", [False, True], ids=["iso", "C"])
