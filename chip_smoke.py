@@ -15,11 +15,12 @@ Phases, each printing its own lines; any failure exits non-zero:
               lane_upwind_axpy) and trace_exchange.cu (K10
               trace_exchange); print ptxas's registers, stack and spills,
               a line for each instantiation of the tile kernels — K1, K2,
-              K2-C, K9, K9-C, K3, K6 and K7 at the eight element shapes
-              (each must report a 0 B stack frame and no spills) — and
-              require K8 (3D P3) and the packed K1/K2/K8/K9 (3D P1) at the
-              registers and stack frames they had before the tile kernels
-              came (their code did not change).
+              K2-C, K9, K9-C, K3, K5, K5-C, K6 and K7 at the eight element
+              shapes and K2pk (the packed K2) at 2D and 3D P1 (each must
+              report a 0 B stack frame and no spills) — and require K4 and
+              K8 (3D P3) and the packed K1/K8/K9 (3D P1) at the registers
+              and stack frames they had before the tile kernels came (their
+              code did not change).
 3. kernels  - every K1/K2 variant (vel plain/axpy/inject with 1 and 2
               groups; stress plain/axpy/axpy+damp/inject with 1 and 2
               groups) against its plain PyTorch version on the card in
@@ -53,10 +54,14 @@ Phases, each printing its own lines; any failure exits non-zero:
 7. lane     - the v1 lane-major LF engine.  Every K4 mode (SIG, TRAC, SEL)
               and K5 mode (TR, SEL) against its plain version: SIG/TR on
               box_mesh(4, 4, 4), TRAC/SEL on its scrambled copy, at P3 and
-              P2, and all five on rect_mesh(8, 8) P2; LaneMajorRunner on
-              the n=24 P3 case, LF2, and UnstructuredLaneRunner on its
-              scrambled copy, LF4, with fused_select True and False, each
-              for 10 steps kernel vs plain (relative L2, launch counts of
+              P2, and all five on rect_mesh(8, 8) P2 (gathered panels of
+              component stride 9, ftpp 16); K5 TR and SEL (K5 is a tile
+              kernel) at the eight element shapes on the meshes of phase 3
+              (ragged last tiles) and their scrambled copies;
+              LaneMajorRunner on the n=24 P3 case, LF2, and
+              UnstructuredLaneRunner on its scrambled copy, LF4, with
+              fused_select True and False, each for 10 steps kernel vs
+              plain (relative L2, launch counts of
               1 K4 + 1 K5 per LF2 step and 3 + 3 per LF4 step,
               finiteness); each mode's time beside its plain version's
               and its bound at n=24 P3; the bench (impl "lane" at LF2 and
@@ -88,10 +93,10 @@ Phases, each printing its own lines; any failure exits non-zero:
               ``launches_c``).  With a per-element NON-symmetric random C:
               K2 plain / axpy / axpy + damp / 1 and 2 source groups at the
               eight shapes and on the meshes of phase 3, K5 modes TR and
-              SEL on box_mesh(4, 4, 4) at P3 and P2 and rect_mesh(8, 8) P2
-              and their scrambled copies, each against its plain
-              version.  With the bench's VTI
-              stiffness at n=24 P3: MergedLaneRunner, LaneMajorRunner (LF4)
+              SEL on box_mesh(4, 4, 4) at P3 and P2 and rect_mesh(8, 8) P2,
+              at the eight shapes on the meshes of phase 3, and on their
+              scrambled copies, each against its plain version.  With the
+              bench's VTI stiffness at n=24 P3: MergedLaneRunner, LaneMajorRunner (LF4)
               and UnstructuredLaneRunner (scrambled case, fused_select True
               and False) for 10 steps kernel vs plain (relative L2,
               finiteness; 3 general-law stress launches a step and no
@@ -126,7 +131,8 @@ Phases, each printing its own lines; any failure exits non-zero:
               N = 4 and 8, P2, float32: order > 2.8.  Phases 1-9 must
               launch no K8, K9 or K10.
 11. packed  - the P1 two-elements-per-lane layout: the NPAR = 2
-              instantiations of K1/K2/K8/K9 (counted by ``launches_pk``)
+              instantiations of K1/K2/K8/K9 (counted by ``launches_pk``;
+              K2's is its tile kernel, the others are per-lane templates)
               and K11 p1_pack_vel.  ptxas's lines of the packed
               instantiations; every K1/K2 variant (as phase 3) and every
               K8/K9 variant (plain, axpy; plain, axpy + sponge) on packed
@@ -137,7 +143,8 @@ Phases, each printing its own lines; any failure exits non-zero:
               packed kernel vs unpacked kernel runner (relative L2),
               exactly 3 + 3 packed K1/K2 launches a step and no other;
               each packed kernel's time beside its plain version's and its
-              bound at these shapes, with the unpacked K1/K2 at the same
+              bound at these shapes (K2pk's axpy + sponge variant too),
+              with the unpacked K1/K2 at the same
               case beside them; the benches at n=32 P1 (impl "merged" and
               "merged_pk" with the kernels, "merged_pk" with the plain
               versions); the pack probe (p1_pack_probe.main): padded K8
@@ -182,8 +189,8 @@ EIGEN_MIN_ORDER = 2.8
 SH_WAVE_MAX_ERR = 0.02
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peaks
 FP32_FLOPS_PER_S = 67e12
-KERNELS = {  # name -> (source, replaced TPU kernel); K1, K2, K3, K6, K7
-    # and K9 are the tile kernels of the two tile headers
+KERNELS = {  # name -> (source, replaced TPU kernel); K1, K2, K3, K5, K6,
+    # K7 and K9 are the tile kernels of the two tile headers
     "merged_vel": ("seigen_tpu_torch/csrc/merged_tile.cuh",
                    "seigen_tpu/ops/merged_kernels.py:542"),
     "merged_stress": ("seigen_tpu_torch/csrc/merged_tile.cuh",
@@ -192,7 +199,7 @@ KERNELS = {  # name -> (source, replaced TPU kernel); K1, K2, K3, K6, K7
                    "seigen_tpu/ops/upwind_kernels.py:231"),
     "lane_vel": ("seigen_tpu_torch/csrc/lane_kernels.cu",
                  "seigen_tpu/ops/pallas_kernels.py:942"),
-    "lane_stress": ("seigen_tpu_torch/csrc/lane_kernels.cu",
+    "lane_stress": ("seigen_tpu_torch/csrc/merged_tile.cuh",
                     "seigen_tpu/ops/pallas_kernels.py:982"),
     "lane_upwind_rhs": ("seigen_tpu_torch/csrc/upwind_tile.cuh",
                         "seigen_tpu/ops/pallas_kernels.py:848"),
@@ -240,21 +247,30 @@ TILE_PTXAS = {
     "merged_stress[C]": ("merged", "merged_tile_kernel", "Lb0ELb1ELb0EE"),
     "fused_stress2": ("merged", "merged_tile_kernel", "Lb0ELb0ELb1EE"),
     "fused_stress2[C]": ("merged", "merged_tile_kernel", "Lb0ELb1ELb1EE"),
+    "lane_stress": ("lane", "lane_stress_tile_kernel", "Lb0EE"),
+    "lane_stress[C]": ("lane", "lane_stress_tile_kernel", "Lb1EE"),
     "upwind_rhs": ("upwind", "upwind_tile_kernel", "EE"),
     "lane_upwind_rhs": ("lane_upwind", "lane_upwind_tile_kernel", "Lb0EE"),
     "lane_upwind_axpy": ("lane_upwind", "lane_upwind_tile_kernel", "Lb1EE"),
 }
+# K2pk, the packed tile instantiation (library, mangled name prefix) at 2D
+# and 3D P1
+PACKED_TILE_PTXAS = {
+    "merged_stress[pk] 2D P1": ("merged",
+                                "merged_tile_pk_kernelILi2ELi3ELi2EE"),
+    "merged_stress[pk] 3D P1": ("merged",
+                                "merged_tile_pk_kernelILi3ELi4ELi3EE"),
+}
 # ptxas (library, registers, stack frame bytes) of instantiations whose
-# code the tile kernels left unchanged, as built before them: K8 at 3D P3;
-# the packed K1, K2, K8, K9 at 3D P1
+# code the tile kernels left unchanged, as built before them: K4 and K8 at
+# 3D P3; the packed K1, K8, K9 at 3D P1
 PTXAS_PINS = {
+    "lane_vel 3D P3": ("lane", "lane_vel_kernelILi3ELi20ELi10EE", 56, 480),
     "fused_vel2 3D P3": ("merged", "merged_vel_kernelILi3ELi20ELi10ELi1ELb1EE",
                          56, 480),
     "merged_vel[pk] 3D P1": ("merged",
                              "merged_vel_kernelILi3ELi4ELi3ELi2ELb0EE", 32,
                              240),
-    "merged_stress[pk] 3D P1": (
-        "merged", "merged_stress_kernelILi3ELi4ELi3ELi2ELb0EE", 48, 336),
     "fused_vel2[pk] 3D P1": ("merged",
                              "merged_vel_kernelILi3ELi4ELi3ELi2ELb1EE", 46,
                              144),
@@ -362,27 +378,32 @@ def ptxas_entry(entries, key):
 
 
 def check_ptxas():
-    """Phase 2: a line for each tile instantiation of K1/K2/K9, K3 and
-    K6/K7, which must keep no local memory (0 B stack frame, no spills),
-    and the pinned registers and stack frames of PTXAS_PINS."""
+    """Phase 2: a line for each tile instantiation of K1/K2/K9, K3, K5 and
+    K6/K7 and of K2pk, which must keep no local memory (0 B stack frame, no
+    spills), and the pinned registers and stack frames of PTXAS_PINS."""
+    from seigen_tpu_torch.ops import lane_kernels as lk
     from seigen_tpu_torch.ops import lane_upwind_kernels as luk
     from seigen_tpu_torch.ops import merged_kernels as mk
     from seigen_tpu_torch.ops import upwind_kernels as uk
 
     entries = {name: ptxas_entries(lib) for name, lib in (
-        ("merged", mk.LIBRARY), ("upwind", uk.LIBRARY),
+        ("merged", mk.LIBRARY), ("upwind", uk.LIBRARY), ("lane", lk.LIBRARY),
         ("lane_upwind", luk.LIBRARY))}
+
+    def tile_line(label, lib, key):
+        regs, stack, st, ld = ptxas_entry(entries[lib], key)
+        log(f"[build] tile {label}: {regs} registers, {stack} B stack frame, "
+            f"{st} B spill stores, {ld} B spill loads")
+        if (stack, st, ld) != (0, 0, 0):
+            raise AssertionError(f"ptxas tile {label}: local memory")
+
     for dim, degree in SHAPES:
         n_p, n_fp = shape_nodes(dim, degree)
         for label, (lib, kernel, rest) in TILE_PTXAS.items():
-            regs, stack, st, ld = ptxas_entry(
-                entries[lib], f"{kernel}ILi{dim}ELi{n_p}ELi{n_fp}E{rest}")
-            log(f"[build] tile {label} {dim}D P{degree}: {regs} registers, "
-                f"{stack} B stack frame, {st} B spill stores, {ld} B spill "
-                "loads")
-            if (stack, st, ld) != (0, 0, 0):
-                raise AssertionError(f"ptxas tile {label} {dim}D P{degree}: "
-                                     "local memory")
+            tile_line(f"{label} {dim}D P{degree}", lib,
+                      f"{kernel}ILi{dim}ELi{n_p}ELi{n_fp}E{rest}")
+    for label, (lib, key) in PACKED_TILE_PTXAS.items():
+        tile_line(label, lib, key)
     for label, (lib, key, regs, stack) in PTXAS_PINS.items():
         got = ptxas_entry(entries[lib], key)
         log(f"[build] {label}: {got[0]} registers, {got[1]} B stack frame "
@@ -783,20 +804,31 @@ def phase_upwind(dev, case, st, check):
     return launches, times, bnd
 
 
+def small_topology(dim, ragged):
+    """box_mesh(4, 4, 4) or rect_mesh(8, 8), or with ``ragged`` phase 3's
+    box_mesh(5, 3, 4) or rect_mesh(14, 10)."""
+    from seigen_tpu_torch.mesh import box_mesh, rect_mesh
+
+    if ragged:
+        return box_mesh(5, 3, 4) if dim == 3 else rect_mesh(14, 10)
+    return box_mesh(4, 4, 4) if dim == 3 else rect_mesh(8, 8)
+
+
 LANE_MODES = {  # mode -> (kernel name, lane_kernels mode constant name)
     "SIG": ("lane_vel", "VEL_SIG"), "TRAC": ("lane_vel", "VEL_TRAC"),
     "SEL vel": ("lane_vel", "VEL_SEL"), "TR": ("lane_stress", "STRESS_TR"),
     "SEL stress": ("lane_stress", "STRESS_SEL")}
 
 
-def small_lane_runners(dim, degree, dev):
+def small_lane_runners(dim, degree, dev, ragged=False):
     """(LaneMajorRunner, UnstructuredLaneRunner on a scrambled copy) kernel
-    runners on a free-top box_mesh(4, 4, 4) (3D) or rect_mesh(8, 8) (2D)."""
+    runners on a free-top box_mesh(4, 4, 4) (3D) or rect_mesh(8, 8) (2D),
+    or with ``ragged`` on phase 3's meshes."""
     import dataclasses
 
     import numpy as np
 
-    from seigen_tpu_torch.mesh import box_mesh, build_discrete, rect_mesh
+    from seigen_tpu_torch.mesh import build_discrete
     from seigen_tpu_torch.ops import Material, build_params
     from seigen_tpu_torch.ops.structured_exchange import detect_structured
     from seigen_tpu_torch.solver.damping import absorbing_bc_fn
@@ -804,7 +836,7 @@ def small_lane_runners(dim, degree, dev):
     from seigen_tpu_torch.solver.lane_unstructured import \
         UnstructuredLaneRunner
 
-    topo = box_mesh(4, 4, 4) if dim == 3 else rect_mesh(8, 8)
+    topo = small_topology(dim, ragged)
     bc = absorbing_bc_fn(((0.0, 1.0),) * dim, free_sides=[(dim - 1, "hi")])
     mat = Material(1.0, 2.0, 1.0)
     dm = build_discrete(topo, degree, bc_fn=bc)
@@ -976,6 +1008,12 @@ def phase_lane(dev, case, st, check, n=24):
         compare_lane(lane, check, f"{tag}", 30 + degree, ("SIG", "TR"))
         compare_lane(lane_u, check, f"{tag} scrambled", 40 + degree,
                      scrambled)
+    for dim, degree in SHAPES:  # K5's tile kernel: ragged last tiles
+        lane, lane_u = small_lane_runners(dim, degree, dev, ragged=True)
+        tag = f"{dim}D P{degree} ragged"
+        compare_lane(lane, check, tag, 130 + 10 * dim + degree, ("TR",))
+        compare_lane(lane_u, check, f"{tag} scrambled",
+                     150 + 10 * dim + degree, ("TR", "SEL stress"))
     log(f"[lane] all small-mesh modes agree "
         f"({time.perf_counter() - t0:.1f} s)")
 
@@ -1309,20 +1347,20 @@ def random_stiffness(E, n_sig, seed):
     return np.random.default_rng(seed).standard_normal((E, n_sig, n_sig))
 
 
-def small_aniso_runners(dim, degree, dev):
+def small_aniso_runners(dim, degree, dev, ragged=False):
     """Kernel runners with a per-element random stiffness on a free-top
-    box_mesh(4, 4, 4) (3D) or rect_mesh(8, 8) (2D):
-    (UnstructuredLaneRunner on the mesh, UnstructuredLaneRunner on a
-    scrambled copy)."""
+    box_mesh(4, 4, 4) (3D) or rect_mesh(8, 8) (2D), or with ``ragged`` on
+    phase 3's meshes: (UnstructuredLaneRunner on the mesh,
+    UnstructuredLaneRunner on a scrambled copy)."""
     import numpy as np
 
-    from seigen_tpu_torch.mesh import box_mesh, build_discrete, rect_mesh
+    from seigen_tpu_torch.mesh import build_discrete
     from seigen_tpu_torch.ops import Material, build_params
     from seigen_tpu_torch.solver.damping import absorbing_bc_fn
     from seigen_tpu_torch.solver.lane_unstructured import \
         UnstructuredLaneRunner
 
-    topo = box_mesh(4, 4, 4) if dim == 3 else rect_mesh(8, 8)
+    topo = small_topology(dim, ragged)
     bc = absorbing_bc_fn(((0.0, 1.0),) * dim, free_sides=[(dim - 1, "hi")])
     mat = Material(1.0, 2.0, 1.0)
     perm = np.random.default_rng(0).permutation(topo.num_cells)
@@ -1518,6 +1556,12 @@ def phase_aniso(dev, case, st, scase, sst, check, n=24):
         log(f"[aniso] {tag}: E {lane_u.E}")
         compare_lane_aniso(lane_u, check, tag, 82 + degree)
         compare_lane_aniso(lane_us, check, f"{tag} scrambled", 84 + degree)
+    for dim, degree in SHAPES:  # K5-C's tile kernel: ragged last tiles
+        lane_u, lane_us = small_aniso_runners(dim, degree, dev, ragged=True)
+        tag = f"{dim}D P{degree} ragged"
+        compare_lane_aniso(lane_u, check, tag, 160 + 10 * dim + degree)
+        compare_lane_aniso(lane_us, check, f"{tag} scrambled",
+                           180 + 10 * dim + degree)
     log(f"[aniso] all small-mesh general-law modes agree "
         f"({time.perf_counter() - t0:.1f} s)")
 
@@ -1932,13 +1976,15 @@ PACKED_SHAPES = ("ILi2ELi3ELi2ELi2E", "ILi3ELi4ELi3ELi2E")  # <2,3,2,2>, <3,4,3,
 
 
 def packed_ptxas_lines():
-    """ptxas's lines of the packed instantiations (template NPAR = 2)."""
+    """ptxas's lines of the packed instantiations (template NPAR = 2, and
+    K2pk's tile kernel)."""
     from seigen_tpu_torch.ops import merged_kernels as mk
 
     out, keep = [], False
     for ln in mk.LIBRARY.ptxas_report().splitlines():
         if "Compiling" in ln:
-            keep = any(tag in ln for tag in PACKED_SHAPES)
+            keep = "merged_tile_pk_kernel" in ln or any(
+                tag in ln for tag in PACKED_SHAPES)
         if keep:
             out.append(ln.strip())
     return out
@@ -2084,7 +2130,13 @@ def phase_packed(dev, check, n=32):
                 f"{t[1]:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
             if runner is run_k:
                 times[label], bounds[label] = t, b
-    del x, xu, run_u
+    kern, _, args, kw = variant_call(run_k, x, "stress", "axpy_damp")
+    t = time_ms(lambda: kern(*args, **kw))
+    b = bound(run_k.d, run_k.plan, "merged_stress", variant="axpy_damp")
+    log(f"[packed] merged_stress[pk] (axpy_damp) at n={n} P1: kernel {t:.4f} "
+        f"ms, bound {b[0]:.4f} ms ({b[1]}), {100 * b[0] / t:.1f}% of the "
+        "bound")
+    del x, xu, run_u, args, kw
     xf = fused_inputs(run_k.d, dev, 232)
     for name in ("fused_vel2", "fused_stress2"):
         kern, plain = fused_call(run_k, xf, *FUSED_VARIANTS[name][0])
@@ -2320,8 +2372,10 @@ def main() -> int:
     sources = dict(KERNELS)
     sources.update({m: (KERNELS[k][0], replaces)
                     for m, (k, replaces) in ANISO_MODES.items()})
-    # the packed layout runs the per-lane templates, not the tile kernels
-    sources.update({m: ("seigen_tpu_torch/csrc/merged_kernels.cu", replaces)
+    # the packed layout runs K2's tile kernel and the per-lane templates
+    sources.update({m: ("seigen_tpu_torch/csrc/merged_tile.cuh"
+                        if m == "merged_stress[pk]" else
+                        "seigen_tpu_torch/csrc/merged_kernels.cu", replaces)
                     for m, (_, replaces) in PACKED_MODES.items()})
     kernels = [{"name": k, "route": "cuda", "source": src_file,
                 "replaces": replaces, "launches": launches[k],

@@ -3,6 +3,8 @@
     python -m seigen_tpu_torch.bench.merged_ab --trees parent=_archive/parent,change=.
     python -m seigen_tpu_torch.bench.merged_ab --family upwind --trees ...
     python -m seigen_tpu_torch.bench.merged_ab --family fused --trees ...
+    python -m seigen_tpu_torch.bench.merged_ab --family lane --trees ...
+    python -m seigen_tpu_torch.bench.merged_ab --family packed --trees ...
 
 Each tree is a checkout of the repository (``git archive <commit> | tar -x
 -C _archive/parent`` puts an older one beside this one).  The trees run in
@@ -33,6 +35,22 @@ of K9 fused_stress2 that the ``fused`` step launches — plain, axpy, axpy
 and K8 fused_vel2 plain and axpy, on the bench case in the ``fused``
 runner's layout; then the benches ``fused`` and ``fused --vti``, and in
 each tree's first turn ``profile_step.profile`` of the ``fused`` step.
+
+``--family lane`` times the v1 lane engine's kernels: every mode of K5
+lane_stress that a step launches — TR on the bench case in the ``lane``
+runner's layout, SEL on its scrambled copy in the ``lane_u`` runner's, and
+both with the bench's VTI stiffness (general Hooke law) — and K4
+lane_vel's modes SIG (bench case), TRAC and SEL (scrambled copy) as
+controls; then the benches ``lane --order 2``, ``lane`` (LF4),
+``lane_u`` and ``lane --vti``, and in each tree's first turn
+``profile_step.profile`` of ``lane --order 2`` and ``lane_u``.
+
+``--family packed`` runs at n=32 P1 (unless ``--n``/``--degree`` say
+otherwise) and times K2 on the packed P1 layout (two elements a lane,
+``merged_pk``): plain, axpy, axpy + damping, 1 and 2 source groups; and as
+controls the packed K1 plain and the unpacked K2 plain on the same case;
+then the benches ``merged_pk`` and ``merged``, and in each tree's first
+turn ``profile_step.profile`` of the ``merged_pk`` step.
 
 Each process prints one JSON line; ``drive`` prints a table of each
 variant's mean over the turns of each tree, and the GPU's name and power
@@ -72,8 +90,19 @@ FUSED_VARIANTS = (("fused_stress2", "plain"), ("fused_stress2", "axpy"),
                   ("fused_stress2[C]", "plain"),
                   ("fused_stress2[C]", "axpy_damp"),
                   ("fused_vel2", "plain"), ("fused_vel2", "axpy"))
+LANE_VARIANTS = (("lane_stress", "TR"), ("lane_stress", "SEL"),
+                 ("lane_stress[C]", "TR"), ("lane_stress[C]", "SEL"),
+                 ("lane_vel", "SIG"), ("lane_vel", "TRAC"),
+                 ("lane_vel", "SEL"))
+PACKED_VARIANTS = (("merged_stress[pk]", "plain"),
+                   ("merged_stress[pk]", "axpy"),
+                   ("merged_stress[pk]", "axpy_damp"),
+                   ("merged_stress[pk]", "inject1"),
+                   ("merged_stress[pk]", "inject2"),
+                   ("merged_vel[pk]", "plain"), ("merged_stress", "plain"))
 FAMILIES = {"merged": VARIANTS, "upwind": UPWIND_VARIANTS,
-            "fused": FUSED_VARIANTS}
+            "fused": FUSED_VARIANTS, "lane": LANE_VARIANTS,
+            "packed": PACKED_VARIANTS}
 # each family's benches: label (the bench's command line) -> impl, options,
 # and whether the first turn of each tree profiles that step
 STEPS = {
@@ -87,6 +116,12 @@ STEPS = {
                 {"fused_axpy": False}, True)),
     "fused": (("fused", "fused", {}, True),
               ("fused --vti", "fused", {"vti": True}, False)),
+    "lane": (("lane --order 2", "lane", {"order": 2}, True),
+             ("lane", "lane", {}, False),
+             ("lane_u", "lane_u", {}, True),
+             ("lane --vti", "lane", {"vti": True}, False)),
+    "packed": (("merged_pk", "merged_pk", {}, True),
+               ("merged", "merged", {}, False)),
 }
 
 
@@ -123,7 +158,8 @@ def worker(root: str, n: int, degree: int, reps: int, bench_steps: int,
         return start.elapsed_time(stop) / reps
 
     run = {"merged": _merged_family, "upwind": _upwind_family,
-           "fused": _fused_family}[family]
+           "fused": _fused_family, "lane": _lane_family,
+           "packed": _packed_family}[family]
     times, cases = run(throughput, dev, n, degree, time_ms)
     bench, profiles = _steps(throughput, family, cases, n, degree,
                              bench_steps, profile)
@@ -153,27 +189,19 @@ def _steps(throughput, family, cases, n, degree, bench_steps, profile):
     return bench, profiles
 
 
-def _merged_family(throughput, dev, n, degree, time_ms):
-    """K1/K2 variants; returns (times, {False: the bench case})."""
-    import dataclasses
-
+def _merged_operands(run, rng, dev):
+    """numpy-seeded K1/K2 operands in a merged runner's layout (packed:
+    the live rows of each parity block): the inputs x and four outputs'
+    worth of axpy and source rows y of each operator."""
     import numpy as np
     import torch
 
-    from seigen_tpu_torch.ops import merged_kernels as mk
-
-    case = throughput.setup_case(n=n, degree=degree, device=dev)
-    dm, p, src, damp, dt, _ = case
-    runners = {v: throughput.make_runner("merged", dm, p, src, damp, dt,
-                                         "kernel", vti=v)
-               for v in (False, True)}
-    r = runners[False]
-    d, plan = r.d, r.plan
-    rng = np.random.default_rng(24)
+    d, plan = run.d, run.plan
 
     def field(C):
-        a = rng.standard_normal((C, d.npp, plan.Ls)).astype(np.float32)
-        a[:, d.n_p:] = 0.0
+        a = rng.standard_normal((C, d.n_par, d.npp // d.n_par, plan.Ls)
+                                ).astype(np.float32)
+        a[:, :, d.n_p:] = 0.0
         return torch.as_tensor(a.reshape(C * d.npp, plan.Ls), device=dev)
 
     x = {"vel": field(d.n_sig), "stress": field(d.dim),
@@ -181,31 +209,131 @@ def _merged_family(throughput, dev, n, degree, time_ms):
              (plan.nf * plan.rtf, plan.Ls)).astype(np.float32), device=dev)}
     y = {"vel": [field(d.dim) for _ in range(4)],
          "stress": [field(d.n_sig) for _ in range(4)]}
+    return x, y
+
+
+def _merged_call(run, x, y, base, variant, dt):
+    """One launch of K1 (base "vel") or K2 ("stress") variant on a merged
+    runner's plan and data, as a function of no arguments."""
+    import dataclasses
+
+    from seigen_tpu_torch.ops import merged_kernels as mk
+
+    od = run.d
+    pair = y[base]
+    kw = {}
+    if variant.startswith("axpy"):
+        kw = dict(axpy=(pair[0], pair[1]), dt=float(dt),
+                  c3=float(dt) ** 3 / 24.0)
+    elif variant.startswith("inject"):
+        kw = dict(inject=[(pair[2 + g], (0.7, -1.3)[g])
+                          for g in range(int(variant[-1]))])
+    if base == "vel":
+        kern = mk.VEL_KERNEL
+    else:
+        if variant == "axpy":
+            od = dataclasses.replace(od, damp=None)
+        kw["damp"] = od.damp if variant == "axpy_damp" else None
+        kern = mk.STRESS_KERNEL
+    args = (run.plan, od, x[base], x["trs"], run.mask)
+    return lambda: kern(*args, **kw)
+
+
+def _merged_family(throughput, dev, n, degree, time_ms):
+    """K1/K2 variants; returns (times, {False: the bench case})."""
+    import numpy as np
+
+    case = throughput.setup_case(n=n, degree=degree, device=dev)
+    dm, p, src, damp, dt, _ = case
+    runners = {v: throughput.make_runner("merged", dm, p, src, damp, dt,
+                                         "kernel", vti=v)
+               for v in (False, True)}
+    x, y = _merged_operands(runners[False], np.random.default_rng(24), dev)
 
     def call(op, variant):
-        run = runners[op == "stress_c"]
-        od = run.d
         base = "vel" if op == "vel" else "stress"
-        pair = y[base]
-        kw = {}
-        if variant.startswith("axpy"):
-            kw = dict(axpy=(pair[0], pair[1]), dt=float(dt),
-                      c3=float(dt) ** 3 / 24.0)
-        elif variant.startswith("inject"):
-            kw = dict(inject=[(pair[2 + g], (0.7, -1.3)[g])
-                              for g in range(int(variant[-1]))])
-        if base == "vel":
-            kern = mk.VEL_KERNEL
-        else:
-            if variant == "axpy":
-                od = dataclasses.replace(od, damp=None)
-            kw["damp"] = od.damp if variant == "axpy_damp" else None
-            kern = mk.STRESS_KERNEL
-        args = (run.plan, od, x[base], x["trs"], run.mask)
-        return lambda: kern(*args, **kw)
+        return _merged_call(runners[op == "stress_c"], x, y, base, variant,
+                            dt)
 
     times = {f"{op} {v}": time_ms(call(op, v)) for op, v in VARIANTS}
     return times, {False: case}
+
+
+def _packed_family(throughput, dev, n, degree, time_ms):
+    """K2pk variants, K1pk and the unpacked K2 plain; returns (times,
+    {False: the bench case})."""
+    import numpy as np
+
+    case = throughput.setup_case(n=n, degree=degree, device=dev)
+    dm, p, src, damp, dt, _ = case
+    rng = np.random.default_rng(32)
+    ops = {}
+    for pk in (True, False):
+        run = throughput.make_runner("merged_pk" if pk else "merged", dm, p,
+                                     src, damp, dt, "kernel")
+        ops[pk] = (run, *_merged_operands(run, rng, dev))
+
+    def call(name, variant):
+        base = "vel" if name.startswith("merged_vel") else "stress"
+        return _merged_call(*ops[name.endswith("[pk]")], base, variant, dt)
+
+    times = {f"{op} {v}": time_ms(call(op, v)) for op, v in PACKED_VARIANTS}
+    return times, {False: case}
+
+
+def _lane_family(throughput, dev, n, degree, time_ms):
+    """K5 modes (both Hooke laws) and K4 modes; returns (times, {False: the
+    bench case, True: its scrambled copy})."""
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.ops import lane_kernels as lk
+
+    cases = {s: throughput.setup_case(n=n, degree=degree, device=dev,
+                                      scramble=s) for s in (False, True)}
+    runners = {}
+    for s, impl in ((False, "lane"), (True, "lane_u")):
+        dm, p, src, damp, dt, _ = cases[s]
+        for vti in (False, True):
+            runners[s, vti] = throughput.make_runner(impl, dm, p, src, damp,
+                                                     dt, "kernel", vti=vti)
+    rng = np.random.default_rng(26)
+    d = runners[False, False].d
+
+    def rows(C, used, pad):
+        a = rng.standard_normal((C, pad, d.E)).astype(np.float32)
+        a[:, used:] = 0.0
+        return torch.as_tensor(a.reshape(C * pad, d.E), device=dev)
+
+    x = {"sig": rows(d.n_sig, d.n_p, d.npp), "u": rows(d.dim, d.n_p, d.npp),
+         "tr_sig": rows(d.n_sig, d.ftp, d.ftpp),
+         "tr_u": rows(d.dim, d.ftp, d.ftpp),
+         "panels": rows(d.nf, d.dim * d.ftp, (d.dim * d.ftp + 7) // 8 * 8)}
+
+    def call(name, mode):
+        aniso = name.endswith("[C]")
+        # SIG and TR on the bench case, TRAC and SEL on its scrambled copy
+        run = runners[mode not in ("SIG", "TR"), aniso]
+        rd = run.d
+        if name == "lane_vel":
+            if mode == "SEL":
+                _, combo, sign, cfg = run._pg_t
+                return lambda: lk.LANE_VEL(rd, x["sig"], x["panels"],
+                                           lk.VEL_SEL, combo=combo,
+                                           sign=sign, selcfg=cfg)
+            tr, m = ((x["tr_sig"], lk.VEL_SIG) if mode == "SIG"
+                     else (x["tr_u"], lk.VEL_TRAC))
+            return lambda: lk.LANE_VEL(rd, x["sig"], tr, m)
+        cmat = run.cmat if aniso else None
+        if mode == "TR":
+            return lambda: lk.LANE_STRESS(rd, x["u"], x["tr_u"], lk.STRESS_TR,
+                                          cmat=cmat)
+        _, combo, _, cfg = run._pg_u
+        return lambda: lk.LANE_STRESS(rd, x["u"], x["panels"], lk.STRESS_SEL,
+                                      combo=combo, selcfg=cfg, cmat=cmat)
+
+    times = {f"{op} {v}": time_ms(call(op, v)) for op, v in LANE_VARIANTS}
+    return times, cases
 
 
 def _upwind_family(throughput, dev, n, degree, time_ms):
@@ -388,16 +516,23 @@ def main(argv=None):
                     "last")
     ap.add_argument("--worker", action="store_true")
     ap.add_argument("--root", default=".")
-    ap.add_argument("--n", type=int, default=24)
-    ap.add_argument("--degree", type=int, default=3)
+    ap.add_argument("--n", type=int, default=None,
+                    help="mesh size (default: 32 for the packed family, "
+                    "else 24)")
+    ap.add_argument("--degree", type=int, default=None,
+                    help="degree (default: 1 for the packed family, else 3)")
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--bench-steps", type=int, default=100)
     ap.add_argument("--family", default="merged", choices=tuple(FAMILIES),
-                    help="merged: K1/K2; upwind: K3, K6/K7; fused: K9, K8 "
-                    "(and profiles)")
+                    help="merged: K1/K2; upwind: K3, K6/K7; fused: K9, K8; "
+                    "lane: K5, K4; packed: K2pk, K1pk (and profiles)")
     ap.add_argument("--profile", action="store_true",
                     help="worker: also profile the steps STEPS marks")
     a = ap.parse_args(argv)
+    # the packed layout is P1 only: its family runs the n=32 P1 case
+    n, degree = (32, 1) if a.family == "packed" else (24, 3)
+    a.n = n if a.n is None else a.n
+    a.degree = degree if a.degree is None else a.degree
     if a.worker:
         print(json.dumps(worker(a.root, a.n, a.degree, a.reps,
                                 a.bench_steps, a.family, a.profile)),

@@ -14,31 +14,50 @@
 // 1/2 t+ + beta t-, stress jump 1/2 u+ + delta u-, then LIFT (Fscale .) and
 // the 1/rho or Hooke scaling); the TPU layout devices (lane blocks, MXU
 // [Dr; R] products, the where-chain over static permuted views) are gone.
-// One thread owns one lane (element); the neighbour traces arrive
-// pre-exchanged in consumer order (SIG/TRAC/TR), or as raw per-face panels
-// whose (producer face g, node permutation pi) the thread decodes from its
-// combo code and reads directly (SEL).
+// The neighbour traces arrive pre-exchanged in consumer order
+// (SIG/TRAC/TR), or as raw per-face panels whose (producer face g, node
+// permutation pi) the operator decodes from the lane's combo code and
+// reads directly (SEL).
 //
-// What bounds it on the H100.  Per lane and launch the compulsory traffic
+// What bounds them on the H100.  Per lane and launch the compulsory traffic
 // is ~340-460 rows of 4 B (state, neighbour payload, per-face geometry in;
 // output out): at E = 83k ~0.11-0.15 GB, ~34-46 us at 3.35 TB/s, against
 // 12-24 kFLOP per lane of Dr and LIFT products, ~15-30 us at 67 TFLOP/s
-// FP32: bytes bound.  The kernel reads the geometry expanded to face nodes
-// (~180 rows more than compulsory).  This first version is bound by neither:
-// as in K1/K2, every FMA takes its table operand from shared memory and the
-// per-lane face-node flux lives in local memory.  Design: Dr/LIFT/fnodes
+// FP32: bytes bound.
+//
+// K4 is the first design, one thread a lane, and is bound by neither: as
+// in the first K1/K2, every FMA takes its table operand from shared memory
+// and the per-lane face-node flux lives in local memory.  Dr/LIFT/fnodes
 // (and the SEL permutations) sit in shared memory once per block; lane
 // loads and stores are coalesced; the volume term contracts the
 // Voigt/direction sums before the Dr product (one Dr pass per output
 // component); geometry is read once per face node, where it is needed.
+//
+// K5 is a tile kernel on the stress core of K2/K9 (merged_tile.cuh,
+// stress_core), designed for this card as they are: a block owns a tile of
+// T consecutive lanes (T 32 at 3D P2-P4 and 2D P3-P4, 64 or 128 below; the
+// last tile ragged at E) and stages by cp.async the table
+// (LaneOpData.ktile), u's live rows, the per-lane geometry (Ginv; of each
+// face its first face-node row of the normals, Fscale and delta; lambda
+// and mu, or the n_sig^2 C rows) and the plus-side velocity: TR the lane's
+// own trace rows, 16 bytes a copy in a whole aligned tile; SEL each lane's
+// selected panel rows, 4 bytes a copy with the permutation applied at
+// fetch (K6/K7's staging).  The products are register-tiled,
+// gradient-first with the face term factored per face, as K2's; the
+// values go from registers to coalesced rows, pad rows 0.  No local
+// memory: ptxas shows a 0 B stack and no spills at every shape
+// (chip_smoke.py phase 2).  FP32 FFMA throughout.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (seigen_tpu_torch/ops/cuda_build.py, at first use).
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "lane_select.cuh"
 #include "merged_common.cuh"
+#include "merged_tile.cuh"
 
 // Kernel arguments; mirrored field by field by the ctypes Structure
 // LaneArgs in seigen_tpu_torch/ops/lane_kernels.py.  Lane rows are
@@ -69,6 +88,9 @@ struct LaneArgs {
   int cstride;         // SEL: panel rows per component; else 0
   int G;               // SEL: orientation groups (<= kMaxPerms); else 0
   int mode;            // K4: 0 SIG, 1 TRAC, 2 SEL; K5: 0 TR, 1 SEL
+  const float* tab;    // K5: the tile table (LaneOpData.ktile): rows
+                       // j*dim + r = Dr_r[., j], dim*n_p + q = LIFT[., q],
+                       // n_p padded to a multiple of 4; K4: unused
 };
 
 namespace {
@@ -191,156 +213,166 @@ lane_vel_kernel(const LaneArgs a) {
 // with A the Hooke tensor in Voigt row k — isotropic (lambda, mu), or with
 // ANISO the lane's general Voigt stiffness, A_k[d,c] = C[k][voigt(c,d)] —
 // and du*_c = 1/2 u+_c + delta u-_c (u+ from the mode: TR traces, SEL
-// panels).  The face pass needs every C[k][m] at every face node: it forms
-// the node's engineering strains of n (x) du* once and reads the
-// coefficient rows through L1 instead of holding n_sig^2 of them in
-// registers; the volume pass loads row k inside its k loop.  ANISO is a
-// template parameter so that the isotropic instantiation keeps its
-// registers.
+// panels).  This is the stress core of K2/K9 (merged_tile.cuh:stress_core)
+// on the V2 layout: the same jump up to the Fscale factor, no mask.  K5
+// stages its own tile: one class of all E lanes in tiles of T, the last
+// one ragged; the geo rows are the lane layout's (LANE: the face rows are
+// the first face-node row f*n_fp of the expanded nrm, fsc and delta, which
+// are constant over a face); u+ is the lane's own rows c*ftpp + q (TR) or
+// its selected panel rows (SEL, 4 bytes a copy, the permutation applied at
+// fetch, as K6/K7 stage theirs).  The epilogue stores the values from
+// registers, pad rows 0; K5 emits no traces.
 template <int DIM, int NP, int NFP, bool ANISO>
-__global__ void __launch_bounds__(kThreads)
-lane_stress_kernel(const LaneArgs a) {
-  using S = Shape<DIM, NP, NFP>;
-  constexpr int NF = S::NF, NFT = S::NFT, NSIG = S::NSIG;
-  __shared__ float s_dr[DIM * NP * NP];
-  __shared__ float s_lift[NP * NFT];
-  __shared__ int s_fn[NFT];
-  __shared__ int s_perm[kMaxPerms * NFP];
-  load_perms<NFP>(a, s_perm);
-  load_tables<DIM, NP, NFP>(a, s_dr, s_lift, s_fn);
+using StressLayout = tile::Layout<DIM, NP, NFP, false, ANISO, true, 1, true>;
 
-  const long long L = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (L >= a.E) return;
+// Global row (at lane 0) of K5's local geo row r: Ginv; normals, Fscale
+// and delta of each face at its first face-node row; lambda and mu (row 0
+// of mat0, mat1) or C[k][m] (cmat row 8*k + m).
+template <class LY>
+__device__ __forceinline__ const float* stress_geo_row(const LaneArgs& a,
+                                                       int r) {
+  constexpr int NF = LY::NF, NFP = LY::NFP;
   const long long E = a.E;
-  const int npp = a.npp, ftpp = a.ftpp;
-  auto row = [&](const float* x, long long r) { return x[r * E + L]; };
+  if (r < LY::G_NRM) return a.ginv + r * E;
+  if (r < LY::G_SCB) {
+    const int q = r - LY::G_NRM;
+    return a.nrm + ((long long)(q / NF) * a.ftpp + (q % NF) * NFP) * E;
+  }
+  if (r < LY::G_BFS) return a.fsc + (long long)(r - LY::G_SCB) * NFP * E;
+  if (r < LY::G_MAT) return a.coef + (long long)(r - LY::G_BFS) * NFP * E;
+  const int q = r - LY::G_MAT;
+  if constexpr (LY::ANISO)
+    return a.cmat + (long long)(8 * (q / LY::NSIG) + q % LY::NSIG) * E;
+  return q == 0 ? a.mat0 : a.mat1;
+}
 
-  float g[DIM][DIM];
-#pragma unroll
-  for (int r = 0; r < DIM; ++r)
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) g[r][d] = row(a.ginv, r * DIM + d);
-  float lam = 0.f, mu = 0.f;
-  if constexpr (!ANISO) lam = row(a.mat0, 0), mu = row(a.mat1, 0);
-
-  // scaled face Hooke rows Fscale * A_k (n (x) du*) per Voigt k, face node
-  float face[NSIG][NFT];
+// Stage K5's tile by cp.async: the table and the face nodes; u's live rows,
+// the geo rows and (TR) the trace rows c*ftpp + q, 16 bytes a copy when
+// the tile is whole and its rows are 16-byte aligned, else 4 bytes, lanes
+// past nvalid loading the last live lane; (SEL) each lane's selected panel
+// rows f*rows_pad + g*n_fp + c*cstride + perms[pi][k], (g, pi) decoded from
+// its combo code (lane_select.cuh), 4 bytes a copy.  Shared-memory rows as
+// tile::Layout: u at IN rows c*NP + j, u+ at NB rows c*NFT + q.
+template <class LY>
+__device__ __forceinline__ void stage_stress(const LaneArgs& a,
+                                             const tile::Tile& tl,
+                                             float* sm) {
+  constexpr int DIM = LY::DIM, NP = LY::NP, NFP = LY::NFP, NFT = LY::NFT;
+  constexpr int T = LY::T, NG = LY::NG, NIN = DIM * NP, Q = T / 4;
+  const long long E = a.E;
+  int* s_fn = reinterpret_cast<int*>(sm + LY::OFF_INT);
+  for (int e = threadIdx.x; e < NFT; e += LY::THREADS) s_fn[e] = a.fnodes[e];
+  for (int e = threadIdx.x; e < LY::KA * LY::NPI / 4; e += LY::THREADS)
+    tile::cp_async16(sm + LY::OFF_A + 4 * e, a.tab + 4 * e);
+  const bool by_tr = a.mode == kStressTr;
+  auto dst = [&](int r) {
+    if (r < NIN) return sm + LY::OFF_IN + r * T;
+    if (r < NIN + LY::GR) return sm + LY::OFF_GEO + (r - NIN) * T;
+    return sm + LY::OFF_NB + (r - NIN - LY::GR) * T;
+  };
+  auto src = [&](int r) {
+    if (r < NIN) return a.field + ((long long)(r / NP) * a.npp + r % NP) * E;
+    if (r < NIN + LY::GR) return stress_geo_row<LY>(a, r - NIN);
+    const int t = r - NIN - LY::GR;  // c*NFT + q
+    return a.tr + ((long long)(t / NFT) * a.ftpp + t % NFT) * E;
+  };
+  const int NR = NIN + LY::GR + (by_tr ? DIM * NFT : 0);
+  const uintptr_t ptrs =
+      (uintptr_t)a.field | (uintptr_t)a.ginv | (uintptr_t)a.nrm |
+      (uintptr_t)a.fsc | (uintptr_t)a.coef | (uintptr_t)a.mat0 |
+      (uintptr_t)a.mat1 | (uintptr_t)a.cmat | (by_tr ? (uintptr_t)a.tr : 0);
+  const long long own = tl.lane0 + min(tl.l, tl.nvalid - 1);
+  if (tl.nvalid == T && (E & 3) == 0 && (ptrs & 15) == 0) {
+    for (int e = threadIdx.x; e < NR * Q; e += LY::THREADS) {
+      const int r = e / Q, l4 = (e % Q) * 4;
+      tile::cp_async16(dst(r) + l4, src(r) + tl.lane0 + l4);
+    }
+  } else {
+    for (int r = tl.ig; r < NR; r += NG)
+      tile::cp_async4(dst(r) + tl.l, src(r) + own);
+  }
+  if (!by_tr) {
 #pragma unroll 1
-  for (int f = 0; f < NF; ++f) {
-    long long pbase = 0;
-    const int* perm = nullptr;
-    if (a.mode == kStressSel) pbase = sel_face<NFP>(a, s_perm, f, L, &perm);
-#pragma unroll 1
-    for (int k = 0; k < NFP; ++k) {
-      const int q = f * NFP + k;
-      const int node = s_fn[q];
-      float n[DIM], du[DIM];
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) n[d] = row(a.nrm, d * ftpp + q);
-      const float delta = row(a.coef, q), fs = row(a.fsc, q);
-#pragma unroll
-      for (int c = 0; c < DIM; ++c) {
-        const float own = row(a.field, c * npp + node);
-        const float nb = a.mode == kStressTr
-                             ? row(a.tr, c * ftpp + q)
-                             : row(a.tr, pbase + c * a.cstride + perm[k]);
-        du[c] = 0.5f * nb + delta * own;
-      }
-      if constexpr (ANISO) {
-        // engineering strains of n (x) du*: slot voigt(c, d) sums n_d du*_c
-        float epsf[NSIG];
-#pragma unroll
-        for (int m = 0; m < NSIG; ++m) epsf[m] = 0.f;
-#pragma unroll
-        for (int c = 0; c < DIM; ++c)
-#pragma unroll
-          for (int d = 0; d < DIM; ++d) epsf[voigt<DIM>(c, d)] += n[d] * du[c];
-#pragma unroll
-        for (int kk = 0; kk < NSIG; ++kk) {
-          float fq = 0.f;
-#pragma unroll
-          for (int m = 0; m < NSIG; ++m)
-            fq += row(a.cmat, 8 * kk + m) * epsf[m];
-          face[kk][q] = fs * fq;
-        }
-      } else {
-#pragma unroll
-        for (int kk = 0; kk < NSIG; ++kk) {
-          float F[DIM];
-          hooke_row<DIM>(kk, lam, mu, n, F);
-          float fq = 0.f;
-#pragma unroll
-          for (int c = 0; c < DIM; ++c) fq += F[c] * du[c];
-          face[kk][q] = fs * fq;
-        }
+    for (int f = 0; f < LY::NF; ++f) {
+      const int code = __ldg(a.combo + f * E + own);
+      const int g = code / a.G, pi = code - g * a.G;
+      const long long rb = (long long)f * a.rows_pad + g * NFP;
+      const int* perm = a.perms + pi * NFP;
+      for (int rr = tl.ig; rr < DIM * NFP; rr += NG) {
+        const int c = rr / NFP, k = rr % NFP;
+        tile::cp_async4(
+            sm + LY::OFF_NB + (c * NFT + f * NFP + k) * T + tl.l,
+            a.tr + (rb + (long long)c * a.cstride + __ldg(perm + k)) * E +
+                own);
       }
     }
   }
+  tile::cp_async_wait_all();
+  __syncthreads();
+}
 
-#pragma unroll 1
-  for (int k = 0; k < NSIG; ++k) {
-    // B[r][c] = sum_d A_k[d,c] Ginv[r,d]: volume term = sum_r Dr_r @ w_r,
-    // w_r = sum_c B[r][c] u_c
-    float B[DIM][DIM];
-    if constexpr (ANISO) {
-      float Ck[NSIG];
+// One block per tile of T lanes.
+template <int DIM, int NP, int NFP, bool ANISO>
+__global__ void __launch_bounds__(StressLayout<DIM, NP, NFP, ANISO>::THREADS)
+lane_stress_tile_kernel(const LaneArgs a) {
+  using LY = StressLayout<DIM, NP, NFP, ANISO>;
+  extern __shared__ float4 s_dyn[];
+  float* sm = reinterpret_cast<float*>(s_dyn);
+  tile::Tile tl;
+  tl.t = 0, tl.par = 0;
+  tl.j0 = (int)blockIdx.x * LY::T;
+  tl.nvalid = (int)min((long long)LY::T, a.E - tl.j0);
+  tl.l = (int)threadIdx.x % LY::T;
+  tl.ig = (int)threadIdx.x / LY::T;
+  tl.lane0 = tl.j0;
+  tl.live = tl.l < tl.nvalid;
+  stage_stress<LY>(a, tl, sm);
+  float sig[LY::NSIG][LY::RM];
+  tile::stress_core<LY>(tl, sm, sig);
+  if (!tl.live) return;
+  const int i0 = tl.ig * LY::RM;
+  const long long E = a.E;
+  const int npp = a.npp, pad = npp - NP;
+  float* out = a.out + tl.lane0 + tl.l;
 #pragma unroll
-      for (int m = 0; m < NSIG; ++m) Ck[m] = row(a.cmat, 8 * k + m);
+  for (int k = 0; k < LY::NSIG; ++k)
 #pragma unroll
-      for (int r = 0; r < DIM; ++r) voigt_row<DIM>(Ck, g[r], B[r]);
-    } else {
-#pragma unroll
-      for (int r = 0; r < DIM; ++r) hooke_row<DIM>(k, lam, mu, g[r], B[r]);
-    }
-    float acc[NP];
-#pragma unroll
-    for (int i = 0; i < NP; ++i) acc[i] = 0.f;
-#pragma unroll 1
-    for (int jj = 0; jj < NP; ++jj) {
-      float uv[DIM];
-#pragma unroll
-      for (int c = 0; c < DIM; ++c) uv[c] = row(a.field, c * npp + jj);
-#pragma unroll
-      for (int r = 0; r < DIM; ++r) {
-        float w = 0.f;
-#pragma unroll
-        for (int c = 0; c < DIM; ++c) w += B[r][c] * uv[c];
-        const float* drc = s_dr + r * NP * NP + jj;
-#pragma unroll
-        for (int i = 0; i < NP; ++i) acc[i] += drc[i * NP] * w;
-      }
-    }
-    // surface: LIFT @ face_k
-#pragma unroll 1
-    for (int q = 0; q < NFT; ++q) {
-      const float fq = face[k][q];
-#pragma unroll
-      for (int i = 0; i < NP; ++i) acc[i] += s_lift[i * NFT + q] * fq;
-    }
-    float* o = a.out + (long long)k * npp * E + L;
-#pragma unroll
-    for (int i = 0; i < NP; ++i) o[i * E] = acc[i];
-    for (int i = NP; i < npp; ++i) o[i * E] = 0.f;
-  }
+    for (int ii = 0; ii < LY::RM; ++ii)
+      if (i0 + ii < NP) out[((size_t)k * npp + i0 + ii) * E] = sig[k][ii];
+  for (int r = tl.ig; r < LY::NSIG * pad; r += LY::NG)
+    out[((size_t)(r / pad) * npp + NP + r % pad) * E] = 0.f;
+}
+
+// The dynamic shared memory is raised above 48 KB once per instantiation;
+// an error there is returned like a launch error.
+template <int DIM, int NP, int NFP, bool ANISO>
+int launch_stress(const LaneArgs& a, cudaStream_t stream) {
+  using LY = StressLayout<DIM, NP, NFP, ANISO>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      lane_stress_tile_kernel<DIM, NP, NFP, ANISO>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, LY::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  const unsigned blocks = (unsigned)((a.E + LY::T - 1) / LY::T);
+  lane_stress_tile_kernel<DIM, NP, NFP, ANISO>
+      <<<blocks, LY::THREADS, LY::BYTES, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <int DIM, int NP, int NFP>
 int launch(int op, const LaneArgs& a, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((a.E + kThreads - 1) / kThreads);
-  if (op == 0)
+  if (op == 0) {
+    const unsigned blocks = (unsigned)((a.E + kThreads - 1) / kThreads);
     lane_vel_kernel<DIM, NP, NFP><<<blocks, kThreads, 0, stream>>>(a);
-  else if (a.cmat != nullptr)
-    lane_stress_kernel<DIM, NP, NFP, true>
-        <<<blocks, kThreads, 0, stream>>>(a);
-  else
-    lane_stress_kernel<DIM, NP, NFP, false>
-        <<<blocks, kThreads, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+    return (int)cudaGetLastError();
+  }
+  return a.cmat != nullptr ? launch_stress<DIM, NP, NFP, true>(a, stream)
+                           : launch_stress<DIM, NP, NFP, false>(a, stream);
 }
 
 // Every (dim, n_p, n_fp) of SEIGEN_DISPATCH_SHAPES; -1 for another shape,
 // -2 for a mode the operator does not have, a SEL launch without its
-// tables, K4 with a stiffness or isotropic K5 without its material rows.
+// tables, K4 with a stiffness, isotropic K5 without its material rows or
+// K5 without its tile table.
 int dispatch(int op, const LaneArgs* a, int dim, int n_p, int n_fp,
              void* stream) {
   const int sel = op == 0 ? (int)kVelSel : (int)kStressSel;
@@ -350,7 +382,8 @@ int dispatch(int op, const LaneArgs* a, int dim, int n_p, int n_fp,
                          (op == 0 && a->sign == nullptr)))
     return -2;
   const bool iso_rows = a->mat0 != nullptr && a->mat1 != nullptr;
-  if (op == 0 ? a->cmat != nullptr : (a->cmat == nullptr && !iso_rows))
+  if (op == 0 ? a->cmat != nullptr
+              : ((a->cmat == nullptr && !iso_rows) || a->tab == nullptr))
     return -2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SEIGEN_LAUNCH(D, P, F) return launch<D, P, F>(op, *a, s)

@@ -1,6 +1,6 @@
 // The in-operator (f2, pi) select of the unstructured lane operators
-// (lane_kernels.cu: K4/K5 mode SEL, through the helpers below;
-// lane_upwind_kernels.cu: K6/K7, which decode the same way while they
+// (lane_kernels.cu: K4 mode SEL, through the helpers below; K5 mode SEL
+// and lane_upwind_kernels.cu: K6/K7, which decode the same way while they
 // stage a tile).
 //
 // Neighbour traces arrive as raw per-face panels (nf*rows_pad, E): panel f

@@ -2,11 +2,12 @@
 // upwind_kernels.cu: K3, lane_kernels.cu: K4/K5, lane_upwind_kernels.cu:
 // K6/K7).
 //
-// Every operator owns one lane (element) per thread.  The merged operators
-// (K1-K3) read their neighbour's face-major trace rows f2*rtf + c*n_fp +
+// The per-lane kernels (K4, K8, K11, K1pk, K8pk, K9pk) own one lane
+// (element) per thread; load_tables needs dr, lift, fnodes.  The merged
+// operators read their neighbour's face-major trace rows f2*rtf + c*n_fp +
 // pi[k] at lane t2*NC + clamp(j + s) through the (m, nf, 3 + n_fp) int32
-// plan table; face_links is templated on their argument struct, which must
-// carry: plan, mask, Ls, NC (and rtq for the packed layout).  load_tables needs dr, lift, fnodes.  The
+// plan table: face_links does so for the per-lane K1pk and is templated on
+// its argument struct, which must carry: plan, mask, Ls, NC, rtq.  The
 // Godunov operators (K3, K6/K7) share the Riemann states below.
 
 #pragma once
@@ -54,7 +55,7 @@ __device__ __forceinline__ void load_tables(const Args& a, float* s_dr,
 
 // Per-face exchange data of one lane: own-trace select, producer face,
 // node permutation and neighbour lane (clamped into the producer class).
-// NPAR = 2 (the packed P1 layout of K1/K2): lanes hold pairs of classes
+// NPAR = 2 (the packed P1 layout of K1pk): lanes hold pairs of classes
 // (2u, 2u+1); the thread of parity par is class t = 2u + par, the mask row
 // of its face f is par*4 + f, and its producer t2 sits at lane
 // (t2 / 2)*NC + j + s in the parity block t2 % 2 of the producer face:

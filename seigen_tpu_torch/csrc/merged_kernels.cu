@@ -1,5 +1,6 @@
 // Merged LF operators for Hopper (sm_90a): K1 merged_vel and K2 merged_stress,
-// and their v2 instantiations K8 fused_vel2 and K9 fused_stress2.
+// their v2 instantiations K8 fused_vel2 and K9 fused_stress2, and their
+// packed P1 instantiations (K1pk, K2pk, K8pk, K9pk).
 //
 // Replaces the JAX package's one Pallas kernel family on the LF4 main path,
 // seigen_tpu/ops/merged_kernels.py:_merged_kernel, issued per class by
@@ -23,20 +24,21 @@
 //
 // Two designs live here.  The per-lane templates merged_vel_kernel and
 // merged_stress_kernel (the first design) give one thread one lane and run
-// K8, K11 and the packed layout (the stress template: isotropic, packed
-// only): there every FMA takes its table operand from shared memory, the
-// per-lane face arrays sit in local memory, and the stress kernel repeats
-// its volume product for each Voigt row.  K1 and K2 with one element per
-// lane (the LF4 main path), and K9 on the v2 path, run the tile kernels of
-// merged_tile.cuh instead, designed for this card:
+// K8, K11, K1pk, K8pk and K9pk (the stress template: K9pk only): there
+// every FMA takes its table operand from shared memory, the per-lane face
+// arrays sit in local memory, and the stress kernel repeats its volume
+// product for each Voigt row.  K1 and K2 with one element per lane (the
+// LF4 main path), K2 on the packed layout (K2pk) and K9 on the v2 path run
+// the tile kernels of merged_tile.cuh instead, designed for this card:
 //   - A block owns a tile of T consecutive lanes of ONE class (grid: tiles
-//     of a class x classes), so the neighbour rows of a (class, face) form
-//     one segment at the plan's fixed shift s; the last tile of a class is
-//     ragged and masked.  T is 32 at P2-P4 (64 or 128 at P1, for at least
-//     four warps a block).  At 3D P3 a block is 320 threads and takes
-//     36 KB of shared memory (K2), 49 KB (K2 ANISO) or 51 KB (K1); four
-//     blocks, 40 warps, fit an SM (K2: its 48 registers are the limit);
-//     the dynamic shared memory is raised above 48 KB per instantiation.
+//     of a class x classes; K2pk: x 2 parities), so the neighbour rows of a
+//     (class, face) form one segment at the plan's fixed shift s; the last
+//     tile of a class is ragged and masked.  T is 32 at P2-P4 (64 or 128
+//     at P1, for at least four warps a block).  At 3D P3 a block is 320
+//     threads and takes 36 KB of shared memory (K2), 49 KB (K2 ANISO) or
+//     51 KB (K1); four blocks, 40 warps, fit an SM (K2: its 48 registers
+//     are the limit); the dynamic shared memory is raised above 48 KB per
+//     instantiation.
 //   - The grid is not persistent: the resident blocks of an SM overlap one
 //     tile's loads with another's arithmetic, and more warps an SM is what
 //     these kernels gain from.  A persistent grid double-buffering its
@@ -108,19 +110,23 @@
 // build_packed_fused_data, FusedOpData n_par = 2; merged_kernels.py:
 // _merged_kernel with n_par = 2 and gexp).  There the TPU filled its 8-row
 // tiles with two P1 elements; here a thread still owns one element: the
-// block row blockIdx.y is its parity par, so consecutive threads keep
-// touching consecutive lanes.  It reads state, damp and source rows
-// c*8 + par*4 + i, ginv rows o_ginv + 2*(r*dim+d) + par, face rows par*4 + f
-// of every face section and of the mask, material rows o_mat + 2*j + par
-// (1/rho at o_mat + par*irho_par: the P1 pack probe's geo keeps it at
-// o_irho + par*4, K11 below), and emits its traces at f*rtf + par*rtq + ...
-// (merged) or c*ftpp + par*ftq + ... (v2).  The merged plan table is over
-// the original classes: the thread's class is t = 2*(L / NC) + par, and its
-// producer t2 sits at lane (t2 / 2)*NC + j + s, rows f2*rtf + (t2 % 2)*rtq.
-// What packing saves on this card is device-memory traffic: the pad rows
-// 4..7 of every P1 state, damp and output block are neither read nor
-// written.  NPAR = 1 compiles to the unpacked K8 (the parity is the
-// constant 0).
+// parity par is a grid dimension (the per-lane templates: blockIdx.y; K2pk:
+// blockIdx.z), so consecutive threads keep touching consecutive lanes.  It
+// reads state, damp and source rows c*8 + par*4 + i, ginv rows o_ginv +
+// 2*(r*dim+d) + par, face rows par*4 + f of every face section and of the
+// mask, material rows o_mat + 2*j + par (1/rho at o_mat + par*irho_par:
+// the P1 pack probe's geo keeps it at o_irho + par*4, K11 below), and
+// emits its traces at f*rtf + par*rtq + ... (merged) or c*ftpp + par*ftq +
+// ... (v2).  The merged plan table is over the original classes: the
+// thread's class is t = 2*(L / NC) + par, and its producer t2 sits at lane
+// (t2 / 2)*NC + j + s, rows f2*rtf + (t2 % 2)*rtq.  What packing saves on
+// this card is device-memory traffic: the pad rows 4..7 of every P1 state,
+// damp and output block are neither read nor written.  K2pk is K2's tile
+// kernel with the parity's row offsets (merged_tile.cuh, Layout NPAR = 2):
+// a block is an unpacked K2 tile of one parity, T = 128 lanes at P1, and a
+// 2D P1 element's pad row par*4 + 3 takes the epilogue of an operator value
+// 0 as in the plain version.  NPAR = 1 compiles the per-lane velocity
+// template to the unpacked K8 (the parity is the constant 0).
 //
 // K11 p1_pack_vel replaces seigen_tpu/bench/p1_pack_probe.py:packed_vel_op
 // (:176 -> _packed_vel_kernel :121), the probe's packed P1/3D velocity
@@ -329,17 +335,18 @@ merged_vel_kernel(const MergedArgs a) {
   }
 }
 
-// ---------------------------------------------------------------- K2 ---
+// --------------------------------------------------------------- K9pk ---
 // ds_k = sum_{d,c} A_k[d,c] (du_c/dx_d) + LIFT(sum_{d,c} A_k[d,c] n_d du*_c)
 // with A the isotropic Hooke tensor (lambda, mu) in Voigt row k and du*_c
-// = scb * u+_c + dfs * u-_c (u+ = producer velocity trace, u- on boundary
-// faces).  Emits the traction traces n . sigma of the output.  V2: u+_c is
-// the lane's own row of the exchanged traces (K9).  Built for the packed
-// P1 layout only (NPAR = 2, isotropic, parity blockIdx.y): one element per
-// lane runs the tile kernel, both Hooke laws.
+// = scb * u+_c + dfs * u-_c, u+_c the lane's own row of the exchanged
+// traces.  Emits the traction traces n . sigma of the output,
+// component-major.  Built for K9 on the packed P1 layout only (NPAR = 2,
+// V2, isotropic, parity blockIdx.y): K2, K2pk and K9 with one element per
+// lane run the tile kernel.
 template <int DIM, int NP, int NFP, int NPAR, bool V2>
 __global__ void __launch_bounds__(kThreads)
 merged_stress_kernel(const MergedArgs a) {
+  static_assert(NPAR == 2 && V2, "the per-lane stress kernel is K9pk's");
   using S = Shape<DIM, NP, NFP>;
   constexpr int NF = S::NF, NFT = S::NFT, NSIG = S::NSIG;
   __shared__ float s_dr[DIM * NP * NP];
@@ -364,9 +371,6 @@ merged_stress_kernel(const MergedArgs a) {
   const float lam = geo(a.o_mat + NPAR + par);
   const float mu = geo(a.o_mat + 2 * NPAR + par);
 
-  FaceLinks<NF, NPAR> fl;
-  if constexpr (!V2) face_links<NF, NFP, NPAR>(a, L, fl, par);
-
   // velocity jump scb*u+ + dfs*u- per component and face node
   float jump[DIM][NFT];
 #pragma unroll 1
@@ -378,11 +382,8 @@ merged_stress_kernel(const MergedArgs a) {
 #pragma unroll
       for (int c = 0; c < DIM; ++c) {
         const float own = fld(c, node);
-        float nb = own;
-        if constexpr (V2)
-          nb = a.trs[((long long)c * a.rtf + par * NFT + f * NFP + k) * Ls + L];
-        else if (!fl.own_only[f])
-          nb = a.trs[(fl.row(a, f) + c * NFP + fl.pi[f][k]) * Ls + fl.lane[f]];
+        const float nb =
+            a.trs[((long long)c * a.rtf + par * NFT + f * NFP + k) * Ls + L];
         jump[c][f * NFP + k] = scb * nb + dfs * own;
       }
     }
@@ -441,15 +442,14 @@ merged_stress_kernel(const MergedArgs a) {
     }
   }
 
-  // traction traces n . sigma of the output, face-major (merged) or
-  // component-major (V2); pad rows 0 (V2: by the parity-0 thread)
+  // component-major traction traces n . sigma of the output; pad rows 0
+  // (by the parity-0 thread)
 #pragma unroll 1
   for (int f = 0; f < NF; ++f) {
     float n[DIM];
 #pragma unroll
     for (int d = 0; d < DIM; ++d) n[d] = geo(a.o_nrm + 8 * d + h + f);
-    float* tr = V2 ? a.trout + (long long)(par * NFT + f * NFP) * Ls + L
-                   : a.trout + ((long long)f * a.rtf + par * a.rtq) * Ls + L;
+    float* tr = a.trout + (long long)(par * NFT + f * NFP) * Ls + L;
 #pragma unroll 1
     for (int kk = 0; kk < NFP; ++kk) {
       const int node = s_fn[f * NFP + kk];
@@ -461,24 +461,17 @@ merged_stress_kernel(const MergedArgs a) {
         float t = 0.f;
 #pragma unroll
         for (int d = 0; d < DIM; ++d) t += n[d] * sv[voigt<DIM>(c, d)];
-        if constexpr (V2)
-          tr[((long long)c * a.rtf + kk) * Ls] = t;
-        else
-          tr[(long long)(c * NFP + kk) * Ls] = t;
+        tr[((long long)c * a.rtf + kk) * Ls] = t;
       }
     }
-    if constexpr (!V2)
-      for (int q = DIM * NFP; q < (NPAR == 1 ? a.rtf : a.rtq); ++q)
-        tr[(long long)q * Ls] = 0.f;
   }
-  if constexpr (V2)
-    if (par == 0)
-      for (int c = 0; c < DIM; ++c)
-        for (int q = NPAR * NFT; q < a.rtf; ++q)
-          a.trout[((long long)c * a.rtf + q) * Ls + L] = 0.f;
+  if (par == 0)
+    for (int c = 0; c < DIM; ++c)
+      for (int q = NPAR * NFT; q < a.rtf; ++q)
+        a.trout[((long long)c * a.rtf + q) * Ls + L] = 0.f;
 }
 
-// ------------------------------------------- K1/K2/K9, tiled (NPAR = 1) ---
+// ---------------------------------------------- K1/K2/K9, K2pk: tiled ---
 // One block per tile of T lanes of one class: blockIdx = (tile, class).
 template <int DIM, int NP, int NFP, bool VEL, bool ANISO, bool V2>
 __global__ void
@@ -490,6 +483,16 @@ merged_tile_kernel(const MergedArgs a) {
     tile::vel_tile<LY>(a, reinterpret_cast<float*>(s_dyn));
   else
     tile::stress_tile<LY>(a, reinterpret_cast<float*>(s_dyn));
+}
+
+// K2pk: blockIdx = (tile, packed class, parity).
+template <int DIM, int NP, int NFP>
+__global__ void
+__launch_bounds__(tile::Layout<DIM, NP, NFP, false, false, false, 2>::THREADS)
+merged_tile_pk_kernel(const MergedArgs a) {
+  using LY = tile::Layout<DIM, NP, NFP, false, false, false, 2>;
+  extern __shared__ float4 s_dyn[];
+  tile::stress_tile<LY>(a, reinterpret_cast<float*>(s_dyn));
 }
 
 // The dynamic shared memory is raised above 48 KB once per instantiation;
@@ -508,8 +511,23 @@ int launch_tile(const MergedArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The per-lane templates, one thread a lane (K8, K11 and the packed
-// layout); the stress kernel has the isotropic law only.
+template <int DIM, int NP, int NFP>
+int launch_tile_pk(const MergedArgs& a, cudaStream_t stream) {
+  using LY = tile::Layout<DIM, NP, NFP, false, false, false, 2>;
+  if (a.o_C >= 0) return -1;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      merged_tile_pk_kernel<DIM, NP, NFP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, LY::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((unsigned)((a.NC + LY::T - 1) / LY::T),
+                  (unsigned)(a.Ls / a.NC), 2);
+  merged_tile_pk_kernel<DIM, NP, NFP>
+      <<<grid, LY::THREADS, LY::BYTES, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The per-lane templates, one thread a lane (K8, K11, K1pk, K8pk, K9pk);
+// the stress kernel has the isotropic law only.
 template <int DIM, int NP, int NFP, int NPAR, bool V2, bool VEL>
 int launch_lane(const MergedArgs& a, cudaStream_t stream) {
   const dim3 grid((unsigned)((a.Ls + kThreads - 1) / kThreads), NPAR);
@@ -525,13 +543,14 @@ int launch_lane(const MergedArgs& a, cudaStream_t stream) {
 
 // op: 0 K1, 1 K2, 2 K8, 3 K9.  With one element per lane K1, K2 and K9 run
 // the tile kernels (a->o_C >= 0: the general Hooke law) and K8 its
-// per-lane template; the packed layout runs the per-lane templates.
+// per-lane template; on the packed layout K2 runs its tile kernel, the
+// others the per-lane templates.
 template <int DIM, int NP, int NFP, int NPAR>
 int launch(int op, const MergedArgs& a, cudaStream_t stream) {
   if constexpr (NPAR == 2) {
     switch (op) {
       case 0: return launch_lane<DIM, NP, NFP, 2, false, true>(a, stream);
-      case 1: return launch_lane<DIM, NP, NFP, 2, false, false>(a, stream);
+      case 1: return launch_tile_pk<DIM, NP, NFP>(a, stream);
       case 2: return launch_lane<DIM, NP, NFP, 2, true, true>(a, stream);
       default: return launch_lane<DIM, NP, NFP, 2, true, false>(a, stream);
     }

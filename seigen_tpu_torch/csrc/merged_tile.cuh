@@ -1,10 +1,13 @@
 // Tile kernels of K1 merged_vel and K2 merged_stress for the merged layout
-// with one element per lane, and of K9 fused_stress2, K2's V2 instantiation
-// on the v2 engine's exchanged traces (merged_kernels.cu dispatches them;
-// its head note gives the design and the reasons).  A block owns T
-// consecutive lanes of one class (V2: of the one class of all Ls lanes) and
-// stages them in shared memory; a thread then owns RM nodes of one lane in
-// the node-by-lane products.
+// with one element per lane, of K2pk, K2 on the packed P1 layout (NPAR = 2:
+// two elements a lane, a block owns one parity), and of K9 fused_stress2,
+// K2's V2 instantiation on the v2 engine's exchanged traces
+// (merged_kernels.cu dispatches them; its head note gives the design and
+// the reasons).  A block owns T consecutive lanes of one class (V2: of the
+// one class of all Ls lanes) and stages them in shared memory; a thread
+// then owns RM nodes of one lane in the node-by-lane products.  The stress
+// core (stress_core) also serves K5 lane_stress (lane_kernels.cu), which
+// stages its tile from the lane layout itself (LANE).
 //
 // Everything per lane that is indexed at run time (face data, neighbour
 // links, Hooke coefficients) lives in shared memory; register arrays are
@@ -50,10 +53,23 @@ namespace tile {
 // (and NB) once the products have read them.
 // V2: the exchanged traces already hold the own value on boundary faces,
 // so there is no mask; the output's traces are emitted component-major.
-template <int DIM_, int NP_, int NFP_, bool VEL_, bool ANISO_, bool V2_>
+// NPAR = 2 (K2pk, isotropic, merged layout only): the block's parity par
+// reads its element's rows as the packed layout places them (state rows
+// c*npp + par*4 + i, ginv and material rows interleaved over the parities,
+// face rows par*4 + f); the shared-memory tile is the unpacked one.
+// LANE (K5, on V2's rows): geo rows G_SCB and G_BFS hold Fscale and delta
+// (the lane layout's rows), from which the jump takes scb = Fscale/2 and
+// dfs = delta*Fscale.
+template <int DIM_, int NP_, int NFP_, bool VEL_, bool ANISO_, bool V2_,
+          int NPAR_ = 1, bool LANE_ = false>
 struct Layout {
   static constexpr int DIM = DIM_, NP = NP_, NFP = NFP_;
   static constexpr bool VEL = VEL_, ANISO = ANISO_, V2 = V2_;
+  static constexpr int NPAR = NPAR_;
+  static constexpr bool LANE = LANE_;
+  static_assert(NPAR == 1 || (NPAR == 2 && !VEL && !ANISO && !V2),
+                "the packed tile is K2's, isotropic");
+  static_assert(!LANE || (!VEL && V2), "the lane tile is K9's rows");
   using S = Shape<DIM, NP, NFP>;
   static constexpr int NF = S::NF, NFT = S::NFT, NSIG = S::NSIG;
   static constexpr int RM = DIM == 3 && NP >= 10 ? 2 : 4;
@@ -139,59 +155,71 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // The block's tile: class t, first lane j0 of the class, nvalid live lanes
 // (the last tile of a class is ragged); the thread's lane l and node group
-// ig (threadIdx.x = ig*T + l).
+// ig (threadIdx.x = ig*T + l).  Packed (NPAR = 2): blockIdx = (tile,
+// packed class u, parity par), and the class is the original t = 2u + par.
 struct Tile {
   int t, j0, nvalid, l, ig;
-  long long lane0;  // t*NC + j0
+  int par;          // the element's parity (0 unpacked)
+  long long lane0;  // u*NC + j0 (unpacked u = t)
   bool live;        // l < nvalid
 };
 
 template <class LY, class Args>
 __device__ __forceinline__ Tile make_tile(const Args& a) {
   Tile tl;
-  tl.t = (int)blockIdx.y;
+  tl.par = LY::NPAR == 1 ? 0 : (int)blockIdx.z;
+  tl.t = (int)blockIdx.y * LY::NPAR + tl.par;
   tl.j0 = (int)blockIdx.x * LY::T;
   tl.nvalid = min(LY::T, a.NC - tl.j0);
   tl.l = (int)threadIdx.x % LY::T;
   tl.ig = (int)threadIdx.x / LY::T;
-  tl.lane0 = (long long)tl.t * a.NC + tl.j0;
+  // the class index as an int, sign-extended: a zero-extended blockIdx.y
+  // moves the registers of K1/K2/K9 at several shapes
+  tl.lane0 =
+      (long long)(LY::NPAR == 1 ? tl.t : (int)blockIdx.y) * a.NC + tl.j0;
   tl.live = tl.l < tl.nvalid;
   return tl;
 }
 
-// Global row (at lane 0) of local geo row r.
+// Global row (at lane 0) of local geo row r for the element of parity par
+// (packed: ginv rows o_ginv + 2*(r*dim + d) + par, face rows par*4 + f,
+// lambda and mu at o_mat + 2*j + par).
 template <class LY, class Args>
-__device__ __forceinline__ const float* geo_row(const Args& a, int r) {
+__device__ __forceinline__ const float* geo_row(const Args& a, int r,
+                                                int par) {
+  constexpr int P = LY::NPAR;
+  const int h = 4 * par;  // the parity's first row of a face section
   int row;
   if (r < LY::G_NRM) {
-    row = a.o_ginv + r;
+    row = a.o_ginv + P * r + par;
   } else if (r < LY::G_SCB) {
     const int q = r - LY::G_NRM;
-    row = a.o_nrm + 8 * (q / LY::NF) + q % LY::NF;
+    row = a.o_nrm + 8 * (q / LY::NF) + h + q % LY::NF;
   } else if (r < LY::G_BFS) {
-    row = a.o_scb + (r - LY::G_SCB);
+    row = a.o_scb + h + (r - LY::G_SCB);
   } else if (r < LY::G_MASK) {
-    row = (LY::VEL ? a.o_bfs : a.o_dfs) + (r - LY::G_BFS);
+    row = (LY::VEL ? a.o_bfs : a.o_dfs) + h + (r - LY::G_BFS);
   } else if (r < LY::G_MAT) {
-    return a.mask + (long long)(r - LY::G_MASK) * a.Ls;
+    return a.mask + (long long)(h + r - LY::G_MASK) * a.Ls;
   } else {
     const int q = r - LY::G_MAT;
     row = LY::VEL ? a.o_mat
           : LY::ANISO ? a.o_C + 8 * (q / LY::NSIG) + q % LY::NSIG
-                      : a.o_mat + 1 + q;
+                      : a.o_mat + P * (1 + q) + par;
   }
   return a.geo + (long long)row * a.Ls;
 }
 
-// Local row r < CIN*NP of the input field (global row c*npp + j): its
-// shared-memory row and its global row at lane 0.
+// Local row r < CIN*NP of the input field (global row c*npp + h + j, h the
+// parity's first row of a node block): its shared-memory row and its
+// global row at lane 0.
 template <class LY>
 __device__ __forceinline__ int in_row(int r) {
   return LY::VEL ? (r % LY::NP) * LY::WS + r / LY::NP : r;
 }
 template <class LY, class Args>
-__device__ __forceinline__ const float* in_src(const Args& a, int r) {
-  return a.field + ((long long)(r / LY::NP) * a.npp + r % LY::NP) * a.Ls;
+__device__ __forceinline__ const float* in_src(const Args& a, int r, int h) {
+  return a.field + ((long long)(r / LY::NP) * a.npp + h + r % LY::NP) * a.Ls;
 }
 
 // Stage the tile in shared memory by cp.async: the table (16 bytes a
@@ -200,14 +228,17 @@ __device__ __forceinline__ const float* in_src(const Args& a, int r) {
 // lanes past nvalid loading the last live lane); and the neighbour's trace
 // rows f2*rtf + c*NFP + pi[k] at lanes t2*NC + j0 + s + l, clamped into
 // the class t2 (16 bytes a copy where the face's shift s keeps the
-// segment aligned and inside the class, else 4 bytes), or with V2 the
-// lane's own rows c*rtf + q of the exchanged traces (as the input).
+// segment aligned and inside the class, else 4 bytes; packed: the
+// parity block t2 % 2 of the producer face at lanes (t2 / 2)*NC + ...),
+// or with V2 the lane's own rows c*rtf + q of the exchanged traces (as the
+// input).
 // Consecutive threads copy consecutive lanes.
 template <class LY, class Args>
 __device__ __forceinline__ void stage(const Args& a, const Tile& tl,
                                       float* sm) {
   constexpr int T = LY::T, NG = LY::NG, NFP = LY::NFP, NFT = LY::NFT;
   constexpr int NIN = LY::CIN * LY::NP, Q = T / 4;
+  const int h = 4 * tl.par;
   int* s_fn = reinterpret_cast<int*>(sm + LY::OFF_INT);
   for (int e = threadIdx.x; e < NFT; e += LY::THREADS) s_fn[e] = a.fnodes[e];
   for (int e = threadIdx.x; e < LY::KA * LY::NPI / 4; e += LY::THREADS)
@@ -222,18 +253,19 @@ __device__ __forceinline__ void stage(const Args& a, const Tile& tl,
       const int r = e / Q, l4 = (e % Q) * 4;
       if (r < NIN)
         cp_async16(sm + LY::OFF_IN + in_row<LY>(r) * T + l4,
-                   in_src<LY>(a, r) + tl.lane0 + l4);
+                   in_src<LY>(a, r, h) + tl.lane0 + l4);
       else
         cp_async16(sm + LY::OFF_GEO + (r - NIN) * T + l4,
-                   geo_row<LY>(a, r - NIN) + tl.lane0 + l4);
+                   geo_row<LY>(a, r - NIN, tl.par) + tl.lane0 + l4);
     }
   } else {
     const long long own = tl.lane0 + min(tl.l, tl.nvalid - 1);
     for (int r = tl.ig; r < NIN; r += NG)
       cp_async4(sm + LY::OFF_IN + in_row<LY>(r) * T + tl.l,
-                in_src<LY>(a, r) + own);
+                in_src<LY>(a, r, h) + own);
     for (int r = tl.ig; r < LY::GR; r += NG)
-      cp_async4(sm + LY::OFF_GEO + r * T + tl.l, geo_row<LY>(a, r) + own);
+      cp_async4(sm + LY::OFF_GEO + r * T + tl.l,
+                geo_row<LY>(a, r, tl.par) + own);
   }
   const bool vec_tr = vec && ((uintptr_t)a.trs & 15) == 0;
   if constexpr (LY::V2) {
@@ -257,7 +289,8 @@ __device__ __forceinline__ void stage(const Args& a, const Tile& tl,
       const int* pe = a.plan + (tl.t * LY::NF + f) * (3 + NFP);
       const int s = pe[2];
       const float* base =
-          a.trs + (long long)pe[1] * a.rtf * Ls + (long long)pe[0] * a.NC;
+          a.trs + ((long long)pe[1] * a.rtf + (pe[0] % LY::NPAR) * a.rtq) * Ls +
+          (long long)(pe[0] / LY::NPAR) * a.NC;
       float* dst = sm + LY::OFF_NB + f * NFP * T;
       if (vec_tr && (s & 3) == 0 && tl.j0 + s >= 0 && tl.j0 + s + T <= a.NC) {
         // the whole segment lies in the class, 16-byte aligned
@@ -283,8 +316,9 @@ __device__ __forceinline__ void stage(const Args& a, const Tile& tl,
 }
 
 // finish_row on the operator values v[c][ii] of this thread's nodes i0 + ii
-// < NP of lane l: axpy (and damping), dense injection; the results replace
-// v and are stored to out.  The read-only operands are loaded component by
+// < NP of lane l (global rows c*npp + h + i0 + ii, h the parity's first
+// row): axpy (and damping), dense injection; the results replace v and are
+// stored to out.  The read-only operands are loaded component by
 // component through the non-coherent path, so that the loads of one
 // component need not wait for the stores of the previous one.
 template <class LY, class Args>
@@ -295,19 +329,19 @@ __device__ __forceinline__ void finish_nodes(const Args& a, const Tile& tl,
   constexpr int RM = LY::RM, NP = LY::NP;
   if (!tl.live) return;
   const long long Ls = a.Ls, L = tl.lane0 + tl.l;
-  const int npp = a.npp;
+  const int npp = a.npp, h = 4 * tl.par;
   float dm[RM];
 #pragma unroll
   for (int ii = 0; ii < RM; ++ii)
     dm[ii] = damp && a.axpy && a.damp != nullptr && i0 + ii < NP
-                 ? __ldg(a.damp + (size_t)(i0 + ii) * Ls + L)
+                 ? __ldg(a.damp + (size_t)(h + i0 + ii) * Ls + L)
                  : 1.f;
 #pragma unroll
   for (int c = 0; c < LY::COUT; ++c) {
     float x0[RM], x1[RM], s0[RM], s1[RM];
 #pragma unroll
     for (int ii = 0; ii < RM; ++ii) {
-      const size_t idx = ((size_t)c * npp + i0 + ii) * Ls + L;
+      const size_t idx = ((size_t)c * npp + h + i0 + ii) * Ls + L;
       const bool in = i0 + ii < NP;
       x0[ii] = in && a.axpy ? __ldg(a.ax0 + idx) : 0.f;
       x1[ii] = in && a.axpy ? __ldg(a.ax1 + idx) : 0.f;
@@ -322,13 +356,14 @@ __device__ __forceinline__ void finish_nodes(const Args& a, const Tile& tl,
       if (a.n_inj > 0) r += a.r0 * s0[ii];
       if (a.n_inj > 1) r += a.r1 * s1[ii];
       v[c][ii] = r;
-      a.out[((size_t)c * npp + i0 + ii) * Ls + L] = r;
+      a.out[((size_t)c * npp + h + i0 + ii) * Ls + L] = r;
     }
   }
 }
 
 // The output tile: this thread's final values to rows c*NP + i of s_out,
-// and the pad rows NP..npp-1 of out (finish_row of an operator value 0).
+// and the pad rows NP..npp/NPAR-1 of out (after the parity's first row h;
+// finish_row of an operator value 0).
 template <class LY, class Args>
 __device__ __forceinline__ void store_tile(const Args& a, const Tile& tl,
                                            int i0,
@@ -343,9 +378,9 @@ __device__ __forceinline__ void store_tile(const Args& a, const Tile& tl,
         s_out[(c * NP + i0 + ii) * T + tl.l] = v[c][ii];
   if (!tl.live) return;
   const long long Ls = a.Ls, L = tl.lane0 + tl.l;
-  const int npp = a.npp, pad = npp - NP;
+  const int npp = a.npp, pad = npp / LY::NPAR - NP;
   for (int r = tl.ig; r < LY::COUT * pad; r += LY::NG) {
-    const int i = NP + r % pad;
+    const int i = 4 * tl.par + NP + r % pad;
     const size_t idx = ((size_t)(r / pad) * npp + i) * Ls + L;
     float x = 0.f;
     if (a.axpy) {
@@ -360,7 +395,8 @@ __device__ __forceinline__ void store_tile(const Args& a, const Tile& tl,
 
 // The traces of the output (pad rows 0): the velocity itself (K1) or the
 // traction n . sigma (K2) at face node q = f*NFP + k, face-major at rows
-// f*rtf + c*NFP + k, or with V2 component-major at rows c*rtf + q.
+// f*rtf + c*NFP + k (packed: f*rtf + par*rtq + c*NFP + k, the pad rows of
+// the parity's block), or with V2 component-major at rows c*rtf + q.
 template <class LY, class Args>
 __device__ __forceinline__ void emit(const Args& a, const Tile& tl,
                                      const float* sm) {
@@ -375,7 +411,8 @@ __device__ __forceinline__ void emit(const Args& a, const Tile& tl,
   for (int q = tl.ig; q < LY::NFT; q += LY::NG) {
     const int f = q / NFP, node = s_fn[q];
     float* tr = LY::V2 ? a.trout + (size_t)q * Ls + L
-                       : a.trout + ((size_t)f * a.rtf + q % NFP) * Ls + L;
+                       : a.trout + ((size_t)f * a.rtf + tl.par * a.rtq +
+                                    q % NFP) * Ls + L;
     if constexpr (LY::VEL) {
 #pragma unroll
       for (int c = 0; c < DIM; ++c) tr[c * cs] = s_out[(c * NP + node) * T];
@@ -399,11 +436,11 @@ __device__ __forceinline__ void emit(const Args& a, const Tile& tl,
     const int pad = a.rtf - LY::NFT;
     for (int r = tl.ig; r < DIM * pad; r += LY::NG)
       a.trout[((size_t)(r / pad) * a.rtf + LY::NFT + r % pad) * Ls + L] = 0.f;
-  } else {  // rows DIM*NFP..rtf-1 of every face
-    const int pad = a.rtf - DIM * NFP;
+  } else {  // rows DIM*NFP..rtq-1 of every face's (parity) block
+    const int pad = (LY::NPAR == 1 ? a.rtf : a.rtq) - DIM * NFP;
     for (int r = tl.ig; r < LY::NF * pad; r += LY::NG)
-      a.trout[((size_t)(r / pad) * a.rtf + DIM * NFP + r % pad) * Ls + L] =
-          0.f;
+      a.trout[((size_t)(r / pad) * a.rtf + tl.par * a.rtq + DIM * NFP +
+               r % pad) * Ls + L] = 0.f;
   }
 }
 
@@ -510,17 +547,19 @@ __device__ __forceinline__ void vel_tile(const Args& a, float* sm) {
   emit<LY>(a, tl, sm);
 }
 
-// K2: ds_k = sum_{c,d} A_k[d,c] du_c/dx_d + sum_f sum_c F_kc(f) (LIFT_f @
+// The stress operator of K2, K9 and K5 on a staged tile (the table, u, the
+// plus-side traces u+ and the geo rows in shared memory, as Layout says),
+// on this thread's nodes i0 .. i0 + RM - 1 of lane l (i0 = ig*RM):
+// ds_k = sum_{c,d} A_k[d,c] du_c/dx_d + sum_f sum_c F_kc(f) (LIFT_f @
 // jump_c), du_c/dx_d = sum_r Ginv[r][d] (Dr_r @ u_c), jump_c = scb*u+_c +
 // dfs*u-_c, F_kc(f) = sum_d A_k[d,c] n_d(f); A_k the isotropic Hooke rows
-// or, ANISO, A_k[d,c] = C[k][voigt(c,d)].
-template <class LY, class Args>
-__device__ __forceinline__ void stress_tile(const Args& a, float* sm) {
+// or, ANISO, A_k[d,c] = C[k][voigt(c,d)].  The jump overwrites u+ in place.
+template <class LY>
+__device__ __forceinline__ void stress_core(const Tile& tl, float* sm,
+                                            float (&sig)[LY::NSIG][LY::RM]) {
   constexpr int DIM = LY::DIM, NP = LY::NP, NFP = LY::NFP, NF = LY::NF;
   constexpr int NFT = LY::NFT, NSIG = LY::NSIG, T = LY::T, NG = LY::NG;
   constexpr int RM = LY::RM, NPI = LY::NPI, KV = LY::KV;
-  const Tile tl = make_tile<LY>(a);
-  stage<LY>(a, tl, sm);
   const float* s_in = sm + LY::OFF_IN + tl.l;  // u rows c*NP + j
   float* s_nb = sm + LY::OFF_NB + tl.l;        // u+ rows c*NFT + q -> jump
   float* s_F = sm + LY::OFF_F + tl.l;          // ANISO: F_kc(f)
@@ -533,7 +572,8 @@ __device__ __forceinline__ void stress_tile(const Args& a, float* sm) {
     const int f = q / NFP, node = s_fn[q];
     bool own_only = false;
     if constexpr (!LY::V2) own_only = geo(LY::G_MASK + f) != 0.f;
-    const float scb = geo(LY::G_SCB + f), dfs = geo(LY::G_BFS + f);
+    float scb = geo(LY::G_SCB + f), dfs = geo(LY::G_BFS + f);
+    if constexpr (LY::LANE) dfs *= scb, scb *= 0.5f;  // rows Fscale, delta
 #pragma unroll
     for (int c = 0; c < DIM; ++c) {
       const float own = s_in[(c * NP + node) * T];
@@ -614,7 +654,6 @@ __device__ __forceinline__ void stress_tile(const Args& a, float* sm) {
                      gr[shear_b<DIM>(m)][shear_a<DIM>(m)];
     }
   }
-  float sig[NSIG][RM];
   float lam = 0.f, mu = 0.f;
   if constexpr (LY::ANISO) {
 #pragma unroll
@@ -695,6 +734,17 @@ __device__ __forceinline__ void stress_tile(const Args& a, float* sm) {
       }
     }
   }
+}
+
+// K2 (and K2pk, K9): the stress core, then the epilogue, the output tile
+// and the emitted traces.
+template <class LY, class Args>
+__device__ __forceinline__ void stress_tile(const Args& a, float* sm) {
+  const Tile tl = make_tile<LY>(a);
+  stage<LY>(a, tl, sm);
+  float sig[LY::NSIG][LY::RM];
+  stress_core<LY>(tl, sm, sig);
+  const int i0 = tl.ig * LY::RM;
   finish_nodes<LY>(a, tl, i0, sig, true);
   __syncthreads();  // u and the jump are read: the output tile takes them
   store_tile<LY>(a, tl, i0, sig, sm + LY::OFF_IN, true);

@@ -21,7 +21,9 @@ the E elements, without padding.
 
 The public operators launch the CUDA kernels of csrc/lane_kernels.cu for
 CUDA tensors — K4 ``lane_vel`` (modes SIG, TRAC, SEL) and K5
-``lane_stress`` (modes TR, SEL) — and run the plain PyTorch versions
+``lane_stress`` (modes TR, SEL; the tile kernel on K2's stress core, which
+reads each face's geometry at its first face-node row, the expanded rows
+being constant over a face) — and run the plain PyTorch versions
 (``*_ref``) for CPU tensors.  Each kernel keeps a launch count
 (``LANE_VEL.launches``, ``LANE_STRESS.launches``).  The stress operators
 take an optional ``cmat`` (n_sig*8, E), row c*8 + k = Voigt C[c, k] of the
@@ -68,8 +70,8 @@ class LaneOpData:
     kdr: torch.Tensor  # (dim, n_p, n_p) float32 kernel table
     klift: torch.Tensor  # (n_p, ftp) float32 kernel table
     kfn: torch.Tensor  # (nf, n_fp) int32 face node ids
-    ktile: torch.Tensor  # float32 product table of the K6/K7 tile kernel
-    #                      (fused_kernels.tile_table)
+    ktile: torch.Tensor  # float32 product table of the K5 and K6/K7 tile
+    #                      kernels (fused_kernels.tile_table)
     dim: int
     n_p: int
     npp: int  # n_p padded to 8
@@ -309,7 +311,8 @@ class LaneArgs(ctypes.Structure):
         "field", "tr", "combo", "sign", "perms", "ginv", "nrm", "fsc",
         "coef", "mat0", "mat1", "cmat", "dr", "lift", "fnodes", "out")] + [
         ("E", ctypes.c_longlong)] + [(n, ctypes.c_int) for n in (
-            "npp", "ftpp", "rows_pad", "cstride", "G", "mode")]
+            "npp", "ftpp", "rows_pad", "cstride", "G", "mode")] + [
+        ("tab", _P)]
 
 
 @functools.lru_cache(maxsize=16)
@@ -420,6 +423,7 @@ class LaneKernel:
             dr=ptr(d.kdr), lift=ptr(d.klift), fnodes=ptr(d.kfn), out=ptr(out),
             E=E, npp=d.npp, ftpp=d.ftpp, rows_pad=rows_pad, cstride=cstride,
             G=0 if perm_t is None else perm_t.shape[0], mode=mode,
+            tab=None if self.vel else ptr(d.ktile),
         )
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = self._function()(ctypes.byref(args), d.dim, d.n_p, d.n_fp,

@@ -202,8 +202,12 @@ def test_profile_groups_kernels_and_needs_cuda(monkeypatch):
         "true>(LaneUpwindArgs)": "lane_upwind_axpy",
         "void (anonymous namespace)::lane_upwind_tile_kernel<3, 20, 10, "
         "false>(LaneUpwindArgs)": "lane_upwind_rhs",
-        "void (anonymous namespace)::lane_stress_kernel<3, 20, 10>"
-        "(LaneArgs)": "lane_stress",
+        "void (anonymous namespace)::lane_stress_tile_kernel<3, 20, 10, "
+        "false>(LaneArgs)": "lane_stress",
+        "void (anonymous namespace)::lane_stress_tile_kernel<2, 6, 3, "
+        "true>(LaneArgs)": "lane_stress",
+        "void (anonymous namespace)::lane_vel_kernel<3, 20, 10>"
+        "(LaneArgs)": "lane_vel",
         "void (anonymous namespace)::merged_vel_kernel<3, 20, 10, 1, true>"
         "(MergedArgs)": "fused_vel2",
         "void (anonymous namespace)::merged_tile_kernel<3, 20, 10, true, "
@@ -218,8 +222,8 @@ def test_profile_groups_kernels_and_needs_cuda(monkeypatch):
         "true, true>(MergedArgs)": "fused_stress2",
         "void (anonymous namespace)::merged_vel_kernel<3, 4, 3, 2, false>"
         "(MergedArgs)": "merged_vel[pk]",
-        "void (anonymous namespace)::merged_stress_kernel<3, 4, 3, 2, "
-        "false>(MergedArgs)": "merged_stress[pk]",
+        "void (anonymous namespace)::merged_tile_pk_kernel<3, 4, 3>"
+        "(MergedArgs)": "merged_stress[pk]",
         "void (anonymous namespace)::merged_vel_kernel<3, 4, 3, 2, true>"
         "(MergedArgs)": "fused_vel2[pk]",
         "void (anonymous namespace)::merged_stress_kernel<2, 3, 2, 2, "
@@ -244,15 +248,17 @@ def test_profile_groups_kernels_and_needs_cuda(monkeypatch):
 def test_merged_ab_family_tables():
     """bench/merged_ab.py's tables: each family times its kernel variants
     once each (fused: K9 plain, axpy, axpy + damp, K9-C, K8; upwind: K6
-    among K3/K7), and each bench's label is the throughput command line of
-    its impl and options; the first turn profiles the upwind steps and the
-    fused one."""
+    among K3/K7; lane: every K5 mode of both Hooke laws, K4's modes as
+    controls; packed: every K2pk variant, K1pk and the unpacked K2 as
+    controls), and each bench's label is the throughput command line of
+    its impl and options; the first turn profiles the upwind steps, the
+    fused one, lane LF2 and lane_u, and merged_pk."""
     import argparse
 
     from seigen_tpu_torch.bench import merged_ab as ab
 
     assert set(ab.FAMILIES) == set(ab.STEPS) == {"merged", "upwind",
-                                                  "fused"}
+                                                  "fused", "lane", "packed"}
     for variants in ab.FAMILIES.values():
         assert len(set(variants)) == len(variants)
     assert ab.FAMILIES["fused"] == (
@@ -261,15 +267,24 @@ def test_merged_ab_family_tables():
         ("fused_stress2[C]", "axpy_damp"), ("fused_vel2", "plain"),
         ("fused_vel2", "axpy"))
     assert ("lane_upwind_rhs", "rhs") in ab.FAMILIES["upwind"]
+    assert {v for k, v in ab.FAMILIES["lane"] if k.startswith(
+        "lane_stress")} == {"TR", "SEL"}
+    assert {k for k, _ in ab.FAMILIES["lane"]} == {
+        "lane_stress", "lane_stress[C]", "lane_vel"}
+    assert {v for k, v in ab.FAMILIES["packed"]
+            if k == "merged_stress[pk]"} == {
+        "plain", "axpy", "axpy_damp", "inject1", "inject2"}
     ap = argparse.ArgumentParser()
     tbench.add_vti_argument(ap)
     tbench.add_upwind_u_arguments(ap)
+    ap.add_argument("--order", type=int, default=4)
     for steps in ab.STEPS.values():
         for label, impl, opts, _ in steps:
             first, *flags = label.split()
             a = ap.parse_args(flags)
             assert first == impl and impl in tbench.IMPLS
-            assert opts == ({"vti": True} if a.vti else {}) | \
+            assert opts == ({"vti": True} if a.vti else {}) | (
+                {"order": a.order} if a.order != 4 else {}) | \
                 tbench.upwind_u_options(a)
     profiled = {fam: [label for label, *_, prof in steps if prof]
                 for fam, steps in ab.STEPS.items()}
@@ -277,7 +292,8 @@ def test_merged_ab_family_tables():
         "merged": [], "fused": ["fused"],
         "upwind": ["upwind_lane", "upwind_lane_u",
                    "upwind_lane_u --panel-emit",
-                   "upwind_lane_u --no-fused-axpy"]}
+                   "upwind_lane_u --no-fused-axpy"],
+        "lane": ["lane --order 2", "lane_u"], "packed": ["merged_pk"]}
 
 
 def test_entry_points_default_to_the_card():

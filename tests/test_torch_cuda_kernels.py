@@ -10,7 +10,11 @@ against upwind_rhs_merged_ref, in
 float32 on box_mesh(4, 4, 4) at P2 and P3 and, through its tile kernel,
 at the eight shapes on the meshes above, each launch counted; every mode
 of K4 (lane_vel: SIG, TRAC, SEL) and K5 (lane_stress: TR, SEL) against its
-plain version on box_mesh(4, 4, 4) and its scrambled copy at P2 and P3;
+plain version on box_mesh(4, 4, 4) and its scrambled copy at P2 and P3,
+and — K5 is a tile kernel — K5's modes with both Hooke laws and K4's
+modes at the eight shapes on the ragged meshes above, on rect_mesh(8, 8)
+P2 (gathered panels: component stride 9, ftpp 16) and on scrambled
+copies, each launch counted once on launches (and launches_c);
 K6 (lane_upwind_rhs) and every mode of K7 (lane_upwind_axpy: stage,
 final, sponge row, 1 and 2 dense groups, panel emission) on scrambled
 box_mesh(4, 4, 4) at P2 and P3 and scrambled rect_mesh(8, 8) P2, and K6
@@ -31,9 +35,11 @@ meshes above, each launch counted on ``launches`` (and ``launches_c``),
 never on ``launches_pk``, K10 (trace_exchange,
 tractions and velocities) on those meshes and their periodic twins, and
 FusedLaneRunner against its plain runner and the kernel merged runner;
-the packed P1 layout (two elements per lane) of K1/K2 (every variant) and
-K8/K9 (plain, axpy, axpy + damp) on box_mesh(4, 4, 4) and rect_mesh(8, 8)
-P1, the packed kernel merged runner against the packed plain and the
+the packed P1 layout (two elements per lane) of K1/K2 (every variant; K2
+through its tile kernel, ragged tiles) and K8/K9 (plain, axpy, axpy +
+damp) on box_mesh(4, 4, 4) and rect_mesh(8, 8) P1, each launch counted
+once on launches and launches_pk, the packed kernel merged runner
+against the packed plain and the
 unpacked kernel runners (``launches_pk`` counts), and K11 (p1_pack_vel)
 against its plain version and the packed K8.
 These tests need a CUDA device and nvcc; elsewhere they skip.  On the GPU
@@ -500,6 +506,106 @@ def test_lane_runner_kernels_match_plain(lane_case, device, name, fused,
     for a, b in ((out_k.u, out_r.u), (out_k.s, out_r.s)):
         assert torch.isfinite(a).all()
         assert ((a - b).norm() / b.norm()).item() < 1e-5
+
+
+LANE_SHAPES = SHAPES + [(2, 2, "8x8")]
+
+
+@pytest.fixture(scope="module", params=LANE_SHAPES,
+                ids=[f"{s[0]}d-P{s[1]}" + (f"-{s[2]}" if len(s) > 2 else "")
+                     for s in LANE_SHAPES])
+def lane_shape_case(request, device):
+    """Kernel UnstructuredLaneRunners, isotropic and with a per-element
+    non-symmetric random stiffness, on a free-top box_mesh(5, 3, 4) or
+    rect_mesh(14, 10) (ragged last tiles of K5's tile kernel) — or on
+    rect_mesh(8, 8), whose gathered P2 panels have a component stride
+    (nf*n_fp = 9) other than ftpp (16) — and on a scrambled copy, with
+    numpy-seeded K4/K5 operands."""
+    import dataclasses
+
+    dim, degree = request.param[:2]
+    topo = (box_mesh(5, 3, 4) if dim == 3 else
+            rect_mesh(8, 8) if len(request.param) > 2 else rect_mesh(14, 10))
+    perm = np.random.default_rng(0).permutation(topo.num_cells)
+    bc = absorbing_bc_fn(((0.0, 1.0),) * dim, free_sides=[(dim - 1, "hi")])
+    out = {}
+    for name, t in (("structured", topo), ("scrambled", dataclasses.replace(
+            topo, cells=topo.cells[perm], structure=None))):
+        dm = build_discrete(t, degree, bc_fn=bc)
+        p = build_params(dm, Material(1.0, 2.0, 1.0), device=device)
+        C = _random_stiffness(dm.num_elements, p.n_sig, 44)
+        for law, stiffness in (("iso", None), ("C", C)):
+            out[name, law] = UnstructuredLaneRunner(
+                p, 0.01, impl="kernel", stiffness=stiffness,
+                centroids=dm.coords.mean(axis=1))
+    d = out["structured", "iso"].d
+    rng = np.random.default_rng(70 + 10 * dim + degree)
+
+    def rows(C, used, pad):
+        a = rng.standard_normal((C, pad, d.E)).astype(np.float32)
+        a[:, used:] = 0.0
+        return torch.as_tensor(a.reshape(C * pad, d.E), device=device)
+
+    rows_pad = out["structured", "iso"]._pg_u[3][5]
+    data = {"sig": rows(d.n_sig, d.n_p, d.npp), "u": rows(d.dim, d.n_p, d.npp),
+            "tr_sig": rows(d.n_sig, d.ftp, d.ftpp),
+            "tr_u": rows(d.dim, d.ftp, d.ftpp),
+            "panels": rows(d.nf, d.dim * d.ftp, rows_pad)}
+    return out, data
+
+
+def _lane_call(r, x, mode, cmat=None):
+    """(public operator call, plain call, kernel binding) of a K4/K5 mode
+    on the runner's data; cmat: the general Hooke law of the K5 modes."""
+    d = r.d
+    _, combo_u, _, cfg_u = r._pg_u
+    _, combo_t, sign_t, cfg_t = r._pg_t
+    fused, plain, kernel = {
+        "SIG": (lk.vel_op_lm, lk.vel_op_lm_ref, lk.LANE_VEL),
+        "TRAC": (lk.vel_op_lm_trac, lk.vel_op_lm_trac_ref, lk.LANE_VEL),
+        "SEL_vel": (lk.vel_op_lm_trac_sel, lk.vel_op_lm_trac_sel_ref,
+                    lk.LANE_VEL),
+        "TR": (lk.stress_op_lm, lk.stress_op_lm_ref, lk.LANE_STRESS),
+        "SEL_stress": (lk.stress_op_lm_sel, lk.stress_op_lm_sel_ref,
+                       lk.LANE_STRESS)}[mode]
+    args = {"SIG": (x["sig"], x["tr_sig"]), "TRAC": (x["sig"], x["tr_u"]),
+            "SEL_vel": (x["sig"], x["panels"], combo_t, sign_t, cfg_t),
+            "TR": (x["u"], x["tr_u"]),
+            "SEL_stress": (x["u"], x["panels"], combo_u, cfg_u)}[mode]
+    kw = {} if cmat is None else {"cmat": cmat}
+    return (lambda: fused(d, *args, **kw)), (lambda: plain(d, *args, **kw)), \
+        kernel
+
+
+@pytest.mark.parametrize("mesh", ["structured", "scrambled"])
+@pytest.mark.parametrize("law", ["iso", "C"])
+@pytest.mark.parametrize("mode", ["TR", "SEL_stress"])
+def test_lane_stress_tile_kernel_matches_plain_at_every_shape(
+        lane_shape_case, mesh, law, mode):
+    """K5 (both modes, both Hooke laws): one launch, counted once on
+    ``launches`` (and on ``launches_c`` with the stiffness)."""
+    runners, x = lane_shape_case
+    r = runners[mesh, law]
+    fused, plain, kernel = _lane_call(r, x, mode,
+                                      r.cmat if law == "C" else None)
+    n0, c0 = kernel.launches, kernel.launches_c
+    got = fused()
+    torch.cuda.synchronize()
+    assert (kernel.launches - n0, kernel.launches_c - c0) == (
+        1, int(law == "C"))
+    _assert_close(got, plain())
+
+
+@pytest.mark.parametrize("mode", ["SIG", "TRAC", "SEL_vel"])
+def test_lane_vel_kernel_matches_plain_at_every_shape(lane_shape_case, mode):
+    """K4's modes beside K5's tile kernel in the same library."""
+    runners, x = lane_shape_case
+    fused, plain, kernel = _lane_call(runners["scrambled", "iso"], x, mode)
+    n0 = kernel.launches
+    got = fused()
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 1
+    _assert_close(got, plain())
 
 
 @pytest.fixture(scope="module", params=[(3, 2), (3, 3), (2, 2)],
@@ -1070,11 +1176,19 @@ def packed_case(request, device):
 
 @pytest.mark.parametrize("op,variant", [
     ("vel", "plain"), ("vel", "axpy"), ("vel", "inject1"), ("vel", "inject2"),
-    ("stress", "plain"), ("stress", "axpy_damp"), ("stress", "inject1"),
-    ("stress", "inject2")])
+    ("stress", "plain"), ("stress", "axpy"), ("stress", "axpy_damp"),
+    ("stress", "inject1"), ("stress", "inject2")])
 def test_packed_merged_kernel_matches_plain(packed_case, op, variant):
+    """K1pk and K2pk (K2's tile kernel on the packed layout; ragged tiles:
+    T = 128 lanes at P1, 64 and 16 lanes a class here): one launch, counted
+    once on ``launches`` and on ``launches_pk``."""
+    import dataclasses
+
     *_, runner, data = packed_case
     x, y = data[op]
+    d = runner.d
+    if variant == "axpy":  # the update without a sponge
+        d = dataclasses.replace(d, damp=None)
     kw = {}
     if variant.startswith("axpy"):
         kw = dict(axpy=(y[0], y[1]), dt=0.01, c3=0.01**3 / 24.0)
@@ -1085,7 +1199,7 @@ def test_packed_merged_kernel_matches_plain(packed_case, op, variant):
                              mk.VEL_KERNEL) if op == "vel" else
                             (mk.stress_merged, mk.stress_merged_ref,
                              mk.STRESS_KERNEL))
-    args = (runner.plan, runner.d, x, data["trs"], runner.mask)
+    args = (runner.plan, d, x, data["trs"], runner.mask)
     n0, pk0 = kernel.launches, kernel.launches_pk
     got = fused(*args, **kw)
     ref = plain(*args, **kw)
