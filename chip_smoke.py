@@ -15,12 +15,12 @@ Phases, each printing its own lines; any failure exits non-zero:
               lane_upwind_axpy) and trace_exchange.cu (K10
               trace_exchange); print ptxas's registers, stack and spills,
               a line for each instantiation of the tile kernels — K1, K2,
-              K2-C, K9, K9-C, K3, K5, K5-C, K6 and K7 at the eight element
-              shapes and K2pk (the packed K2) at 2D and 3D P1 (each must
-              report a 0 B stack frame and no spills) — and require K4 and
-              K8 (3D P3) and the packed K1/K8/K9 (3D P1) at the registers
-              and stack frames they had before the tile kernels came (their
-              code did not change).
+              K2-C, K8, K9, K9-C, K3, K4 (TRAC/SEL and SIG), K5, K5-C, K6
+              and K7 at the eight element shapes and K2pk (the packed K2)
+              at 2D and 3D P1 (each must report a 0 B stack frame and no
+              spills) — and require the packed K1/K8/K9 (3D P1) at the
+              registers and stack frames they had before the tile kernels
+              came (their code did not change).
 3. kernels  - every K1/K2 variant (vel plain/axpy/inject with 1 and 2
               groups; stress plain/axpy/axpy+damp/inject with 1 and 2
               groups) against its plain PyTorch version on the card in
@@ -55,9 +55,10 @@ Phases, each printing its own lines; any failure exits non-zero:
               and K5 mode (TR, SEL) against its plain version: SIG/TR on
               box_mesh(4, 4, 4), TRAC/SEL on its scrambled copy, at P3 and
               P2, and all five on rect_mesh(8, 8) P2 (gathered panels of
-              component stride 9, ftpp 16); K5 TR and SEL (K5 is a tile
-              kernel) at the eight element shapes on the meshes of phase 3
-              (ragged last tiles) and their scrambled copies;
+              component stride 9, ftpp 16); every K4 and K5 mode (both are
+              tile kernels) at the eight element shapes on the meshes of
+              phase 3 (ragged last tiles; SIG, TRAC and TR) and their
+              scrambled copies (all five);
               LaneMajorRunner on the n=24 P3 case, LF2, and
               UnstructuredLaneRunner on its scrambled copy, LF4, with
               fused_select True and False, each for 10 steps kernel vs
@@ -114,7 +115,7 @@ Phases, each printing its own lines; any failure exits non-zero:
               (plain, axpy + sponge, and both with a per-element
               NON-symmetric C) against their plain versions at the eight
               element shapes on the meshes of phase 3 (ragged last tiles
-              of K9's tile kernel) and on box_mesh(4, 4, 4) at P3 and P2
+              of the tile kernel) and on box_mesh(4, 4, 4) at P3 and P2
               and rect_mesh(8, 8) P2; K10 (traction and velocity traces)
               against the plain gather on the last three and on their
               periodic twins.  FusedLaneRunner on the n=24
@@ -189,15 +190,15 @@ EIGEN_MIN_ORDER = 2.8
 SH_WAVE_MAX_ERR = 0.02
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peaks
 FP32_FLOPS_PER_S = 67e12
-KERNELS = {  # name -> (source, replaced TPU kernel); K1, K2, K3, K5, K6,
-    # K7 and K9 are the tile kernels of the two tile headers
+KERNELS = {  # name -> (source, replaced TPU kernel); all but K10 and K11
+    # are the tile kernels of the two tile headers
     "merged_vel": ("seigen_tpu_torch/csrc/merged_tile.cuh",
                    "seigen_tpu/ops/merged_kernels.py:542"),
     "merged_stress": ("seigen_tpu_torch/csrc/merged_tile.cuh",
                       "seigen_tpu/ops/merged_kernels.py:582"),
     "upwind_rhs": ("seigen_tpu_torch/csrc/upwind_tile.cuh",
                    "seigen_tpu/ops/upwind_kernels.py:231"),
-    "lane_vel": ("seigen_tpu_torch/csrc/lane_kernels.cu",
+    "lane_vel": ("seigen_tpu_torch/csrc/merged_tile.cuh",
                  "seigen_tpu/ops/pallas_kernels.py:942"),
     "lane_stress": ("seigen_tpu_torch/csrc/merged_tile.cuh",
                     "seigen_tpu/ops/pallas_kernels.py:982"),
@@ -205,7 +206,7 @@ KERNELS = {  # name -> (source, replaced TPU kernel); K1, K2, K3, K5, K6,
                         "seigen_tpu/ops/pallas_kernels.py:848"),
     "lane_upwind_axpy": ("seigen_tpu_torch/csrc/upwind_tile.cuh",
                          "seigen_tpu/ops/pallas_kernels.py:791"),
-    "fused_vel2": ("seigen_tpu_torch/csrc/merged_kernels.cu",
+    "fused_vel2": ("seigen_tpu_torch/csrc/merged_tile.cuh",
                    "seigen_tpu/ops/fused_kernels.py:718"),
     "fused_stress2": ("seigen_tpu_torch/csrc/merged_tile.cuh",
                       "seigen_tpu/ops/fused_kernels.py:759"),
@@ -245,8 +246,11 @@ TILE_PTXAS = {
     "merged_vel": ("merged", "merged_tile_kernel", "Lb1ELb0ELb0EE"),
     "merged_stress": ("merged", "merged_tile_kernel", "Lb0ELb0ELb0EE"),
     "merged_stress[C]": ("merged", "merged_tile_kernel", "Lb0ELb1ELb0EE"),
+    "fused_vel2": ("merged", "merged_tile_kernel", "Lb1ELb0ELb1EE"),
     "fused_stress2": ("merged", "merged_tile_kernel", "Lb0ELb0ELb1EE"),
     "fused_stress2[C]": ("merged", "merged_tile_kernel", "Lb0ELb1ELb1EE"),
+    "lane_vel": ("lane", "lane_vel_tile_kernel", "Lb0EE"),  # TRAC, SEL
+    "lane_vel[SIG]": ("lane", "lane_vel_tile_kernel", "Lb1EE"),
     "lane_stress": ("lane", "lane_stress_tile_kernel", "Lb0EE"),
     "lane_stress[C]": ("lane", "lane_stress_tile_kernel", "Lb1EE"),
     "upwind_rhs": ("upwind", "upwind_tile_kernel", "EE"),
@@ -262,12 +266,9 @@ PACKED_TILE_PTXAS = {
                                 "merged_tile_pk_kernelILi3ELi4ELi3EE"),
 }
 # ptxas (library, registers, stack frame bytes) of instantiations whose
-# code the tile kernels left unchanged, as built before them: K4 and K8 at
-# 3D P3; the packed K1, K8, K9 at 3D P1
+# code the tile kernels left unchanged, as built before them: the packed
+# K1, K8, K9 at 3D P1
 PTXAS_PINS = {
-    "lane_vel 3D P3": ("lane", "lane_vel_kernelILi3ELi20ELi10EE", 56, 480),
-    "fused_vel2 3D P3": ("merged", "merged_vel_kernelILi3ELi20ELi10ELi1ELb1EE",
-                         56, 480),
     "merged_vel[pk] 3D P1": ("merged",
                              "merged_vel_kernelILi3ELi4ELi3ELi2ELb0EE", 32,
                              240),
@@ -350,24 +351,10 @@ def shape_nodes(dim, degree):
 def ptxas_entries(lib):
     """{mangled entry: (registers, stack frame, spill store, spill load
     bytes)} of a library's ptxas report."""
-    import re
+    from seigen_tpu_torch.bench.ptxas_ab import report_entries
 
-    out, name, frame = {}, None, None
-    for ln in lib.ptxas_report().splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", ln)
-        if m:
-            name, frame = m.group(1), None
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", ln)
-        if m:
-            frame = tuple(int(g) for g in m.groups())
-            continue
-        m = re.search(r"Used (\d+) registers", ln)
-        if m and name is not None and frame is not None:
-            out[name] = (int(m.group(1)), *frame)
-            name = None
-    return out
+    return {k: tuple(v)
+            for k, v in report_entries(lib.ptxas_report()).items()}
 
 
 def ptxas_entry(entries, key):
@@ -378,9 +365,10 @@ def ptxas_entry(entries, key):
 
 
 def check_ptxas():
-    """Phase 2: a line for each tile instantiation of K1/K2/K9, K3, K5 and
-    K6/K7 and of K2pk, which must keep no local memory (0 B stack frame, no
-    spills), and the pinned registers and stack frames of PTXAS_PINS."""
+    """Phase 2: a line for each tile instantiation of K1/K2/K8/K9, K3,
+    K4/K5 and K6/K7 and of K2pk, which must keep no local memory (0 B stack
+    frame, no spills), and the pinned registers and stack frames of
+    PTXAS_PINS."""
     from seigen_tpu_torch.ops import lane_kernels as lk
     from seigen_tpu_torch.ops import lane_upwind_kernels as luk
     from seigen_tpu_torch.ops import merged_kernels as mk
@@ -1008,12 +996,13 @@ def phase_lane(dev, case, st, check, n=24):
         compare_lane(lane, check, f"{tag}", 30 + degree, ("SIG", "TR"))
         compare_lane(lane_u, check, f"{tag} scrambled", 40 + degree,
                      scrambled)
-    for dim, degree in SHAPES:  # K5's tile kernel: ragged last tiles
+    for dim, degree in SHAPES:  # the tile kernels: ragged last tiles
         lane, lane_u = small_lane_runners(dim, degree, dev, ragged=True)
         tag = f"{dim}D P{degree} ragged"
-        compare_lane(lane, check, tag, 130 + 10 * dim + degree, ("TR",))
+        compare_lane(lane, check, tag, 130 + 10 * dim + degree,
+                     ("SIG", "TRAC", "TR"))
         compare_lane(lane_u, check, f"{tag} scrambled",
-                     150 + 10 * dim + degree, ("TR", "SEL stress"))
+                     150 + 10 * dim + degree, tuple(LANE_MODES))
     log(f"[lane] all small-mesh modes agree "
         f"({time.perf_counter() - t0:.1f} s)")
 

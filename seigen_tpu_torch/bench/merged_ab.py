@@ -39,9 +39,9 @@ each tree's first turn ``profile_step.profile`` of the ``fused`` step.
 ``--family lane`` times the v1 lane engine's kernels: every mode of K5
 lane_stress that a step launches — TR on the bench case in the ``lane``
 runner's layout, SEL on its scrambled copy in the ``lane_u`` runner's, and
-both with the bench's VTI stiffness (general Hooke law) — and K4
-lane_vel's modes SIG (bench case), TRAC and SEL (scrambled copy) as
-controls; then the benches ``lane --order 2``, ``lane`` (LF4),
+both with the bench's VTI stiffness (general Hooke law) — and every mode
+of K4 lane_vel, SIG on the bench case, TRAC and SEL on its scrambled copy;
+then the benches ``lane --order 2``, ``lane`` (LF4),
 ``lane_u`` and ``lane --vti``, and in each tree's first turn
 ``profile_step.profile`` of ``lane --order 2`` and ``lane_u``.
 

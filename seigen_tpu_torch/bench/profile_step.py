@@ -71,7 +71,7 @@ def copy_bandwidth(device, n_bytes=1 << 30, reps=10) -> float:
 
 
 OPERATOR_KERNELS = ("merged_vel_kernel", "merged_stress_kernel",
-                    "lane_vel_kernel", "trace_exchange_kernel")
+                    "trace_exchange_kernel")
 
 
 def _template_args(name: str) -> list:
@@ -87,17 +87,20 @@ def _is_true(arg: str) -> bool:
 def kernel_group(name: str) -> str:
     """The port's operator kernels by name: the tile kernels by their
     template arguments — ``merged_tile_kernel<DIM, NP, NFP, VEL, ANISO,
-    V2>`` is K1 (VEL), K2, or with V2 K9; ``merged_tile_pk_kernel`` is K2
-    on the packed P1 layout; ``lane_stress_tile_kernel`` is K5;
+    V2>`` is K1 (VEL), K2, or with V2 K8 (VEL) or K9;
+    ``merged_tile_pk_kernel`` is K2 on the packed P1 layout;
+    ``lane_vel_tile_kernel`` is K4, ``lane_stress_tile_kernel`` K5;
     ``lane_upwind_tile_kernel<DIM, NP, NFP, AXPY>`` is K7 (AXPY) or K6;
-    ``upwind_tile_kernel`` is K3 — and the per-lane templates, K4, K8 and
-    the packed P1 layout (NPAR = 2, the suffix "[pk]"); PyTorch's
+    ``upwind_tile_kernel`` is K3 — the per-lane templates of the packed P1
+    layout (NPAR = 2, the suffix "[pk]") and K10; PyTorch's
     gather/index (the lane runners' trace exchanges), elementwise, copy and
     matmul kernels as groups; anything else as "other"."""
     if "merged_tile_pk_kernel" in name:
         return "merged_stress[pk]"
     if "lane_stress_tile_kernel" in name:
         return "lane_stress"
+    if "lane_vel_tile_kernel" in name:
+        return "lane_vel"
     if "merged_tile_kernel" in name:
         vel, _, v2 = (_is_true(a) for a in _template_args(name)[3:6])
         op = "vel" if vel else "stress"

@@ -2,13 +2,13 @@
 // upwind_kernels.cu: K3, lane_kernels.cu: K4/K5, lane_upwind_kernels.cu:
 // K6/K7).
 //
-// The per-lane kernels (K4, K8, K11, K1pk, K8pk, K9pk) own one lane
-// (element) per thread; load_tables needs dr, lift, fnodes.  The merged
-// operators read their neighbour's face-major trace rows f2*rtf + c*n_fp +
-// pi[k] at lane t2*NC + clamp(j + s) through the (m, nf, 3 + n_fp) int32
-// plan table: face_links does so for the per-lane K1pk and is templated on
-// its argument struct, which must carry: plan, mask, Ls, NC, rtq.  The
-// Godunov operators (K3, K6/K7) share the Riemann states below.
+// The per-lane kernels (K11, K1pk, K8pk, K9pk: the packed P1 layout) own
+// one lane (element) per thread; load_tables needs dr, lift, fnodes.  The
+// merged operators read their neighbour's face-major trace rows f2*rtf +
+// c*n_fp + pi[k] at lane t2*NC + clamp(j + s) through the (m, nf, 3 +
+// n_fp) int32 plan table: face_links does so for the per-lane K1pk and is
+// templated on its argument struct, which must carry: plan, mask, Ls, NC,
+// rtq.  The Godunov operators (K3, K6/K7) share the Riemann states below.
 
 #pragma once
 

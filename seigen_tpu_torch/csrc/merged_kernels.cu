@@ -24,12 +24,13 @@
 //
 // Two designs live here.  The per-lane templates merged_vel_kernel and
 // merged_stress_kernel (the first design) give one thread one lane and run
-// K8, K11, K1pk, K8pk and K9pk (the stress template: K9pk only): there
-// every FMA takes its table operand from shared memory, the per-lane face
-// arrays sit in local memory, and the stress kernel repeats its volume
-// product for each Voigt row.  K1 and K2 with one element per lane (the
-// LF4 main path), K2 on the packed layout (K2pk) and K9 on the v2 path run
-// the tile kernels of merged_tile.cuh instead, designed for this card:
+// only the packed P1 layout: K1pk, K8pk and K11 (the velocity template) and
+// K9pk (the stress template); there every FMA takes its table operand from
+// shared memory, the per-lane face arrays sit in local memory, and the
+// stress kernel repeats its volume product for each Voigt row.  K1 and K2
+// with one element per lane (the LF4 main path), K2 on the packed layout
+// (K2pk) and K8 and K9 on the v2 path run the tile kernels of
+// merged_tile.cuh instead, designed for this card:
 //   - A block owns a tile of T consecutive lanes of ONE class (grid: tiles
 //     of a class x classes; K2pk: x 2 parities), so the neighbour rows of a
 //     (class, face) form one segment at the plan's fixed shift s; the last
@@ -94,15 +95,15 @@
 //       ANISO as K2)
 // which run the same _vel2_body / _stress2_body on traces exchanged
 // beforehand (solver/lane_fused.py, K10 in trace_exchange.cu).  They are the
-// V2 = true instantiations of the K1/K2 templates: K8 of the per-lane
-// merged_vel_kernel, K9 of the tile kernel (merged_tile_kernel with VEL
-// false, V2 true, both Hooke laws).  The neighbour value is row c*ftpp +
-// f*n_fp + k of the lane itself, already signed and already the own value
-// on boundary faces (no plan, no shift, no sign, no mask: the tile kernel's
-// grid is one class of all Ls lanes, whose tiles take 16-byte copies when
-// whole and aligned, and its geo rows have no mask section), and the
-// emitted traces are written component-major, rows c*ftpp + f*n_fp + k, pad
-// rows 0.  Same arithmetic and bound as K1/K2.
+// V2 = true instantiations of the tile kernel (merged_tile_kernel): K8 with
+// VEL true, K9 with VEL false and both Hooke laws.  The neighbour value is
+// row c*ftpp + f*n_fp + k of the lane itself, already signed and already
+// the own value on boundary faces (no plan, no shift, no sign, no mask:
+// the flux takes the row as it is, the grid is one class of all Ls lanes,
+// whose tiles take 16-byte copies when whole and aligned, and the geo rows
+// have no mask section), and the emitted traces are written
+// component-major, rows c*ftpp + f*n_fp + k, pad rows 0.  Same arithmetic
+// and bound as K1/K2.
 //
 // The packed P1 layout (NPAR = 2; only the P1 triangle and tetrahedron are
 // instantiated) is the branch of the same Pallas kernels that runs on
@@ -125,8 +126,7 @@
 // kernel with the parity's row offsets (merged_tile.cuh, Layout NPAR = 2):
 // a block is an unpacked K2 tile of one parity, T = 128 lanes at P1, and a
 // 2D P1 element's pad row par*4 + 3 takes the epilogue of an operator value
-// 0 as in the plain version.  NPAR = 1 compiles the per-lane velocity
-// template to the unpacked K8 (the parity is the constant 0).
+// 0 as in the plain version.
 //
 // K11 p1_pack_vel replaces seigen_tpu/bench/p1_pack_probe.py:packed_vel_op
 // (:176 -> _packed_vel_kernel :121), the probe's packed P1/3D velocity
@@ -204,16 +204,18 @@ __device__ __forceinline__ void finish_row(const MergedArgs& a, size_t idx,
   a.out[idx] = r;
 }
 
-// ---------------------------------------------------------------- K1 ---
+// ------------------------------------------------------- K1pk, K8pk ---
 // du_c = (1/rho) (sum_{r,d} Ginv[r,d] Dr_r sigma_{V[c,d]}
 //                 + LIFT (scb * t+_c + bfs * t-_c))
 // t-_c = n_d sigma_{V[c,d]} at the face nodes; t+_c = -(producer traction)
 // on interior faces, t-_c on boundary faces.  Emits the velocity traces.
-// V2: t+_c is the lane's own row of the exchanged traces (K8).  NPAR = 2:
-// the packed P1 layout, parity blockIdx.y.
+// V2: t+_c is the lane's own row of the exchanged traces (K8pk, K11).
+// Built for the packed P1 layout only (NPAR = 2, parity blockIdx.y): K1
+// and K8 with one element per lane run the tile kernel.
 template <int DIM, int NP, int NFP, int NPAR, bool V2>
 __global__ void __launch_bounds__(kThreads)
 merged_vel_kernel(const MergedArgs a) {
+  static_assert(NPAR == 2, "the per-lane velocity kernel is the packed one");
   using S = Shape<DIM, NP, NFP>;
   constexpr int NF = S::NF, NFT = S::NFT, NSIG = S::NSIG;
   __shared__ float s_dr[DIM * NP * NP];
@@ -471,7 +473,7 @@ merged_stress_kernel(const MergedArgs a) {
         a.trout[((long long)c * a.rtf + q) * Ls + L] = 0.f;
 }
 
-// ---------------------------------------------- K1/K2/K9, K2pk: tiled ---
+// ------------------------------------------- K1/K2/K8/K9, K2pk: tiled ---
 // One block per tile of T lanes of one class: blockIdx = (tile, class).
 template <int DIM, int NP, int NFP, bool VEL, bool ANISO, bool V2>
 __global__ void
@@ -526,8 +528,8 @@ int launch_tile_pk(const MergedArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The per-lane templates, one thread a lane (K8, K11, K1pk, K8pk, K9pk);
-// the stress kernel has the isotropic law only.
+// The per-lane templates, one thread a lane (K11, K1pk, K8pk, K9pk); the
+// stress kernel has the isotropic law only.
 template <int DIM, int NP, int NFP, int NPAR, bool V2, bool VEL>
 int launch_lane(const MergedArgs& a, cudaStream_t stream) {
   const dim3 grid((unsigned)((a.Ls + kThreads - 1) / kThreads), NPAR);
@@ -541,10 +543,9 @@ int launch_lane(const MergedArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// op: 0 K1, 1 K2, 2 K8, 3 K9.  With one element per lane K1, K2 and K9 run
-// the tile kernels (a->o_C >= 0: the general Hooke law) and K8 its
-// per-lane template; on the packed layout K2 runs its tile kernel, the
-// others the per-lane templates.
+// op: 0 K1, 1 K2, 2 K8, 3 K9.  With one element per lane all four run the
+// tile kernel (a->o_C >= 0: the general Hooke law); on the packed layout
+// K2 runs its tile kernel, the others the per-lane templates.
 template <int DIM, int NP, int NFP, int NPAR>
 int launch(int op, const MergedArgs& a, cudaStream_t stream) {
   if constexpr (NPAR == 2) {
@@ -561,7 +562,7 @@ int launch(int op, const MergedArgs& a, cudaStream_t stream) {
       case 1:
         return aniso ? launch_tile<DIM, NP, NFP, false, true, false>(a, stream)
                      : launch_tile<DIM, NP, NFP, false, false, false>(a, stream);
-      case 2: return launch_lane<DIM, NP, NFP, 1, true, true>(a, stream);
+      case 2: return launch_tile<DIM, NP, NFP, true, false, true>(a, stream);
       default:
         return aniso ? launch_tile<DIM, NP, NFP, false, true, true>(a, stream)
                      : launch_tile<DIM, NP, NFP, false, false, true>(a, stream);

@@ -1,13 +1,14 @@
 // Tile kernels of K1 merged_vel and K2 merged_stress for the merged layout
 // with one element per lane, of K2pk, K2 on the packed P1 layout (NPAR = 2:
-// two elements a lane, a block owns one parity), and of K9 fused_stress2,
-// K2's V2 instantiation on the v2 engine's exchanged traces
-// (merged_kernels.cu dispatches them; its head note gives the design and
-// the reasons).  A block owns T consecutive lanes of one class (V2: of the
-// one class of all Ls lanes) and stages them in shared memory; a thread
-// then owns RM nodes of one lane in the node-by-lane products.  The stress
-// core (stress_core) also serves K5 lane_stress (lane_kernels.cu), which
-// stages its tile from the lane layout itself (LANE).
+// two elements a lane, a block owns one parity), and of K8 fused_vel2 and
+// K9 fused_stress2, K1's and K2's V2 instantiations on the v2 engine's
+// exchanged traces (merged_kernels.cu dispatches them; its head note gives
+// the design and the reasons).  A block owns T consecutive lanes of one
+// class (V2: of the one class of all Ls lanes) and stages them in shared
+// memory; a thread then owns RM nodes of one lane in the node-by-lane
+// products.  The velocity core (vel_core) also serves K4 lane_vel and the
+// stress core (stress_core) K5 lane_stress (lane_kernels.cu), which stage
+// their tiles from the lane layout themselves (LANE).
 //
 // Everything per lane that is indexed at run time (face data, neighbour
 // links, Hooke coefficients) lives in shared memory; register arrays are
@@ -41,9 +42,11 @@ namespace tile {
 //                     Dr_r[i][j], row KV + q holds LIFT[i][q]
 //   IN   K1: NP x WS x T, sigma at rows j*WS + m, then w_rc at j*WS +
 //        r*DIM + c in place; K2: DIM x NP x T, u at rows c*NP + j
-//   NB   DIM x NFT x T the neighbour's trace at rows c*NFT + q, then the
-//        flux (K1) or the velocity jump (K2) in place; V2: the lane's own
-//        rows c*rtf + q of the exchanged traces
+//   NB   NBC x NFT x T the neighbour's trace at rows c*NFT + q, then the
+//        flux (K1) or the velocity jump (K2) in place at rows c*NFT + q, c <
+//        DIM; V2: the lane's own rows c*rtf + q of the exchanged traces;
+//        SIGTR (K4 SIG): the neighbour's sigma traces at rows m*NFT + q, m
+//        < NSIG (NBC = NSIG, else DIM)
 //   F    K2 ANISO: NF x NSIG x DIM x T, F_kc of face f at (f*NSIG + k)*DIM
 //        + c (the isotropic law forms it from lambda, mu and n in
 //        registers)
@@ -57,19 +60,23 @@ namespace tile {
 // reads its element's rows as the packed layout places them (state rows
 // c*npp + par*4 + i, ginv and material rows interleaved over the parities,
 // face rows par*4 + f); the shared-memory tile is the unpacked one.
-// LANE (K5, on V2's rows): geo rows G_SCB and G_BFS hold Fscale and delta
-// (the lane layout's rows), from which the jump takes scb = Fscale/2 and
-// dfs = delta*Fscale.
+// LANE (K4 and K5, on V2's rows): geo rows G_SCB and G_BFS hold Fscale and
+// beta (K4) or delta (K5) (the lane layout's rows), from which the flux
+// takes scb = Fscale/2 and bfs = beta*Fscale, the jump scb = Fscale/2 and
+// dfs = delta*Fscale; K4 TRAC and SEL (SIGN) hold the sign of each face's
+// neighbour traction in the mask's place (1 outside SEL).
 template <int DIM_, int NP_, int NFP_, bool VEL_, bool ANISO_, bool V2_,
-          int NPAR_ = 1, bool LANE_ = false>
+          int NPAR_ = 1, bool LANE_ = false, bool SIGTR_ = false>
 struct Layout {
   static constexpr int DIM = DIM_, NP = NP_, NFP = NFP_;
   static constexpr bool VEL = VEL_, ANISO = ANISO_, V2 = V2_;
   static constexpr int NPAR = NPAR_;
-  static constexpr bool LANE = LANE_;
+  static constexpr bool LANE = LANE_, SIGTR = SIGTR_;
+  static constexpr bool SIGN = LANE && VEL && !SIGTR;
   static_assert(NPAR == 1 || (NPAR == 2 && !VEL && !ANISO && !V2),
                 "the packed tile is K2's, isotropic");
-  static_assert(!LANE || (!VEL && V2), "the lane tile is K9's rows");
+  static_assert(!LANE || V2, "the lane tiles are on V2's rows");
+  static_assert(!SIGTR || (LANE && VEL), "sigma traces are K4's");
   using S = Shape<DIM, NP, NFP>;
   static constexpr int NF = S::NF, NFT = S::NFT, NSIG = S::NSIG;
   static constexpr int RM = DIM == 3 && NP >= 10 ? 2 : 4;
@@ -82,21 +89,22 @@ struct Layout {
   static constexpr int WS = DIM * DIM;
   static constexpr int CIN = VEL ? NSIG : DIM;
   static constexpr int COUT = VEL ? DIM : NSIG;
+  static constexpr int NBC = SIGTR ? NSIG : DIM;
   // geo rows: Ginv r*DIM + d; normals d*NF + f; scb f; bfs (K1) or dfs
-  // (K2) f; the own-trace mask f (not V2); material: 1/rho (K1), lambda
-  // and mu (K2), or C[k][m] at k*NSIG + m (K2 ANISO)
+  // (K2) f; the own-trace mask f (not V2) or the sign f (SIGN); material:
+  // 1/rho (K1), lambda and mu (K2), or C[k][m] at k*NSIG + m (K2 ANISO)
   static constexpr int G_GINV = 0;
   static constexpr int G_NRM = DIM * DIM;
   static constexpr int G_SCB = G_NRM + DIM * NF;
   static constexpr int G_BFS = G_SCB + NF;
   static constexpr int G_MASK = G_BFS + NF;
-  static constexpr int G_MAT = G_MASK + (V2 ? 0 : NF);
+  static constexpr int G_MAT = G_MASK + (V2 && !SIGN ? 0 : NF);
   static constexpr int N_MAT = VEL ? 1 : (ANISO ? NSIG * NSIG : 2);
   static constexpr int GR = G_MAT + N_MAT;
   static constexpr int OFF_A = 0;
   static constexpr int OFF_IN = OFF_A + KA * NPI;
   static constexpr int OFF_NB = OFF_IN + (VEL ? NP * WS : DIM * NP) * T;
-  static constexpr int OFF_F = OFF_NB + DIM * NFT * T;
+  static constexpr int OFF_F = OFF_NB + NBC * NFT * T;
   static constexpr int OFF_GEO =
       OFF_F + (!VEL && ANISO ? NF * NSIG * DIM * T : 0);
   static constexpr int OFF_INT = OFF_GEO + GR * T;
@@ -444,40 +452,72 @@ __device__ __forceinline__ void emit(const Args& a, const Tile& tl,
   }
 }
 
-// K1: du_c = (1/rho) [Dr_1 .. Dr_DIM | LIFT] @ [w_1c; ..; w_DIMc; flux_c],
-// w_rc = sum_d Ginv[r][d] sigma_V(c,d), flux_c = scb*t+_c + bfs*t-_c.
-template <class LY, class Args>
-__device__ __forceinline__ void vel_tile(const Args& a, float* sm) {
+// The velocity operator of K1, K8 and K4 on a staged tile (the table,
+// sigma, the neighbour's traces and the geo rows in shared memory, as
+// Layout says), on this thread's nodes i0 .. i0 + RM - 1 of lane l (i0 =
+// ig*RM): du_c = (1/rho) [Dr_1 .. Dr_DIM | LIFT] @ [w_1c; ..; w_DIMc;
+// flux_c], w_rc = sum_d Ginv[r][d] sigma_V(c,d), flux_c = scb*t+_c +
+// bfs*t-_c with t-_c = n . sigma at the face node.  t+ is, by layout:
+//   merged (K1)  -(producer traction), or t- on a boundary face (mask);
+//   V2 (K8)      the exchanged row as it is: already signed, and already
+//                t- on a boundary face;
+//   LANE (K4)    sign * the staged row (TRAC, SEL; SIGN) or n . the
+//                neighbour's sigma traces with the own normals (SIGTR), in
+//                Fscale*(t+/2 + beta*t-): scb = sign*Fscale/2, bfs =
+//                beta*Fscale.
+// The flux overwrites the NB rows in place, w the sigma rows.
+template <class LY>
+__device__ __forceinline__ void vel_core(const Tile& tl, float* sm,
+                                         float (&v)[LY::DIM][LY::RM]) {
   constexpr int DIM = LY::DIM, NP = LY::NP, NFP = LY::NFP, NF = LY::NF;
   constexpr int NFT = LY::NFT, NSIG = LY::NSIG, T = LY::T, NG = LY::NG;
   constexpr int RM = LY::RM, NPI = LY::NPI, KV = LY::KV, WS = LY::WS;
-  const Tile tl = make_tile<LY>(a);
-  stage<LY>(a, tl, sm);
   float* s_w = sm + LY::OFF_IN + tl.l;  // sigma j*WS + m -> w j*WS + r*DIM + c
   float* s_nb = sm + LY::OFF_NB + tl.l;  // neighbour traction -> flux
   const float* s_geo = sm + LY::OFF_GEO + tl.l;
   const int* s_fn = reinterpret_cast<const int*>(sm + LY::OFF_INT);
   auto geo = [&](int r) { return s_geo[r * T]; };
 
-  // the flux at every face node; t- = n . sigma, t+ = -(producer traction),
-  // or t- on a boundary face
+  // the flux at every face node (a thread reads all of face node q's
+  // neighbour rows before it writes q's flux rows)
   for (int q = tl.ig; q < NFT; q += NG) {
     const int f = q / NFP, node = s_fn[q];
     bool own_only = false;
     if constexpr (!LY::V2) own_only = geo(LY::G_MASK + f) != 0.f;
-    const float scb = geo(LY::G_SCB + f), bfs = geo(LY::G_BFS + f);
+    float scb = geo(LY::G_SCB + f), bfs = geo(LY::G_BFS + f);
+    if constexpr (LY::LANE) {  // rows Fscale, beta (and the sign)
+      bfs *= scb, scb *= 0.5f;
+      if constexpr (LY::SIGN) scb *= geo(LY::G_MASK + f);
+    }
     float n[DIM], sv[NSIG];
 #pragma unroll
     for (int d = 0; d < DIM; ++d) n[d] = geo(LY::G_NRM + d * NF + f);
 #pragma unroll
     for (int m = 0; m < NSIG; ++m) sv[m] = s_w[(node * WS + m) * T];
+    float tp[DIM];  // SIGTR: n . the neighbour's sigma
+    if constexpr (LY::SIGTR) {
+      float st[NSIG];
+#pragma unroll
+      for (int m = 0; m < NSIG; ++m) st[m] = s_nb[(m * NFT + q) * T];
+#pragma unroll
+      for (int c = 0; c < DIM; ++c) {
+        tp[c] = 0.f;
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) tp[c] += n[d] * st[voigt<DIM>(c, d)];
+      }
+    }
 #pragma unroll
     for (int c = 0; c < DIM; ++c) {
       float own = 0.f;
 #pragma unroll
       for (int d = 0; d < DIM; ++d) own += n[d] * sv[voigt<DIM>(c, d)];
       float* fx = s_nb + (c * NFT + q) * T;
-      *fx = scb * (own_only ? own : -*fx) + bfs * own;
+      if constexpr (LY::SIGTR)
+        *fx = scb * tp[c] + bfs * own;
+      else if constexpr (LY::V2)
+        *fx = scb * *fx + bfs * own;
+      else
+        *fx = scb * (own_only ? own : -*fx) + bfs * own;
     }
   }
   __syncthreads();  // sigma's face values are read: w takes its rows
@@ -506,7 +546,6 @@ __device__ __forceinline__ void vel_tile(const Args& a, float* sm) {
 
   const int i0 = tl.ig * RM;
   const float* s_A = sm + LY::OFF_A + i0;
-  float v[DIM][RM];
 #pragma unroll
   for (int c = 0; c < DIM; ++c)
 #pragma unroll
@@ -540,6 +579,17 @@ __device__ __forceinline__ void vel_tile(const Args& a, float* sm) {
   for (int c = 0; c < DIM; ++c)
 #pragma unroll
     for (int ii = 0; ii < RM; ++ii) v[c][ii] *= irho;
+}
+
+// K1 (and K8): the velocity core, then the epilogue, the output tile and
+// the emitted traces.
+template <class LY, class Args>
+__device__ __forceinline__ void vel_tile(const Args& a, float* sm) {
+  const Tile tl = make_tile<LY>(a);
+  stage<LY>(a, tl, sm);
+  float v[LY::DIM][LY::RM];
+  vel_core<LY>(tl, sm, v);
+  const int i0 = tl.ig * LY::RM;
   finish_nodes<LY>(a, tl, i0, v, false);
   __syncthreads();  // w and the flux are read: the output tile takes w's rows
   store_tile<LY>(a, tl, i0, v, sm + LY::OFF_IN, false);

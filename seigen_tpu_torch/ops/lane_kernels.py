@@ -20,12 +20,12 @@ nodes), so every array compares row for row with the JAX one.  Lanes are
 the E elements, without padding.
 
 The public operators launch the CUDA kernels of csrc/lane_kernels.cu for
-CUDA tensors — K4 ``lane_vel`` (modes SIG, TRAC, SEL) and K5
-``lane_stress`` (modes TR, SEL; the tile kernel on K2's stress core, which
-reads each face's geometry at its first face-node row, the expanded rows
-being constant over a face) — and run the plain PyTorch versions
-(``*_ref``) for CPU tensors.  Each kernel keeps a launch count
-(``LANE_VEL.launches``, ``LANE_STRESS.launches``).  The stress operators
+CUDA tensors — K4 ``lane_vel`` (modes SIG, TRAC, SEL; the tile kernel on
+K1's velocity core) and K5 ``lane_stress`` (modes TR, SEL; the tile kernel
+on K2's stress core), both of which read each face's geometry at its first
+face-node row, the expanded rows being constant over a face — and run the
+plain PyTorch versions (``*_ref``) for CPU tensors.  Each kernel keeps a
+launch count (``LANE_VEL.launches``, ``LANE_STRESS.launches``).  The stress operators
 take an optional ``cmat`` (n_sig*8, E), row c*8 + k = Voigt C[c, k] of the
 lane's element (ops/anisotropic.py conventions): the general Hooke law,
 computed inside K5 (``LANE_STRESS.launches_c`` counts those launches).
@@ -67,11 +67,9 @@ class LaneOpData:
     irho: torch.Tensor  # (8, E) row 0 = 1/rho
     lam: torch.Tensor  # (8, E) row 0 = lambda
     mu: torch.Tensor  # (8, E) row 0 = mu
-    kdr: torch.Tensor  # (dim, n_p, n_p) float32 kernel table
-    klift: torch.Tensor  # (n_p, ftp) float32 kernel table
     kfn: torch.Tensor  # (nf, n_fp) int32 face node ids
-    ktile: torch.Tensor  # float32 product table of the K5 and K6/K7 tile
-    #                      kernels (fused_kernels.tile_table)
+    ktile: torch.Tensor  # float32 product table of the K4/K5 and K6/K7
+    #                      tile kernels (fused_kernels.tile_table)
     dim: int
     n_p: int
     npp: int  # n_p padded to 8
@@ -140,8 +138,6 @@ def build_lane_data(p: ElasticParams) -> LaneOpData:
         irho=dev(scalar_rows(host(p.inv_rho))),
         lam=dev(scalar_rows(host(p.lam))),
         mu=dev(scalar_rows(host(p.mu))),
-        kdr=dev(host(p.Dr), torch.float32).contiguous(),
-        klift=dev(host(p.LIFT), torch.float32).contiguous(),
         kfn=dev(np.array(p.fnodes), torch.int32).contiguous(),
         ktile=dev(tile_table(host(p.Dr), host(p.LIFT)),
                   torch.float32).contiguous(),
@@ -309,7 +305,7 @@ class LaneArgs(ctypes.Structure):
 
     _fields_ = [(n, _P) for n in (
         "field", "tr", "combo", "sign", "perms", "ginv", "nrm", "fsc",
-        "coef", "mat0", "mat1", "cmat", "dr", "lift", "fnodes", "out")] + [
+        "coef", "mat0", "mat1", "cmat", "fnodes", "out")] + [
         ("E", ctypes.c_longlong)] + [(n, ctypes.c_int) for n in (
             "npp", "ftpp", "rows_pad", "cstride", "G", "mode")] + [
         ("tab", _P)]
@@ -420,10 +416,10 @@ class LaneKernel:
             coef=ptr(d.beta if self.vel else d.delta),
             mat0=ptr(d.irho if self.vel else d.lam),
             mat1=None if self.vel else ptr(d.mu), cmat=ptr(cmat),
-            dr=ptr(d.kdr), lift=ptr(d.klift), fnodes=ptr(d.kfn), out=ptr(out),
-            E=E, npp=d.npp, ftpp=d.ftpp, rows_pad=rows_pad, cstride=cstride,
+            fnodes=ptr(d.kfn), out=ptr(out), E=E, npp=d.npp, ftpp=d.ftpp,
+            rows_pad=rows_pad, cstride=cstride,
             G=0 if perm_t is None else perm_t.shape[0], mode=mode,
-            tab=None if self.vel else ptr(d.ktile),
+            tab=ptr(d.ktile),
         )
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = self._function()(ctypes.byref(args), d.dim, d.n_p, d.n_fp,

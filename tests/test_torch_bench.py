@@ -206,10 +206,12 @@ def test_profile_groups_kernels_and_needs_cuda(monkeypatch):
         "false>(LaneArgs)": "lane_stress",
         "void (anonymous namespace)::lane_stress_tile_kernel<2, 6, 3, "
         "true>(LaneArgs)": "lane_stress",
-        "void (anonymous namespace)::lane_vel_kernel<3, 20, 10>"
+        "void (anonymous namespace)::lane_vel_tile_kernel<3, 20, 10, "
+        "false>(LaneArgs)": "lane_vel",
+        "void (anonymous namespace)::lane_vel_tile_kernel<2, 6, 3, true>"
         "(LaneArgs)": "lane_vel",
-        "void (anonymous namespace)::merged_vel_kernel<3, 20, 10, 1, true>"
-        "(MergedArgs)": "fused_vel2",
+        "void (anonymous namespace)::merged_tile_kernel<3, 20, 10, true, "
+        "false, true>(MergedArgs)": "fused_vel2",
         "void (anonymous namespace)::merged_tile_kernel<3, 20, 10, true, "
         "false, false>(MergedArgs)": "merged_vel",
         "void (anonymous namespace)::merged_tile_kernel<3, 20, 10, false, "
@@ -248,8 +250,8 @@ def test_profile_groups_kernels_and_needs_cuda(monkeypatch):
 def test_merged_ab_family_tables():
     """bench/merged_ab.py's tables: each family times its kernel variants
     once each (fused: K9 plain, axpy, axpy + damp, K9-C, K8; upwind: K6
-    among K3/K7; lane: every K5 mode of both Hooke laws, K4's modes as
-    controls; packed: every K2pk variant, K1pk and the unpacked K2 as
+    among K3/K7; lane: every K5 mode of both Hooke laws and every K4
+    mode; packed: every K2pk variant, K1pk and the unpacked K2 as
     controls), and each bench's label is the throughput command line of
     its impl and options; the first turn profiles the upwind steps, the
     fused one, lane LF2 and lane_u, and merged_pk."""
@@ -319,7 +321,8 @@ def test_port_never_imports_jax():
             "seigen_tpu_torch.ops.lane_kernels, "
             "seigen_tpu_torch.ops.merged_kernels, "
             "seigen_tpu_torch.ops.upwind_kernels, "
-            "seigen_tpu_torch.bench.merged_ab; "
+            "seigen_tpu_torch.bench.merged_ab, "
+            "seigen_tpu_torch.bench.ptxas_ab; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'seigen_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -437,3 +440,50 @@ def test_chip_smoke_fused_rows_at_3d_p3():
         ("fused_stress2", "axpy", True): 749,
         ("fused_stress2", "axpy_damp", True): 769}
     assert smoke.fused_rows(d, "trace_exchange") == 244
+
+
+def test_ptxas_report_entries():
+    """bench/ptxas_ab.py reads ptxas's -v report: per entry function its
+    registers, stack frame, spill stores and spill loads; an entry without
+    its properties line is left out."""
+    from seigen_tpu_torch.bench.ptxas_ab import report_entries
+
+    text = "\n".join([
+        "ptxas info    : Compiling entry function '_Z1aILi3EEv8LaneArgs' "
+        "for 'sm_90a'",
+        "ptxas info    : Function properties for _Z1aILi3EEv8LaneArgs",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 48 registers, used 1 barriers, 560 bytes "
+        "cmem[0]",
+        "ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z1bv",
+        "    480 bytes stack frame, 8 bytes spill stores, 4 bytes spill "
+        "loads",
+        "ptxas info    : Used 56 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_Z1cv' for 'sm_90a'",
+        "ptxas info    : Used 12 registers"])
+    assert report_entries(text) == {"_Z1aILi3EEv8LaneArgs": [48, 0, 0, 0],
+                                    "_Z1bv": [56, 480, 8, 4]}
+
+
+def test_chip_smoke_ptxas_tables_name_the_tile_kernels():
+    """chip_smoke.py checks a ptxas line for every tile instantiation: K4
+    in both layouts (TRAC/SEL, and SIG with the sigma trace rows) and K8
+    among them; only the packed per-lane instantiations keep pinned
+    registers."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    tile = smoke.TILE_PTXAS
+    assert tile["lane_vel"] == ("lane", "lane_vel_tile_kernel", "Lb0EE")
+    assert tile["lane_vel[SIG]"] == ("lane", "lane_vel_tile_kernel",
+                                     "Lb1EE")
+    assert tile["fused_vel2"] == ("merged", "merged_tile_kernel",
+                                  "Lb1ELb0ELb1EE")
+    assert len({v for v in tile.values()}) == len(tile)
+    assert {k for k, _ in smoke.KERNELS.items()} <= {
+        k.split("[")[0] for k in tile} | {"trace_exchange", "p1_pack_vel"}
+    assert all("ELi2E" in key for _, key, *_ in smoke.PTXAS_PINS.values())

@@ -11,7 +11,7 @@ float32 on box_mesh(4, 4, 4) at P2 and P3 and, through its tile kernel,
 at the eight shapes on the meshes above, each launch counted; every mode
 of K4 (lane_vel: SIG, TRAC, SEL) and K5 (lane_stress: TR, SEL) against its
 plain version on box_mesh(4, 4, 4) and its scrambled copy at P2 and P3,
-and — K5 is a tile kernel — K5's modes with both Hooke laws and K4's
+and — both are tile kernels — K5's modes with both Hooke laws and K4's
 modes at the eight shapes on the ragged meshes above, on rect_mesh(8, 8)
 P2 (gathered panels: component stride 9, ftpp 16) and on scrambled
 copies, each launch counted once on launches (and launches_c);
@@ -29,10 +29,11 @@ random stiffness on box_mesh(4, 4, 4) P2/P3 and rect_mesh(8, 8) P2, plus
 the three runners with a VTI stiffness (``launches_c`` counts); the v2
 engine's K8 (fused_vel2: plain, axpy) and K9 (fused_stress2: plain, axpy +
 damp, and both with a per-element non-symmetric stiffness) on
-box_mesh(4, 4, 4) P2/P3 and rect_mesh(8, 8) P2, K9's tile kernel (plain,
-axpy, axpy + damp, both Hooke laws) at the eight shapes on the ragged
-meshes above, each launch counted on ``launches`` (and ``launches_c``),
-never on ``launches_pk``, K10 (trace_exchange,
+box_mesh(4, 4, 4) P2/P3 and rect_mesh(8, 8) P2, K8's and K9's tile
+kernels (K8 plain and axpy; K9 plain, axpy, axpy + damp, both Hooke laws)
+at the eight shapes on the ragged meshes above, each launch counted on
+``launches`` (and ``launches_c``), never on ``launches_pk`` nor on K1's or
+K2's counts, K10 (trace_exchange,
 tractions and velocities) on those meshes and their periodic twins, and
 FusedLaneRunner against its plain runner and the kernel merged runner;
 the packed P1 layout (two elements per lane) of K1/K2 (every variant; K2
@@ -596,11 +597,13 @@ def test_lane_stress_tile_kernel_matches_plain_at_every_shape(
     _assert_close(got, plain())
 
 
+@pytest.mark.parametrize("mesh", ["structured", "scrambled"])
 @pytest.mark.parametrize("mode", ["SIG", "TRAC", "SEL_vel"])
-def test_lane_vel_kernel_matches_plain_at_every_shape(lane_shape_case, mode):
-    """K4's modes beside K5's tile kernel in the same library."""
+def test_lane_vel_kernel_matches_plain_at_every_shape(lane_shape_case, mesh,
+                                                      mode):
+    """K4 (every mode, the tile kernel): one launch, counted once."""
     runners, x = lane_shape_case
-    fused, plain, kernel = _lane_call(runners["scrambled", "iso"], x, mode)
+    fused, plain, kernel = _lane_call(runners[mesh, "iso"], x, mode)
     n0 = kernel.launches
     got = fused()
     torch.cuda.synchronize()
@@ -1039,7 +1042,8 @@ def test_trace_exchange_kernel_matches_plain(fused_case, device, periodic,
 def fused_shape_case(request, device):
     """Operator data of kernel FusedLaneRunners (isotropic, and with a
     per-element random stiffness) on box_mesh(5, 3, 4) or rect_mesh(14,
-    10) with a sponge (ragged last tiles), and numpy-seeded K9 operands."""
+    10) with a sponge (ragged last tiles), and numpy-seeded K9 and K8
+    operands."""
     dim, degree = request.param
     topo = box_mesh(5, 3, 4) if dim == 3 else rect_mesh(14, 10)
     dm = build_discrete(topo, degree, bc_fn=absorbing_bc_fn(
@@ -1058,6 +1062,9 @@ def fused_shape_case(request, device):
          "tr": _rows(rng, d, d.dim, d.ftp, d.ftpp, device),
          "axpy": tuple(_rows(rng, d, d.n_sig, d.n_p, d.npp, device)
                        for _ in range(2))}
+    x["sig"] = _rows(rng, d, d.n_sig, d.n_p, d.npp, device)
+    x["axpy_u"] = tuple(_rows(rng, d, d.dim, d.n_p, d.npp, device)
+                        for _ in range(2))
     return data, x
 
 
@@ -1104,6 +1111,45 @@ def test_fused_stress_tile_launches_count_on_k9(fused_shape_case):
         torch.cuda.synchronize()
         assert counts() == (before[0] + 1, before[1] + int(law == "C"),
                             before[2], before[3])
+
+
+def _fused_vel_call(data, x, variant):
+    """(kernel call, plain call) of one K8 variant."""
+    kw = {}
+    if variant == "axpy":
+        kw = dict(axpy=x["axpy_u"], dt=0.01, c3=0.01**3 / 24.0)
+    d = data["iso"]
+    return (lambda: fo.vel2_op(d, x["sig"], x["tr"], **kw),
+            lambda: fo.vel2_op_ref(d, x["sig"], x["tr"], **kw))
+
+
+@pytest.mark.parametrize("variant", ["plain", "axpy"])
+def test_fused_vel_tile_kernel_matches_plain_at_every_shape(
+        fused_shape_case, variant):
+    """K8 (the tile kernel): the output and its emitted traces."""
+    data, x = fused_shape_case
+    kern, plain = _fused_vel_call(data, x, variant)
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        _assert_close(g, r)
+
+
+def test_fused_vel_tile_launches_count_on_k8(fused_shape_case):
+    """One K8 launch (the tile kernel) adds one to its ``launches``, never
+    to ``launches_pk``, and nothing to K1's counts."""
+    data, x = fused_shape_case
+
+    def counts():
+        k8, k1 = fo.VEL2_KERNEL, mk.VEL_KERNEL
+        return (k8.launches, k8.launches_pk, k1.launches, k1.launches_pk)
+
+    for variant in ("plain", "axpy"):
+        kern, _ = _fused_vel_call(data, x, variant)
+        before = counts()
+        kern()
+        torch.cuda.synchronize()
+        assert counts() == (before[0] + 1, *before[1:])
 
 
 @pytest.mark.parametrize("stiffness", [False, True], ids=["iso", "C"])

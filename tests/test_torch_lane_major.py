@@ -133,19 +133,19 @@ def test_lane_data_matches_jax(op_case):
         dj.dim, dj.n_p, dj.npp, dj.ftp, dj.ftpp, dj.n_sig, dj.E)
 
 
-def test_lane_data_face_rows_are_constant_over_each_face(op_case):
-    """K5's tile kernel reads each face's normals, Fscale and delta at its
-    first face-node row f*n_fp: that is exact because the face-node-expanded
-    rows repeat one value over the face's n_fp rows."""
+@pytest.mark.parametrize("name", ["nrm", "fsc", "delta", "beta"])
+def test_lane_data_face_rows_are_constant_over_each_face(op_case, name):
+    """The tile kernels read each face's normals, Fscale and delta (K5) or
+    beta (K4) at its first face-node row f*n_fp: that is exact because the
+    face-node-expanded rows repeat one value over the face's n_fp rows."""
     _, dt, _, _ = op_case
     nf, nfp, ftp, ftpp, E = dt.nf, dt.n_fp, dt.ftp, dt.ftpp, dt.E
-    for name, comps in (("nrm", dt.dim), ("fsc", 1), ("delta", 1)):
-        rows = getattr(dt, name).reshape(comps, ftpp, E)[:, :ftp]
-        faces = rows.reshape(comps, nf, nfp, E)
-        assert torch.equal(faces, faces[:, :, :1].expand_as(faces)), name
-    # and the normals do differ between the faces of a lane
-    nrm = dt.nrm.reshape(dt.dim, ftpp, E)[:, :ftp].reshape(dt.dim, nf, nfp, E)
-    assert not torch.equal(nrm[:, 0], nrm[:, 1])
+    comps = dt.dim if name == "nrm" else 1
+    rows = getattr(dt, name).reshape(comps, ftpp, E)[:, :ftp]
+    faces = rows.reshape(comps, nf, nfp, E)
+    assert torch.equal(faces, faces[:, :, :1].expand_as(faces))
+    if name == "nrm":  # and the normals do differ between a lane's faces
+        assert not torch.equal(faces[:, 0], faces[:, 1])
 
 
 def test_panel_plans_match_jax(op_case):
