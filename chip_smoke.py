@@ -16,11 +16,12 @@ Phases, each printing its own lines; any failure exits non-zero:
               trace_exchange); print ptxas's registers, stack and spills,
               a line for each instantiation of the tile kernels — K1, K2,
               K2-C, K8, K9, K9-C, K3, K4 (TRAC/SEL and SIG), K5, K5-C, K6
-              and K7 at the eight element shapes and K2pk (the packed K2)
-              at 2D and 3D P1 (each must report a 0 B stack frame and no
-              spills) — and require the packed K1/K8/K9 (3D P1) at the
-              registers and stack frames they had before the tile kernels
-              came (their code did not change).
+              and K7 at the eight element shapes and K1pk, K2pk and K9pk
+              (the packed K1, K2 and K9) at 2D and 3D P1 (each must report
+              a 0 B stack frame and no spills) — and require the packed K8
+              (3D P1), the one per-lane template left, at the registers
+              and stack frame it had before the tile kernels came (its
+              code did not change).
 3. kernels  - every K1/K2 variant (vel plain/axpy/inject with 1 and 2
               groups; stress plain/axpy/axpy+damp/inject with 1 and 2
               groups) against its plain PyTorch version on the card in
@@ -133,18 +134,20 @@ Phases, each printing its own lines; any failure exits non-zero:
               launch no K8, K9 or K10.
 11. packed  - the P1 two-elements-per-lane layout: the NPAR = 2
               instantiations of K1/K2/K8/K9 (counted by ``launches_pk``;
-              K2's is its tile kernel, the others are per-lane templates)
-              and K11 p1_pack_vel.  ptxas's lines of the packed
-              instantiations; every K1/K2 variant (as phase 3) and every
-              K8/K9 variant (plain, axpy; plain, axpy + sponge) on packed
-              data against the plain versions on box_mesh(4, 4, 4) P1 and
-              rect_mesh(8, 8) P1; K11 against packed_vel_op_ref.
+              K1's, K2's and K9's are the packed tile kernel, K8's is the
+              per-lane template) and K11 p1_pack_vel.  ptxas's lines of
+              the packed instantiations; every K1/K2 variant (as phase
+              3) and every K8/K9 variant (plain, axpy; plain, axpy +
+              sponge) on packed data against the plain versions on
+              box_mesh(4, 4, 4) P1 and rect_mesh(8, 8) P1; K11 against
+              packed_vel_op_ref.
               MergedLaneRunner(packed=True) on the n=32 P1 explosive-
               source case (E = 196 608) for 10 steps: kernel vs plain and
               packed kernel vs unpacked kernel runner (relative L2),
               exactly 3 + 3 packed K1/K2 launches a step and no other;
               each packed kernel's time beside its plain version's and its
-              bound at these shapes (K2pk's axpy + sponge variant too),
+              bound at these shapes (K1pk's axpy, K2pk's and K9pk's axpy +
+              sponge variants beside their own bounds too),
               with the unpacked K1/K2 at the same
               case beside them; the benches at n=32 P1 (impl "merged" and
               "merged_pk" with the kernels, "merged_pk" with the plain
@@ -257,26 +260,23 @@ TILE_PTXAS = {
     "lane_upwind_rhs": ("lane_upwind", "lane_upwind_tile_kernel", "Lb0EE"),
     "lane_upwind_axpy": ("lane_upwind", "lane_upwind_tile_kernel", "Lb1EE"),
 }
-# K2pk, the packed tile instantiation (library, mangled name prefix) at 2D
-# and 3D P1
+# K1pk, K2pk and K9pk, the packed tile instantiations
+# merged_tile_pk_kernel<DIM, NP, NFP, VEL, V2> (library, mangled name
+# prefix) at 2D and 3D P1
 PACKED_TILE_PTXAS = {
-    "merged_stress[pk] 2D P1": ("merged",
-                                "merged_tile_pk_kernelILi2ELi3ELi2EE"),
-    "merged_stress[pk] 3D P1": ("merged",
-                                "merged_tile_pk_kernelILi3ELi4ELi3EE"),
-}
+    f"{label} {dim}D P1": (
+        "merged", f"merged_tile_pk_kernelILi{dim}ELi{dim + 1}ELi{dim}E{rest}")
+    for label, rest in (("merged_vel[pk]", "Lb1ELb0EE"),
+                        ("merged_stress[pk]", "Lb0ELb0EE"),
+                        ("fused_stress2[pk]", "Lb0ELb1EE"))
+    for dim in (2, 3)}
 # ptxas (library, registers, stack frame bytes) of instantiations whose
 # code the tile kernels left unchanged, as built before them: the packed
-# K1, K8, K9 at 3D P1
+# K8 at 3D P1, the per-lane template
 PTXAS_PINS = {
-    "merged_vel[pk] 3D P1": ("merged",
-                             "merged_vel_kernelILi3ELi4ELi3ELi2ELb0EE", 32,
-                             240),
     "fused_vel2[pk] 3D P1": ("merged",
                              "merged_vel_kernelILi3ELi4ELi3ELi2ELb1EE", 46,
                              144),
-    "fused_stress2[pk] 3D P1": (
-        "merged", "merged_stress_kernelILi3ELi4ELi3ELi2ELb1EE", 48, 256),
 }
 
 
@@ -2119,14 +2119,22 @@ def phase_packed(dev, check, n=32):
                 f"{t[1]:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
             if runner is run_k:
                 times[label], bounds[label] = t, b
-    kern, _, args, kw = variant_call(run_k, x, "stress", "axpy_damp")
-    t = time_ms(lambda: kern(*args, **kw))
-    b = bound(run_k.d, run_k.plan, "merged_stress", variant="axpy_damp")
-    log(f"[packed] merged_stress[pk] (axpy_damp) at n={n} P1: kernel {t:.4f} "
-        f"ms, bound {b[0]:.4f} ms ({b[1]}), {100 * b[0] / t:.1f}% of the "
-        "bound")
+    for op, variant in (("vel", "axpy"), ("stress", "axpy_damp")):
+        kname = "merged_vel" if op == "vel" else "merged_stress"
+        kern, _, args, kw = variant_call(run_k, x, op, variant)
+        t = time_ms(lambda: kern(*args, **kw))
+        b = bound(run_k.d, run_k.plan, kname, variant=variant)
+        log(f"[packed] {kname}[pk] ({variant}) at n={n} P1: kernel {t:.4f} "
+            f"ms, bound {b[0]:.4f} ms ({b[1]}), {100 * b[0] / t:.1f}% of the "
+            "bound")
     del x, xu, run_u, args, kw
     xf = fused_inputs(run_k.d, dev, 232)
+    kern, _ = fused_call(run_k, xf, "stress", "axpy_damp")
+    t = time_ms(kern)
+    b = fused_bound(run_k.d, "fused_stress2", variant="axpy_damp")
+    log(f"[packed] fused_stress2[pk] (axpy_damp) at n={n} P1: kernel "
+        f"{t:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), {100 * b[0] / t:.1f}% of "
+        "the bound")
     for name in ("fused_vel2", "fused_stress2"):
         kern, plain = fused_call(run_k, xf, *FUSED_VARIANTS[name][0])
         got, ref = kern(), plain()
@@ -2361,10 +2369,11 @@ def main() -> int:
     sources = dict(KERNELS)
     sources.update({m: (KERNELS[k][0], replaces)
                     for m, (k, replaces) in ANISO_MODES.items()})
-    # the packed layout runs K2's tile kernel and the per-lane templates
-    sources.update({m: ("seigen_tpu_torch/csrc/merged_tile.cuh"
-                        if m == "merged_stress[pk]" else
-                        "seigen_tpu_torch/csrc/merged_kernels.cu", replaces)
+    # the packed layout runs the packed tile kernel and, for K8, the
+    # per-lane template
+    sources.update({m: ("seigen_tpu_torch/csrc/merged_kernels.cu"
+                        if m == "fused_vel2[pk]" else
+                        "seigen_tpu_torch/csrc/merged_tile.cuh", replaces)
                     for m, (_, replaces) in PACKED_MODES.items()})
     kernels = [{"name": k, "route": "cuda", "source": src_file,
                 "replaces": replaces, "launches": launches[k],

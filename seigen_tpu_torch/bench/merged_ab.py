@@ -46,11 +46,13 @@ then the benches ``lane --order 2``, ``lane`` (LF4),
 ``profile_step.profile`` of ``lane --order 2`` and ``lane_u``.
 
 ``--family packed`` runs at n=32 P1 (unless ``--n``/``--degree`` say
-otherwise) and times K2 on the packed P1 layout (two elements a lane,
-``merged_pk``): plain, axpy, axpy + damping, 1 and 2 source groups; and as
-controls the packed K1 plain and the unpacked K2 plain on the same case;
-then the benches ``merged_pk`` and ``merged``, and in each tree's first
-turn ``profile_step.profile`` of the ``merged_pk`` step.
+otherwise) and times the packed tile kernels on the P1 layout of two
+elements a lane: K1pk in the ``merged_pk`` runner's layout — plain, axpy,
+1 and 2 source groups —, K9pk on numpy-seeded packed v2 operands — plain,
+axpy, axpy + damping —, and as controls K2pk plain and axpy + damping and
+the unpacked K1 plain on the same case; then the benches ``merged_pk``
+and ``merged``, and in each tree's first turn ``profile_step.profile`` of
+the ``merged_pk`` step.
 
 Each process prints one JSON line; ``drive`` prints a table of each
 variant's mean over the turns of each tree, and the GPU's name and power
@@ -94,12 +96,15 @@ LANE_VARIANTS = (("lane_stress", "TR"), ("lane_stress", "SEL"),
                  ("lane_stress[C]", "TR"), ("lane_stress[C]", "SEL"),
                  ("lane_vel", "SIG"), ("lane_vel", "TRAC"),
                  ("lane_vel", "SEL"))
-PACKED_VARIANTS = (("merged_stress[pk]", "plain"),
-                   ("merged_stress[pk]", "axpy"),
+PACKED_VARIANTS = (("merged_vel[pk]", "plain"), ("merged_vel[pk]", "axpy"),
+                   ("merged_vel[pk]", "inject1"),
+                   ("merged_vel[pk]", "inject2"),
+                   ("fused_stress2[pk]", "plain"),
+                   ("fused_stress2[pk]", "axpy"),
+                   ("fused_stress2[pk]", "axpy_damp"),
+                   ("merged_stress[pk]", "plain"),
                    ("merged_stress[pk]", "axpy_damp"),
-                   ("merged_stress[pk]", "inject1"),
-                   ("merged_stress[pk]", "inject2"),
-                   ("merged_vel[pk]", "plain"), ("merged_stress", "plain"))
+                   ("merged_vel", "plain"))
 FAMILIES = {"merged": VARIANTS, "upwind": UPWIND_VARIANTS,
             "fused": FUSED_VARIANTS, "lane": LANE_VARIANTS,
             "packed": PACKED_VARIANTS}
@@ -260,8 +265,8 @@ def _merged_family(throughput, dev, n, degree, time_ms):
 
 
 def _packed_family(throughput, dev, n, degree, time_ms):
-    """K2pk variants, K1pk and the unpacked K2 plain; returns (times,
-    {False: the bench case})."""
+    """K1pk and K9pk variants, K2pk and the unpacked K1 as controls;
+    returns (times, {False: the bench case})."""
     import numpy as np
 
     case = throughput.setup_case(n=n, degree=degree, device=dev)
@@ -272,8 +277,12 @@ def _packed_family(throughput, dev, n, degree, time_ms):
         run = throughput.make_runner("merged_pk" if pk else "merged", dm, p,
                                      src, damp, dt, "kernel")
         ops[pk] = (run, *_merged_operands(run, rng, dev))
+    d_pk = ops[True][0].d
+    k9pk = (d_pk, *_fused_operands(d_pk, rng, dev))
 
     def call(name, variant):
+        if name == "fused_stress2[pk]":
+            return _fused_call(*k9pk, "fused_stress2", variant, dt)
         base = "vel" if name.startswith("merged_vel") else "stress"
         return _merged_call(*ops[name.endswith("[pk]")], base, variant, dt)
 
@@ -413,47 +422,64 @@ def _upwind_family(throughput, dev, n, degree, time_ms):
     return times, {False: case, True: scase}
 
 
-def _fused_family(throughput, dev, n, degree, time_ms):
-    """K9 and K8 variants; returns (times, {False: the bench case})."""
-    import dataclasses
-
+def _fused_operands(d, rng, dev):
+    """(x, y, tr): numpy-seeded K8/K9 operands in the v2 lane layout of
+    the operator data d (packed: the live rows of each parity block) — the
+    inputs x, two outputs' worth of axpy rows y of each operator, and the
+    exchanged traces tr."""
     import numpy as np
     import torch
 
+    lanes = d.E // d.n_par
+
+    def rows(C, used, pad, blocks=1):
+        a = rng.standard_normal((C, blocks, pad // blocks, lanes)
+                                ).astype(np.float32)
+        a[:, :, used:] = 0.0
+        return torch.as_tensor(a.reshape(C * pad, lanes), device=dev)
+
+    tr = rows(d.dim, d.ftp, d.ftpp)
+    x = {"fused_vel2": rows(d.n_sig, d.n_p, d.npp, d.n_par),
+         "fused_stress2": rows(d.dim, d.n_p, d.npp, d.n_par)}
+    y = {"fused_vel2": tuple(rows(d.dim, d.n_p, d.npp, d.n_par)
+                             for _ in range(2)),
+         "fused_stress2": tuple(rows(d.n_sig, d.n_p, d.npp, d.n_par)
+                                for _ in range(2))}
+    return x, y, tr
+
+
+def _fused_call(od, x, y, tr, base, variant, dt):
+    """One launch of a K8 (base "fused_vel2") or K9 ("fused_stress2")
+    variant on operator data od, as a function of no arguments."""
+    import dataclasses
+
     from seigen_tpu_torch.ops import fused_ops as fo
+
+    kw = {}
+    if variant.startswith("axpy"):
+        kw = dict(axpy=y[base], dt=float(dt), c3=float(dt) ** 3 / 24.0)
+    if base == "fused_vel2":
+        return lambda: fo.VEL2_KERNEL(od, x[base], tr, **kw)
+    if variant == "axpy":  # the stress update without a sponge
+        od = dataclasses.replace(od, damp=None)
+    kw["damp"] = od.damp if variant == "axpy_damp" else None
+    return lambda: fo.STRESS2_KERNEL(od, x[base], tr, **kw)
+
+
+def _fused_family(throughput, dev, n, degree, time_ms):
+    """K9 and K8 variants; returns (times, {False: the bench case})."""
+    import numpy as np
 
     case = throughput.setup_case(n=n, degree=degree, device=dev)
     dm, p, src, damp, dt, _ = case
     data = {v: throughput.make_runner("fused", dm, p, src, damp, dt,
                                       "kernel", vti=v).d
             for v in (False, True)}
-    d = data[False]
-    rng = np.random.default_rng(25)
-
-    def rows(C, used, pad):
-        a = rng.standard_normal((C, pad, d.E)).astype(np.float32)
-        a[:, used:] = 0.0
-        return torch.as_tensor(a.reshape(C * pad, d.E), device=dev)
-
-    tr = rows(d.dim, d.ftp, d.ftpp)
-    x = {"fused_vel2": rows(d.n_sig, d.n_p, d.npp),
-         "fused_stress2": rows(d.dim, d.n_p, d.npp)}
-    y = {"fused_vel2": tuple(rows(d.dim, d.n_p, d.npp) for _ in range(2)),
-         "fused_stress2": tuple(rows(d.n_sig, d.n_p, d.npp)
-                                for _ in range(2))}
+    x, y, tr = _fused_operands(data[False], np.random.default_rng(25), dev)
 
     def call(name, variant):
-        base = name.removesuffix("[C]")
-        od = data[name.endswith("[C]")]
-        kw = {}
-        if variant.startswith("axpy"):
-            kw = dict(axpy=y[base], dt=float(dt), c3=float(dt) ** 3 / 24.0)
-        if base == "fused_vel2":
-            return lambda: fo.VEL2_KERNEL(od, x[base], tr, **kw)
-        if variant == "axpy":  # the stress update without a sponge
-            od = dataclasses.replace(od, damp=None)
-        kw["damp"] = od.damp if variant == "axpy_damp" else None
-        return lambda: fo.STRESS2_KERNEL(od, x[base], tr, **kw)
+        return _fused_call(data[name.endswith("[C]")], x, y, tr,
+                           name.removesuffix("[C]"), variant, dt)
 
     times = {f"{op} {v}": time_ms(call(op, v)) for op, v in FUSED_VARIANTS}
     return times, {False: case}
@@ -525,7 +551,7 @@ def main(argv=None):
     ap.add_argument("--bench-steps", type=int, default=100)
     ap.add_argument("--family", default="merged", choices=tuple(FAMILIES),
                     help="merged: K1/K2; upwind: K3, K6/K7; fused: K9, K8; "
-                    "lane: K5, K4; packed: K2pk, K1pk (and profiles)")
+                    "lane: K5, K4; packed: K1pk, K9pk, K2pk (and profiles)")
     ap.add_argument("--profile", action="store_true",
                     help="worker: also profile the steps STEPS marks")
     a = ap.parse_args(argv)

@@ -70,10 +70,6 @@ def copy_bandwidth(device, n_bytes=1 << 30, reps=10) -> float:
     return 2 * n_bytes * reps / (start.elapsed_time(stop) * 1e-3)
 
 
-OPERATOR_KERNELS = ("merged_vel_kernel", "merged_stress_kernel",
-                    "trace_exchange_kernel")
-
-
 def _template_args(name: str) -> list:
     """The template arguments of a kernel name, as strings."""
     return [a.strip() for a in
@@ -88,15 +84,18 @@ def kernel_group(name: str) -> str:
     """The port's operator kernels by name: the tile kernels by their
     template arguments — ``merged_tile_kernel<DIM, NP, NFP, VEL, ANISO,
     V2>`` is K1 (VEL), K2, or with V2 K8 (VEL) or K9;
-    ``merged_tile_pk_kernel`` is K2 on the packed P1 layout;
+    ``merged_tile_pk_kernel<DIM, NP, NFP, VEL, V2>`` is K1 (VEL), K2 or
+    K9 (V2) on the packed P1 layout (the suffix "[pk]");
     ``lane_vel_tile_kernel`` is K4, ``lane_stress_tile_kernel`` K5;
     ``lane_upwind_tile_kernel<DIM, NP, NFP, AXPY>`` is K7 (AXPY) or K6;
-    ``upwind_tile_kernel`` is K3 — the per-lane templates of the packed P1
-    layout (NPAR = 2, the suffix "[pk]") and K10; PyTorch's
-    gather/index (the lane runners' trace exchanges), elementwise, copy and
-    matmul kernels as groups; anything else as "other"."""
+    ``upwind_tile_kernel`` is K3 —, the per-lane ``merged_vel_kernel``
+    (K8 on the packed layout, and K11) and K10; PyTorch's gather/index (the
+    lane runners' trace exchanges), elementwise, copy and matmul kernels as
+    groups; anything else as "other"."""
     if "merged_tile_pk_kernel" in name:
-        return "merged_stress[pk]"
+        vel, v2 = (_is_true(a) for a in _template_args(name)[3:5])
+        return ("merged_vel" if vel else "fused_stress2" if v2
+                else "merged_stress") + "[pk]"
     if "lane_stress_tile_kernel" in name:
         return "lane_stress"
     if "lane_vel_tile_kernel" in name:
@@ -110,16 +109,10 @@ def kernel_group(name: str) -> str:
                 else "lane_upwind_rhs")
     if "upwind_tile_kernel" in name:
         return "upwind_rhs"
-    for k in OPERATOR_KERNELS:
-        if k in name:
-            if k.startswith("merged_"):
-                args = _template_args(name)
-                pk = "[pk]" if args[3] == "2" else ""
-                if _is_true(args[-1]):  # V2: K8/K9
-                    return ("fused_vel2" if k == "merged_vel_kernel"
-                            else "fused_stress2") + pk
-                return k.removesuffix("_kernel") + pk
-            return k.removesuffix("_kernel")
+    if "merged_vel_kernel" in name:
+        return "fused_vel2[pk]"
+    if "trace_exchange_kernel" in name:
+        return "trace_exchange"
     if "gather" in name or "index" in name.lower():
         return "pytorch gather/index"
     if "elementwise_kernel" in name:

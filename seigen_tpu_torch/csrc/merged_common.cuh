@@ -2,13 +2,9 @@
 // upwind_kernels.cu: K3, lane_kernels.cu: K4/K5, lane_upwind_kernels.cu:
 // K6/K7).
 //
-// The per-lane kernels (K11, K1pk, K8pk, K9pk: the packed P1 layout) own
-// one lane (element) per thread; load_tables needs dr, lift, fnodes.  The
-// merged operators read their neighbour's face-major trace rows f2*rtf +
-// c*n_fp + pi[k] at lane t2*NC + clamp(j + s) through the (m, nf, 3 +
-// n_fp) int32 plan table: face_links does so for the per-lane K1pk and is
-// templated on its argument struct, which must carry: plan, mask, Ls, NC,
-// rtq.  The Godunov operators (K3, K6/K7) share the Riemann states below.
+// The per-lane kernel (K8pk and K11, the packed P1 v2 velocity operator)
+// owns one lane (element) per thread; load_tables needs dr, lift, fnodes.
+// The Godunov operators (K3, K6/K7) share the Riemann states below.
 
 #pragma once
 
@@ -53,74 +49,11 @@ __device__ __forceinline__ void load_tables(const Args& a, float* s_dr,
   __syncthreads();
 }
 
-// Per-face exchange data of one lane: own-trace select, producer face,
-// node permutation and neighbour lane (clamped into the producer class).
-// NPAR = 2 (the packed P1 layout of K1pk): lanes hold pairs of classes
-// (2u, 2u+1); the thread of parity par is class t = 2u + par, the mask row
-// of its face f is par*4 + f, and its producer t2 sits at lane
-// (t2 / 2)*NC + j + s in the parity block t2 % 2 of the producer face:
-// f2 then holds the block index f2*2 + t2 % 2, and row() is its first row
-// (Args also carries rtq, the rows of one parity block).  The struct is
-// the same for both, so NPAR = 1 keeps its local-memory footprint.
-template <int NF, int NPAR = 1>
-struct FaceLinks {
-  bool own_only[NF];
-  int f2[NF];
-  const int* pi[NF];
-  long long lane[NF];
-
-  // First row of the producer's face block in the trace array.
-  template <class Args>
-  __device__ __forceinline__ long long row(const Args& a, int f) const {
-    if constexpr (NPAR == 1)
-      return (long long)f2[f] * a.rtf;
-    else
-      return (long long)f2[f] * a.rtq;
-  }
-};
-
-template <int NF, int NFP, int NPAR = 1, class Args>
-__device__ __forceinline__ void face_links(const Args& a, long long L,
-                                           FaceLinks<NF, NPAR>& fl,
-                                           int par = 0) {
-  const int u = (int)(L / a.NC);
-  const int j = (int)(L - (long long)u * a.NC);
-  const int t = u * NPAR + par;
-#pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    const int* pe = a.plan + (t * NF + f) * (3 + NFP);
-    fl.own_only[f] = a.mask[(par * 4 + f) * a.Ls + L] != 0.f;
-    fl.f2[f] = NPAR == 1 ? pe[1] : pe[1] * NPAR + pe[0] % NPAR;
-    fl.pi[f] = pe + 3;
-    int jn = j + pe[2];
-    jn = jn < 0 ? 0 : (jn >= a.NC ? a.NC - 1 : jn);
-    fl.lane[f] = (long long)(pe[0] / NPAR) * a.NC + jn;
-  }
-}
-
-// w[c] = sum_d A_k[d,c] v[d]: row k (Voigt) of the isotropic Hooke tensor
-// (lambda, mu) contracted with a direction vector v.
-template <int DIM>
-__device__ __forceinline__ void hooke_row(int k, float lam, float mu,
-                                          const float* v /*[DIM]*/,
-                                          float* w /*[DIM]*/) {
-#pragma unroll
-  for (int c = 0; c < DIM; ++c) w[c] = 0.f;
-  if (k < DIM) {
-#pragma unroll
-    for (int c = 0; c < DIM; ++c) w[c] = lam * v[c];
-    w[k] += 2.f * mu * v[k];
-  } else {
-    const int sa = shear_a<DIM>(k), sb = shear_b<DIM>(k);
-    w[sb] = mu * v[sa];
-    w[sa] = mu * v[sb];
-  }
-}
-
-// The same map for a general Voigt stiffness (engineering shear strains):
-// Ck[m] = C[k][m] is row k of the element's matrix, and the strain slot of
-// (velocity component c, direction d) is voigt(c, d), so
-// A_k[d,c] = C[k][voigt(c,d)] and w[c] = sum_d Ck[voigt(c,d)] v[d].
+// w[c] = sum_d A_k[d,c] v[d]: row k (Voigt) of a general stiffness
+// (engineering shear strains) contracted with a direction vector v.  Ck[m]
+// = C[k][m] is row k of the element's matrix, and the strain slot of
+// (velocity component c, direction d) is voigt(c, d), so A_k[d,c] =
+// C[k][voigt(c,d)] and w[c] = sum_d Ck[voigt(c,d)] v[d].
 template <int DIM>
 __device__ __forceinline__ void voigt_row(const float* Ck /*[NSIG]*/,
                                           const float* v /*[DIM]*/,

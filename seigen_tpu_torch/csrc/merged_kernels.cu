@@ -22,19 +22,18 @@
 // FMAs at the 67 TFLOP/s FP32 rate, so the operators are bytes-bound once
 // the arithmetic is organised.
 //
-// Two designs live here.  The per-lane templates merged_vel_kernel and
-// merged_stress_kernel (the first design) give one thread one lane and run
-// only the packed P1 layout: K1pk, K8pk and K11 (the velocity template) and
-// K9pk (the stress template); there every FMA takes its table operand from
-// shared memory, the per-lane face arrays sit in local memory, and the
-// stress kernel repeats its volume product for each Voigt row.  K1 and K2
-// with one element per lane (the LF4 main path), K2 on the packed layout
-// (K2pk) and K8 and K9 on the v2 path run the tile kernels of
-// merged_tile.cuh instead, designed for this card:
+// Two designs live here.  The per-lane template merged_vel_kernel (the
+// first design) gives one thread one lane and runs only K8pk and K11, the
+// packed P1 v2 velocity operator; there every FMA takes its table operand
+// from shared memory and the per-lane face arrays sit in local memory.
+// Every other operator runs the tile kernels of merged_tile.cuh, designed
+// for this card: K1 and K2 with one element per lane (the LF4 main path),
+// K8 and K9 on the v2 path, and on the packed P1 layout K1pk, K2pk and
+// K9pk (merged_tile_pk_kernel):
 //   - A block owns a tile of T consecutive lanes of ONE class (grid: tiles
-//     of a class x classes; K2pk: x 2 parities), so the neighbour rows of a
-//     (class, face) form one segment at the plan's fixed shift s; the last
-//     tile of a class is ragged and masked.  T is 32 at P2-P4 (64 or 128
+//     of a class x classes; packed: x 2 parities), so the neighbour rows of
+//     a (class, face) form one segment at the plan's fixed shift s; the
+//     last tile of a class is ragged and masked.  T is 32 at P2-P4 (64 or 128
 //     at P1, for at least four warps a block).  At 3D P3 a block is 320
 //     threads and takes 36 KB of shared memory (K2), 49 KB (K2 ANISO) or
 //     51 KB (K1); four blocks, 40 warps, fit an SM (K2: its 48 registers
@@ -109,30 +108,42 @@
 // instantiated) is the branch of the same Pallas kernels that runs on
 // two-elements-per-lane operator data (seigen_tpu/ops/fused_kernels.py:
 // build_packed_fused_data, FusedOpData n_par = 2; merged_kernels.py:
-// _merged_kernel with n_par = 2 and gexp).  There the TPU filled its 8-row
-// tiles with two P1 elements; here a thread still owns one element: the
-// parity par is a grid dimension (the per-lane templates: blockIdx.y; K2pk:
-// blockIdx.z), so consecutive threads keep touching consecutive lanes.  It
-// reads state, damp and source rows c*8 + par*4 + i, ginv rows o_ginv +
-// 2*(r*dim+d) + par, face rows par*4 + f of every face section and of the
-// mask, material rows o_mat + 2*j + par (1/rho at o_mat + par*irho_par:
-// the P1 pack probe's geo keeps it at o_irho + par*4, K11 below), and
-// emits its traces at f*rtf + par*rtq + ... (merged) or c*ftpp + par*ftq +
-// ... (v2).  The merged plan table is over the original classes: the
-// thread's class is t = 2*(L / NC) + par, and its producer t2 sits at lane
-// (t2 / 2)*NC + j + s, rows f2*rtf + (t2 % 2)*rtq.  What packing saves on
-// this card is device-memory traffic: the pad rows 4..7 of every P1 state,
-// damp and output block are neither read nor written.  K2pk is K2's tile
-// kernel with the parity's row offsets (merged_tile.cuh, Layout NPAR = 2):
-// a block is an unpacked K2 tile of one parity, T = 128 lanes at P1, and a
-// 2D P1 element's pad row par*4 + 3 takes the epilogue of an operator value
-// 0 as in the plain version.
+// _merged_kernel :259 with n_par = 2 and gexp, through vel_merged :542 and
+// stress_merged :582; fused_kernels.py:_vel2_kernel :520 and
+// _stress2_kernel :675, through vel2_op :718 and stress2_op :759).  There
+// the TPU filled its 8-row tiles with two P1 elements; here a thread still
+// owns one element: the parity par is a grid dimension (the per-lane
+// template: blockIdx.y; the tile kernels: blockIdx.z), so consecutive
+// threads keep touching consecutive lanes.  It reads state, damp and
+// source rows c*8 + par*4 + i, ginv rows o_ginv + 2*(r*dim+d) + par, face
+// rows par*4 + f of every face section and of the mask, material rows
+// o_mat + 2*j + par (1/rho at o_mat + par*irho_par: the P1 pack probe's geo
+// keeps it at o_irho + par*4, K11 below), and emits its traces at f*rtf +
+// par*rtq + ... (merged) or c*ftpp + par*ftq + ... (v2).  The merged plan
+// table is over the original classes: the block's class is t = 2u + par,
+// and its producer t2 sits at lane (t2 / 2)*NC + j + s, rows f2*rtf + (t2 %
+// 2)*rtq.  What packing saves on this card is device-memory traffic: the
+// pad rows 4..7 of every P1 state, damp and output block are neither read
+// nor written.  What bounds the packed operators is the same as for K1/K2:
+// bytes at 3.35 TB/s (K1pk ~0.04 ms, K9pk ~0.03 ms a launch at n=32 P1,
+// against 0.002-0.004 ms of FMAs at the FP32 rate).
+//
+// K1pk, K2pk and K9pk are merged_tile_pk_kernel<DIM, NP, NFP, VEL, V2>, the
+// tile kernel on tile::Layout NPAR = 2 (VEL K1pk; V2 K9pk, whose grid is
+// one class of all lanes: NC = Ls): a block is an unpacked tile of one
+// parity, T = 128 lanes at P1, staged with the parity's row offsets, so
+// the products, the epilogue and the emission are K1's and K2's, with no
+// local memory; a 2D P1 element's pad row par*4 + 3 takes the epilogue of
+// an operator value 0 as in the plain version.  They replace the first
+// design's per-lane K1pk, which kept its flux and neighbour links in local
+// memory, and K9pk, which did too with its velocity jump, re-read u for
+// each of the six Voigt rows, and read its own output back for the traces.
 //
 // K11 p1_pack_vel replaces seigen_tpu/bench/p1_pack_probe.py:packed_vel_op
 // (:176 -> _packed_vel_kernel :121), the probe's packed P1/3D velocity
 // operator on its own geo layout.  That layout is FusedOpData's packed one
-// but for 1/rho (rows o_irho + par*4 + i, all four equal), so K11 is the
-// NPAR = 2, V2 velocity instantiation entered through its own symbol with
+// but for 1/rho (rows o_irho + par*4 + i, all four equal), so K11 is K8pk,
+// the per-lane velocity template, entered through its own symbol with
 // irho_par = 4; it reads the probe's arrays as they are.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -190,32 +201,29 @@ namespace {
 
 using namespace seigen;
 
-// Epilogue shared by both operators: axpy / damp / inject on one row, then
-// the store.
+// The epilogue of the per-lane kernel: axpy / inject on one row, then the
+// store.
 __device__ __forceinline__ void finish_row(const MergedArgs& a, size_t idx,
-                                           float op, const float* damp_row) {
+                                           float op) {
   float r = op;
-  if (a.axpy) {
-    r = a.ax0[idx] + a.dt * a.ax1[idx] + a.c3 * op;
-    if (damp_row != nullptr) r = *damp_row * r;
-  }
+  if (a.axpy) r = a.ax0[idx] + a.dt * a.ax1[idx] + a.c3 * op;
   if (a.n_inj > 0) r += a.r0 * a.inj0[idx];
   if (a.n_inj > 1) r += a.r1 * a.inj1[idx];
   a.out[idx] = r;
 }
 
-// ------------------------------------------------------- K1pk, K8pk ---
+// ------------------------------------------------------------ K8pk, K11 ---
 // du_c = (1/rho) (sum_{r,d} Ginv[r,d] Dr_r sigma_{V[c,d]}
 //                 + LIFT (scb * t+_c + bfs * t-_c))
-// t-_c = n_d sigma_{V[c,d]} at the face nodes; t+_c = -(producer traction)
-// on interior faces, t-_c on boundary faces.  Emits the velocity traces.
-// V2: t+_c is the lane's own row of the exchanged traces (K8pk, K11).
-// Built for the packed P1 layout only (NPAR = 2, parity blockIdx.y): K1
-// and K8 with one element per lane run the tile kernel.
+// t-_c = n_d sigma_{V[c,d]} at the face nodes; t+_c is the lane's own row
+// of the exchanged traces (already signed).  Emits the velocity traces,
+// component-major.  Built for K8 on the packed P1 layout only (NPAR = 2,
+// V2, parity blockIdx.y): every other velocity operator runs the tile
+// kernel.
 template <int DIM, int NP, int NFP, int NPAR, bool V2>
 __global__ void __launch_bounds__(kThreads)
 merged_vel_kernel(const MergedArgs a) {
-  static_assert(NPAR == 2, "the per-lane velocity kernel is the packed one");
+  static_assert(NPAR == 2 && V2, "the per-lane kernel is K8pk's and K11's");
   using S = Shape<DIM, NP, NFP>;
   constexpr int NF = S::NF, NFT = S::NFT, NSIG = S::NSIG;
   __shared__ float s_dr[DIM * NP * NP];
@@ -227,7 +235,7 @@ merged_vel_kernel(const MergedArgs a) {
   if (L >= a.Ls) return;
   const long long Ls = a.Ls;
   const int npp = a.npp;
-  const int par = NPAR == 1 ? 0 : (int)blockIdx.y;  // parity of the element
+  const int par = (int)blockIdx.y;  // parity of the element
   const int h = par * 4;  // its first row in an 8-row block
   auto geo = [&](int row) { return a.geo[row * Ls + L]; };
   auto fld = [&](int c, int i) { return a.field[((long long)c * npp + h + i) * Ls + L]; };
@@ -238,9 +246,6 @@ merged_vel_kernel(const MergedArgs a) {
 #pragma unroll
     for (int d = 0; d < DIM; ++d) g[r][d] = geo(a.o_ginv + NPAR * (r * DIM + d) + par);
   const float irho = geo(a.o_mat + par * a.irho_par);
-
-  FaceLinks<NF, NPAR> fl;
-  if constexpr (!V2) face_links<NF, NFP, NPAR>(a, L, fl, par);
 
   // scaled face flux scb*t+ + bfs*t- per output component and face node
   float flux[DIM][NFT];
@@ -261,11 +266,8 @@ merged_vel_kernel(const MergedArgs a) {
         float own = 0.f;
 #pragma unroll
         for (int d = 0; d < DIM; ++d) own += n[d] * sv[voigt<DIM>(c, d)];
-        float nb = own;
-        if constexpr (V2)
-          nb = a.trs[((long long)c * a.rtf + par * NFT + f * NFP + k) * Ls + L];
-        else if (!fl.own_only[f])
-          nb = -a.trs[(fl.row(a, f) + c * NFP + fl.pi[f][k]) * Ls + fl.lane[f]];
+        const float nb =
+            a.trs[((long long)c * a.rtf + par * NFT + f * NFP + k) * Ls + L];
         flux[c][f * NFP + k] = scb * nb + bfs * own;
       }
     }
@@ -301,179 +303,26 @@ merged_vel_kernel(const MergedArgs a) {
     }
 #pragma unroll
     for (int i = 0; i < NP; ++i)
-      finish_row(a, ((size_t)c * npp + h + i) * Ls + L, irho * acc[i], nullptr);
+      finish_row(a, ((size_t)c * npp + h + i) * Ls + L, irho * acc[i]);
     for (int i = NP; i < npp / NPAR; ++i)
-      finish_row(a, ((size_t)c * npp + h + i) * Ls + L, 0.f, nullptr);
+      finish_row(a, ((size_t)c * npp + h + i) * Ls + L, 0.f);
   }
 
-  if constexpr (V2) {
-    // component-major velocity traces of the output; pad rows are written 0
-    // (by the parity-0 thread)
-#pragma unroll
-    for (int c = 0; c < DIM; ++c) {
-      float* tr = a.trout + (long long)c * a.rtf * Ls + L;
-#pragma unroll 1
-      for (int q = 0; q < NFT; ++q)
-        tr[(long long)(par * NFT + q) * Ls] =
-            a.out[((size_t)c * npp + h + s_fn[q]) * Ls + L];
-      if (par == 0)
-        for (int q = NPAR * NFT; q < a.rtf; ++q) tr[(long long)q * Ls] = 0.f;
-    }
-  } else {
-    // face-major velocity traces of the output; pad rows are written 0
-#pragma unroll 1
-    for (int f = 0; f < NF; ++f) {
-      float* tr = a.trout + ((long long)f * a.rtf + par * a.rtq) * Ls + L;
-#pragma unroll 1
-      for (int k = 0; k < NFP; ++k) {
-        const int node = s_fn[f * NFP + k];
-#pragma unroll
-        for (int c = 0; c < DIM; ++c)
-          tr[(long long)(c * NFP + k) * Ls] = a.out[((size_t)c * npp + h + node) * Ls + L];
-      }
-      for (int q = DIM * NFP; q < (NPAR == 1 ? a.rtf : a.rtq); ++q)
-        tr[(long long)q * Ls] = 0.f;
-    }
-  }
-}
-
-// --------------------------------------------------------------- K9pk ---
-// ds_k = sum_{d,c} A_k[d,c] (du_c/dx_d) + LIFT(sum_{d,c} A_k[d,c] n_d du*_c)
-// with A the isotropic Hooke tensor (lambda, mu) in Voigt row k and du*_c
-// = scb * u+_c + dfs * u-_c, u+_c the lane's own row of the exchanged
-// traces.  Emits the traction traces n . sigma of the output,
-// component-major.  Built for K9 on the packed P1 layout only (NPAR = 2,
-// V2, isotropic, parity blockIdx.y): K2, K2pk and K9 with one element per
-// lane run the tile kernel.
-template <int DIM, int NP, int NFP, int NPAR, bool V2>
-__global__ void __launch_bounds__(kThreads)
-merged_stress_kernel(const MergedArgs a) {
-  static_assert(NPAR == 2 && V2, "the per-lane stress kernel is K9pk's");
-  using S = Shape<DIM, NP, NFP>;
-  constexpr int NF = S::NF, NFT = S::NFT, NSIG = S::NSIG;
-  __shared__ float s_dr[DIM * NP * NP];
-  __shared__ float s_lift[NP * NFT];
-  __shared__ int s_fn[NFT];
-  load_tables<DIM, NP, NFP>(a, s_dr, s_lift, s_fn);
-
-  const long long L = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (L >= a.Ls) return;
-  const long long Ls = a.Ls;
-  const int npp = a.npp;
-  const int par = NPAR == 1 ? 0 : (int)blockIdx.y;  // parity of the element
-  const int h = par * 4;  // its first row in an 8-row block
-  auto geo = [&](int row) { return a.geo[row * Ls + L]; };
-  auto fld = [&](int c, int i) { return a.field[((long long)c * npp + h + i) * Ls + L]; };
-
-  float g[DIM][DIM];
-#pragma unroll
-  for (int r = 0; r < DIM; ++r)
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) g[r][d] = geo(a.o_ginv + NPAR * (r * DIM + d) + par);
-  const float lam = geo(a.o_mat + NPAR + par);
-  const float mu = geo(a.o_mat + 2 * NPAR + par);
-
-  // velocity jump scb*u+ + dfs*u- per component and face node
-  float jump[DIM][NFT];
-#pragma unroll 1
-  for (int f = 0; f < NF; ++f) {
-    const float scb = geo(a.o_scb + h + f), dfs = geo(a.o_dfs + h + f);
-#pragma unroll 1
-    for (int k = 0; k < NFP; ++k) {
-      const int node = s_fn[f * NFP + k];
-#pragma unroll
-      for (int c = 0; c < DIM; ++c) {
-        const float own = fld(c, node);
-        const float nb =
-            a.trs[((long long)c * a.rtf + par * NFT + f * NFP + k) * Ls + L];
-        jump[c][f * NFP + k] = scb * nb + dfs * own;
-      }
-    }
-  }
-
-#pragma unroll 1
-  for (int k = 0; k < NSIG; ++k) {
-    // B[r][c] = sum_d A_k[d,c] Ginv[r,d]: volume term = sum_r Dr_r @ w_r,
-    // w_r = sum_c B[r][c] u_c
-    float B[DIM][DIM];
-#pragma unroll
-    for (int r = 0; r < DIM; ++r) hooke_row<DIM>(k, lam, mu, g[r], B[r]);
-    float acc[NP];
-#pragma unroll
-    for (int i = 0; i < NP; ++i) acc[i] = 0.f;
-#pragma unroll 1
-    for (int jj = 0; jj < NP; ++jj) {
-      float uv[DIM];
-#pragma unroll
-      for (int c = 0; c < DIM; ++c) uv[c] = fld(c, jj);
-#pragma unroll
-      for (int r = 0; r < DIM; ++r) {
-        float w = 0.f;
-#pragma unroll
-        for (int c = 0; c < DIM; ++c) w += B[r][c] * uv[c];
-        const float* drc = s_dr + r * NP * NP + jj;
-#pragma unroll
-        for (int i = 0; i < NP; ++i) acc[i] += drc[i * NP] * w;
-      }
-    }
-    // surface: LIFT @ (face Hooke of n (x) jump)
-#pragma unroll 1
-    for (int f = 0; f < NF; ++f) {
-      float n[DIM], F[DIM];
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) n[d] = geo(a.o_nrm + 8 * d + h + f);
-      hooke_row<DIM>(k, lam, mu, n, F);
-#pragma unroll 1
-      for (int kk = 0; kk < NFP; ++kk) {
-        const int q = f * NFP + kk;
-        float fq = 0.f;
-#pragma unroll
-        for (int c = 0; c < DIM; ++c) fq += F[c] * jump[c][q];
-#pragma unroll
-        for (int i = 0; i < NP; ++i) acc[i] += s_lift[i * NFT + q] * fq;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      const size_t idx = ((size_t)k * npp + h + i) * Ls + L;
-      finish_row(a, idx, acc[i], a.damp ? a.damp + (size_t)(h + i) * Ls + L : nullptr);
-    }
-    for (int i = NP; i < npp / NPAR; ++i) {
-      const size_t idx = ((size_t)k * npp + h + i) * Ls + L;
-      finish_row(a, idx, 0.f, a.damp ? a.damp + (size_t)(h + i) * Ls + L : nullptr);
-    }
-  }
-
-  // component-major traction traces n . sigma of the output; pad rows 0
+  // component-major velocity traces of the output; pad rows are written 0
   // (by the parity-0 thread)
+#pragma unroll
+  for (int c = 0; c < DIM; ++c) {
+    float* tr = a.trout + (long long)c * a.rtf * Ls + L;
 #pragma unroll 1
-  for (int f = 0; f < NF; ++f) {
-    float n[DIM];
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) n[d] = geo(a.o_nrm + 8 * d + h + f);
-    float* tr = a.trout + (long long)(par * NFT + f * NFP) * Ls + L;
-#pragma unroll 1
-    for (int kk = 0; kk < NFP; ++kk) {
-      const int node = s_fn[f * NFP + kk];
-      float sv[NSIG];
-#pragma unroll
-      for (int c = 0; c < NSIG; ++c) sv[c] = a.out[((size_t)c * npp + h + node) * Ls + L];
-#pragma unroll
-      for (int c = 0; c < DIM; ++c) {
-        float t = 0.f;
-#pragma unroll
-        for (int d = 0; d < DIM; ++d) t += n[d] * sv[voigt<DIM>(c, d)];
-        tr[((long long)c * a.rtf + kk) * Ls] = t;
-      }
-    }
+    for (int q = 0; q < NFT; ++q)
+      tr[(long long)(par * NFT + q) * Ls] =
+          a.out[((size_t)c * npp + h + s_fn[q]) * Ls + L];
+    if (par == 0)
+      for (int q = NPAR * NFT; q < a.rtf; ++q) tr[(long long)q * Ls] = 0.f;
   }
-  if (par == 0)
-    for (int c = 0; c < DIM; ++c)
-      for (int q = NPAR * NFT; q < a.rtf; ++q)
-        a.trout[((long long)c * a.rtf + q) * Ls + L] = 0.f;
 }
 
-// ------------------------------------------- K1/K2/K8/K9, K2pk: tiled ---
+// ------------------------------ K1/K2/K8/K9, K1pk/K2pk/K9pk: tiled ---
 // One block per tile of T lanes of one class: blockIdx = (tile, class).
 template <int DIM, int NP, int NFP, bool VEL, bool ANISO, bool V2>
 __global__ void
@@ -487,14 +336,18 @@ merged_tile_kernel(const MergedArgs a) {
     tile::stress_tile<LY>(a, reinterpret_cast<float*>(s_dyn));
 }
 
-// K2pk: blockIdx = (tile, packed class, parity).
-template <int DIM, int NP, int NFP>
+// K1pk (VEL), K2pk and K9pk (V2): blockIdx = (tile, packed class, parity);
+// V2 has one class of all lanes.
+template <int DIM, int NP, int NFP, bool VEL, bool V2>
 __global__ void
-__launch_bounds__(tile::Layout<DIM, NP, NFP, false, false, false, 2>::THREADS)
+__launch_bounds__(tile::Layout<DIM, NP, NFP, VEL, false, V2, 2>::THREADS)
 merged_tile_pk_kernel(const MergedArgs a) {
-  using LY = tile::Layout<DIM, NP, NFP, false, false, false, 2>;
+  using LY = tile::Layout<DIM, NP, NFP, VEL, false, V2, 2>;
   extern __shared__ float4 s_dyn[];
-  tile::stress_tile<LY>(a, reinterpret_cast<float*>(s_dyn));
+  if constexpr (VEL)
+    tile::vel_tile<LY>(a, reinterpret_cast<float*>(s_dyn));
+  else
+    tile::stress_tile<LY>(a, reinterpret_cast<float*>(s_dyn));
 }
 
 // The dynamic shared memory is raised above 48 KB once per instantiation;
@@ -513,47 +366,41 @@ int launch_tile(const MergedArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int DIM, int NP, int NFP>
+// The packed layout is isotropic only (a->o_C >= 0: -1).
+template <int DIM, int NP, int NFP, bool VEL, bool V2>
 int launch_tile_pk(const MergedArgs& a, cudaStream_t stream) {
-  using LY = tile::Layout<DIM, NP, NFP, false, false, false, 2>;
+  using LY = tile::Layout<DIM, NP, NFP, VEL, false, V2, 2>;
   if (a.o_C >= 0) return -1;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      merged_tile_pk_kernel<DIM, NP, NFP>,
+      merged_tile_pk_kernel<DIM, NP, NFP, VEL, V2>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, LY::BYTES);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((unsigned)((a.NC + LY::T - 1) / LY::T),
                   (unsigned)(a.Ls / a.NC), 2);
-  merged_tile_pk_kernel<DIM, NP, NFP>
+  merged_tile_pk_kernel<DIM, NP, NFP, VEL, V2>
       <<<grid, LY::THREADS, LY::BYTES, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// The per-lane templates, one thread a lane (K11, K1pk, K8pk, K9pk); the
-// stress kernel has the isotropic law only.
-template <int DIM, int NP, int NFP, int NPAR, bool V2, bool VEL>
+// The per-lane template, one thread a lane (K8pk, K11).
+template <int DIM, int NP, int NFP>
 int launch_lane(const MergedArgs& a, cudaStream_t stream) {
-  const dim3 grid((unsigned)((a.Ls + kThreads - 1) / kThreads), NPAR);
-  if constexpr (VEL) {
-    merged_vel_kernel<DIM, NP, NFP, NPAR, V2><<<grid, kThreads, 0, stream>>>(a);
-  } else {
-    if (a.o_C >= 0) return -1;
-    merged_stress_kernel<DIM, NP, NFP, NPAR, V2>
-        <<<grid, kThreads, 0, stream>>>(a);
-  }
+  const dim3 grid((unsigned)((a.Ls + kThreads - 1) / kThreads), 2);
+  merged_vel_kernel<DIM, NP, NFP, 2, true><<<grid, kThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // op: 0 K1, 1 K2, 2 K8, 3 K9.  With one element per lane all four run the
 // tile kernel (a->o_C >= 0: the general Hooke law); on the packed layout
-// K2 runs its tile kernel, the others the per-lane templates.
+// K1, K2 and K9 run the packed tile kernel, K8 the per-lane template.
 template <int DIM, int NP, int NFP, int NPAR>
 int launch(int op, const MergedArgs& a, cudaStream_t stream) {
   if constexpr (NPAR == 2) {
     switch (op) {
-      case 0: return launch_lane<DIM, NP, NFP, 2, false, true>(a, stream);
-      case 1: return launch_tile_pk<DIM, NP, NFP>(a, stream);
-      case 2: return launch_lane<DIM, NP, NFP, 2, true, true>(a, stream);
-      default: return launch_lane<DIM, NP, NFP, 2, true, false>(a, stream);
+      case 0: return launch_tile_pk<DIM, NP, NFP, true, false>(a, stream);
+      case 1: return launch_tile_pk<DIM, NP, NFP, false, false>(a, stream);
+      case 2: return launch_lane<DIM, NP, NFP>(a, stream);
+      default: return launch_tile_pk<DIM, NP, NFP, false, true>(a, stream);
     }
   } else {
     const bool aniso = a.o_C >= 0;
@@ -627,8 +474,7 @@ int seigen_fused_stress2(const MergedArgs* a, int dim, int n_p, int n_fp,
 int seigen_p1_pack_vel(const MergedArgs* a, int dim, int n_p, int n_fp,
                        void* stream) {
   if (a->n_par != 2 || dim * 10000 + n_p * 100 + n_fp != 30403) return -1;
-  return launch_lane<3, 4, 3, 2, true, true>(
-      *a, static_cast<cudaStream_t>(stream));
+  return launch_lane<3, 4, 3>(*a, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

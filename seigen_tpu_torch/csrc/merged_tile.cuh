@@ -1,14 +1,15 @@
 // Tile kernels of K1 merged_vel and K2 merged_stress for the merged layout
-// with one element per lane, of K2pk, K2 on the packed P1 layout (NPAR = 2:
-// two elements a lane, a block owns one parity), and of K8 fused_vel2 and
-// K9 fused_stress2, K1's and K2's V2 instantiations on the v2 engine's
-// exchanged traces (merged_kernels.cu dispatches them; its head note gives
-// the design and the reasons).  A block owns T consecutive lanes of one
-// class (V2: of the one class of all Ls lanes) and stages them in shared
-// memory; a thread then owns RM nodes of one lane in the node-by-lane
-// products.  The velocity core (vel_core) also serves K4 lane_vel and the
-// stress core (stress_core) K5 lane_stress (lane_kernels.cu), which stage
-// their tiles from the lane layout themselves (LANE).
+// with one element per lane, of K8 fused_vel2 and K9 fused_stress2, K1's
+// and K2's V2 instantiations on the v2 engine's exchanged traces, and of
+// K1pk, K2pk and K9pk, K1, K2 and K9 on the packed P1 layout (NPAR = 2: two
+// elements a lane, a block owns one parity) (merged_kernels.cu dispatches
+// them; its head note gives the design and the reasons).  A block owns T
+// consecutive lanes of one class (V2: of the one class of all Ls lanes)
+// and stages them in shared memory; a thread then owns RM nodes of one
+// lane in the node-by-lane products.  The velocity core (vel_core) also
+// serves K4 lane_vel and the stress core (stress_core) K5 lane_stress
+// (lane_kernels.cu), which stage their tiles from the lane layout
+// themselves (LANE).
 //
 // Everything per lane that is indexed at run time (face data, neighbour
 // links, Hooke coefficients) lives in shared memory; register arrays are
@@ -56,10 +57,12 @@ namespace tile {
 // (and NB) once the products have read them.
 // V2: the exchanged traces already hold the own value on boundary faces,
 // so there is no mask; the output's traces are emitted component-major.
-// NPAR = 2 (K2pk, isotropic, merged layout only): the block's parity par
-// reads its element's rows as the packed layout places them (state rows
-// c*npp + par*4 + i, ginv and material rows interleaved over the parities,
-// face rows par*4 + f); the shared-memory tile is the unpacked one.
+// NPAR = 2 (K1pk, K2pk on the merged rows, K9pk on V2's; isotropic): the
+// block's parity par reads its element's rows as the packed layout places
+// them (state rows c*npp + par*4 + i, ginv and material rows interleaved
+// over the parities, 1/rho at o_mat + par*irho_par, face rows par*4 + f;
+// V2 trace rows c*rtf + par*NFT + q) and emits its traces into its
+// parity's rows; the shared-memory tile is the unpacked one.
 // LANE (K4 and K5, on V2's rows): geo rows G_SCB and G_BFS hold Fscale and
 // beta (K4) or delta (K5) (the lane layout's rows), from which the flux
 // takes scb = Fscale/2 and bfs = beta*Fscale, the jump scb = Fscale/2 and
@@ -73,8 +76,8 @@ struct Layout {
   static constexpr int NPAR = NPAR_;
   static constexpr bool LANE = LANE_, SIGTR = SIGTR_;
   static constexpr bool SIGN = LANE && VEL && !SIGTR;
-  static_assert(NPAR == 1 || (NPAR == 2 && !VEL && !ANISO && !V2),
-                "the packed tile is K2's, isotropic");
+  static_assert(NPAR == 1 || (NPAR == 2 && !ANISO && !LANE),
+                "the packed tiles are isotropic, on merged or V2 rows");
   static_assert(!LANE || V2, "the lane tiles are on V2's rows");
   static_assert(!SIGTR || (LANE && VEL), "sigma traces are K4's");
   using S = Shape<DIM, NP, NFP>;
@@ -191,7 +194,7 @@ __device__ __forceinline__ Tile make_tile(const Args& a) {
 
 // Global row (at lane 0) of local geo row r for the element of parity par
 // (packed: ginv rows o_ginv + 2*(r*dim + d) + par, face rows par*4 + f,
-// lambda and mu at o_mat + 2*j + par).
+// 1/rho at o_mat + par*irho_par, lambda and mu at o_mat + 2*j + par).
 template <class LY, class Args>
 __device__ __forceinline__ const float* geo_row(const Args& a, int r,
                                                 int par) {
@@ -211,9 +214,12 @@ __device__ __forceinline__ const float* geo_row(const Args& a, int r,
     return a.mask + (long long)(h + r - LY::G_MASK) * a.Ls;
   } else {
     const int q = r - LY::G_MAT;
-    row = LY::VEL ? a.o_mat
-          : LY::ANISO ? a.o_C + 8 * (q / LY::NSIG) + q % LY::NSIG
-                      : a.o_mat + P * (1 + q) + par;
+    if constexpr (LY::VEL && P == 2)
+      row = a.o_mat + par * a.irho_par;
+    else
+      row = LY::VEL ? a.o_mat
+            : LY::ANISO ? a.o_C + 8 * (q / LY::NSIG) + q % LY::NSIG
+                        : a.o_mat + P * (1 + q) + par;
   }
   return a.geo + (long long)row * a.Ls;
 }
@@ -239,7 +245,7 @@ __device__ __forceinline__ const float* in_src(const Args& a, int r, int h) {
 // segment aligned and inside the class, else 4 bytes; packed: the
 // parity block t2 % 2 of the producer face at lanes (t2 / 2)*NC + ...),
 // or with V2 the lane's own rows c*rtf + q of the exchanged traces (as the
-// input).
+// input; packed: the parity's rows c*rtf + par*NFT + q).
 // Consecutive threads copy consecutive lanes.
 template <class LY, class Args>
 __device__ __forceinline__ void stage(const Args& a, const Tile& tl,
@@ -278,8 +284,9 @@ __device__ __forceinline__ void stage(const Args& a, const Tile& tl,
   const bool vec_tr = vec && ((uintptr_t)a.trs & 15) == 0;
   if constexpr (LY::V2) {
     float* dst = sm + LY::OFF_NB;
+    const int hq = LY::NPAR == 1 ? 0 : tl.par * NFT;
     auto src = [&](int r) {  // row r = c*NFT + q
-      return a.trs + ((long long)(r / NFT) * a.rtf + r % NFT) * Ls;
+      return a.trs + ((long long)(r / NFT) * a.rtf + hq + r % NFT) * Ls;
     };
     if (vec_tr) {
       for (int e = threadIdx.x; e < LY::DIM * NFT * Q; e += LY::THREADS) {
@@ -404,7 +411,9 @@ __device__ __forceinline__ void store_tile(const Args& a, const Tile& tl,
 // The traces of the output (pad rows 0): the velocity itself (K1) or the
 // traction n . sigma (K2) at face node q = f*NFP + k, face-major at rows
 // f*rtf + c*NFP + k (packed: f*rtf + par*rtq + c*NFP + k, the pad rows of
-// the parity's block), or with V2 component-major at rows c*rtf + q.
+// the parity's block), or with V2 component-major at rows c*rtf + q
+// (packed: c*rtf + par*NFT + q; the pad rows NPAR*NFT..rtf-1, which follow
+// parity 1's rows, are parity 0's to write, so the two never race).
 template <class LY, class Args>
 __device__ __forceinline__ void emit(const Args& a, const Tile& tl,
                                      const float* sm) {
@@ -416,9 +425,10 @@ __device__ __forceinline__ void emit(const Args& a, const Tile& tl,
   const long long Ls = a.Ls, L = tl.lane0 + tl.l;
   // row distance of the components of one face node
   const size_t cs = (size_t)(LY::V2 ? a.rtf : NFP) * Ls;
+  const int hq = LY::NPAR == 1 ? 0 : tl.par * LY::NFT;
   for (int q = tl.ig; q < LY::NFT; q += LY::NG) {
     const int f = q / NFP, node = s_fn[q];
-    float* tr = LY::V2 ? a.trout + (size_t)q * Ls + L
+    float* tr = LY::V2 ? a.trout + (size_t)(hq + q) * Ls + L
                        : a.trout + ((size_t)f * a.rtf + tl.par * a.rtq +
                                     q % NFP) * Ls + L;
     if constexpr (LY::VEL) {
@@ -440,10 +450,11 @@ __device__ __forceinline__ void emit(const Args& a, const Tile& tl,
       }
     }
   }
-  if constexpr (LY::V2) {  // rows NFT..rtf-1 of every component
-    const int pad = a.rtf - LY::NFT;
+  if constexpr (LY::V2) {  // rows NPAR*NFT..rtf-1 of every component
+    constexpr int R0 = LY::NPAR * LY::NFT;
+    const int pad = LY::NPAR == 1 || tl.par == 0 ? a.rtf - R0 : 0;
     for (int r = tl.ig; r < DIM * pad; r += LY::NG)
-      a.trout[((size_t)(r / pad) * a.rtf + LY::NFT + r % pad) * Ls + L] = 0.f;
+      a.trout[((size_t)(r / pad) * a.rtf + R0 + r % pad) * Ls + L] = 0.f;
   } else {  // rows DIM*NFP..rtq-1 of every face's (parity) block
     const int pad = (LY::NPAR == 1 ? a.rtf : a.rtq) - DIM * NFP;
     for (int r = tl.ig; r < LY::NF * pad; r += LY::NG)
@@ -581,8 +592,8 @@ __device__ __forceinline__ void vel_core(const Tile& tl, float* sm,
     for (int ii = 0; ii < RM; ++ii) v[c][ii] *= irho;
 }
 
-// K1 (and K8): the velocity core, then the epilogue, the output tile and
-// the emitted traces.
+// K1 (and K8, K1pk): the velocity core, then the epilogue, the output tile
+// and the emitted traces.
 template <class LY, class Args>
 __device__ __forceinline__ void vel_tile(const Args& a, float* sm) {
   const Tile tl = make_tile<LY>(a);
@@ -786,8 +797,8 @@ __device__ __forceinline__ void stress_core(const Tile& tl, float* sm,
   }
 }
 
-// K2 (and K2pk, K9): the stress core, then the epilogue, the output tile
-// and the emitted traces.
+// K2 (and K9, K2pk, K9pk): the stress core, then the epilogue, the output
+// tile and the emitted traces.
 template <class LY, class Args>
 __device__ __forceinline__ void stress_tile(const Args& a, float* sm) {
   const Tile tl = make_tile<LY>(a);

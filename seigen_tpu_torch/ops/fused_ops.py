@@ -19,7 +19,8 @@ c*ftpp + par*ftq + f*n_fp + k, ftq = nf*n_fp.
 The physics is that of the merged operators, written once in
 ops/merged_kernels.py:vel_body / stress_body; the kernels are the V2
 instantiations of K1/K2's tile kernel (csrc/merged_kernels.cu,
-csrc/merged_tile.cuh); the packed layout runs the per-lane templates.
+csrc/merged_tile.cuh); on the packed layout K9 runs the packed tile
+kernel and K8 the per-lane template.
 ``vel2_op``/``stress2_op`` launch K8/K9 for CUDA tensors and run
 ``vel2_op_ref``/``stress2_op_ref`` for CPU tensors.  Launch counts: ``VEL2_KERNEL.launches``,
 ``STRESS2_KERNEL.launches``, ``STRESS2_KERNEL.launches_c`` (general Hooke

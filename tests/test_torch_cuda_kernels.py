@@ -36,9 +36,9 @@ at the eight shapes on the ragged meshes above, each launch counted on
 K2's counts, K10 (trace_exchange,
 tractions and velocities) on those meshes and their periodic twins, and
 FusedLaneRunner against its plain runner and the kernel merged runner;
-the packed P1 layout (two elements per lane) of K1/K2 (every variant; K2
-through its tile kernel, ragged tiles) and K8/K9 (plain, axpy, axpy +
-damp) on box_mesh(4, 4, 4) and rect_mesh(8, 8) P1, each launch counted
+the packed P1 layout (two elements per lane) of K1/K2 (every variant;
+through the packed tile kernel, ragged tiles) and K8/K9 (plain, axpy; K9
+also axpy + damp) on box_mesh(4, 4, 4) and rect_mesh(8, 8) P1, each launch counted
 once on launches and launches_pk, the packed kernel merged runner
 against the packed plain and the
 unpacked kernel runners (``launches_pk`` counts), and K11 (p1_pack_vel)
@@ -1225,7 +1225,7 @@ def packed_case(request, device):
     ("stress", "plain"), ("stress", "axpy"), ("stress", "axpy_damp"),
     ("stress", "inject1"), ("stress", "inject2")])
 def test_packed_merged_kernel_matches_plain(packed_case, op, variant):
-    """K1pk and K2pk (K2's tile kernel on the packed layout; ragged tiles:
+    """K1pk and K2pk (the packed tile kernel; ragged tiles:
     T = 128 lanes at P1, 64 and 16 lanes a class here): one launch, counted
     once on ``launches`` and on ``launches_pk``."""
     import dataclasses
@@ -1257,11 +1257,19 @@ def test_packed_merged_kernel_matches_plain(packed_case, op, variant):
 
 @pytest.mark.parametrize("op,variant", [
     ("vel", "plain"), ("vel", "axpy"), ("stress", "plain"),
-    ("stress", "axpy_damp")])
+    ("stress", "axpy"), ("stress", "axpy_damp")])
 def test_packed_fused_operator_kernels_match_plain(packed_case, device, op,
                                                    variant):
+    """K8pk (the per-lane template) and K9pk (the packed tile kernel; ragged
+    tiles) against their plain versions, counted once on ``launches`` and
+    ``launches_pk``; the stress axpy without a sponge, axpy_damp with the
+    runner's."""
+    import dataclasses
+
     *_, runner, _ = packed_case
     d = runner.d
+    if variant == "axpy":  # the update without a sponge
+        d = dataclasses.replace(d, damp=None)
     rng = np.random.default_rng(64)
 
     def rows(C, used, pad):

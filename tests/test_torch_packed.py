@@ -48,7 +48,10 @@ from seigen_tpu.ops.merged_kernels import vel_merged as jvel
 from seigen_tpu.ops.structured_exchange import detect_structured as jdetect
 from seigen_tpu.solver.lane_merged import MergedLaneRunner as JaxRunner
 from seigen_tpu_torch.bench import p1_pack_probe as tprobe
-from seigen_tpu_torch.ops.fused_kernels import build_packed_fused_data
+from seigen_tpu_torch.ops.fused_kernels import (
+    build_fused_data,
+    build_packed_fused_data,
+)
 from seigen_tpu_torch.ops.fused_ops import stress2_op_ref, vel2_op_ref
 from seigen_tpu_torch.ops.merged_kernels import (
     VEL_KERNEL,
@@ -133,6 +136,82 @@ def test_packed_fused_data_refuses_p2():
                             device="cpu")
     with pytest.raises(ValueError, match="P1"):
         build_packed_fused_data(p_t, np.array([0]), np.array([1]))
+
+
+@pytest.fixture(scope="module")
+def packed_vs_unpacked():
+    """{dim: (packed, unpacked FusedOpData)} of one free-top, absorbing P1
+    mesh (box_mesh(2, 2, 2), rect_mesh(4, 4)) with a random material per
+    element, so that a row read at the other parity shows."""
+    out = {}
+    for dim in (2, 3):
+        ext = ((0.0, 1.0),) * dim
+        topo = tmesh.box_mesh(2, 2, 2) if dim == 3 else tmesh.rect_mesh(4, 4)
+        dm = tmesh.build_discrete(topo, 1, bc_fn=tsol.absorbing_bc_fn(
+            ext, free_sides=[(dim - 1, "hi")]))
+        rng = np.random.default_rng(40 + dim)
+        E = dm.num_elements
+        mat = tops.Material(rng.uniform(1.0, 2.0, E), rng.uniform(3.0, 4.0, E),
+                            rng.uniform(1.0, 1.5, E))
+        p = tops.build_params(dm, mat, dtype=torch.float64, device="cpu")
+        out[dim] = (build_fused_data(p, packed=True), build_fused_data(p))
+    return out
+
+
+def _geo_row_map(section, dim, o_pk, o_u):
+    """[(packed row, unpacked row, parity)] of one geo section, as the tile
+    kernels' geo_row (csrc/merged_tile.cuh) reads it for the element of
+    parity par, from the packed and unpacked offsets o_pk, o_u: ginv o_ginv
+    + 2r + par; a face section (normal d of face f, scb, bfs, dfs) its
+    unpacked row + par*4; 1/rho o_mat + par (irho_par = 1); lambda and mu
+    (q = 1, 2) o_mat + 2q + par, unpacked o_mat + q."""
+    nf = dim + 1
+    if section == "ginv":
+        return [(o_pk[0] + 2 * r + par, o_u[0] + r, par)
+                for r in range(dim * dim) for par in (0, 1)]
+    if section == "normals":
+        return [(o_pk[1] + 8 * d + 4 * par + f, o_u[1] + 8 * d + f, par)
+                for d in range(dim) for f in range(nf) for par in (0, 1)]
+    if section in ("scb", "bfs", "dfs"):
+        k = ("scb", "bfs", "dfs").index(section) + 2
+        return [(o_pk[k] + 4 * par + f, o_u[k] + f, par)
+                for f in range(nf) for par in (0, 1)]
+    q = ("irho", "lam", "mu").index(section)
+    return [(o_pk[5] + 2 * q + par, o_u[5] + q, par) for par in (0, 1)]
+
+
+@pytest.mark.parametrize("section", ["ginv", "normals", "scb", "bfs", "dfs",
+                                     "irho", "lam", "mu"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_packed_tile_rows_are_the_unpacked_elements_rows(packed_vs_unpacked,
+                                                         dim, section):
+    """The rows a parity of the packed tile kernels (K1pk, K2pk, K9pk)
+    reads are its element's unpacked rows: packed row r_pk(r, par) at lane
+    j equals unpacked row r_u(r) at the lane of element 2j + par, for every
+    geo section the tile reads."""
+    pk, u = packed_vs_unpacked[dim]
+    assert (pk.n_par, u.n_par) == (2, 1)
+    got, want = pk.geo.numpy(), u.geo.numpy()
+    for r_pk, r_u, par in _geo_row_map(section, dim, pk.off, u.off):
+        np.testing.assert_array_equal(got[r_pk], want[r_u, par::2],
+                                      err_msg=f"{section} rows {r_pk}, {r_u}")
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_packed_v2_trace_rows_are_the_paritys(packed_vs_unpacked, dim):
+    """The v2 trace rows the packed tile kernels read and emit at
+    c*ftpp + par*NFT + q (NFT = nf*n_fp): the restriction block of the
+    packed drr maps row par*ftq + q to node par*4 + fnodes[q], with ftq ==
+    nf*n_fp, and no row past 2*ftq (the pad rows) to any node."""
+    pk, _ = packed_vs_unpacked[dim]
+    ftq = pk.nf * pk.n_fp
+    assert pk.ftp == 2 * ftq and pk.ftpp >= 2 * ftq
+    R = pk.drr.numpy()[pk.dim * pk.npp :]
+    want = np.zeros((pk.ftpp, pk.npp))
+    fn = np.array(pk.fnodes).reshape(-1)
+    for par in (0, 1):
+        want[par * ftq + np.arange(ftq), par * 4 + fn] = 1.0
+    np.testing.assert_array_equal(R, want)
 
 
 # --- (b) the packed plan --------------------------------------------------
