@@ -16,12 +16,10 @@ Phases, each printing its own lines; any failure exits non-zero:
               trace_exchange); print ptxas's registers, stack and spills,
               a line for each instantiation of the tile kernels — K1, K2,
               K2-C, K8, K9, K9-C, K3, K4 (TRAC/SEL and SIG), K5, K5-C, K6
-              and K7 at the eight element shapes and K1pk, K2pk and K9pk
-              (the packed K1, K2 and K9) at 2D and 3D P1 (each must report
-              a 0 B stack frame and no spills) — and require the packed K8
-              (3D P1), the one per-lane template left, at the registers
-              and stack frame it had before the tile kernels came (its
-              code did not change).
+              and K7 at the eight element shapes and K1pk, K2pk, K8pk and
+              K9pk (the packed K1, K2, K8 and K9; K11 is K8pk's 3D P1
+              instantiation) at 2D and 3D P1 — each must report a 0 B
+              stack frame and no spills.
 3. kernels  - every K1/K2 variant (vel plain/axpy/inject with 1 and 2
               groups; stress plain/axpy/axpy+damp/inject with 1 and 2
               groups) against its plain PyTorch version on the card in
@@ -133,21 +131,23 @@ Phases, each printing its own lines; any failure exits non-zero:
               N = 4 and 8, P2, float32: order > 2.8.  Phases 1-9 must
               launch no K8, K9 or K10.
 11. packed  - the P1 two-elements-per-lane layout: the NPAR = 2
-              instantiations of K1/K2/K8/K9 (counted by ``launches_pk``;
-              K1's, K2's and K9's are the packed tile kernel, K8's is the
-              per-lane template) and K11 p1_pack_vel.  ptxas's lines of
-              the packed instantiations; every K1/K2 variant (as phase
-              3) and every K8/K9 variant (plain, axpy; plain, axpy +
-              sponge) on packed data against the plain versions on
-              box_mesh(4, 4, 4) P1 and rect_mesh(8, 8) P1; K11 against
-              packed_vel_op_ref.
+              instantiations of K1/K2/K8/K9, the packed tile kernel
+              (counted by ``launches_pk``), and K11 p1_pack_vel, the
+              packed K8 on the probe's geo.  ptxas's lines of the packed
+              instantiations; every K1/K2 variant (as phase 3) and every
+              K8/K9 variant (plain, axpy; plain, axpy + sponge) on packed
+              data against the plain versions on box_mesh(4, 4, 4) P1 and
+              rect_mesh(8, 8) P1 (a whole tile and a ragged one, and a
+              ragged one alone) with a random density per element, so
+              that a 1/rho row read at the other parity shows; K11
+              against packed_vel_op_ref on the same 3D mesh.
               MergedLaneRunner(packed=True) on the n=32 P1 explosive-
               source case (E = 196 608) for 10 steps: kernel vs plain and
               packed kernel vs unpacked kernel runner (relative L2),
               exactly 3 + 3 packed K1/K2 launches a step and no other;
               each packed kernel's time beside its plain version's and its
-              bound at these shapes (K1pk's axpy, K2pk's and K9pk's axpy +
-              sponge variants beside their own bounds too),
+              bound at these shapes (K1pk's and K8pk's axpy, K2pk's and
+              K9pk's axpy + sponge variants beside their own bounds too),
               with the unpacked K1/K2 at the same
               case beside them; the benches at n=32 P1 (impl "merged" and
               "merged_pk" with the kernels, "merged_pk" with the plain
@@ -193,8 +193,8 @@ EIGEN_MIN_ORDER = 2.8
 SH_WAVE_MAX_ERR = 0.02
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peaks
 FP32_FLOPS_PER_S = 67e12
-KERNELS = {  # name -> (source, replaced TPU kernel); all but K10 and K11
-    # are the tile kernels of the two tile headers
+KERNELS = {  # name -> (source, replaced TPU kernel); all but K10 are the
+    # tile kernels of the two tile headers
     "merged_vel": ("seigen_tpu_torch/csrc/merged_tile.cuh",
                    "seigen_tpu/ops/merged_kernels.py:542"),
     "merged_stress": ("seigen_tpu_torch/csrc/merged_tile.cuh",
@@ -215,7 +215,7 @@ KERNELS = {  # name -> (source, replaced TPU kernel); all but K10 and K11
                       "seigen_tpu/ops/fused_kernels.py:759"),
     "trace_exchange": ("seigen_tpu_torch/csrc/trace_exchange.cu",
                        "seigen_tpu/solver/lane_fused.py:247"),
-    "p1_pack_vel": ("seigen_tpu_torch/csrc/merged_kernels.cu",
+    "p1_pack_vel": ("seigen_tpu_torch/csrc/merged_tile.cuh",
                     "seigen_tpu/bench/p1_pack_probe.py:176"),
 }
 ANISO_MODES = {  # general-Hooke-law mode -> (kernel, replaced TPU kernel)
@@ -260,7 +260,7 @@ TILE_PTXAS = {
     "lane_upwind_rhs": ("lane_upwind", "lane_upwind_tile_kernel", "Lb0EE"),
     "lane_upwind_axpy": ("lane_upwind", "lane_upwind_tile_kernel", "Lb1EE"),
 }
-# K1pk, K2pk and K9pk, the packed tile instantiations
+# K1pk, K2pk, K8pk (and K11) and K9pk, the packed tile instantiations
 # merged_tile_pk_kernel<DIM, NP, NFP, VEL, V2> (library, mangled name
 # prefix) at 2D and 3D P1
 PACKED_TILE_PTXAS = {
@@ -268,16 +268,9 @@ PACKED_TILE_PTXAS = {
         "merged", f"merged_tile_pk_kernelILi{dim}ELi{dim + 1}ELi{dim}E{rest}")
     for label, rest in (("merged_vel[pk]", "Lb1ELb0EE"),
                         ("merged_stress[pk]", "Lb0ELb0EE"),
+                        ("fused_vel2[pk]", "Lb1ELb1EE"),
                         ("fused_stress2[pk]", "Lb0ELb1EE"))
     for dim in (2, 3)}
-# ptxas (library, registers, stack frame bytes) of instantiations whose
-# code the tile kernels left unchanged, as built before them: the packed
-# K8 at 3D P1, the per-lane template
-PTXAS_PINS = {
-    "fused_vel2[pk] 3D P1": ("merged",
-                             "merged_vel_kernelILi3ELi4ELi3ELi2ELb1EE", 46,
-                             144),
-}
 
 
 def log(msg: str):
@@ -366,9 +359,8 @@ def ptxas_entry(entries, key):
 
 def check_ptxas():
     """Phase 2: a line for each tile instantiation of K1/K2/K8/K9, K3,
-    K4/K5 and K6/K7 and of K2pk, which must keep no local memory (0 B stack
-    frame, no spills), and the pinned registers and stack frames of
-    PTXAS_PINS."""
+    K4/K5 and K6/K7 and of K1pk/K2pk/K8pk/K9pk, which must keep no local
+    memory (0 B stack frame, no spills)."""
     from seigen_tpu_torch.ops import lane_kernels as lk
     from seigen_tpu_torch.ops import lane_upwind_kernels as luk
     from seigen_tpu_torch.ops import merged_kernels as mk
@@ -392,13 +384,6 @@ def check_ptxas():
                       f"{kernel}ILi{dim}ELi{n_p}ELi{n_fp}E{rest}")
     for label, (lib, key) in PACKED_TILE_PTXAS.items():
         tile_line(label, lib, key)
-    for label, (lib, key, regs, stack) in PTXAS_PINS.items():
-        got = ptxas_entry(entries[lib], key)
-        log(f"[build] {label}: {got[0]} registers, {got[1]} B stack frame "
-            f"(pinned {regs}, {stack})")
-        if got[:2] != (regs, stack):
-            raise AssertionError(f"ptxas {label}: {got[:2]}, pinned "
-                                 f"{(regs, stack)}")
 
 
 def variant_inputs(runner, seed):
@@ -1961,19 +1946,15 @@ def phase_fused(dev, case, st, check, merged_out, n=24):
     return launches, times, bounds, library
 
 
-PACKED_SHAPES = ("ILi2ELi3ELi2ELi2E", "ILi3ELi4ELi3ELi2E")  # <2,3,2,2>, <3,4,3,2>
-
-
 def packed_ptxas_lines():
-    """ptxas's lines of the packed instantiations (template NPAR = 2, and
-    K2pk's tile kernel)."""
+    """ptxas's lines of the packed instantiations (the packed tile
+    kernel)."""
     from seigen_tpu_torch.ops import merged_kernels as mk
 
     out, keep = [], False
     for ln in mk.LIBRARY.ptxas_report().splitlines():
         if "Compiling" in ln:
-            keep = "merged_tile_pk_kernel" in ln or any(
-                tag in ln for tag in PACKED_SHAPES)
+            keep = "merged_tile_pk_kernel" in ln
         if keep:
             out.append(ln.strip())
     return out
@@ -1981,7 +1962,10 @@ def packed_ptxas_lines():
 
 def small_packed_runner(dim, dev):
     """A packed kernel MergedLaneRunner on a free-top, sponge-damped
-    box_mesh(4, 4, 4) (3D) or rect_mesh(8, 8) (2D) at P1."""
+    box_mesh(4, 4, 4) (3D) or rect_mesh(8, 8) (2D) at P1, with a density
+    drawn per element (uniform in [1, 1.5), numpy-seeded), so that the two
+    parities of a lane read different 1/rho rows."""
+    import numpy as np
     import torch
 
     from seigen_tpu_torch.mesh import box_mesh, build_discrete, rect_mesh
@@ -1993,7 +1977,9 @@ def small_packed_runner(dim, dev):
     topo = box_mesh(4, 4, 4) if dim == 3 else rect_mesh(8, 8)
     dm = build_discrete(topo, 1, bc_fn=absorbing_bc_fn(
         ((0.0, 1.0),) * dim, free_sides=[(dim - 1, "hi")]))
-    p = build_params(dm, Material(1.0, 2.0, 1.0), device=dev)
+    rho = np.random.default_rng(240 + dim).uniform(1.0, 1.5,
+                                                    dm.num_elements)
+    p = build_params(dm, Material(rho, 2.0, 1.0), device=dev)
     damp = torch.as_tensor(sponge_mask(dm, [(0, "lo"), (0, "hi")],
                                        width=0.3), device=dev).float()
     return p, MergedLaneRunner(p, detect_structured(dm), 0.01, damp=damp,
@@ -2129,12 +2115,14 @@ def phase_packed(dev, check, n=32):
             "bound")
     del x, xu, run_u, args, kw
     xf = fused_inputs(run_k.d, dev, 232)
-    kern, _ = fused_call(run_k, xf, "stress", "axpy_damp")
-    t = time_ms(kern)
-    b = fused_bound(run_k.d, "fused_stress2", variant="axpy_damp")
-    log(f"[packed] fused_stress2[pk] (axpy_damp) at n={n} P1: kernel "
-        f"{t:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), {100 * b[0] / t:.1f}% of "
-        "the bound")
+    for name, op, variant in (("fused_vel2", "vel", "axpy"),
+                              ("fused_stress2", "stress", "axpy_damp")):
+        kern, _ = fused_call(run_k, xf, op, variant)
+        t = time_ms(kern)
+        b = fused_bound(run_k.d, name, variant=variant)
+        log(f"[packed] {name}[pk] ({variant}) at n={n} P1: kernel {t:.4f} "
+            f"ms, bound {b[0]:.4f} ms ({b[1]}), {100 * b[0] / t:.1f}% of the "
+            "bound")
     for name in ("fused_vel2", "fused_stress2"):
         kern, plain = fused_call(run_k, xf, *FUSED_VARIANTS[name][0])
         got, ref = kern(), plain()
@@ -2369,11 +2357,8 @@ def main() -> int:
     sources = dict(KERNELS)
     sources.update({m: (KERNELS[k][0], replaces)
                     for m, (k, replaces) in ANISO_MODES.items()})
-    # the packed layout runs the packed tile kernel and, for K8, the
-    # per-lane template
-    sources.update({m: ("seigen_tpu_torch/csrc/merged_kernels.cu"
-                        if m == "fused_vel2[pk]" else
-                        "seigen_tpu_torch/csrc/merged_tile.cuh", replaces)
+    # the packed layout runs the packed tile kernel
+    sources.update({m: ("seigen_tpu_torch/csrc/merged_tile.cuh", replaces)
                     for m, (_, replaces) in PACKED_MODES.items()})
     kernels = [{"name": k, "route": "cuda", "source": src_file,
                 "replaces": replaces, "launches": launches[k],

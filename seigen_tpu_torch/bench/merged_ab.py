@@ -48,11 +48,13 @@ then the benches ``lane --order 2``, ``lane`` (LF4),
 ``--family packed`` runs at n=32 P1 (unless ``--n``/``--degree`` say
 otherwise) and times the packed tile kernels on the P1 layout of two
 elements a lane: K1pk in the ``merged_pk`` runner's layout — plain, axpy,
-1 and 2 source groups —, K9pk on numpy-seeded packed v2 operands — plain,
-axpy, axpy + damping —, and as controls K2pk plain and axpy + damping and
-the unpacked K1 plain on the same case; then the benches ``merged_pk``
-and ``merged``, and in each tree's first turn ``profile_step.profile`` of
-the ``merged_pk`` step.
+1 and 2 source groups —, K9pk and K8pk on numpy-seeded packed v2
+operands — K9pk plain, axpy, axpy + damping; K8pk plain and axpy —, K11
+on the same sigma and traces with the P1 pack probe's geo
+(``p1_pack_probe.build_packed_vel_data``), and as controls K2pk plain and
+axpy + damping and the unpacked K1 plain on the same case; then the
+benches ``merged_pk`` and ``merged``, and in each tree's first turn
+``profile_step.profile`` of the ``merged_pk`` step.
 
 Each process prints one JSON line; ``drive`` prints a table of each
 variant's mean over the turns of each tree, and the GPU's name and power
@@ -102,6 +104,8 @@ PACKED_VARIANTS = (("merged_vel[pk]", "plain"), ("merged_vel[pk]", "axpy"),
                    ("fused_stress2[pk]", "plain"),
                    ("fused_stress2[pk]", "axpy"),
                    ("fused_stress2[pk]", "axpy_damp"),
+                   ("fused_vel2[pk]", "plain"), ("fused_vel2[pk]", "axpy"),
+                   ("p1_pack_vel", "plain"),
                    ("merged_stress[pk]", "plain"),
                    ("merged_stress[pk]", "axpy_damp"),
                    ("merged_vel", "plain"))
@@ -265,9 +269,11 @@ def _merged_family(throughput, dev, n, degree, time_ms):
 
 
 def _packed_family(throughput, dev, n, degree, time_ms):
-    """K1pk and K9pk variants, K2pk and the unpacked K1 as controls;
-    returns (times, {False: the bench case})."""
+    """K1pk, K9pk and K8pk variants and K11, K2pk and the unpacked K1 as
+    controls; returns (times, {False: the bench case})."""
     import numpy as np
+
+    from seigen_tpu_torch.bench import p1_pack_probe as probe
 
     case = throughput.setup_case(n=n, degree=degree, device=dev)
     dm, p, src, damp, dt, _ = case
@@ -278,11 +284,15 @@ def _packed_family(throughput, dev, n, degree, time_ms):
                                      src, damp, dt, "kernel")
         ops[pk] = (run, *_merged_operands(run, rng, dev))
     d_pk = ops[True][0].d
-    k9pk = (d_pk, *_fused_operands(d_pk, rng, dev))
+    v2pk = (d_pk, *_fused_operands(d_pk, rng, dev))
+    d_pr, sig_p, tr_p = (probe.build_packed_vel_data(p),
+                         v2pk[1]["fused_vel2"], v2pk[3])
 
     def call(name, variant):
-        if name == "fused_stress2[pk]":
-            return _fused_call(*k9pk, "fused_stress2", variant, dt)
+        if name == "p1_pack_vel":
+            return lambda: probe.PACK_VEL_KERNEL(d_pr, sig_p, tr_p)
+        if name.startswith("fused_"):
+            return _fused_call(*v2pk, name.removesuffix("[pk]"), variant, dt)
         base = "vel" if name.startswith("merged_vel") else "stress"
         return _merged_call(*ops[name.endswith("[pk]")], base, variant, dt)
 
@@ -551,7 +561,8 @@ def main(argv=None):
     ap.add_argument("--bench-steps", type=int, default=100)
     ap.add_argument("--family", default="merged", choices=tuple(FAMILIES),
                     help="merged: K1/K2; upwind: K3, K6/K7; fused: K9, K8; "
-                    "lane: K5, K4; packed: K1pk, K9pk, K2pk (and profiles)")
+                    "lane: K5, K4; packed: K1pk, K9pk, K8pk, K11, K2pk (and "
+                    "profiles)")
     ap.add_argument("--profile", action="store_true",
                     help="worker: also profile the steps STEPS marks")
     a = ap.parse_args(argv)

@@ -84,33 +84,27 @@ def kernel_group(name: str) -> str:
     """The port's operator kernels by name: the tile kernels by their
     template arguments — ``merged_tile_kernel<DIM, NP, NFP, VEL, ANISO,
     V2>`` is K1 (VEL), K2, or with V2 K8 (VEL) or K9;
-    ``merged_tile_pk_kernel<DIM, NP, NFP, VEL, V2>`` is K1 (VEL), K2 or
-    K9 (V2) on the packed P1 layout (the suffix "[pk]");
-    ``lane_vel_tile_kernel`` is K4, ``lane_stress_tile_kernel`` K5;
-    ``lane_upwind_tile_kernel<DIM, NP, NFP, AXPY>`` is K7 (AXPY) or K6;
-    ``upwind_tile_kernel`` is K3 —, the per-lane ``merged_vel_kernel``
-    (K8 on the packed layout, and K11) and K10; PyTorch's gather/index (the
+    ``merged_tile_pk_kernel<DIM, NP, NFP, VEL, V2>`` is K1 (VEL), K2, K8
+    (VEL and V2; K11 too) or K9 (V2) on the packed P1 layout (the suffix
+    "[pk]"); ``lane_vel_tile_kernel`` is K4, ``lane_stress_tile_kernel``
+    K5; ``lane_upwind_tile_kernel<DIM, NP, NFP, AXPY>`` is K7 (AXPY) or
+    K6; ``upwind_tile_kernel`` is K3 —, and K10; PyTorch's gather/index (the
     lane runners' trace exchanges), elementwise, copy and matmul kernels as
     groups; anything else as "other"."""
-    if "merged_tile_pk_kernel" in name:
-        vel, v2 = (_is_true(a) for a in _template_args(name)[3:5])
-        return ("merged_vel" if vel else "fused_stress2" if v2
-                else "merged_stress") + "[pk]"
     if "lane_stress_tile_kernel" in name:
         return "lane_stress"
     if "lane_vel_tile_kernel" in name:
         return "lane_vel"
-    if "merged_tile_kernel" in name:
-        vel, _, v2 = (_is_true(a) for a in _template_args(name)[3:6])
-        op = "vel" if vel else "stress"
-        return f"fused_{op}2" if v2 else f"merged_{op}"
+    if "merged_tile_kernel" in name or "merged_tile_pk_kernel" in name:
+        args = _template_args(name)  # VEL the fourth, V2 the last
+        op = "vel" if _is_true(args[3]) else "stress"
+        pk = "[pk]" if "merged_tile_pk_kernel" in name else ""
+        return (f"fused_{op}2" if _is_true(args[-1]) else f"merged_{op}") + pk
     if "lane_upwind_tile_kernel" in name:
         return ("lane_upwind_axpy" if _is_true(_template_args(name)[3])
                 else "lane_upwind_rhs")
     if "upwind_tile_kernel" in name:
         return "upwind_rhs"
-    if "merged_vel_kernel" in name:
-        return "fused_vel2[pk]"
     if "trace_exchange_kernel" in name:
         return "trace_exchange"
     if "gather" in name or "index" in name.lower():

@@ -2,8 +2,6 @@
 // upwind_kernels.cu: K3, lane_kernels.cu: K4/K5, lane_upwind_kernels.cu:
 // K6/K7).
 //
-// The per-lane kernel (K8pk and K11, the packed P1 v2 velocity operator)
-// owns one lane (element) per thread; load_tables needs dr, lift, fnodes.
 // The Godunov operators (K3, K6/K7) share the Riemann states below.
 
 #pragma once
@@ -11,8 +9,6 @@
 #include <cuda_runtime.h>
 
 namespace seigen {
-
-constexpr int kThreads = 128;
 
 // Voigt index of tensor entry (c, d): 2D [xx, yy, xy]; 3D [xx, yy, zz, yz,
 // xz, xy].
@@ -37,17 +33,6 @@ struct Shape {
   static constexpr int NFT = NF * NFP;
   static constexpr int NSIG = DIM == 2 ? 3 : 6;
 };
-
-// Tables into shared memory, once per block.
-template <int DIM, int NP, int NFP, class Args>
-__device__ __forceinline__ void load_tables(const Args& a, float* s_dr,
-                                            float* s_lift, int* s_fn) {
-  constexpr int NFT = Shape<DIM, NP, NFP>::NFT;
-  for (int i = threadIdx.x; i < DIM * NP * NP; i += blockDim.x) s_dr[i] = a.dr[i];
-  for (int i = threadIdx.x; i < NP * NFT; i += blockDim.x) s_lift[i] = a.lift[i];
-  for (int i = threadIdx.x; i < NFT; i += blockDim.x) s_fn[i] = a.fnodes[i];
-  __syncthreads();
-}
 
 // w[c] = sum_d A_k[d,c] v[d]: row k (Voigt) of a general stiffness
 // (engineering shear strains) contracted with a direction vector v.  Ck[m]

@@ -22,14 +22,10 @@
 // FMAs at the 67 TFLOP/s FP32 rate, so the operators are bytes-bound once
 // the arithmetic is organised.
 //
-// Two designs live here.  The per-lane template merged_vel_kernel (the
-// first design) gives one thread one lane and runs only K8pk and K11, the
-// packed P1 v2 velocity operator; there every FMA takes its table operand
-// from shared memory and the per-lane face arrays sit in local memory.
-// Every other operator runs the tile kernels of merged_tile.cuh, designed
-// for this card: K1 and K2 with one element per lane (the LF4 main path),
-// K8 and K9 on the v2 path, and on the packed P1 layout K1pk, K2pk and
-// K9pk (merged_tile_pk_kernel):
+// Every operator here runs the tile kernels of merged_tile.cuh: K1 and K2
+// with one element per lane (the LF4 main path), K8 and K9 on the v2 path,
+// and on the packed P1 layout K1pk, K2pk, K8pk, K9pk and K11
+// (merged_tile_pk_kernel):
 //   - A block owns a tile of T consecutive lanes of ONE class (grid: tiles
 //     of a class x classes; packed: x 2 parities), so the neighbour rows of
 //     a (class, face) form one segment at the plan's fixed shift s; the
@@ -77,7 +73,7 @@
 //   - No local memory: face data, neighbour links and Hooke coefficients
 //     are shared-memory rows, register arrays are indexed under full
 //     unrolling only (ptxas: 0 B stack, 0 spills at every shape).
-//   - The epilogue (axpy, damping, dense injection, as finish_row) runs on
+//   - The epilogue (axpy, damping, dense injection) runs on
 //     a thread's own nodes in registers, its operands loaded up front, and
 //     stores coalesced rows; the output tile then goes to shared memory
 //     (over the dead input rows) for the trace emission, pad rows 0.
@@ -109,42 +105,39 @@
 // two-elements-per-lane operator data (seigen_tpu/ops/fused_kernels.py:
 // build_packed_fused_data, FusedOpData n_par = 2; merged_kernels.py:
 // _merged_kernel :259 with n_par = 2 and gexp, through vel_merged :542 and
-// stress_merged :582; fused_kernels.py:_vel2_kernel :520 and
-// _stress2_kernel :675, through vel2_op :718 and stress2_op :759).  There
-// the TPU filled its 8-row tiles with two P1 elements; here a thread still
-// owns one element: the parity par is a grid dimension (the per-lane
-// template: blockIdx.y; the tile kernels: blockIdx.z), so consecutive
-// threads keep touching consecutive lanes.  It reads state, damp and
-// source rows c*8 + par*4 + i, ginv rows o_ginv + 2*(r*dim+d) + par, face
-// rows par*4 + f of every face section and of the mask, material rows
-// o_mat + 2*j + par (1/rho at o_mat + par*irho_par: the P1 pack probe's geo
-// keeps it at o_irho + par*4, K11 below), and emits its traces at f*rtf +
-// par*rtq + ... (merged) or c*ftpp + par*ftq + ... (v2).  The merged plan
-// table is over the original classes: the block's class is t = 2u + par,
-// and its producer t2 sits at lane (t2 / 2)*NC + j + s, rows f2*rtf + (t2 %
-// 2)*rtq.  What packing saves on this card is device-memory traffic: the
-// pad rows 4..7 of every P1 state, damp and output block are neither read
-// nor written.  What bounds the packed operators is the same as for K1/K2:
-// bytes at 3.35 TB/s (K1pk ~0.04 ms, K9pk ~0.03 ms a launch at n=32 P1,
-// against 0.002-0.004 ms of FMAs at the FP32 rate).
+// stress_merged :582; fused_kernels.py:_vel2_kernel :520 and _stress2_kernel
+// :675, through vel2_op :718 and stress2_op :759).  There the TPU filled its
+// 8-row tiles with two P1 elements; here a thread still owns one element: the
+// parity par is a grid dimension (blockIdx.z), so consecutive threads keep
+// touching consecutive lanes.  It reads state, damp and source rows c*8 + par*4
+// + i, ginv rows o_ginv + 2*(r*dim+d) + par, face rows par*4 + f of every face
+// section and of the mask, material rows o_mat + 2*j + par (1/rho at o_mat +
+// par*irho_par: the P1 pack probe's geo keeps it at o_irho + par*4, K11 below),
+// and emits its traces at f*rtf + par*rtq + ... (merged) or c*ftpp + par*ftq +
+// ... (v2).  The merged plan table is over the original classes: the block's
+// class is t = 2u + par, and its producer t2 sits at lane (t2 / 2)*NC + j + s,
+// rows f2*rtf + (t2 % 2)*rtq.  What packing saves on this card is device-memory
+// traffic: the pad rows 4..7 of every P1 state, damp and output block are
+// neither read nor written.  What bounds the packed operators is the same as
+// for K1/K2: bytes at 3.35 TB/s (K1pk ~0.04 ms, K8pk and K9pk ~0.03 ms a launch
+// at n=32 P1, against 0.002-0.004 ms of FMAs at the FP32 rate).
 //
-// K1pk, K2pk and K9pk are merged_tile_pk_kernel<DIM, NP, NFP, VEL, V2>, the
-// tile kernel on tile::Layout NPAR = 2 (VEL K1pk; V2 K9pk, whose grid is
-// one class of all lanes: NC = Ls): a block is an unpacked tile of one
-// parity, T = 128 lanes at P1, staged with the parity's row offsets, so
-// the products, the epilogue and the emission are K1's and K2's, with no
-// local memory; a 2D P1 element's pad row par*4 + 3 takes the epilogue of
-// an operator value 0 as in the plain version.  They replace the first
-// design's per-lane K1pk, which kept its flux and neighbour links in local
-// memory, and K9pk, which did too with its velocity jump, re-read u for
-// each of the six Voigt rows, and read its own output back for the traces.
+// K1pk, K2pk, K8pk and K9pk are merged_tile_pk_kernel<DIM, NP, NFP, VEL,
+// V2>, the tile kernel on tile::Layout NPAR = 2 (VEL K1pk; VEL and V2
+// K8pk; V2 K9pk; a V2 grid is one class of all lanes: NC = Ls): a block is
+// an unpacked tile of one parity, T = 128 lanes at P1, staged with the
+// parity's row offsets, so the products, the epilogue and the emission are
+// K1's, K8's and K2's, with no local memory; a 2D P1 element's pad row
+// par*4 + 3 takes the epilogue of an operator value 0 as in the plain
+// version.
 //
 // K11 p1_pack_vel replaces seigen_tpu/bench/p1_pack_probe.py:packed_vel_op
 // (:176 -> _packed_vel_kernel :121), the probe's packed P1/3D velocity
 // operator on its own geo layout.  That layout is FusedOpData's packed one
 // but for 1/rho (rows o_irho + par*4 + i, all four equal), so K11 is K8pk,
-// the per-lane velocity template, entered through its own symbol with
-// irho_par = 4; it reads the probe's arrays as they are.
+// the packed velocity tile at 3D P1, entered through its own symbol with
+// irho_par = 4 (FusedOpData's K8pk: 1); it reads the probe's arrays as
+// they are.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (seigen_tpu_torch/ops/cuda_build.py, at first use).
@@ -170,8 +163,6 @@ struct MergedArgs {
   const float* inj1;   // dense source pattern of wavelet group 1; else null
   const int* plan;     // (m, nf, 3 + n_fp): t2, f2, flat shift s, pi[n_fp]
                        // (merged only)
-  const float* dr;     // (dim, n_p, n_p) reference derivative matrices
-  const float* lift;   // (n_p, nf*n_fp) LIFT
   const int* fnodes;   // (nf, n_fp) volume node of each face node
   const float* tab;    // tile kernels' table (KernelTables.tile): rows
                        // j*dim + r = Dr_r[., j], dim*n_p + q = LIFT[., q],
@@ -201,128 +192,7 @@ namespace {
 
 using namespace seigen;
 
-// The epilogue of the per-lane kernel: axpy / inject on one row, then the
-// store.
-__device__ __forceinline__ void finish_row(const MergedArgs& a, size_t idx,
-                                           float op) {
-  float r = op;
-  if (a.axpy) r = a.ax0[idx] + a.dt * a.ax1[idx] + a.c3 * op;
-  if (a.n_inj > 0) r += a.r0 * a.inj0[idx];
-  if (a.n_inj > 1) r += a.r1 * a.inj1[idx];
-  a.out[idx] = r;
-}
-
-// ------------------------------------------------------------ K8pk, K11 ---
-// du_c = (1/rho) (sum_{r,d} Ginv[r,d] Dr_r sigma_{V[c,d]}
-//                 + LIFT (scb * t+_c + bfs * t-_c))
-// t-_c = n_d sigma_{V[c,d]} at the face nodes; t+_c is the lane's own row
-// of the exchanged traces (already signed).  Emits the velocity traces,
-// component-major.  Built for K8 on the packed P1 layout only (NPAR = 2,
-// V2, parity blockIdx.y): every other velocity operator runs the tile
-// kernel.
-template <int DIM, int NP, int NFP, int NPAR, bool V2>
-__global__ void __launch_bounds__(kThreads)
-merged_vel_kernel(const MergedArgs a) {
-  static_assert(NPAR == 2 && V2, "the per-lane kernel is K8pk's and K11's");
-  using S = Shape<DIM, NP, NFP>;
-  constexpr int NF = S::NF, NFT = S::NFT, NSIG = S::NSIG;
-  __shared__ float s_dr[DIM * NP * NP];
-  __shared__ float s_lift[NP * NFT];
-  __shared__ int s_fn[NFT];
-  load_tables<DIM, NP, NFP>(a, s_dr, s_lift, s_fn);
-
-  const long long L = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (L >= a.Ls) return;
-  const long long Ls = a.Ls;
-  const int npp = a.npp;
-  const int par = (int)blockIdx.y;  // parity of the element
-  const int h = par * 4;  // its first row in an 8-row block
-  auto geo = [&](int row) { return a.geo[row * Ls + L]; };
-  auto fld = [&](int c, int i) { return a.field[((long long)c * npp + h + i) * Ls + L]; };
-
-  float g[DIM][DIM];
-#pragma unroll
-  for (int r = 0; r < DIM; ++r)
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) g[r][d] = geo(a.o_ginv + NPAR * (r * DIM + d) + par);
-  const float irho = geo(a.o_mat + par * a.irho_par);
-
-  // scaled face flux scb*t+ + bfs*t- per output component and face node
-  float flux[DIM][NFT];
-#pragma unroll 1
-  for (int f = 0; f < NF; ++f) {
-    float n[DIM];
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) n[d] = geo(a.o_nrm + 8 * d + h + f);
-    const float scb = geo(a.o_scb + h + f), bfs = geo(a.o_bfs + h + f);
-#pragma unroll 1
-    for (int k = 0; k < NFP; ++k) {
-      const int node = s_fn[f * NFP + k];
-      float sv[NSIG];
-#pragma unroll
-      for (int c = 0; c < NSIG; ++c) sv[c] = fld(c, node);
-#pragma unroll
-      for (int c = 0; c < DIM; ++c) {
-        float own = 0.f;
-#pragma unroll
-        for (int d = 0; d < DIM; ++d) own += n[d] * sv[voigt<DIM>(c, d)];
-        const float nb =
-            a.trs[((long long)c * a.rtf + par * NFT + f * NFP + k) * Ls + L];
-        flux[c][f * NFP + k] = scb * nb + bfs * own;
-      }
-    }
-  }
-
-#pragma unroll 1
-  for (int c = 0; c < DIM; ++c) {
-    float acc[NP];
-#pragma unroll
-    for (int i = 0; i < NP; ++i) acc[i] = 0.f;
-    // volume: sum_r Dr_r @ w_r, w_r = sum_d Ginv[r,d] sigma_{V[c,d]}
-#pragma unroll 1
-    for (int jj = 0; jj < NP; ++jj) {
-      float sv[DIM];
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) sv[d] = fld(voigt<DIM>(c, d), jj);
-#pragma unroll
-      for (int r = 0; r < DIM; ++r) {
-        float w = 0.f;
-#pragma unroll
-        for (int d = 0; d < DIM; ++d) w += g[r][d] * sv[d];
-        const float* drc = s_dr + r * NP * NP + jj;
-#pragma unroll
-        for (int i = 0; i < NP; ++i) acc[i] += drc[i * NP] * w;
-      }
-    }
-    // surface: LIFT @ flux
-#pragma unroll 1
-    for (int q = 0; q < NFT; ++q) {
-      const float fq = flux[c][q];
-#pragma unroll
-      for (int i = 0; i < NP; ++i) acc[i] += s_lift[i * NFT + q] * fq;
-    }
-#pragma unroll
-    for (int i = 0; i < NP; ++i)
-      finish_row(a, ((size_t)c * npp + h + i) * Ls + L, irho * acc[i]);
-    for (int i = NP; i < npp / NPAR; ++i)
-      finish_row(a, ((size_t)c * npp + h + i) * Ls + L, 0.f);
-  }
-
-  // component-major velocity traces of the output; pad rows are written 0
-  // (by the parity-0 thread)
-#pragma unroll
-  for (int c = 0; c < DIM; ++c) {
-    float* tr = a.trout + (long long)c * a.rtf * Ls + L;
-#pragma unroll 1
-    for (int q = 0; q < NFT; ++q)
-      tr[(long long)(par * NFT + q) * Ls] =
-          a.out[((size_t)c * npp + h + s_fn[q]) * Ls + L];
-    if (par == 0)
-      for (int q = NPAR * NFT; q < a.rtf; ++q) tr[(long long)q * Ls] = 0.f;
-  }
-}
-
-// ------------------------------ K1/K2/K8/K9, K1pk/K2pk/K9pk: tiled ---
+// ------------------------- K1/K2/K8/K9, K1pk/K2pk/K8pk/K9pk, K11: tiled ---
 // One block per tile of T lanes of one class: blockIdx = (tile, class).
 template <int DIM, int NP, int NFP, bool VEL, bool ANISO, bool V2>
 __global__ void
@@ -336,8 +206,8 @@ merged_tile_kernel(const MergedArgs a) {
     tile::stress_tile<LY>(a, reinterpret_cast<float*>(s_dyn));
 }
 
-// K1pk (VEL), K2pk and K9pk (V2): blockIdx = (tile, packed class, parity);
-// V2 has one class of all lanes.
+// K1pk (VEL), K2pk (neither), K8pk and K11 (both), K9pk (V2): blockIdx =
+// (tile, packed class, parity); V2 has one class of all lanes.
 template <int DIM, int NP, int NFP, bool VEL, bool V2>
 __global__ void
 __launch_bounds__(tile::Layout<DIM, NP, NFP, VEL, false, V2, 2>::THREADS)
@@ -382,24 +252,16 @@ int launch_tile_pk(const MergedArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The per-lane template, one thread a lane (K8pk, K11).
-template <int DIM, int NP, int NFP>
-int launch_lane(const MergedArgs& a, cudaStream_t stream) {
-  const dim3 grid((unsigned)((a.Ls + kThreads - 1) / kThreads), 2);
-  merged_vel_kernel<DIM, NP, NFP, 2, true><<<grid, kThreads, 0, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
 // op: 0 K1, 1 K2, 2 K8, 3 K9.  With one element per lane all four run the
-// tile kernel (a->o_C >= 0: the general Hooke law); on the packed layout
-// K1, K2 and K9 run the packed tile kernel, K8 the per-lane template.
+// tile kernel (a->o_C >= 0: the general Hooke law), on the packed layout
+// the packed tile kernel.
 template <int DIM, int NP, int NFP, int NPAR>
 int launch(int op, const MergedArgs& a, cudaStream_t stream) {
   if constexpr (NPAR == 2) {
     switch (op) {
       case 0: return launch_tile_pk<DIM, NP, NFP, true, false>(a, stream);
       case 1: return launch_tile_pk<DIM, NP, NFP, false, false>(a, stream);
-      case 2: return launch_lane<DIM, NP, NFP>(a, stream);
+      case 2: return launch_tile_pk<DIM, NP, NFP, true, true>(a, stream);
       default: return launch_tile_pk<DIM, NP, NFP, false, true>(a, stream);
     }
   } else {
@@ -474,7 +336,8 @@ int seigen_fused_stress2(const MergedArgs* a, int dim, int n_p, int n_fp,
 int seigen_p1_pack_vel(const MergedArgs* a, int dim, int n_p, int n_fp,
                        void* stream) {
   if (a->n_par != 2 || dim * 10000 + n_p * 100 + n_fp != 30403) return -1;
-  return launch_lane<3, 4, 3>(*a, static_cast<cudaStream_t>(stream));
+  return launch_tile_pk<3, 4, 3, true, true>(
+      *a, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

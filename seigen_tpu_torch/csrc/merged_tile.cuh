@@ -1,9 +1,10 @@
 // Tile kernels of K1 merged_vel and K2 merged_stress for the merged layout
 // with one element per lane, of K8 fused_vel2 and K9 fused_stress2, K1's
 // and K2's V2 instantiations on the v2 engine's exchanged traces, and of
-// K1pk, K2pk and K9pk, K1, K2 and K9 on the packed P1 layout (NPAR = 2: two
-// elements a lane, a block owns one parity) (merged_kernels.cu dispatches
-// them; its head note gives the design and the reasons).  A block owns T
+// K1pk, K2pk, K8pk and K9pk, K1, K2, K8 and K9 on the packed P1 layout
+// (NPAR = 2: two elements a lane, a block owns one parity), K11 being K8pk
+// on the P1 pack probe's geo (merged_kernels.cu dispatches them; its head
+// note gives the design and the reasons).  A block owns T
 // consecutive lanes of one class (V2: of the one class of all Ls lanes)
 // and stages them in shared memory; a thread then owns RM nodes of one
 // lane in the node-by-lane products.  The velocity core (vel_core) also
@@ -57,12 +58,13 @@ namespace tile {
 // (and NB) once the products have read them.
 // V2: the exchanged traces already hold the own value on boundary faces,
 // so there is no mask; the output's traces are emitted component-major.
-// NPAR = 2 (K1pk, K2pk on the merged rows, K9pk on V2's; isotropic): the
-// block's parity par reads its element's rows as the packed layout places
-// them (state rows c*npp + par*4 + i, ginv and material rows interleaved
-// over the parities, 1/rho at o_mat + par*irho_par, face rows par*4 + f;
-// V2 trace rows c*rtf + par*NFT + q) and emits its traces into its
-// parity's rows; the shared-memory tile is the unpacked one.
+// NPAR = 2 (K1pk, K2pk on the merged rows, K8pk, K9pk and K11 on V2's;
+// isotropic): the block's parity par reads its element's rows as the
+// packed layout places them (state rows c*npp + par*4 + i, ginv and
+// material rows interleaved over the parities, 1/rho at o_mat +
+// par*irho_par — 1 in FusedOpData, 4 in the pack probe's geo —, face rows
+// par*4 + f; V2 trace rows c*rtf + par*NFT + q) and emits its traces into
+// its parity's rows; the shared-memory tile is the unpacked one.
 // LANE (K4 and K5, on V2's rows): geo rows G_SCB and G_BFS hold Fscale and
 // beta (K4) or delta (K5) (the lane layout's rows), from which the flux
 // takes scb = Fscale/2 and bfs = beta*Fscale, the jump scb = Fscale/2 and
@@ -330,8 +332,8 @@ __device__ __forceinline__ void stage(const Args& a, const Tile& tl,
   __syncthreads();
 }
 
-// finish_row on the operator values v[c][ii] of this thread's nodes i0 + ii
-// < NP of lane l (global rows c*npp + h + i0 + ii, h the parity's first
+// The epilogue on the operator values v[c][ii] of this thread's nodes i0 +
+// ii < NP of lane l (global rows c*npp + h + i0 + ii, h the parity's first
 // row): axpy (and damping), dense injection; the results replace v and are
 // stored to out.  The read-only operands are loaded component by
 // component through the non-coherent path, so that the loads of one
@@ -378,7 +380,7 @@ __device__ __forceinline__ void finish_nodes(const Args& a, const Tile& tl,
 
 // The output tile: this thread's final values to rows c*NP + i of s_out,
 // and the pad rows NP..npp/NPAR-1 of out (after the parity's first row h;
-// finish_row of an operator value 0).
+// the epilogue of an operator value 0).
 template <class LY, class Args>
 __device__ __forceinline__ void store_tile(const Args& a, const Tile& tl,
                                            int i0,
@@ -592,8 +594,8 @@ __device__ __forceinline__ void vel_core(const Tile& tl, float* sm,
     for (int ii = 0; ii < RM; ++ii) v[c][ii] *= irho;
 }
 
-// K1 (and K8, K1pk): the velocity core, then the epilogue, the output tile
-// and the emitted traces.
+// K1 (and K8, K1pk, K8pk, K11): the velocity core, then the epilogue, the
+// output tile and the emitted traces.
 template <class LY, class Args>
 __device__ __forceinline__ void vel_tile(const Args& a, float* sm) {
   const Tile tl = make_tile<LY>(a);

@@ -19,8 +19,9 @@ c*ftpp + par*ftq + f*n_fp + k, ftq = nf*n_fp.
 The physics is that of the merged operators, written once in
 ops/merged_kernels.py:vel_body / stress_body; the kernels are the V2
 instantiations of K1/K2's tile kernel (csrc/merged_kernels.cu,
-csrc/merged_tile.cuh); on the packed layout K9 runs the packed tile
-kernel and K8 the per-lane template.
+csrc/merged_tile.cuh); on the packed layout both run the packed tile
+kernel, which reads the parities' 1/rho rows at stride ``irho_par`` = 1
+(the P1 pack probe's K11: 4).
 ``vel2_op``/``stress2_op`` launch K8/K9 for CUDA tensors and run
 ``vel2_op_ref``/``stress2_op_ref`` for CPU tensors.  Launch counts: ``VEL2_KERNEL.launches``,
 ``STRESS2_KERNEL.launches``, ``STRESS2_KERNEL.launches_c`` (general Hooke

@@ -367,7 +367,7 @@ class MergedArgs(ctypes.Structure):
 
     _fields_ = [(n, _P) for n in (
         "field", "trs", "geo", "mask", "ax0", "ax1", "damp", "inj0", "inj1",
-        "plan", "dr", "lift", "fnodes", "tab", "out", "trout")] + [
+        "plan", "fnodes", "tab", "out", "trout")] + [
         ("Ls", ctypes.c_longlong)] + [(n, ctypes.c_int) for n in (
             "NC", "npp", "rtf", "rtq", "n_par", "irho_par", "o_ginv",
             "o_nrm", "o_scb", "o_bfs", "o_dfs", "o_mat", "o_C", "axpy",
@@ -482,8 +482,7 @@ class MergedKernel:
             inj0=ptr(inject[0][0]) if len(inject) > 0 else None,
             inj1=ptr(inject[1][0]) if len(inject) > 1 else None,
             plan=ptr(plan.table) if plan is not None else None,
-            dr=ptr(kt.dr), lift=ptr(kt.lift), fnodes=ptr(kt.fnodes),
-            tab=ptr(kt.tile),
+            fnodes=ptr(kt.fnodes), tab=ptr(kt.tile),
             out=ptr(out), trout=ptr(trout),
             Ls=Ls, NC=plan.NC if plan is not None else Ls, npp=d.npp,
             rtf=rtf, rtq=plan.rtq if plan is not None else rtf,

@@ -228,8 +228,10 @@ def test_profile_groups_kernels_and_needs_cuda(monkeypatch):
         "false>(MergedArgs)": "merged_stress[pk]",
         "void (anonymous namespace)::merged_tile_pk_kernel<2, 3, 2, false, "
         "true>(MergedArgs)": "fused_stress2[pk]",
-        "void (anonymous namespace)::merged_vel_kernel<3, 4, 3, 2, true>"
-        "(MergedArgs)": "fused_vel2[pk]",
+        "void (anonymous namespace)::merged_tile_pk_kernel<3, 4, 3, true, "
+        "true>(MergedArgs)": "fused_vel2[pk]",
+        "void (anonymous namespace)::merged_tile_pk_kernel<2, 3, 2, true, "
+        "true>(MergedArgs)": "fused_vel2[pk]",
         "void (anonymous namespace)::trace_exchange_kernel(ExchangeArgs)":
         "trace_exchange",
         "void at::native::_scatter_gather_elementwise_kernel<128, 4>":
@@ -251,11 +253,11 @@ def test_merged_ab_family_tables():
     """bench/merged_ab.py's tables: each family times its kernel variants
     once each (fused: K9 plain, axpy, axpy + damp, K9-C, K8; upwind: K6
     among K3/K7; lane: every K5 mode of both Hooke laws and every K4
-    mode; packed: every K1pk variant and K9pk plain, axpy and axpy +
-    damp, with K2pk plain and axpy + damp and the unpacked K1 as
-    controls), and each bench's label is the throughput command line of
-    its impl and options; the first turn profiles the upwind steps, the
-    fused one, lane LF2 and lane_u, and merged_pk."""
+    mode; packed: every K1pk variant, K9pk plain, axpy and axpy + damp,
+    K8pk plain and axpy and K11, with K2pk plain and axpy + damp and the
+    unpacked K1 as controls), and each bench's label is the throughput
+    command line of its impl and options; the first turn profiles the
+    upwind steps, the fused one, lane LF2 and lane_u, and merged_pk."""
     import argparse
 
     from seigen_tpu_torch.bench import merged_ab as ab
@@ -278,8 +280,10 @@ def test_merged_ab_family_tables():
         ("merged_vel[pk]", "plain"), ("merged_vel[pk]", "axpy"),
         ("merged_vel[pk]", "inject1"), ("merged_vel[pk]", "inject2"),
         ("fused_stress2[pk]", "plain"), ("fused_stress2[pk]", "axpy"),
-        ("fused_stress2[pk]", "axpy_damp"), ("merged_stress[pk]", "plain"),
-        ("merged_stress[pk]", "axpy_damp"), ("merged_vel", "plain"))
+        ("fused_stress2[pk]", "axpy_damp"), ("fused_vel2[pk]", "plain"),
+        ("fused_vel2[pk]", "axpy"), ("p1_pack_vel", "plain"),
+        ("merged_stress[pk]", "plain"), ("merged_stress[pk]", "axpy_damp"),
+        ("merged_vel", "plain"))
     ap = argparse.ArgumentParser()
     tbench.add_vti_argument(ap)
     tbench.add_upwind_u_arguments(ap)
@@ -473,9 +477,9 @@ def test_ptxas_report_entries():
 def test_chip_smoke_ptxas_tables_name_the_tile_kernels():
     """chip_smoke.py checks a ptxas line for every tile instantiation: K4
     in both layouts (TRAC/SEL, and SIG with the sigma trace rows) and K8
-    among them, and the packed tile kernel's K1pk, K2pk and K9pk at 2D and
-    3D P1; only K8pk, the per-lane template left, keeps pinned
-    registers."""
+    among them, and the packed tile kernel's K1pk, K2pk, K8pk (K11's
+    kernel at 3D P1) and K9pk at 2D and 3D P1, one for each packed
+    mode."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -496,7 +500,8 @@ def test_chip_smoke_ptxas_tables_name_the_tile_kernels():
                                f"Li{dim + 1}ELi{dim}E{vel_v2}")
         for label, vel_v2 in (("merged_vel[pk]", "Lb1ELb0EE"),
                               ("merged_stress[pk]", "Lb0ELb0EE"),
+                              ("fused_vel2[pk]", "Lb1ELb1EE"),
                               ("fused_stress2[pk]", "Lb0ELb1EE"))
         for dim in (2, 3)}
-    assert smoke.PTXAS_PINS == {"fused_vel2[pk] 3D P1": (
-        "merged", "merged_vel_kernelILi3ELi4ELi3ELi2ELb1EE", 46, 144)}
+    assert {label.split()[0] for label in smoke.PACKED_TILE_PTXAS} == set(
+        smoke.PACKED_MODES)

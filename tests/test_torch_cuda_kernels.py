@@ -36,13 +36,15 @@ at the eight shapes on the ragged meshes above, each launch counted on
 K2's counts, K10 (trace_exchange,
 tractions and velocities) on those meshes and their periodic twins, and
 FusedLaneRunner against its plain runner and the kernel merged runner;
-the packed P1 layout (two elements per lane) of K1/K2 (every variant;
-through the packed tile kernel, ragged tiles) and K8/K9 (plain, axpy; K9
-also axpy + damp) on box_mesh(4, 4, 4) and rect_mesh(8, 8) P1, each launch counted
-once on launches and launches_pk, the packed kernel merged runner
-against the packed plain and the
-unpacked kernel runners (``launches_pk`` counts), and K11 (p1_pack_vel)
-against its plain version and the packed K8.
+the packed P1 layout (two elements per lane) of K1/K2 (every variant)
+and K8/K9 (plain, axpy; K9 also axpy + damp), all through the packed tile
+kernel (ragged tiles), on box_mesh(4, 4, 4) and rect_mesh(8, 8) P1, each
+launch counted once on launches and launches_pk, the packed kernel merged
+runner against the packed plain and the unpacked kernel runners
+(``launches_pk`` counts), and K11 (p1_pack_vel) against its plain version
+and the packed K8; K8pk and K11 again with a density per element on
+box_mesh(5, 3, 5) (4-byte staging) and, K8pk, rect_mesh(14, 10) P1
+(16-byte staging), ragged tiles on both.
 These tests need a CUDA device and nvcc; elsewhere they skip.  On the GPU
 machine (which has no JAX, so the suite's conftest is not loaded):
 
@@ -1260,10 +1262,9 @@ def test_packed_merged_kernel_matches_plain(packed_case, op, variant):
     ("stress", "axpy"), ("stress", "axpy_damp")])
 def test_packed_fused_operator_kernels_match_plain(packed_case, device, op,
                                                    variant):
-    """K8pk (the per-lane template) and K9pk (the packed tile kernel; ragged
-    tiles) against their plain versions, counted once on ``launches`` and
-    ``launches_pk``; the stress axpy without a sponge, axpy_damp with the
-    runner's."""
+    """K8pk and K9pk (the packed tile kernel; ragged tiles) against their
+    plain versions, counted once on ``launches`` and ``launches_pk``; the
+    stress axpy without a sponge, axpy_damp with the runner's."""
     import dataclasses
 
     *_, runner, _ = packed_case
@@ -1347,6 +1348,84 @@ def test_pack_probe_kernel_matches_plain(device):
     pk8 = fo.vel2_op_ref(build_fused_data(p, packed=True), sig_p, tr_p)
     torch.cuda.synchronize()
     assert probe.PACK_VEL_KERNEL.launches == n0 + 1
+    for g, r, q in zip(got, ref, pk8):
+        _assert_close(g, r)
+        _assert_close(g, q)
+
+
+def _random_density_case(dim, device):
+    """Packed P1 operator data, its parameters and numpy-seeded K8pk
+    operands on box_mesh(5, 3, 5) (E = 450, Ls = 225: a whole tile and a
+    ragged one, both staged 4 bytes a copy since Ls % 4 != 0) or
+    rect_mesh(14, 10) (E = 280, Ls = 140: a whole tile staged 16 bytes a
+    copy and a ragged one), with a density drawn per element (uniform in
+    [1, 1.5)), so that a 1/rho row read at the other parity shows."""
+    from seigen_tpu_torch.ops.fused_kernels import build_fused_data
+
+    topo = box_mesh(5, 3, 5) if dim == 3 else rect_mesh(14, 10)
+    dm = build_discrete(topo, 1, bc_fn=absorbing_bc_fn(
+        ((0.0, 1.0),) * dim, free_sides=[(dim - 1, "hi")]))
+    rng = np.random.default_rng(70 + dim)
+    p = build_params(dm, Material(rng.uniform(1.0, 1.5, dm.num_elements),
+                                  2.0, 1.0), device=device)
+    d = build_fused_data(p, packed=True)
+
+    def state(C):  # rows c*8 + par*4 + i, i < n_p
+        a = rng.standard_normal((C, 2, 4, d.E // 2)).astype(np.float32)
+        a[:, :, d.n_p:] = 0.0
+        return torch.as_tensor(a.reshape(C * 8, -1), device=device)
+
+    tr = rng.standard_normal((d.dim, d.ftpp, d.E // 2)).astype(np.float32)
+    tr[:, d.ftp:] = 0.0
+    x = {"sig": state(d.n_sig), "axpy": (state(d.dim), state(d.dim)),
+         "tr": torch.as_tensor(tr.reshape(d.dim * d.ftpp, -1),
+                               device=device)}
+    return d, p, x
+
+
+@pytest.fixture(scope="module")
+def random_density_cases(device):
+    return {dim: _random_density_case(dim, device) for dim in (3, 2)}
+
+
+@pytest.mark.parametrize("variant", ["plain", "axpy"])
+@pytest.mark.parametrize("dim", [3, 2])
+def test_packed_vel_tile_matches_plain_with_random_density(
+        random_density_cases, dim, variant):
+    """K8pk (the packed velocity tile) against vel2_op_ref on ragged tiles
+    of both staging paths with a density per element: one launch, counted
+    once on ``launches`` and ``launches_pk``."""
+    d, _, x = random_density_cases[dim]
+    kw = {}
+    if variant == "axpy":
+        kw = dict(axpy=x["axpy"], dt=0.01, c3=0.01**3 / 24.0)
+    k8 = fo.VEL2_KERNEL
+    n0, pk0 = k8.launches, k8.launches_pk
+    got = fo.vel2_op(d, x["sig"], x["tr"], **kw)
+    ref = fo.vel2_op_ref(d, x["sig"], x["tr"], **kw)
+    torch.cuda.synchronize()
+    assert (k8.launches - n0, k8.launches_pk - pk0) == (1, 1)
+    for g, r in zip(got, ref):
+        _assert_close(g, r)
+
+
+def test_pack_probe_tile_matches_plain_with_random_density(
+        random_density_cases):
+    """K11 (the packed velocity tile on the probe's geo, irho_par = 4)
+    against packed_vel_op_ref and K8pk's plain version on box_mesh(5, 3,
+    5) P1 (4-byte staging, a ragged tile) with a density per element: one
+    launch, counted once on ``launches`` and ``launches_pk``."""
+    from seigen_tpu_torch.bench import p1_pack_probe as probe
+
+    d, p, x = random_density_cases[3]
+    d_pr = probe.build_packed_vel_data(p)
+    k11 = probe.PACK_VEL_KERNEL
+    n0, pk0 = k11.launches, k11.launches_pk
+    got = probe.packed_vel_op(d_pr, x["sig"], x["tr"])
+    ref = probe.packed_vel_op_ref(d_pr, x["sig"], x["tr"])
+    pk8 = fo.vel2_op_ref(d, x["sig"], x["tr"])
+    torch.cuda.synchronize()
+    assert (k11.launches - n0, k11.launches_pk - pk0) == (1, 1)
     for g, r, q in zip(got, ref, pk8):
         _assert_close(g, r)
         _assert_close(g, q)

@@ -12,7 +12,9 @@ package, at f64 on the CPU (the plain versions of K1/K2/K8/K9/K11).
 (d) the packed ``vel2_op_ref``/``stress2_op_ref`` against the JAX packed
     ``vel2_op``/``stress2_op(interpret=True)``, same tolerance;
 (e) the P1 pack probe's tables, ``pack_*``/``unpack_state`` and
-    ``packed_vel_op_ref`` against ``seigen_tpu/bench/p1_pack_probe.py``;
+    ``packed_vel_op_ref`` against ``seigen_tpu/bench/p1_pack_probe.py``, and
+    the probe's geo rows as K11 reads them (1/rho at parity stride 4)
+    against the unpacked elements' rows;
 (f) one JAX ``MergedLaneRunner(packed=True, block=8, interpret=True)`` run
     (box_mesh(2, 2, 2) P1, blob source, sponge, free top, receivers with
     pressure, 4 steps) against the port's packed runner (rtol 1e-10);
@@ -140,9 +142,10 @@ def test_packed_fused_data_refuses_p2():
 
 @pytest.fixture(scope="module")
 def packed_vs_unpacked():
-    """{dim: (packed, unpacked FusedOpData)} of one free-top, absorbing P1
-    mesh (box_mesh(2, 2, 2), rect_mesh(4, 4)) with a random material per
-    element, so that a row read at the other parity shows."""
+    """{dim: (packed, unpacked FusedOpData, their parameters)} of one
+    free-top, absorbing P1 mesh (box_mesh(2, 2, 2), rect_mesh(4, 4)) with a
+    random material per element, so that a row read at the other parity
+    shows."""
     out = {}
     for dim in (2, 3):
         ext = ((0.0, 1.0),) * dim
@@ -154,17 +157,18 @@ def packed_vs_unpacked():
         mat = tops.Material(rng.uniform(1.0, 2.0, E), rng.uniform(3.0, 4.0, E),
                             rng.uniform(1.0, 1.5, E))
         p = tops.build_params(dm, mat, dtype=torch.float64, device="cpu")
-        out[dim] = (build_fused_data(p, packed=True), build_fused_data(p))
+        out[dim] = (build_fused_data(p, packed=True), build_fused_data(p), p)
     return out
 
 
-def _geo_row_map(section, dim, o_pk, o_u):
+def _geo_row_map(section, dim, o_pk, o_u, irho_par=1):
     """[(packed row, unpacked row, parity)] of one geo section, as the tile
     kernels' geo_row (csrc/merged_tile.cuh) reads it for the element of
     parity par, from the packed and unpacked offsets o_pk, o_u: ginv o_ginv
     + 2r + par; a face section (normal d of face f, scb, bfs, dfs) its
-    unpacked row + par*4; 1/rho o_mat + par (irho_par = 1); lambda and mu
-    (q = 1, 2) o_mat + 2q + par, unpacked o_mat + q."""
+    unpacked row + par*4; 1/rho o_mat + par*irho_par (FusedOpData 1, the
+    pack probe's geo 4); lambda and mu (q = 1, 2) o_mat + 2q + par,
+    unpacked o_mat + q."""
     nf = dim + 1
     if section == "ginv":
         return [(o_pk[0] + 2 * r + par, o_u[0] + r, par)
@@ -177,7 +181,9 @@ def _geo_row_map(section, dim, o_pk, o_u):
         return [(o_pk[k] + 4 * par + f, o_u[k] + f, par)
                 for f in range(nf) for par in (0, 1)]
     q = ("irho", "lam", "mu").index(section)
-    return [(o_pk[5] + 2 * q + par, o_u[5] + q, par) for par in (0, 1)]
+    step = irho_par if q == 0 else 1
+    return [(o_pk[5] + 2 * q + par * step, o_u[5] + q, par)
+            for par in (0, 1)]
 
 
 @pytest.mark.parametrize("section", ["ginv", "normals", "scb", "bfs", "dfs",
@@ -189,12 +195,37 @@ def test_packed_tile_rows_are_the_unpacked_elements_rows(packed_vs_unpacked,
     reads are its element's unpacked rows: packed row r_pk(r, par) at lane
     j equals unpacked row r_u(r) at the lane of element 2j + par, for every
     geo section the tile reads."""
-    pk, u = packed_vs_unpacked[dim]
+    pk, u, _ = packed_vs_unpacked[dim]
     assert (pk.n_par, u.n_par) == (2, 1)
     got, want = pk.geo.numpy(), u.geo.numpy()
     for r_pk, r_u, par in _geo_row_map(section, dim, pk.off, u.off):
         np.testing.assert_array_equal(got[r_pk], want[r_u, par::2],
                                       err_msg=f"{section} rows {r_pk}, {r_u}")
+
+
+@pytest.mark.parametrize("section", ["ginv", "normals", "scb", "bfs",
+                                     "irho"])
+def test_pack_probe_rows_are_the_unpacked_elements_rows(packed_vs_unpacked,
+                                                        section):
+    """The rows K11 (the packed velocity tile on the P1 pack probe's geo,
+    irho_par = 4) reads for the element of parity par are element 2j +
+    par's unpacked rows, with a random density per element: the probe
+    keeps 1/rho at rows o_irho + par*4 + i (all four), has no dfs section
+    (off[4] = -1) and builds its geo in float32 (so the unpacked rows are
+    compared rounded to float32)."""
+    _, u, p = packed_vs_unpacked[3]
+    pr = tprobe.build_packed_vel_data(p)
+    assert pr.n_par == 2 and pr.off[4] == -1 and pr.geo.shape[0] == 72
+    got = pr.geo.numpy()
+    want = u.geo.numpy().astype(np.float32)
+    rows = _geo_row_map(section, 3, pr.off, u.off, irho_par=4)
+    if section == "irho":
+        rows = [(r + i, r_u, par) for r, r_u, par in rows for i in range(4)]
+    for r_pr, r_u, par in rows:
+        np.testing.assert_array_equal(got[r_pr], want[r_u, par::2],
+                                      err_msg=f"{section} rows {r_pr}, {r_u}")
+    irho = got[pr.off[5] : pr.off[5] + 8 : 4]
+    assert not np.allclose(irho[0], irho[1])
 
 
 @pytest.mark.parametrize("dim", [2, 3])
@@ -203,7 +234,7 @@ def test_packed_v2_trace_rows_are_the_paritys(packed_vs_unpacked, dim):
     c*ftpp + par*NFT + q (NFT = nf*n_fp): the restriction block of the
     packed drr maps row par*ftq + q to node par*4 + fnodes[q], with ftq ==
     nf*n_fp, and no row past 2*ftq (the pad rows) to any node."""
-    pk, _ = packed_vs_unpacked[dim]
+    pk, _, _ = packed_vs_unpacked[dim]
     ftq = pk.nf * pk.n_fp
     assert pk.ftp == 2 * ftq and pk.ftpp >= 2 * ftq
     R = pk.drr.numpy()[pk.dim * pk.npp :]
