@@ -155,6 +155,29 @@ Phases, each printing its own lines; any failure exits non-zero:
               against K11, packed K8, padded and packed K9, in ms per op
               beside their bytes bounds.  Phases 1-10 must launch no
               packed instantiation and no K11.
+12. cpml    - C-PML on the merged engine (solver/lane_cpml.py: K1/K2 on
+              direction-masked geometry, classical RK4) and the port's
+              other solver modules.  CpmlLaneRunner on the n=24 P3 case
+              (phase 4's mesh, source and random state; a C-PML of width
+              0.15 on the five non-free sides in place of the sponge) for
+              10 steps: kernel vs plain (relative L2 < 1e-4), exactly 12
+              K1 + 12 K2 plain launches a step and no other kernel; the
+              kernel lane runner against the einsum run_cpml in float32
+              on box_mesh(4, 4, 4) and rect_mesh(8, 8) P2 (6 steps, a
+              random material, a source; relative L2 < 1e-4); absorption
+              (the pulse of tests/test_cpml.py in the all-absorbing
+              rect_mesh(12, 12) P3: interior residual with the C-PML <
+              0.01 x without); the main path (MergedLaneRunner, kernels)
+              on the explosion of tests/test_greens.py against
+              ExplosionGreens3D (velocity misfit < 0.12, pressure < 0.18,
+              signed correlation > 0.995; 3 + 3 launches a step); curved
+              LF4 on rect_mesh(8, 8) P2, 300 steps, finite and energy <
+              50 x its start; the LF4 eigenmode sweeps of
+              tests/test_eigenmode.py through the einsum timestep.run in
+              float64 (2D P1-P3, 3D P1-P4, orders above its bars); the
+              rows of bench/pml_ab.py at 2D n=64 P3 and 3D n=24 P3 (the
+              lane C-PML's ms a step, DOF-updates/s, K1/K2 ms against the
+              rest) and of bench/curvi_ab.py.
 
 Tolerance of a kernel against its plain version: |k - p| <= rtol*|p| +
 atol*max|p| with rtol = 2e-4, atol = 2e-5.  The absolute floor is taken
@@ -191,6 +214,18 @@ BENCH_STEPS = 100
 TIMING_REPS = 20
 EIGEN_MIN_ORDER = 2.8
 SH_WAVE_MAX_ERR = 0.02
+# phase 12: C-PML, the Green's-function check, curvilinear, LF eigenmodes
+CPML_WIDTH = 0.15
+CPML_MAX_REL = 1e-4
+CPML_ABSORPTION = 0.01  # residual with profiles / without, at most
+GREENS_SRC = (0.515, 0.505, 0.525)  # tests/test_greens.py
+GREENS_REC = ((0.745, 0.615, 0.575), (0.305, 0.365, 0.665),
+              (0.635, 0.655, 0.285))
+GREENS_MAX_V, GREENS_MAX_P, GREENS_MIN_CORR = 0.12, 0.18, 0.995
+CURVI_MAX_GROWTH = 50.0  # tests/test_curvilinear.py:145
+# LF4 spatial orders, tests/test_eigenmode.py:51 and :124
+LF_MIN_ORDER_2D = {1: 1.4, 2: 2.8, 3: 3.0}
+LF_MIN_ORDER_3D = {1: 1.3, 2: 2.8, 3: 3.4, 4: 4.2}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peaks
 FP32_FLOPS_PER_S = 67e12
 KERNELS = {  # name -> (source, replaced TPU kernel); all but K10 are the
@@ -2181,6 +2216,325 @@ def phase_packed(dev, check, n=32):
     return launches, times, bounds
 
 
+def cpml_case(dm, p, dev, seed, n_steps=6):
+    """The einsum C-PML run_cpml and the kernel CpmlLaneRunner on one small
+    case in float32 (a per-element random material, a mollified source,
+    C-PML on every side but the free top, a random state): relative L2 of
+    the lane runner's u and s against the einsum's."""
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.ops.structured_exchange import detect_structured
+    from seigen_tpu_torch.solver import CpmlLaneRunner, PointSource, State, \
+        build_sources, cfl_dt, cpml_init, cpml_profiles, make_cpml_rhs, \
+        run_cpml
+
+    dim = p.dim
+    rng = np.random.default_rng(seed)
+    E, n_p = dm.num_elements, dm.re.n_p
+    sides = [(ax, s) for ax in range(dim) for s in ("lo", "hi")][:-1]
+    h = float(dm.h.min())
+    dt = cfl_dt(h, 3.0, 2, 0.2)
+    src = build_sources(dm, [PointSource(
+        position=(0.5,) * (dim - 1) + (0.6,), f0=4.0, t0=0.15,
+        amplitude=50.0, radius=2 * h)], device=dev)
+    u0, s0 = (torch.as_tensor(0.01 * rng.standard_normal((E, n_p, c)),
+                              device=dev).float() for c in (dim, p.n_sig))
+    dprof, aprof = cpml_profiles(dm, sides, 0.3, 3.0, f0=4.0)
+    ref, _ = run_cpml(p, cpml_init(p, u0, s0), dt, n_steps,
+                      make_cpml_rhs(p, dprof, aprof, src=src))
+    lr = CpmlLaneRunner(p, dm, detect_structured(dm), dt, sides, 0.3, 3.0,
+                        f0=4.0, src=src, impl="kernel")
+    out, _ = lr.run(State(u=u0, s=s0), n_steps)
+    return [((getattr(out, f) - getattr(ref, f)).norm()
+             / getattr(ref, f).norm()).item() for f in ("u", "s")]
+
+
+def cpml_absorption(dev):
+    """The pulse of tests/test_cpml.py:80 in the all-absorbing
+    rect_mesh(12, 12) P3, float32, through the kernel lane runner with a
+    C-PML of width 0.25 on all four sides and with no profiles (sides
+    []): (interior residual energy with, without)."""
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.mesh import build_discrete, rect_mesh
+    from seigen_tpu_torch.ops import Material, build_params
+    from seigen_tpu_torch.ops.structured_exchange import detect_structured
+    from seigen_tpu_torch.solver import CpmlLaneRunner, State, \
+        absorbing_bc_fn, cfl_dt
+
+    dm = build_discrete(rect_mesh(12, 12), 3,
+                        bc_fn=absorbing_bc_fn([(0.0, 1.0)] * 2, []))
+    p = build_params(dm, Material(rho=1.0, vp=2.0, vs=1.0), device=dev)
+    E, n_p = dm.num_elements, dm.re.n_p
+    co = dm.coords
+    r2 = (co[..., 0] - 0.5) ** 2 + (co[..., 1] - 0.5) ** 2
+    u0 = np.zeros((E, n_p, 2))
+    u0[..., 1] = np.exp(-r2 / 0.01)
+    st = State(u=torch.as_tensor(u0, device=dev).float(),
+               s=torch.zeros((E, n_p, 3), device=dev))
+    n = int(np.ceil(1.0 / cfl_dt(dm.h.min(), 2.0, 3, 0.35)))
+    inner = torch.as_tensor(
+        (co[..., 0] > 0.3) & (co[..., 0] < 0.7)
+        & (co[..., 1] > 0.3) & (co[..., 1] < 0.7), device=dev)
+    res = []
+    for sides in ([(0, "lo"), (0, "hi"), (1, "lo"), (1, "hi")], []):
+        lr = CpmlLaneRunner(p, dm, detect_structured(dm), 1.0 / n, sides,
+                            0.25, 2.0, f0=3.0, impl="kernel")
+        fin, _ = lr.run(st, n)
+        if not bool(torch.isfinite(fin.u).all()):
+            raise AssertionError(f"absorption run {sides}: not finite")
+        res.append((fin.u[inner] ** 2).sum().item())
+    log(f"[cpml] absorption: rect_mesh(12, 12) P3, {n} RK4 steps, "
+        f"interior residual {res[0]:.4e} with C-PML, {res[1]:.4e} without, "
+        f"ratio {res[0] / res[1]:.3e} (bar {CPML_ABSORPTION})")
+    return res[0] / res[1]
+
+
+def greens_misfits(dev):
+    """The main path (MergedLaneRunner, kernels, float32) on the explosion
+    of tests/test_greens.py:48 — box_mesh(12, 12, 12) P2, all absorbing,
+    a 0.12 sponge — against ExplosionGreens3D at its three receivers
+    before the first reflection: [(velocity misfit, pressure misfit)] per
+    receiver, the signed correlation at the first, and the launches."""
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.mesh import box_mesh, build_discrete
+    from seigen_tpu_torch.ops import Material, build_params
+    from seigen_tpu_torch.ops.structured_exchange import detect_structured
+    from seigen_tpu_torch.solver import ExplosionGreens3D, PointSource, \
+        State, absorbing_bc_fn, build_receivers, build_sources, cfl_dt, \
+        sponge_mask
+    from seigen_tpu_torch.solver.lane_merged import MergedLaneRunner
+
+    n, degree, f0 = 12, 2, 2.0
+    mat = Material(rho=1.5, vp=2.0, vs=1.0)
+    dm = build_discrete(box_mesh(n, n, n), degree,
+                        bc_fn=absorbing_bc_fn(((0.0, 1.0),) * 3, []))
+    p = build_params(dm, mat, device=dev)
+    t0, radius, amp = 1.2 / f0, 1.0 / n, 3.0
+    src = build_sources(dm, [PointSource(
+        position=GREENS_SRC, f0=f0, t0=t0, amplitude=amp, radius=radius)],
+        device=dev)
+    rec = np.array(GREENS_REC)
+    rcv = build_receivers(dm, rec, device=dev)
+    damp = torch.as_tensor(sponge_mask(
+        dm, [(a, s) for a in range(3) for s in ("lo", "hi")], width=0.12),
+        device=dev).float()
+    dt = cfl_dt(float(dm.h.min()), 2.0, degree, cfl=0.4)
+    n_steps = int(np.ceil(1.05 / dt))
+    E, n_p = dm.num_elements, dm.re.n_p
+    runner = MergedLaneRunner(p, detect_structured(dm), dt, src=src,
+                              damp=damp, receivers=rcv, record_pressure=True,
+                              impl="kernel")
+    st = State(u=torch.zeros((E, n_p, 3), device=dev),
+               s=torch.zeros((E, n_p, 6), device=dev))
+    reset_counts()
+    _, seis = runner.run(st, n_steps)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    ana = ExplosionGreens3D(mat=mat, position=np.array(GREENS_SRC), f0=f0,
+                            t0=t0, amplitude=amp, radius=radius)
+    tg = (np.arange(n_steps) + 1) * dt
+    ref_v, ref_p = ana.velocity(rec, tg), ana.pressure(rec, tg)
+    m = tg < 0.95
+    mis = [(np.linalg.norm(seis[m, r, :3] - ref_v[m, r])
+            / np.linalg.norm(ref_v[m, r]),
+            np.linalg.norm(seis[m, r, 3] - ref_p[m, r, 0])
+            / np.linalg.norm(ref_p[m, r, 0])) for r in range(len(rec))]
+    a0, s0 = ref_v[m, 0].reshape(-1), seis[m, 0, :3].reshape(-1)
+    corr = float(a0 @ s0 / (np.linalg.norm(a0) * np.linalg.norm(s0)))
+    log(f"[cpml] greens: box_mesh(12, 12, 12) P2, E {E}, {n_steps} LF4 "
+        f"steps; misfits (velocity, pressure) "
+        + ", ".join(f"({v:.4f}, {q:.4f})" for v, q in mis)
+        + f" (bars {GREENS_MAX_V}, {GREENS_MAX_P}); correlation {corr:.5f} "
+        f"(bar {GREENS_MIN_CORR})")
+    return mis, corr, launches, n_steps
+
+
+def curvi_growth(dev):
+    """Curved LF4 (tests/test_curvilinear.py:145): rect_mesh(8, 8) P2 under
+    the test's smooth map, a velocity bump, 300 steps in float64 through
+    the timestep.run hooks: (finite, energy ratio end/start)."""
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.mesh import build_discrete, rect_mesh
+    from seigen_tpu_torch.ops import Material, build_curvi, build_params, \
+        curved_coords, make_curvi_ops
+    from seigen_tpu_torch.solver import State, absorbing_bc_fn, cfl_dt, run
+
+    dm = build_discrete(rect_mesh(8, 8), 2, bc_fn=absorbing_bc_fn(
+        ((0, 1), (0, 1)), free_sides=[(1, "hi")]))
+    p = build_params(dm, Material(rho=1.3, vp=2.0, vs=1.1),
+                     dtype=torch.float64, device=dev)
+
+    def phi(x):
+        a, out = 0.03, x.copy()
+        out[:, 0] = x[:, 0] + a * np.sin(np.pi * x[:, 0]) * np.sin(
+            2 * np.pi * x[:, 1])
+        out[:, 1] = x[:, 1] + a * np.sin(2 * np.pi * x[:, 0]) * np.sin(
+            np.pi * x[:, 1])
+        return out
+
+    X = curved_coords(dm, phi)
+    vop, sop = make_curvi_ops(build_curvi(dm, X, dtype=torch.float64,
+                                          device=dev))
+    x, y = X[..., 0], X[..., 1]
+    bump = np.exp(-60.0 * ((x - 0.5) ** 2 + (y - 0.55) ** 2))
+    st = State(u=torch.as_tensor(np.stack([bump, 0 * bump], -1), device=dev),
+               s=torch.zeros(X.shape[:2] + (3,), dtype=torch.float64,
+                             device=dev))
+    e0 = (st.u ** 2).sum().item()
+    fin, _ = run(p, st, cfl_dt(float(dm.h.min()), 2.0, 2, 0.3), 300,
+                 vel_op=vop, stress_op=sop)
+    e1 = ((fin.u ** 2).sum() + (fin.s ** 2).sum()).item()
+    finite = bool(torch.isfinite(fin.u).all() & torch.isfinite(fin.s).all())
+    log(f"[cpml] curvilinear LF4: rect_mesh(8, 8) P2 curved, 300 steps, "
+        f"finite {finite}, energy {e1 / e0:.4f} x its start (bar "
+        f"{CURVI_MAX_GROWTH})")
+    return finite, e1 / e0
+
+
+def lf_eigen_orders(dev):
+    """The LF4 spatial-convergence sweeps of tests/test_eigenmode.py
+    through the port's einsum timestep.run in float64 on the card: an S
+    plane wave on periodic meshes, 2D P1-P3 over a period (three sizes,
+    the least-squares order), 3D P1-P4 over half a period (N = 4, 8);
+    fails below the test's bars."""
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.mesh import box_mesh, build_discrete, rect_mesh
+    from seigen_tpu_torch.ops import Material, build_params
+    from seigen_tpu_torch.solver import PlaneWave, State, cfl_dt, \
+        convergence_order, interpolate, l2_error, run
+
+    mat = Material(1.0, 2.0, 1.0)
+    pw2 = PlaneWave(mat=mat, k=2 * np.pi * np.array([1.0, 1.0]), mode="S")
+    pw3 = PlaneWave(mat=mat, k=2 * np.pi * np.array([1.0, 1.0, 0.0]),
+                    mode="S", polarization=np.array([0.0, 0.0, 1.0]))
+    sweeps = [(2, q, Ns) for q, Ns in ((1, (8, 16, 32)), (2, (4, 8, 16)),
+                                       (3, (2, 4, 8)))]
+    sweeps += [(3, q, (4, 8)) for q in (1, 2, 3, 4)]
+    orders = {}
+    for dim, q, Ns in sweeps:
+        pw, T = (pw2, pw2.period) if dim == 2 else (pw3, 0.5 * pw3.period)
+        errs, steps = [], []
+        for N in Ns:
+            topo = rect_mesh(N, N, periodic=(0, 1)) if dim == 2 else \
+                box_mesh(N, N, N, periodic=(0, 1, 2))
+            dm = build_discrete(topo, q)
+            p = build_params(dm, mat, dtype=torch.float64, device=dev)
+            n = max(int(np.ceil(T / cfl_dt(dm.h.min(), 2.0, q, 0.4))), 1)
+            dt = T / n
+            st = State(*(torch.as_tensor(interpolate(dm, f, t), device=dev)
+                         for f, t in ((pw.u, 0.0), (pw.sigma, 0.5 * dt))))
+            fin, _ = run(p, st, dt, n)
+            errs.append(l2_error(dm, fin.u, pw.u, n * dt))
+            steps.append(n)
+        order = (convergence_order([1.0 / N for N in Ns], errs)
+                 if dim == 2 else math.log2(errs[0] / errs[1]))
+        bar = (LF_MIN_ORDER_2D if dim == 2 else LF_MIN_ORDER_3D)[q]
+        log(f"[cpml] LF4 eigenmode {dim}D P{q}: N {Ns}, steps {steps}, "
+            f"L2(u) " + ", ".join(f"{e:.4e}" for e in errs)
+            + f"; order {order:.3f} (bar {bar})")
+        # 2D: the error must also shrink five-fold across the sweep
+        if not (order > bar and (dim == 3 or errs[-1] < 0.2 * errs[0])):
+            raise AssertionError(f"LF4 eigenmode {dim}D P{q}: order {order}")
+
+
+def phase_cpml(dev, case, st):
+    """Phase 12 (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.bench import curvi_ab, pml_ab
+    from seigen_tpu_torch.mesh import box_mesh, build_discrete, rect_mesh
+    from seigen_tpu_torch.ops import Material, build_params
+    from seigen_tpu_torch.ops.structured_exchange import detect_structured
+    from seigen_tpu_torch.solver import CpmlLaneRunner, absorbing_bc_fn
+
+    # 1. the lane C-PML at full width: kernels against plain versions
+    t0 = time.perf_counter()
+    dm, p, src, _, dt, _ = case
+    ex = detect_structured(dm)
+    sides = pml_ab.sides_for(3)
+    f0 = float(src.f0[0])
+    runners = {impl: CpmlLaneRunner(p, dm, ex, dt, sides, CPML_WIDTH, 2.0,
+                                    f0=f0, src=src, impl=impl)
+               for impl in ("kernel", "reference")}
+    log(f"[cpml] n=24 P3: E {dm.num_elements}, C-PML width {CPML_WIDTH} on "
+        f"{len(sides)} sides, source groups "
+        f"{len(runners['kernel']._src_groups)}; setup "
+        f"{time.perf_counter() - t0:.1f} s")
+    reset_counts()
+    out_k, _ = runners["kernel"].run(st, RUNNER_STEPS)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    out_r, _ = runners["reference"].run(st, RUNNER_STEPS)
+    torch.cuda.synchronize()
+    del runners
+    log(f"[cpml] {RUNNER_STEPS} RK4 steps: launches {launches}")
+    expect_counts("C-PML path", launches, merged_vel=12 * RUNNER_STEPS,
+                  merged_stress=12 * RUNNER_STEPS)
+    compare_states("cpml", out_k, out_r)
+
+    # 2. against the einsum oracle on small meshes
+    for name, topo in (("box_mesh(4, 4, 4)", box_mesh(4, 4, 4)),
+                       ("rect_mesh(8, 8)", rect_mesh(8, 8))):
+        dim = len(topo.extents)
+        dm_s = build_discrete(topo, 2, bc_fn=absorbing_bc_fn(
+            [(0.0, 1.0)] * dim, [(dim - 1, "hi")]))
+        rng_mat = np.random.default_rng(dim)
+        E = dm_s.num_elements
+        p_s = build_params(dm_s, Material(
+            rho=1.0 + rng_mat.random(E), vp=2.0 + rng_mat.random(E),
+            vs=0.8 + 0.3 * rng_mat.random(E)), device=dev)
+        rel = cpml_case(dm_s, p_s, dev, seed=70 + dim)
+        log(f"[cpml] lane vs einsum C-PML, {name} P2, 6 steps: rel L2 u "
+            f"{rel[0]:.3e}, s {rel[1]:.3e} (bar {CPML_MAX_REL})")
+        if not max(rel) < CPML_MAX_REL:
+            raise AssertionError(f"lane C-PML off the einsum on {name}")
+
+    # 3. absorption
+    if not cpml_absorption(dev) < CPML_ABSORPTION:
+        raise AssertionError("the C-PML does not absorb")
+
+    # 4. the main path against the analytic explosion
+    mis, corr, launches_g, n_g = greens_misfits(dev)
+    expect_counts("Green's-function run", launches_g,
+                  merged_vel=3 * n_g, merged_stress=3 * n_g)
+    if not (all(v < GREENS_MAX_V and q < GREENS_MAX_P for v, q in mis)
+            and corr > GREENS_MIN_CORR):
+        raise AssertionError(f"main path off the analytic explosion: {mis}, "
+                             f"correlation {corr}")
+
+    # 5. curvilinear stability, 6. LF eigenmode orders
+    finite, growth = curvi_growth(dev)
+    if not (finite and growth < CURVI_MAX_GROWTH):
+        raise AssertionError(f"curved LF4 unstable: energy x{growth}")
+    lf_eigen_orders(dev)
+    log(f"[cpml] checks {time.perf_counter() - t0:.1f} s")
+
+    # 7. timings: pml_ab at 2D n=64 P3 and 3D n=24 P3, curvi_ab
+    recs = [pml_ab.main(dim=2, n=64, degree=3, n_steps=20),
+            pml_ab.main(dim=3, n=24, degree=3, n_steps=10,
+                        case=(dm, p, dt)),
+            curvi_ab.main(n_steps=20)]
+    for rec in recs:
+        print(json.dumps(rec), flush=True)
+    r3 = recs[1]
+    log(f"[cpml] lane C-PML n=24 P3: {r3['lane_pml_ms']:.4f} ms a step "
+        f"({r3['lane_pml_ms'] / r3['merged_sponge_ms']:.2f}x the sponge "
+        f"step's {r3['merged_sponge_ms']:.4f}), "
+        f"{r3['lane_pml_dof_per_s']:.4e} DOF-updates/s; K1/K2 "
+        f"{r3['lane_pml_kernel_ms']:.4f} ms, the rest "
+        f"{r3['lane_pml_glue_ms']:.4f} ms")
+
+
 def main() -> int:
     try:
         import torch
@@ -2351,7 +2705,12 @@ def main() -> int:
     for have, new in zip((launches, times, bounds),
                          phase_packed(dev, check)):
         have.update(new)
-    log(f"[packed] phase {time.perf_counter() - t0:.1f} s; total "
+    log(f"[packed] phase {time.perf_counter() - t0:.1f} s")
+
+    # 12. cpml: the lane C-PML on K1/K2, the analytic and curved checks
+    t0 = time.perf_counter()
+    phase_cpml(dev, case, st)
+    log(f"[cpml] phase {time.perf_counter() - t0:.1f} s; total "
         f"{time.perf_counter() - t_all:.1f} s")
 
     sources = dict(KERNELS)

@@ -205,8 +205,9 @@ def bytes_bound_ms(d: FusedOpData, vel: bool) -> float:
     return 4.0 * rows * (d.E // n_par) / HBM_BYTES_PER_S * 1e3
 
 
-def _time_ms(fn, n_steps):
-    """Best of 3 runs of n_steps launches, CUDA events, after a warm-up."""
+def events_ms(fn, n_steps):
+    """ms per call of fn: the best of 3 runs of n_steps calls, CUDA events,
+    after a warm-up call."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -277,7 +278,7 @@ def main(E: int = 196608, n_steps: int = 300, device: str = "cuda",
     }
     rows = {}
     for name, (fn, bound) in ops.items():
-        ms = _time_ms(fn, n_steps)
+        ms = events_ms(fn, n_steps)
         rows[name] = {"ms_per_op": ms, "bytes_bound_ms": bound}
         print(f"{name}: {ms:.4f} ms/op at E={E}, bytes bound {bound:.4f} "
               f"ms", flush=True)

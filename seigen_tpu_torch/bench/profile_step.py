@@ -11,11 +11,13 @@
     python -m seigen_tpu_torch.bench.profile_step --impl upwind_lane_u
     python -m seigen_tpu_torch.bench.profile_step --impl upwind_lane_u \
         --panel-emit          # or --no-fused-axpy: the glue stepper
+    python -m seigen_tpu_torch.bench.profile_step --impl cpml
     python -m seigen_tpu_torch.bench.profile_step --kernel-impl reference
 
 On the bench case (``throughput.setup_case``, n=24 P3 by default; impls
 "lane_u" and "upwind_lane_u" on its scrambled variant), from a zero state
-with the blob source and sponge:
+with the blob source and sponge (impl "cpml": CpmlLaneRunner, RK4 with a
+C-PML of width 0.15 on the sponge's five sides in place of the sponge):
 
 - wall per step: host clock over ``--steps`` steps ending in
   ``torch.cuda.synchronize()``;
@@ -41,6 +43,9 @@ import time
 
 import torch
 
+from ..ops.structured_exchange import detect_structured
+from ..solver.lane_cpml import CpmlLaneRunner
+from .pml_ab import sides_for
 from .throughput import (
     IMPLS,
     SCRAMBLED_IMPLS,
@@ -138,31 +143,44 @@ def profile(impl="upwind_lane", kernel_impl="kernel", n=24, degree=3,
     dm, p, src, damp, dt, state0 = setup_case(
         n=n, degree=degree, device=device,
         scramble=(impl in SCRAMBLED_IMPLS))
-    runner = make_runner(impl, dm, p, src, damp, dt, kernel_impl,
-                         order=order, vti=vti, **upwind_u)
-    ulm, slm = runner.to_lm_state(state0)
+    if impl == "cpml":
+        runner = CpmlLaneRunner(p, dm, detect_structured(dm), dt,
+                                sides_for(3), 0.15, 2.0,
+                                f0=float(src.f0[0]), src=src,
+                                impl=kernel_impl)
+        carry = runner.init_carry(state0)
+
+        def run(n):
+            runner.run_lm(carry, n)
+    else:
+        runner = make_runner(impl, dm, p, src, damp, dt, kernel_impl,
+                             order=order, vti=vti, **upwind_u)
+        ulm, slm = runner.to_lm_state(state0)
+
+        def run(n):
+            runner.run_lm(ulm, slm, n)
 
     def sync():
         torch.cuda.synchronize(device)
 
-    runner.run_lm(ulm, slm, 5)  # warm-up
+    run(5)  # warm-up
     sync()
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    runner.run_lm(ulm, slm, steps)
+    run(steps)
     sync()
     wall = (time.perf_counter() - t0) / steps
     peak = torch.cuda.max_memory_allocated(device)
 
     t0 = time.perf_counter()
-    runner.run_lm(ulm, slm, 5)
+    run(5)
     enqueue = (time.perf_counter() - t0) / 5
     sync()
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        runner.run_lm(ulm, slm, profile_steps)
+        run(profile_steps)
         sync()
     ev = _device_events(prof)
     by_group: dict = {}
@@ -188,7 +206,7 @@ def profile(impl="upwind_lane", kernel_impl="kernel", n=24, degree=3,
     return {
         "impl": impl,
         "kernel_impl": kernel_impl,
-        "scheme": scheme_name(impl, order),
+        "scheme": "RK4" if impl == "cpml" else scheme_name(impl, order),
         "vti": bool(vti),
         **upwind_u,
         "case": {"n": n, "degree": degree, "elements": dm.num_elements},
@@ -209,7 +227,8 @@ def profile(impl="upwind_lane", kernel_impl="kernel", n=24, degree=3,
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--impl", default="upwind_lane", choices=IMPLS)
+    ap.add_argument("--impl", default="upwind_lane",
+                    choices=IMPLS + ("cpml",))
     ap.add_argument("--kernel-impl", default="kernel",
                     choices=("kernel", "reference"))
     ap.add_argument("--n", type=int, default=24)

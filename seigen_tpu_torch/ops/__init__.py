@@ -1,3 +1,5 @@
+from .curvilinear import CurviParams, build_curvi, curved_coords, \
+    make_curvi_ops
 from .elastic import (
     ElasticParams,
     Material,
@@ -17,6 +19,10 @@ from .upwind import (
 from .viscoelastic import ViscoData, build_visco, visco_from_numpy
 
 __all__ = [
+    "CurviParams",
+    "build_curvi",
+    "curved_coords",
+    "make_curvi_ops",
     "ElasticParams",
     "Material",
     "apply_stress_op",

@@ -323,13 +323,15 @@ class MergedLaneRunner:
     def _inject(self, field, tr, part, t):
         """Scatter the sources into a stage output and its traces: per
         wavelet group, columns += r_g(t) * patch (part 0: velocity, 1:
-        stress).  One index_add per array and group, the wavelet value an
-        argument computed on the host: copying it to the device would
-        synchronise the stream every stage."""
+        stress); tr None: the field alone (the C-PML right-hand sides of
+        solver/lane_cpml.py).  One index_add per array and group, the
+        wavelet value an argument computed on the host: copying it to the
+        device would synchronise the stream every stage."""
         for g, (_, _, lanes, *patches) in enumerate(self._src_groups):
             r = self._wavelet(t, g)
             field = inject_columns(field, lanes, patches[part], alpha=r)
-            tr = inject_columns(tr, lanes, patches[2 + part], alpha=r)
+            if tr is not None:
+                tr = inject_columns(tr, lanes, patches[2 + part], alpha=r)
         return field, tr
 
     def _wavelet(self, t, g):

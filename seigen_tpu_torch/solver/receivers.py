@@ -46,3 +46,13 @@ def line(start, end, n) -> np.ndarray:
     start, end = np.asarray(start, float), np.asarray(end, float)
     t = np.linspace(0.0, 1.0, n)[:, None]
     return start[None] * (1 - t) + end[None] * t
+
+
+def grid(x_range, y_range, nx, ny, z) -> np.ndarray:
+    """nx*ny points on the z=const plane over x_range x y_range (3D areal
+    acquisition, a seismic-survey patch)."""
+    xs = np.linspace(*x_range, nx)
+    ys = np.linspace(*y_range, ny)
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    return np.stack(
+        [X.ravel(), Y.ravel(), np.full(X.size, float(z))], axis=1)

@@ -172,6 +172,48 @@ def build_sources(
     )
 
 
+def kinematic_rupture(
+    a,
+    b,
+    n_sub: int,
+    moment,
+    f0: float,
+    rupture_velocity: float,
+    hypocenter=None,
+    radius: float | None = None,
+    amplitude: float = 1.0,
+) -> list:
+    """A finite-fault kinematic rupture as time-shifted moment sources.
+
+    Discretizes the fault segment [a, b] into ``n_sub`` subfault point
+    sources with a shared Voigt moment tensor; each fires a Ricker with
+    onset delayed by (distance from hypocenter) / rupture_velocity, the
+    standard Haskell-type kinematic description.  Each subfault is one
+    PointSource, so the rupture runs through the multi-source machinery.
+
+    ``hypocenter`` defaults to ``a`` (unilateral rupture; pick the segment
+    midpoint for a bilateral one).  The per-subfault amplitude is
+    ``amplitude / n_sub`` so the total moment is rupture-length-invariant.
+    """
+    a = np.asarray(a, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    hypo = a if hypocenter is None else np.asarray(hypocenter,
+                                                  dtype=np.float64)
+    if rupture_velocity <= 0:
+        raise ValueError("rupture_velocity must be positive")
+    srcs = []
+    base_delay = 1.2 / f0
+    for k in range(n_sub):
+        x = a + (b - a) * (k / max(n_sub - 1, 1))
+        t0 = base_delay + float(np.linalg.norm(x - hypo)) / rupture_velocity
+        srcs.append(PointSource(
+            position=tuple(x), f0=f0, t0=t0,
+            amplitude=amplitude / n_sub, kind="moment",
+            moment=tuple(moment), radius=radius,
+        ))
+    return srcs
+
+
 def inject_stress(src: SourceData | None, ds: torch.Tensor, t):
     """Add stress-equation source contributions at time t."""
     if src is None:
