@@ -178,6 +178,33 @@ Phases, each printing its own lines; any failure exits non-zero:
               rows of bench/pml_ab.py at 2D n=64 P3 and 3D n=24 P3 (the
               lane C-PML's ms a step, DOF-updates/s, K1/K2 ms against the
               rest) and of bench/curvi_ab.py.
+13. tools   - the user's tools, through their entry points.
+              cli.explosive_source at n=24 P3 with --impl merged and the
+              default --T (exactly 3 K1 + 3 K2 launches a step and no
+              other; its DOF-updates/s from the run report's "run"
+              region beside phase 5's bench), a run to T = 0.5 that
+              writes a checkpoint and a --resume from it to the end (the
+              resumed seismograms against the tail of the uninterrupted
+              run chunked at the same step, relative L2 < 1e-6: a chunk
+              seeds its traces from the state), --impl pallas to T = 0.5 (K4 SIG and
+              K5 TR through the element-major wrappers: exactly 3 + 3
+              launches a step and no other kernel; ms a step; its
+              seismograms against the merged run's, relative L2 < 1e-4);
+              every CLI branch on 3D n=6 P2 (--T 0.3 --f0 8) against its
+              einsum path (relative L2 < 1e-4), each launching exactly
+              its kernels: --impl pallas, lane, fused, merged, lane_u,
+              --scheme upwind-rk4 (structured and lane_u) with and
+              without --qp 30 --qs 20, --pml 0.2 on merged, --vti on
+              merged; the facade's xla_roll, pallas and pallas_roll
+              against its einsum (rect_mesh(8, 8) P2); cli.precision_study
+              (K8/K9/K10 in float32 against the plain runner in float64:
+              error within 1.1x and < 1e-4); cli.eigenmode2d at its
+              default sizes and cli.eigenmode3d per degree at N = 4, 8 in
+              float64, each above tests/test_eigenmode.py's bar;
+              cli.topography at its default 48x24 P3 with --vtk; a
+              device_trace of 5 merged steps that names K1 and K2; one
+              VTK snapshot at n=24 P3 (its seconds); bench.roofline's
+              merged step beside the bench's measured step.
 
 Tolerance of a kernel against its plain version: |k - p| <= rtol*|p| +
 atol*max|p| with rtol = 2e-4, atol = 2e-5.  The absolute floor is taken
@@ -208,6 +235,13 @@ import subprocess
 import sys
 import time
 
+try:  # the bound arithmetic of every kernel (main() reports its absence)
+    from seigen_tpu_torch.bench.roofline import UPWIND_U_MODES, bound, \
+        bound_rows, fused_bound, fused_rows, lane_bound, upwind_u_bound, \
+        upwind_u_rows
+except ImportError:
+    pass
+
 RTOL, ATOL = 2e-4, 2e-5
 RUNNER_STEPS = 10
 BENCH_STEPS = 100
@@ -226,8 +260,42 @@ CURVI_MAX_GROWTH = 50.0  # tests/test_curvilinear.py:145
 # LF4 spatial orders, tests/test_eigenmode.py:51 and :124
 LF_MIN_ORDER_2D = {1: 1.4, 2: 2.8, 3: 3.0}
 LF_MIN_ORDER_3D = {1: 1.3, 2: 2.8, 3: 3.4, 4: 4.2}
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peaks
-FP32_FLOPS_PER_S = 67e12
+# phase 13: the user's tools (the CLIs, the element-major wrappers, utils/)
+TOOLS_MAX_REL = 1e-4  # a CLI branch against its einsum path, rel. L2
+RESUME_MAX_REL = 1e-6  # resumed tail against the uninterrupted run
+FULL_CLI = ("--dim", "3", "--n", "24", "--degree", "3")
+SMALL_CLI = ("--dim", "3", "--n", "6", "--degree", "2", "--T", "0.3",
+             "--f0", "8")
+VTI = ("--vti", "0.15,0.05,0.1")
+UPWIND, Q = ("--scheme", "upwind-rk4"), ("--qp", "30", "--qs", "20")
+# label -> (CLI arguments, those of its einsum path, the launches a step of
+# each kernel it runs — every other count must stay 0)
+LF_LANE = {"lane_vel": 3, "lane_stress": 3}
+SMALL_BRANCHES = {
+    "einsum": (("--impl", "einsum"), None, {}),
+    "pallas": (("--impl", "pallas"), ("--impl", "einsum"), LF_LANE),
+    "lane": (("--impl", "lane"), ("--impl", "einsum"), LF_LANE),
+    "fused": (("--impl", "fused"), ("--impl", "einsum"),
+              {"fused_vel2": 3, "fused_stress2": 3, "trace_exchange": 6}),
+    "merged": (("--impl", "merged"), ("--impl", "einsum"),
+               {"merged_vel": 3, "merged_stress": 3}),
+    "lane_u": (("--impl", "lane_u"), ("--impl", "einsum"), LF_LANE),
+    "upwind_lane": (UPWIND, UPWIND + ("--impl", "einsum"),
+                    {"upwind_rhs": 4}),
+    "upwind_lane_u": (UPWIND + ("--impl", "lane_u"),
+                      UPWIND + ("--impl", "einsum"), {"lane_upwind_axpy": 4}),
+    "upwind_lane Q": (UPWIND + Q, UPWIND + Q + ("--impl", "einsum"),
+                      {"upwind_rhs": 4}),
+    "upwind_lane_u Q": (UPWIND + Q + ("--impl", "lane_u"),
+                        UPWIND + Q + ("--impl", "einsum"),
+                        {"lane_upwind_rhs": 4}),
+    "pml": (("--pml", "0.2", "--impl", "merged"),
+            ("--pml", "0.2", "--impl", "einsum"),
+            {"merged_vel": 12, "merged_stress": 12}),
+    "vti merged": (VTI + ("--impl", "merged"), VTI + ("--impl", "einsum"),
+                   {"merged_vel": 3, "merged_stress": 3,
+                    "merged_stress_c": 3}),
+}
 KERNELS = {  # name -> (source, replaced TPU kernel); all but K10 are the
     # tile kernels of the two tile headers
     "merged_vel": ("seigen_tpu_torch/csrc/merged_tile.cuh",
@@ -510,50 +578,6 @@ def time_ms(fn, reps=TIMING_REPS):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
-
-
-def bound_rows(d, plan, kname, aniso=False, variant="plain"):
-    """Float rows per lane that one launch must move: the live rows of its
-    input (n_p per component), the neighbour payload rows, the
-    geo/impedance/mask rows the operator reads, each per element (n_par of
-    them a lane), and the variant's own operands — the axpy rows ax0 and
-    ax1 (C_out x n_p live rows each), the damping rows (n_p) and the dense
-    source rows (C_out x n_p a group) — plus the full output and trace
-    arrays written.  aniso: K2 reads the n_sig^2 stiffness rows instead of
-    lambda and mu."""
-    dim, n_p, nf, nfp, npp = d.dim, d.n_p, d.nf, d.n_fp, d.npp
-    nft = nf * nfp
-    geo = dim * dim + dim * nf  # Ginv, normals
-    if kname == "merged_vel":  # sigma in, u out; scb, bfs, 1/rho
-        c_in, c_out, geo = d.n_sig, dim, geo + 2 * nf + 1
-    elif kname == "merged_stress":  # u in, sigma out; scb, dfs, lam, mu
-        c_in, c_out = dim, d.n_sig
-        geo += 2 * nf + (d.n_sig * d.n_sig if aniso else 2)
-    else:  # u, sigma in and out; scb, 1/rho, lam, mu; 4*nf + 2 uwg rows
-        c_in = c_out = dim + d.n_sig
-        geo += nf + 3 + 4 * nf + 2
-    extra = 0
-    if variant.startswith("axpy"):
-        extra += 2 * c_out * n_p + (n_p if variant == "axpy_damp" else 0)
-    elif variant.startswith("inject"):
-        extra += int(variant[-1]) * c_out * n_p
-    return d.n_par * (c_in * n_p + plan.pay * nft + geo + nf + extra) \
-        + c_out * npp + nf * plan.rtf
-
-
-def bound(d, plan, kname, aniso=False, variant="plain"):
-    """(bound_ms, "bytes" | "operations") of one launch of a kernel
-    variant at these shapes: the bytes of ``bound_rows`` over the memory
-    rate, and the Dr and LIFT matrix-product FLOPs of every element over
-    the FP32 rate."""
-    dim, n_p, nft = d.dim, d.n_p, d.nf * d.n_fp
-    c_out = {"merged_vel": dim, "merged_stress": d.n_sig}.get(
-        kname, dim + d.n_sig)
-    rows = bound_rows(d, plan, kname, aniso, variant)
-    flops = 2 * d.n_par * (c_out * dim * n_p * n_p + c_out * n_p * nft)
-    t_bytes = 4.0 * rows * plan.Ls / HBM_BYTES_PER_S * 1e3
-    t_ops = float(flops) * plan.Ls / FP32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def small_upwind_runner(dim, degree, device, acoustic):
@@ -922,32 +946,6 @@ def compare_lane(runner, check, tag, seed, modes):
     return x
 
 
-def lane_bound(d, mode, aniso=False):
-    """(bound_ms, "bytes" | "operations") of one launch of a K4/K5 mode:
-    compulsory bytes (state rows n_p per component, the neighbour payload
-    rows the mode reads — for SEL the selected panel rows, the combo and
-    the sign rows —, the geometry counted per face as in ``bound`` (Ginv,
-    normals, Fscale, beta or delta; the kernel reads them expanded to face
-    nodes) and the material rows, the output written at npp rows) over
-    the memory rate, and the Dr and LIFT FLOPs over the FP32 rate.  aniso:
-    a stress mode reads the n_sig^2 stiffness rows instead of lambda and
-    mu."""
-    dim, n_p, ftp, npp, n_sig = d.dim, d.n_p, d.ftp, d.npp, d.n_sig
-    nf = d.nf
-    vel = LANE_MODES[mode][0] == "lane_vel"
-    c_in, c_out = (n_sig, dim) if vel else (dim, n_sig)
-    payload = {"SIG": n_sig * ftp, "TRAC": dim * ftp, "TR": dim * ftp,
-               "SEL vel": dim * ftp + 2 * nf,
-               "SEL stress": dim * ftp + nf}[mode]
-    geo = dim * dim + dim * nf + 2 * nf + (
-        1 if vel else n_sig * n_sig if aniso else 2)
-    rows = c_in * n_p + payload + geo + c_out * npp
-    flops = 2 * (c_out * dim * n_p * n_p + c_out * n_p * ftp)
-    t_bytes = 4.0 * rows * d.E / HBM_BYTES_PER_S * 1e3
-    t_ops = float(flops) * d.E / FP32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def lane_eigenmode_order(dev, runner_cls=None, tag="lane eigenmode",
                          **per_step):
     """LF4 through K4/K5 (LaneMajorRunner; or through the kernels of
@@ -1116,15 +1114,6 @@ def phase_lane(dev, case, st, check, n=24):
     return launches, times, bounds, (scase, sst)
 
 
-UPWIND_U_MODES = {  # mode -> None (K6) or K7's (stage, damp, groups, emit)
-    "rhs": None,
-    "stage": (True, False, 0, False),
-    "final": (False, False, 0, False),
-    "final damp": (False, True, 0, False),
-    "stage inject1": (True, False, 1, False),
-    "final damp inject2": (False, True, 2, False),
-    "stage emit": (True, False, 0, True),
-    "final damp emit": (False, True, 0, True)}
 UPWIND_U_MAIN = {"lane_upwind_rhs": "rhs",  # the bench steppers' modes
                  "lane_upwind_axpy": "stage inject1"}
 
@@ -1229,38 +1218,6 @@ def compare_upwind_u(runner, check, tag, seed, modes=tuple(UPWIND_U_MODES)):
         torch.cuda.synchronize()
         check(upwind_u_kernel_name(mode), f"{tag} {mode}", got, ref)
     return x
-
-
-def upwind_u_rows(d, mode):
-    """Float rows per lane that one launch of K6 or a K7 mode must move:
-    u and sigma, and for K7 the accumulator, the base state, the sponge
-    row and the dense patterns the mode reads, at n_p rows per component;
-    the selected rows of both panels; the geometry counted per face as in
-    ``lane_bound`` — Ginv, normals, Fscale, the neighbour impedances, the
-    combo and both sign rows — and the material and own-impedance rows;
-    the output, with the emitted panels, as written."""
-    dim, n_p, ftp, npp, nf = d.dim, d.n_p, d.ftp, d.npp, d.nf
-    c = dim + d.n_sig
-    spec = UPWIND_U_MODES[mode] or (False, False, 0, False)
-    stage, damp, n_inj, emit = spec
-    axpy = UPWIND_U_MODES[mode] is not None
-    state_in = c * n_p * (1 + axpy + stage + n_inj) + (n_p if damp else 0)
-    geo = dim * dim + dim * nf + nf + 3 + 2 * nf + 2 + 3 * nf
-    out = c * npp * (2 if stage else 1) + (2 * dim * d.ftpp if emit else 0)
-    return state_in + 2 * dim * ftp + geo + out
-
-
-def upwind_u_bound(d, mode):
-    """(bound_ms, "bytes" | "operations") of one launch of K6 or a K7
-    mode: the bytes of ``upwind_u_rows`` over the memory rate, and the Dr
-    and LIFT FLOPs over the FP32 rate."""
-    dim, n_p, ftp = d.dim, d.n_p, d.ftp
-    c = dim + d.n_sig
-    rows = upwind_u_rows(d, mode)
-    flops = 2 * (c * dim * n_p * n_p + c * n_p * ftp)
-    t_bytes = 4.0 * rows * d.E / HBM_BYTES_PER_S * 1e3
-    t_ops = float(flops) * d.E / FP32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_upwind_u(dev, scase, sst, check, n=24):
@@ -1804,50 +1761,6 @@ def compare_exchange(runner, check, tag, seed):
         torch.cuda.synchronize()
         check("trace_exchange", f"{tag} trace_exchange negate={negate}",
               got, ref)
-
-
-def fused_rows(d, kname, aniso=False, variant="plain"):
-    """Float rows per lane that one launch of a K8/K9 variant or of K10
-    must move.  K8/K9: state rows n_p per component, the dim*ftp consumer
-    trace rows, the geometry once per face (Ginv, normals, scb, bfs or dfs)
-    and the material rows (1/rho; lambda and mu, or the n_sig^2 stiffness
-    rows), and the variant's own axpy rows (2 x C_out x n_p) and sponge
-    row (n_p), each per element (n_par of them a lane); the output at npp
-    and its dim*ftpp trace rows written.  K10: dim*ftp rows and nf mask
-    rows read, dim*ftpp rows written."""
-    dim, n_p, nf, npp, n_sig = d.dim, d.n_p, d.nf, d.npp, d.n_sig
-    ftp, ftpp = d.ftp // d.n_par, d.ftpp
-    if kname == "trace_exchange":
-        return dim * ftp + nf + dim * ftpp
-    geo = dim * dim + dim * nf + 2 * nf
-    if kname == "fused_vel2":
-        c_in, c_out, geo = n_sig, dim, geo + 1
-    else:
-        c_in, c_out = dim, n_sig
-        geo += n_sig * n_sig if aniso else 2
-    extra = 0
-    if variant.startswith("axpy"):
-        extra = 2 * c_out * n_p + (n_p if variant == "axpy_damp" else 0)
-    return d.n_par * (c_in * n_p + dim * ftp + geo + extra) + c_out * npp \
-        + dim * ftpp
-
-
-def fused_bound(d, kname, aniso=False, variant="plain"):
-    """(bound_ms, "bytes" | "operations") of one launch of a K8/K9 variant
-    or of K10 at these shapes: the bytes of ``fused_rows`` over the memory
-    rate, and the Dr and LIFT FLOPs over the FP32 rate (K10 does no
-    arithmetic)."""
-    dim, n_p, n_par = d.dim, d.n_p, d.n_par
-    ftp = d.ftp // n_par
-    rows = fused_rows(d, kname, aniso, variant)
-    flops = 0
-    if kname != "trace_exchange":
-        c_out = dim if kname == "fused_vel2" else d.n_sig
-        flops = 2 * n_par * (c_out * dim * n_p * n_p + c_out * n_p * ftp)
-    lanes = d.E // n_par
-    t_bytes = 4.0 * rows * lanes / HBM_BYTES_PER_S * 1e3
-    t_ops = float(flops) * lanes / FP32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_fused(dev, case, st, check, merged_out, n=24):
@@ -2535,6 +2448,255 @@ def phase_cpml(dev, case, st):
         f"{r3['lane_pml_glue_ms']:.4f} ms")
 
 
+def rel_l2(a, b) -> float:
+    import numpy as np
+
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def cli_run(tmp, name, args, counts=False):
+    """cli.explosive_source.main(args) with its seismograms written to
+    ``tmp`` (and a run report); returns (seismograms, report, launch
+    counts of the run or None)."""
+    import os
+
+    import numpy as np
+
+    from seigen_tpu_torch.cli import explosive_source
+
+    out = os.path.join(tmp, f"{name}.npz")
+    report = os.path.join(tmp, f"{name}.json")
+    if counts:
+        reset_counts()
+    rc = explosive_source.main(list(args) + ["--out", out, "--report",
+                                             report])
+    launches = read_counts() if counts else None
+    if rc != 0:
+        raise AssertionError(f"explosive_source {name}: exit {rc}")
+    with open(report) as f:
+        rep = json.load(f)
+    return np.load(out)["seismograms"], rep, launches
+
+
+def run_rate(rep):
+    """(ms a step, DOF-updates/s) of a CLI run from its report's ``run``
+    region."""
+    steps = rep["n_steps"] - rep["step0"]
+    sec = rep["timings"]["run"]["seconds"]
+    return 1e3 * sec / steps, rep["dof"] * steps / sec
+
+
+def tools_full_width(tmp, bench_rec):
+    """Phase 13, 1 and 2: the CLI's merged run at n=24 P3 (its rate beside
+    the bench's), a run to T = 0.5 that writes a checkpoint and the resume
+    from it against an uninterrupted run with the same chunks, and --impl
+    pallas (K4 SIG / K5 TR through the element-major wrappers)."""
+    import os
+
+    full = list(FULL_CLI) + ["--impl", "merged"]
+    seis_a, rep_a, la = cli_run(tmp, "merged", full, counts=True)
+    n = rep_a["n_steps"]
+    expect_counts("CLI merged", la, merged_vel=3 * n, merged_stress=3 * n)
+    if not (seis_a.shape == (n, 16, 3) and math.isfinite(seis_a.sum())):
+        raise AssertionError(f"CLI merged: seismograms {seis_a.shape}")
+    ms, rate = run_rate(rep_a)
+    log(f"[tools] CLI --impl merged n=24 P3: E {rep_a['E']}, {n} steps, "
+        f"run {rep_a['timings']['run']['seconds']:.3f} s, {ms:.4f} ms a "
+        f"step, {rate:.4e} DOF-updates/s; bench --impl merged "
+        f"{bench_rec['value']:.4e} ({100 * rate / bench_rec['value']:.1f}%)"
+        f"; setup {rep_a['timings']['setup']['seconds']:.1f} s")
+
+    # the resume: a run's chunks start from the state alone (the runner
+    # seeds its traces from it), so the uninterrupted run is chunked where
+    # the resumed one starts
+    ck = os.path.join(tmp, "ck.npz")
+    seis_b, rep_b, _ = cli_run(tmp, "half", full + [
+        "--T", "0.5", "--checkpoint", ck, "--checkpoint-every", "100000"])
+    half = rep_b["n_steps"]
+    seis_c, rep_c, _ = cli_run(tmp, "resumed", full + ["--resume", ck])
+    seis_k, rep_k, _ = cli_run(tmp, "chunked", full + [
+        "--checkpoint", os.path.join(tmp, "ck2.npz"),
+        "--checkpoint-every", str(half)])
+    tail = seis_k[-len(seis_c):]
+    rel = rel_l2(seis_c, tail)
+    log(f"[tools] resume from step {rep_c['step0']} (checkpoint of "
+        f"{os.path.getsize(ck) / 2**20:.1f} MiB; the half run's run region "
+        f"{rep_b['timings']['run']['seconds']:.3f} s with its write): "
+        f"{len(seis_c)} steps, rel L2 against the uninterrupted run "
+        f"chunked at {half} {rel:.3e} (bar {RESUME_MAX_REL}); that run "
+        f"against the unchunked one {rel_l2(seis_k, seis_a):.3e}")
+    if not (rep_c["step0"] == half and rel < RESUME_MAX_REL):
+        raise AssertionError(f"resume off: rel {rel}")
+
+    seis_p, rep_p, lp = cli_run(tmp, "pallas", full[:-1] + [
+        "pallas", "--T", "0.5"], counts=True)
+    n_p = rep_p["n_steps"]
+    expect_counts("CLI pallas", lp, lane_vel=3 * n_p, lane_stress=3 * n_p)
+    rel = rel_l2(seis_p, seis_b)
+    ms_p, rate_p = run_rate(rep_p)
+    log(f"[tools] CLI --impl pallas n=24 P3: {n_p} steps, launches "
+        f"{3 * n_p} K4 SIG + {3 * n_p} K5 TR and no other, {ms_p:.4f} ms a "
+        f"step, {rate_p:.4e} DOF-updates/s; seismograms vs --impl merged "
+        f"rel L2 {rel:.3e} (bar {TOOLS_MAX_REL})")
+    if not rel < TOOLS_MAX_REL:
+        raise AssertionError(f"CLI pallas off merged: rel {rel}")
+
+
+def tools_branches(tmp, dev):
+    """Phase 13, 3: every CLI branch on a small case against its einsum
+    path, and the facade's element-major impls against its einsum."""
+    import numpy as np
+
+    from seigen_tpu_torch.mesh import rect_mesh
+    from seigen_tpu_torch.ops import Material
+    from seigen_tpu_torch.solver import ElasticSimulation, PointSource, \
+        SimConfig, line
+
+    runs = {}
+    for label, (args, ref, per_step) in SMALL_BRANCHES.items():
+        seis, rep, counts = cli_run(tmp, label.replace(" ", "_"),
+                                    SMALL_CLI + args, counts=True)
+        expect_counts(f"CLI {label}", counts, **{
+            k: v * rep["n_steps"] for k, v in per_step.items()})
+        runs[args] = seis
+        if ref is None:
+            continue
+        if ref not in runs:
+            runs[ref] = cli_run(tmp, "ref", SMALL_CLI + ref)[0]
+        rel = rel_l2(seis, runs[ref])
+        log(f"[tools] CLI {label} (3D n=6 P2, {rep['n_steps']} steps): vs "
+            f"its einsum path rel L2 {rel:.3e}, max |seismogram| "
+            f"{np.abs(seis).max():.3e}; kernels "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if not (rel < TOOLS_MAX_REL and np.abs(seis).max() > 0):
+            raise AssertionError(f"CLI {label} off its einsum path: {rel}")
+
+    mat = Material(rho=1.0, vp=2.0, vs=1.0)
+    kw = dict(sources=[PointSource(position=(0.5, 0.6), f0=6.0, radius=0.15)],
+              receiver_points=line((0.3, 0.9), (0.7, 0.9), 4), device=dev)
+    cfg = dict(degree=2, order=4, free_sides=((1, "hi"),),
+               absorbing_sides=((0, "lo"), (0, "hi"), (1, "lo")),
+               sponge_width=0.2)
+    ref, _ = ElasticSimulation(rect_mesh(8, 8), mat,
+                               SimConfig(impl="einsum", **cfg), **kw).run(0.1)
+    for impl in ("xla_roll", "pallas", "pallas_roll"):
+        sim = ElasticSimulation(rect_mesh(8, 8), mat,
+                                SimConfig(impl=impl, **cfg), **kw)
+        reset_counts()
+        fin, seis = sim.run(0.1)
+        counts = read_counts()
+        n = len(seis)
+        rel = max(((getattr(fin, f) - getattr(ref, f)).norm()
+                   / getattr(ref, f).norm()).item() for f in ("u", "s"))
+        log(f"[tools] facade {impl}: {n} steps, vs einsum rel L2 {rel:.3e};"
+            f" kernels {({k: v for k, v in counts.items() if v})}")
+        if impl == "xla_roll":
+            expect_counts(f"facade {impl}", counts)
+        else:
+            expect_counts(f"facade {impl}", counts, lane_vel=3 * n,
+                          lane_stress=3 * n)
+        if not rel < TOOLS_MAX_REL:
+            raise AssertionError(f"facade {impl} off its einsum: {rel}")
+
+
+def tools_studies(tmp):
+    """Phase 13, 4 and 5: the precision gate, the eigenmode CLIs at the
+    test bars, the topography CLI with its VTK series."""
+    import os
+
+    from seigen_tpu_torch.cli import eigenmode2d, eigenmode3d, \
+        precision_study, topography
+
+    prec = os.path.join(tmp, "precision.json")
+    rc = precision_study.main(["--out", prec])
+    with open(prec) as f:
+        res = json.load(f)
+    log(f"[tools] precision gate (2D P3 rect_mesh(16, 16), "
+        f"{res['runs']['f32']['steps']} steps): kernels f32 L2(u) "
+        f"{res['runs']['f32']['err']:.6e}, plain f64 "
+        f"{res['runs']['f64']['err']:.6e}, ratio {res['ratio']:.4f} (bar "
+        f"{res['max_ratio']}, and < {res['max_err']})")
+    if rc != 0:
+        raise AssertionError("the precision gate failed")
+
+    if eigenmode2d.main(["--min-order", str(LF_MIN_ORDER_2D[2])]) != 0:
+        raise AssertionError("cli.eigenmode2d below its bar")
+    for q, bar in LF_MIN_ORDER_3D.items():  # the bars' sizes, N = 4, 8
+        if eigenmode3d.main(["--degrees", str(q), "--sizes", "4,8",
+                             "--f64", "--min-order", str(bar)]) != 0:
+            raise AssertionError(f"cli.eigenmode3d P{q} below its bar")
+
+    t0 = time.perf_counter()
+    vtk = os.path.join(tmp, "topo", "topo.pvd")
+    if topography.main(["--vtk", vtk, "--out",
+                        os.path.join(tmp, "topo.npz")]) != 0:
+        raise AssertionError("cli.topography failed")
+    n_vtu = len([f for f in os.listdir(os.path.dirname(vtk))
+                 if f.endswith(".vtu")])
+    log(f"[tools] cli.topography 48x24 P3: {n_vtu} VTU snapshots, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def tools_utils(tmp, case, run_k, out_k, bench_rec):
+    """Phase 13, 6: a device trace of 5 merged steps names K1 and K2; one
+    VTK snapshot at full width; the roofline of the merged step."""
+    import os
+
+    import torch
+
+    from seigen_tpu_torch.bench import roofline
+    from seigen_tpu_torch.bench.profile_step import kernel_group
+    from seigen_tpu_torch.utils import PVDWriter, device_trace
+
+    logdir = os.path.join(tmp, "trace")
+    ulm, slm = run_k.to_lm_state(out_k)
+    with device_trace(logdir):
+        run_k.run_lm(ulm, slm, 5)
+        torch.cuda.synchronize()
+    (trace,) = os.listdir(logdir)
+    with open(os.path.join(logdir, trace)) as f:
+        events = json.load(f)["traceEvents"]
+    groups = {kernel_group(e["name"]) for e in events
+              if e.get("cat") == "kernel"}
+    log(f"[tools] device_trace of 5 merged steps: {trace}, "
+        f"{len(events)} events, kernel groups {sorted(groups)}")
+    if not {"merged_vel", "merged_stress"} <= groups:
+        raise AssertionError("the device trace does not name K1 and K2")
+
+    dm = case[0]
+    t0 = time.perf_counter()
+    PVDWriter(os.path.join(tmp, "vtk", "full.pvd"), dm).write(0.0, {
+        "u": out_k.u.cpu().numpy(),
+        "p": (-out_k.s[..., :3].mean(dim=-1)).cpu().numpy()})
+    log(f"[tools] VTK snapshot at n=24 P3 ({dm.num_elements * 4} points, "
+        f"u and p): {time.perf_counter() - t0:.2f} s")
+
+    d = bench_rec["detail"]
+    step_ms = 1e3 * d["seconds"] / d["steps"]
+    rec = roofline.main(n=24, degree=3, measured_ms=step_ms)
+    print(json.dumps(rec), flush=True)
+    log(f"[tools] roofline of the merged step: {rec['MB_per_step']:.1f} MB,"
+        f" bound {rec['roofline_ms']:.4f} ms, measured {step_ms:.4f} ms "
+        f"(the bench's), {100 * rec['roofline_fraction']:.1f}% of it")
+
+
+def phase_tools(dev, case, run_k, out_k, bench_rec):
+    """Phase 13 (see the module docstring)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        tools_full_width(tmp, bench_rec)
+        log(f"[tools] full width {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        tools_branches(tmp, dev)
+        log(f"[tools] branches {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        tools_studies(tmp)
+        log(f"[tools] studies {time.perf_counter() - t0:.1f} s")
+        tools_utils(tmp, case, run_k, out_k, bench_rec)
+
+
 def main() -> int:
     try:
         import torch
@@ -2656,9 +2818,10 @@ def main() -> int:
 
     # 5. bench: kernels and plain versions on the same case
     t0 = time.perf_counter()
+    bench = {}
     for impl in ("kernel", "reference"):
-        rec = throughput.main(n=24, degree=3, n_steps=BENCH_STEPS,
-                              kernel_impl=impl, case=case)
+        rec = bench[impl] = throughput.main(
+            n=24, degree=3, n_steps=BENCH_STEPS, kernel_impl=impl, case=case)
         if not (np.isfinite(rec["value"]) and rec["value"] > 0):
             raise AssertionError(f"bench {impl}: bad rate {rec['value']}")
         print(json.dumps(rec), flush=True)
@@ -2710,7 +2873,12 @@ def main() -> int:
     # 12. cpml: the lane C-PML on K1/K2, the analytic and curved checks
     t0 = time.perf_counter()
     phase_cpml(dev, case, st)
-    log(f"[cpml] phase {time.perf_counter() - t0:.1f} s; total "
+    log(f"[cpml] phase {time.perf_counter() - t0:.1f} s")
+
+    # 13. tools: the CLIs, the element-major wrappers, utils/, roofline
+    t0 = time.perf_counter()
+    phase_tools(dev, case, run_k, out_k, bench["kernel"])
+    log(f"[tools] phase {time.perf_counter() - t0:.1f} s; total "
         f"{time.perf_counter() - t_all:.1f} s")
 
     sources = dict(KERNELS)

@@ -43,10 +43,8 @@ from ..solver.damping import absorbing_bc_fn
 from ..solver.lane_merged import MergedLaneRunner
 from ..solver.timestep import State, cfl_dt, run
 from .p1_pack_probe import events_ms
+from .roofline import curvi_step_bound
 from .throughput import gpu_name_and_power_limit
-
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peaks
-FP32_FLOPS_PER_S = 67e12
 
 
 def topo_map(profile, z0: float, lz: float):
@@ -96,18 +94,9 @@ def main(nx: int = 96, nz: int = 48, degree: int = 3, n_steps: int = 50,
     ulm, slm = r.to_lm_state(st0)
     rows["merged_ms"] = per_step(lambda n: r.run_lm(ulm, slm, n))
 
-    # bound of the curvilinear LF4 step: 6 operator applications, each
-    # dominated by the De (E, dim, n_p, n_p) and Lf (E, nf, n_p, nfq)
-    # contractions (vel and stress averaged) and their table reads
-    dim, nf, n_sig, nfq = 2, 3, 3, cp.nfq
-    flops = 6 * 2 * E * (dim * n_p * n_p + nf * n_p * nfq) * (n_sig + dim) / 2
-    table_bytes = 6 * 4 * E * (dim * n_p * n_p + nf * n_p * nfq
-                               + nf * nfq * dim)
-    rows["bound_fp32_ms"] = flops / FP32_FLOPS_PER_S * 1e3
-    rows["bound_hbm_ms"] = table_bytes / HBM_BYTES_PER_S * 1e3
-    rows["bound_ms"] = max(rows["bound_fp32_ms"], rows["bound_hbm_ms"])
-    rows["bound_by"] = ("bytes" if rows["bound_hbm_ms"]
-                        >= rows["bound_fp32_ms"] else "operations")
+    # bound of the curvilinear LF4 step (roofline.curvi_step_bound)
+    (rows["bound_ms"], rows["bound_by"], rows["bound_hbm_ms"],
+     rows["bound_fp32_ms"]) = curvi_step_bound(E, 2, n_p, 3, cp.nfq, 3)
     name, limit = gpu_name_and_power_limit(torch.device(device).index or 0)
     return {"E": E, "nx": nx, "nz": nz, "degree": degree, "steps": n_steps,
             "gpu": name, "power_limit": limit, **rows}

@@ -45,8 +45,7 @@ from ..ops.elastic import ElasticParams
 from ..ops.fused_kernels import FusedOpData, _host, _kernel_tables
 from ..ops.fused_ops import emit_components, exchanged_rows
 from ..ops.merged_kernels import MergedKernel, vel_body
-
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
+from .roofline import bound_of, fused_rows
 
 
 def build_packed_vel_data(p: ElasticParams) -> FusedOpData:
@@ -191,18 +190,12 @@ def unpack_state(y, m, C, E):
 
 
 def bytes_bound_ms(d: FusedOpData, vel: bool) -> float:
-    """Least time of one v2 operator launch at 3.35 TB/s: per element the
-    live state rows in, the consumer trace rows, the geometry once per
-    face (Ginv, normals, scb, bfs or dfs) and the material rows in; the
-    output block and its trace rows written (per lane, npp and dim*ftpp
-    rows hold n_par elements)."""
-    dim, nf, n_par = d.dim, d.nf, d.n_par
-    ftq = d.ftp // n_par
-    c_in, c_out = (d.n_sig, dim) if vel else (dim, d.n_sig)
-    geo = dim * dim + dim * nf + 2 * nf + (1 if vel else 2)
-    rows = (n_par * (c_in * d.n_p + dim * ftq + geo)
-            + c_out * d.npp + dim * d.ftpp)
-    return 4.0 * rows * (d.E // n_par) / HBM_BYTES_PER_S * 1e3
+    """Least time of one v2 operator launch at 3.35 TB/s: the bytes of
+    ``roofline.fused_rows`` (the live state rows in, the consumer trace
+    rows, the geometry once per face and the material rows; the output
+    block and its trace rows written)."""
+    rows = fused_rows(d, "fused_vel2" if vel else "fused_stress2")
+    return bound_of(rows, 0, d.E // d.n_par)[0]
 
 
 def events_ms(fn, n_steps):

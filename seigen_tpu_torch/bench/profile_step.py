@@ -12,12 +12,16 @@
     python -m seigen_tpu_torch.bench.profile_step --impl upwind_lane_u \
         --panel-emit          # or --no-fused-axpy: the glue stepper
     python -m seigen_tpu_torch.bench.profile_step --impl cpml
+    python -m seigen_tpu_torch.bench.profile_step --impl pallas
     python -m seigen_tpu_torch.bench.profile_step --kernel-impl reference
 
 On the bench case (``throughput.setup_case``, n=24 P3 by default; impls
 "lane_u" and "upwind_lane_u" on its scrambled variant), from a zero state
 with the blob source and sponge (impl "cpml": CpmlLaneRunner, RK4 with a
-C-PML of width 0.15 on the sponge's five sides in place of the sponge):
+C-PML of width 0.15 on the sponge's five sides in place of the sponge;
+impl "pallas": the einsum LF4 step of timestep.run on the element-major
+wrappers of ops/lane_kernels.py:make_pallas_ops, K4 SIG / K5 TR on the
+card whatever ``--kernel-impl`` says):
 
 - wall per step: host clock over ``--steps`` steps ending in
   ``torch.cuda.synchronize()``;
@@ -43,8 +47,11 @@ import time
 
 import torch
 
+from ..ops.lane_kernels import make_pallas_ops
 from ..ops.structured_exchange import detect_structured
+from ..solver import timestep
 from ..solver.lane_cpml import CpmlLaneRunner
+from ..utils.profiling import device_profile
 from .pml_ab import sides_for
 from .throughput import (
     IMPLS,
@@ -152,6 +159,12 @@ def profile(impl="upwind_lane", kernel_impl="kernel", n=24, degree=3,
 
         def run(n):
             runner.run_lm(carry, n)
+    elif impl == "pallas":
+        vel, stress = make_pallas_ops(p)
+
+        def run(n):
+            timestep.run(p, state0, dt, n, src=src, damp=damp, vel_op=vel,
+                         stress_op=stress)
     else:
         runner = make_runner(impl, dm, p, src, damp, dt, kernel_impl,
                              order=order, vti=vti, **upwind_u)
@@ -177,9 +190,7 @@ def profile(impl="upwind_lane", kernel_impl="kernel", n=24, degree=3,
     enqueue = (time.perf_counter() - t0) / 5
     sync()
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with device_profile() as prof:
         run(profile_steps)
         sync()
     ev = _device_events(prof)
@@ -206,7 +217,8 @@ def profile(impl="upwind_lane", kernel_impl="kernel", n=24, degree=3,
     return {
         "impl": impl,
         "kernel_impl": kernel_impl,
-        "scheme": "RK4" if impl == "cpml" else scheme_name(impl, order),
+        "scheme": ("RK4" if impl == "cpml" else "LF4" if impl == "pallas"
+                   else scheme_name(impl, order)),
         "vti": bool(vti),
         **upwind_u,
         "case": {"n": n, "degree": degree, "elements": dm.num_elements},
@@ -228,7 +240,7 @@ def profile(impl="upwind_lane", kernel_impl="kernel", n=24, degree=3,
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--impl", default="upwind_lane",
-                    choices=IMPLS + ("cpml",))
+                    choices=IMPLS + ("cpml", "pallas"))
     ap.add_argument("--kernel-impl", default="kernel",
                     choices=("kernel", "reference"))
     ap.add_argument("--n", type=int, default=24)

@@ -29,6 +29,12 @@ launch count (``LANE_VEL.launches``, ``LANE_STRESS.launches``).  The stress oper
 take an optional ``cmat`` (n_sig*8, E), row c*8 + k = Voigt C[c, k] of the
 lane's element (ops/anisotropic.py conventions): the general Hooke law,
 computed inside K5 (``LANE_STRESS.launches_c`` counts those launches).
+
+The element-major wrappers (``make_pallas_ops``, ``vel_op_pallas``,
+``stress_op_pallas``; the JAX names) take and return (E, n_p, C) fields in
+p's element order: each call gathers the neighbour traces (by ``p.nbr``,
+or by the structured roll exchange), moves field and traces to the lane
+layout, runs K4 mode SIG or K5 mode TR and moves the result back.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from .cuda_build import CudaLibrary
 from .elastic import ElasticParams, voigt_map
 from .fused_kernels import _rup, stiffness_array, tile_table
 from .merged_kernels import check_operands, hooke_rows
+from .structured_exchange import StructuredExchange, gather_traces_structured
 
 # trace-source modes of the kernels (run-time flag, csrc/lane_kernels.cu)
 VEL_SIG, VEL_TRAC, VEL_SEL = 0, 1, 2
@@ -124,8 +131,9 @@ def build_lane_data(p: ElasticParams) -> LaneOpData:
         out[0] = a
         return out
 
-    def dev(a, dtype=p.dtype):
-        return torch.as_tensor(a, device=p.device).to(dtype)
+    def dev(a, dtype=p.dtype):  # contiguous: the kernels take no strides
+        return torch.as_tensor(np.ascontiguousarray(a), device=p.device
+                               ).to(dtype)
 
     return LaneOpData(
         lift=dev(LIFT),
@@ -144,6 +152,19 @@ def build_lane_data(p: ElasticParams) -> LaneOpData:
         dim=dim, n_p=n_p, npp=npp, ftp=ftp, ftpp=ftpp, n_sig=p.n_sig, E=E,
         nf=nf, n_fp=n_fp,
     )
+
+
+def to_lm(x: torch.Tensor, rows_pad: int) -> torch.Tensor:
+    """(E, m, C) -> (C*rows_pad, E), pad rows zero."""
+    E, m, C = x.shape
+    out = x.new_zeros((C, rows_pad, E))
+    out[:, :m] = x.permute(2, 1, 0)
+    return out.reshape(C * rows_pad, E)
+
+
+def from_lm(y: torch.Tensor, m: int, rows_pad: int, C: int) -> torch.Tensor:
+    """(C*rows_pad, E) -> (E, m, C)."""
+    return y.reshape(C, rows_pad, -1)[:, :m].permute(2, 1, 0).contiguous()
 
 
 def permute_lanes(d: LaneOpData, old_of_new: torch.Tensor) -> LaneOpData:
@@ -503,3 +524,69 @@ def lane_op(name: str, impl: str):
     launches the kernel on CUDA tensors) for "kernel", its plain version
     for "reference"."""
     return _OPS[name][0 if impl == "kernel" else 1]
+
+
+# ---------------------------------------------------------------------------
+# element-major wrappers: (E, n_p, C) in and out
+
+
+def _gather_traces(p: ElasticParams, field: torch.Tensor) -> torch.Tensor:
+    """(E, n_p, C) -> (E, nf*nfp, C) neighbour traces through p.nbr."""
+    flat = field.reshape((-1,) + field.shape[2:])
+    return flat[p.nbr].reshape(field.shape[0], p.n_faces * p.n_fp, -1)
+
+
+def _neighbour_traces(p, field, exchange):
+    if exchange is not None:
+        return gather_traces_structured(exchange, field)
+    return _gather_traces(p, field)
+
+
+def _vel_apply(d: LaneOpData, p: ElasticParams, sigma: torch.Tensor,
+               exchange: StructuredExchange | None = None) -> torch.Tensor:
+    """K4 mode SIG on an element-major sigma: the neighbour sigma traces
+    go in as they are, and the kernel forms the tractions with its own
+    normals."""
+    traces = _neighbour_traces(p, sigma, exchange)  # (E, ftp, n_sig)
+    out = vel_op_lm(d, to_lm(sigma, d.npp), to_lm(traces, d.ftpp))
+    return from_lm(out, d.n_p, d.npp, d.dim)
+
+
+def _stress_apply(d: LaneOpData, p: ElasticParams, u: torch.Tensor,
+                  exchange: StructuredExchange | None = None
+                  ) -> torch.Tensor:
+    """K5 mode TR on an element-major u."""
+    traces = _neighbour_traces(p, u, exchange)  # (E, ftp, dim)
+    out = stress_op_lm(d, to_lm(u, d.npp), to_lm(traces, d.ftpp))
+    return from_lm(out, d.n_p, d.npp, d.n_sig)
+
+
+def make_pallas_ops(p: ElasticParams,
+                    exchange: StructuredExchange | None = None):
+    """(vel_op, stress_op) hooks of timestep.make_step/run, ``(p, field)
+    -> out`` with (E, n_p, C) in and out: the lane operators (K4 SIG, K5
+    TR on CUDA tensors, their plain versions on CPU tensors) with the
+    operator data built once, here.  ``exchange``: a StructuredExchange
+    plan replaces the gather through p.nbr with the roll exchange
+    (ops/structured_exchange.py)."""
+    d = build_lane_data(p)
+
+    def vel_op(p_t: ElasticParams, sigma: torch.Tensor) -> torch.Tensor:
+        return _vel_apply(d, p_t, sigma, exchange)
+
+    def stress_op(p_t: ElasticParams, u: torch.Tensor) -> torch.Tensor:
+        return _stress_apply(d, p_t, u, exchange)
+
+    return vel_op, stress_op
+
+
+def vel_op_pallas(p: ElasticParams, sigma: torch.Tensor) -> torch.Tensor:
+    """One-shot element-major velocity operator (builds the operator data
+    per call)."""
+    return _vel_apply(build_lane_data(p), p, sigma)
+
+
+def stress_op_pallas(p: ElasticParams, u: torch.Tensor) -> torch.Tensor:
+    """One-shot element-major stress operator (builds the operator data
+    per call)."""
+    return _stress_apply(build_lane_data(p), p, u)

@@ -1,10 +1,11 @@
 """Structured-mesh exchange plan: translation-invariant face adjacency.
 
-Port of the host-side planning half of ``seigen_tpu/ops/structured_exchange.py``
-(NumPy, copied).  For structured box/rect meshes mesh adjacency is
-translation-invariant: for each (element-class, face) the neighbour is a
-fixed class in the cell shifted by one along one axis, with a fixed node
-permutation.  The lane-major operators (ops/merged_kernels.py) read the
+Port of ``seigen_tpu/ops/structured_exchange.py``: the host-side planning
+(NumPy, copied) and the element-major roll exchange.  For structured
+box/rect meshes mesh adjacency is translation-invariant: for each
+(element-class, face) the neighbour is a fixed class in the cell shifted
+by one along one axis, with a fixed node permutation.  The lane-major
+operators (ops/merged_kernels.py) read the
 neighbour trace at a fixed flat lane shift instead of gathering through a
 per-node index array; non-periodic boundary faces are masked to the
 own-side trace (the ghost convention in the flux coefficients handles the
@@ -14,6 +15,11 @@ BC, ops/elastic.py).
 general connectivity (dm.nbr), trying supercell coarsenings for meshes whose
 pattern has period > 1 (the criss-cross rect mesh); it returns None for
 genuinely unstructured meshes.
+
+``gather_traces_structured`` is the element-major exchange of the plan:
+(E, n_p, C) -> (E, nf*nfp, C) neighbour traces by ``torch.roll`` over the
+supercell view, no gather index; ``make_structured_ops`` wraps the einsum
+operators around it (the facade's ``xla_roll``).
 """
 
 from __future__ import annotations
@@ -21,8 +27,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from ..mesh.discrete import DiscreteMesh
+from .elastic import apply_stress_op, apply_vel_op
 
 
 @dataclass(frozen=True)
@@ -178,3 +186,59 @@ def _class_index(ex: StructuredExchange, k: int):
         subs.append(k % ex.scale)
         k = k // ex.scale
     return tuple(reversed(subs)), t
+
+
+def _class_view(ex: StructuredExchange, F: torch.Tensor, k: int):
+    """F (G0, scale, G1, scale[, G2, scale], m0, ...) -> class k's slice
+    (G0, G1[, G2], ...) over the supercell grid."""
+    subs, t = _class_index(ex, k)
+    idx = tuple(y for s in subs for y in (slice(None), s))
+    return F[idx + (t,)]
+
+
+def gather_traces_structured(ex: StructuredExchange,
+                             field: torch.Tensor) -> torch.Tensor:
+    """(E, n_p, C) -> (E, nf*nfp, C) neighbour traces by rolls (no gather).
+
+    The field is viewed as (G0, scale, G1, scale[, G2, scale], m0, n_p, C),
+    supercell axes 0, 2(, 4); each (class, face) takes its neighbour class,
+    rolls it by the plan's cell shift (a roll wraps modulo the grid, per
+    axis) and keeps the own trace where the face is a boundary face."""
+    C = field.shape[-1]
+    dim = len(ex.grid)
+    shape = ()
+    for G in ex.grid:
+        shape += (G, ex.scale)
+    F = field.reshape(shape + (ex.m0, ex.n_p, C))
+    out = field.new_zeros(shape + (ex.m0, ex.n_faces, ex.n_fp, C))
+    for t in range(ex.m):
+        own_t = _class_view(ex, F, t)
+        subs_t, t_base = _class_index(ex, t)
+        widx = tuple(y for s in subs_t for y in (slice(None), s))
+        for f in range(ex.n_faces):
+            tr = _class_view(ex, F, int(ex.nbr_class[t, f]))[
+                ..., list(ex.nodes[t, f]), :]
+            for ax in range(dim):
+                s = int(ex.shift[t, f, ax])
+                if s:
+                    tr = torch.roll(tr, -s, dims=ax)
+            own_tr = own_t[..., list(ex.own_nodes[f]), :]
+            mask = torch.as_tensor(ex.self_mask[t, f],
+                                   device=field.device)[..., None, None]
+            out[widx + (t_base, f)] = torch.where(mask, own_tr, tr)
+    return out.reshape(field.shape[0], ex.n_faces * ex.n_fp, C)
+
+
+def make_structured_ops(ex: StructuredExchange):
+    """(vel_op, stress_op) hooks of timestep.make_step/run, ``(p, field)
+    -> out``: the einsum operators of ops/elastic.py on the roll
+    exchange's traces."""
+
+    def vel_op(p, sigma):
+        return apply_vel_op(p, sigma, traces=gather_traces_structured(
+            ex, sigma))
+
+    def stress_op(p, u):
+        return apply_stress_op(p, u, traces=gather_traces_structured(ex, u))
+
+    return vel_op, stress_op

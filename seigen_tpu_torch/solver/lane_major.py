@@ -26,7 +26,7 @@ import torch
 
 from ..ops.elastic import ElasticParams
 from ..ops.lane_kernels import LaneOpData, build_cmat, build_lane_data, \
-    lane_op, permute_lanes
+    from_lm, lane_op, permute_lanes, to_lm
 from ..ops.structured_exchange import StructuredExchange
 from ..ops.unstructured_exchange import _gather_plan, _gather_traces
 from .receivers import ReceiverData
@@ -46,19 +46,6 @@ def resolve_impl(impl: str | None, device: torch.device) -> str:
         raise ValueError("impl='kernel' needs CUDA tensors; the plain "
                          "version runs with impl='reference'")
     return impl
-
-
-def to_lm(x: torch.Tensor, rows_pad: int) -> torch.Tensor:
-    """(E, m, C) -> (C*rows_pad, E), pad rows zero."""
-    E, m, C = x.shape
-    out = x.new_zeros((C, rows_pad, E))
-    out[:, :m] = x.permute(2, 1, 0)
-    return out.reshape(C * rows_pad, E)
-
-
-def from_lm(y: torch.Tensor, m: int, rows_pad: int, C: int) -> torch.Tensor:
-    """(C*rows_pad, E) -> (E, m, C)."""
-    return y.reshape(C, rows_pad, -1)[:, :m].permute(2, 1, 0).contiguous()
 
 
 def class_major_perm(ex: StructuredExchange, E: int):

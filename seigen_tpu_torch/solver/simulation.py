@@ -12,19 +12,26 @@ the time loop together.  All state is explicit; nothing global.
 The simulation lives on ``device`` (default the card; tests pass "cpu").
 Operator backends (``SimConfig.impl``):
 
-  auto      on a CUDA device the lane runners with their CUDA kernels
-            ("lane" when the mesh is structured, else "lane_u"); on the CPU
-            the einsum operators
-  einsum    the plain batched operators of ops/elastic.py
-  lane      solver/lane_major.py:LaneMajorRunner (structured meshes)
-  lane_u    solver/lane_unstructured.py:UnstructuredLaneRunner
+  auto        on a CUDA device the lane runners with their CUDA kernels
+              ("lane" when the mesh is structured, else "lane_u"); on the
+              CPU the einsum operators
+  einsum      the plain batched operators of ops/elastic.py
+  xla_roll    the einsum operators on the structured roll exchange
+              (ops/structured_exchange.py:make_structured_ops; structured
+              meshes)
+  pallas      the element-major wrappers of the lane operators
+              (ops/lane_kernels.py:make_pallas_ops: K4 SIG / K5 TR on a
+              CUDA device, their plain versions on the CPU), neighbour
+              traces gathered through p.nbr
+  pallas_roll the same on the structured roll exchange (structured meshes)
+  lane        solver/lane_major.py:LaneMajorRunner (structured meshes)
+  lane_u      solver/lane_unstructured.py:UnstructuredLaneRunner
 
 ``scheme="upwind-rk4"`` (with optional Q) runs the einsum Godunov RK4 of
 solver/rk4.py.  ``stiffness=`` (anisotropy) runs the einsum path with
 ops/anisotropic.py:make_aniso_stress_op; the lane runners take a stiffness
-directly (``LaneMajorRunner(stiffness=)``).  The element-major wrappers of
-the JAX package (``xla_roll``, ``pallas``, ``pallas_roll``) are not ported;
-checkpoint and VTK hooks neither.
+directly (``LaneMajorRunner(stiffness=)``).  Checkpoints and VTK output
+are the caller's (utils/), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -43,16 +50,6 @@ from .receivers import build_receivers, sample
 from .source import PointSource, build_sources
 from .timestep import State, cfl_dt, make_step, run, staggered_init
 
-# JAX-package impls whose element-major operator wrappers have no port yet
-UNPORTED_IMPLS = {
-    "xla_roll": "structured_exchange.make_structured_ops (ROADMAP.md "
-                "Queue 1 item 11)",
-    "pallas": "pallas_kernels.make_pallas_ops (ROADMAP.md Queue 1 item 11)",
-    "pallas_roll": "pallas_kernels.make_pallas_ops with the structured "
-                   "exchange (ROADMAP.md Queue 1 item 11)",
-}
-
-
 @dataclass(frozen=True)
 class SimConfig:
     """Frozen run configuration: one dataclass per run."""
@@ -61,7 +58,7 @@ class SimConfig:
     order: int = 4  # LF2 | LF4
     cfl: float = 0.4
     dtype: str = "float32"
-    impl: str = "auto"  # auto|einsum|lane|lane_u
+    impl: str = "auto"  # auto|einsum|xla_roll|pallas|pallas_roll|lane|lane_u
     free_sides: tuple = ()  # ((axis, "lo"|"hi"), ...)
     absorbing_sides: tuple = ()  # rest default to free surface
     sponge_width: float = 0.0
@@ -175,9 +172,6 @@ class ElasticSimulation:
         einsum operators, which compute what the lane operators do."""
         from ..ops.structured_exchange import detect_structured
 
-        if impl in UNPORTED_IMPLS:
-            raise NotImplementedError(
-                f"impl {impl!r} is not ported yet: " + UNPORTED_IMPLS[impl])
         if self._stiffness is not None:
             if impl not in ("auto", "einsum"):
                 raise ValueError("anisotropic stiffness runs the einsum "
@@ -187,8 +181,10 @@ class ElasticSimulation:
             self._impl = "einsum"
             return apply_vel_op, make_aniso_stress_op(self._stiffness)
         ex = None
-        if impl in ("auto", "lane"):
+        if impl in ("auto", "lane", "xla_roll", "pallas_roll"):
             ex = detect_structured(self.dm)
+            if ex is None and impl != "auto":
+                raise ValueError(f"{impl} impl requires a structured mesh")
         if impl == "auto":
             impl = (
                 ("lane" if ex is not None else "lane_u")
@@ -196,9 +192,16 @@ class ElasticSimulation:
                 else "einsum"
             )
         self._impl = impl
+        if impl == "xla_roll":
+            from ..ops.structured_exchange import make_structured_ops
+
+            return make_structured_ops(ex)
+        if impl in ("pallas", "pallas_roll"):
+            from ..ops.lane_kernels import make_pallas_ops
+
+            return make_pallas_ops(
+                self.params, exchange=ex if impl == "pallas_roll" else None)
         if impl == "lane":
-            if ex is None:
-                raise ValueError("lane impl requires a structured mesh")
             self._ex = ex
         elif impl not in ("lane_u", "einsum"):
             raise ValueError(f"unknown impl {impl!r}")

@@ -198,11 +198,13 @@ def run(
     step0: int = 0,
     vel_op=apply_vel_op,
     stress_op=apply_stress_op,
+    record_pressure: bool = False,
 ):
     """Run n_steps; returns (final State, seismograms tensor or None).
 
-    Seismograms: (n_steps, R, dim) velocity samples, taken after each full
-    step.
+    Seismograms: (n_steps, R, dim [+1]) velocity samples (and, with
+    ``record_pressure``, the pressure -tr(sigma)/dim), taken after each
+    full step.
     ``step0``: global index of the first step (keeps time-dependent
     sources in phase on resume).  Step k starts at t = k*dt, computed in
     the run dtype.
@@ -216,7 +218,11 @@ def run(
     for n in range(step0, step0 + n_steps):
         state = step(state, npdt(n) * dt_)
         if receivers is not None:
-            seis.append(sample(receivers, state.u))
+            rec = sample(receivers, state.u)
+            if record_pressure:
+                pr = -state.s[..., : p.dim].mean(dim=-1, keepdim=True)
+                rec = torch.cat([rec, sample(receivers, pr)], dim=-1)
+            seis.append(rec)
     return state, (torch.stack(seis) if seis else None)
 
 

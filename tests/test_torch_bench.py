@@ -309,11 +309,14 @@ def test_merged_ab_family_tables():
 def test_entry_points_default_to_the_card():
     """The port's entry points run on the card unless the caller asks for
     the CPU (the tests pass device="cpu")."""
+    from seigen_tpu_torch.bench.sweep import run_sweep
     from seigen_tpu_torch.ops import build_params, build_upwind_data
     from seigen_tpu_torch.solver import build_receivers, build_sources
+    from seigen_tpu_torch.utils import load_checkpoint
 
     for fn in (build_params, build_sources, build_receivers,
-               tbench.setup_case, build_upwind_data):
+               tbench.setup_case, build_upwind_data, load_checkpoint,
+               run_sweep):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
@@ -330,12 +333,51 @@ def test_port_never_imports_jax():
             "seigen_tpu_torch.ops.merged_kernels, "
             "seigen_tpu_torch.ops.upwind_kernels, "
             "seigen_tpu_torch.bench.merged_ab, "
-            "seigen_tpu_torch.bench.ptxas_ab; "
+            "seigen_tpu_torch.bench.ptxas_ab, "
+            "seigen_tpu_torch.bench.roofline, seigen_tpu_torch.bench.sweep, "
+            "seigen_tpu_torch.utils, seigen_tpu_torch.cli.explosive_source, "
+            "seigen_tpu_torch.cli.eigenmode2d, "
+            "seigen_tpu_torch.cli.eigenmode3d, "
+            "seigen_tpu_torch.cli.topography, "
+            "seigen_tpu_torch.cli.precision_study; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'seigen_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, check=True)
     assert json.loads(out.stdout.strip().replace("'", '"')) == []
+
+
+def test_sweep_picks_the_impl_from_the_case(monkeypatch):
+    """bench/sweep.py's impl="auto" is the case's runner (scrambled:
+    lane_u; LF4: merged; LF2: lane), and the sweep refuses to measure
+    without a CUDA device."""
+    from seigen_tpu_torch.bench import sweep
+
+    assert [sweep.auto_impl(o, s) for o, s in
+            ((4, False), (2, False), (4, True))] == ["merged", "lane",
+                                                     "lane_u"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sweep.main(["--degrees", "1", "--sizes", "2"])
+
+
+def test_roofline_step_rows_at_3d_p3():
+    """bench/roofline.py's merged LF4 step at 3D P3 with the bench's
+    sponge and source: the six K1/K2 launches at their variants' rows
+    (vel + 1 source group, stress, vel axpy, stress + source, vel, stress
+    axpy + sponge) and the u damping multiply, 4 bytes a row over every
+    lane."""
+    from seigen_tpu_torch.bench import roofline
+
+    out = roofline.main(n=2, degree=3, measured_ms=1.0)
+    assert out["rows_per_lane"] == {
+        "vel1(+src)": 534, "stress1": 487, "vel_axpy": 594,
+        "stress_src": 607, "vel2": 474, "stress_axpy": 747, "damp_u": 168}
+    assert out["config"]["E"] == out["config"]["lanes"] == 48
+    assert out["bytes_per_step"] == 4 * 3611 * 48
+    assert out["roofline_ms"] == pytest.approx(
+        4 * 3611 * 48 / 3.35e12 * 1e3)
+    assert out["roofline_fraction"] == out["roofline_ms"]
 
 
 def test_chip_smoke_bound_rows_at_3d_p3():

@@ -12,9 +12,9 @@ points handed to both.
 2. ``stiffness=`` (tests/test_anisotropic.py:test_facade_stiffness_option):
    the einsum anisotropic path, isotropic and per-element anisotropic C,
    equal ``dt`` in f64 and f32; the ``ValueError``s of the option.
-3. What the port refuses: the element-major impls that have no port yet
-   (``NotImplementedError``), unknown impls and schemes, attenuation
-   without ``upwind-rk4``.
+3. The element-major impls (``xla_roll``, ``pallas``, ``pallas_roll``)
+   against JAX's facade; what the port refuses: unknown impls and schemes,
+   attenuation without ``upwind-rk4``.
 4. ``zero_state``/``state_from``/``step_fn``/``sample``, and the material
    builders of ``solver/models.py`` against the JAX package's.
 """
@@ -244,10 +244,43 @@ def _port(**cfg):
                                   device="cpu")
 
 
+ROLL_KW = dict(cfg=dict(degree=2, order=4, dtype="float64", **SPONGE),
+               source=dict(position=(0.5, 0.5), f0=6.0, radius=0.15),
+               receivers=((0.2, 0.9), (0.8, 0.9), 4))
+
+
+@pytest.fixture(scope="module")
+def jax_element_major_runs():
+    """JAX facade runs of ROLL_KW by impl, each (facade, state,
+    seismograms), compiled once for the three cases below."""
+    runs = {}
+
+    def get(impl):
+        if impl not in runs:
+            js = _both((8, 8), timpl="einsum", **dict(
+                ROLL_KW, cfg=dict(ROLL_KW["cfg"], impl=impl)))[0]
+            runs[impl] = (js, *js.run(0.05))
+        return runs[impl]
+
+    return get
+
+
 @pytest.mark.parametrize("impl", ["xla_roll", "pallas", "pallas_roll"])
-def test_facade_refuses_unported_impls(impl):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(impl=impl)
+def test_facade_refuses_unported_impls(impl, jax_element_major_runs):
+    """The element-major impls, once refused, now run: each against the
+    JAX facade from the same inputs — ``xla_roll`` and ``pallas_roll``
+    against JAX's ``xla_roll``, ``pallas`` against JAX's ``einsum`` (JAX's
+    ``pallas`` cannot lower on the CPU)."""
+    js, fj, sj = jax_element_major_runs(
+        "einsum" if impl == "pallas" else "xla_roll")
+    ts = _both((8, 8), timpl=impl, **ROLL_KW)[1]
+    assert ts._impl == impl
+    _same_setup(js, ts)
+    ft, st = ts.run(0.05)
+    assert torch.isfinite(ft.u).all() and ft.u.abs().max() > 1e-12
+    _close(ft.u, fj.u)
+    _close(ft.s, fj.s)
+    _close(st, sj)
 
 
 def test_facade_refuses_bad_options():
