@@ -205,6 +205,32 @@ Phases, each printing its own lines; any failure exits non-zero:
               device_trace of 5 merged steps that names K1 and K2; one
               VTK snapshot at n=24 P3 (its seconds); bench.roofline's
               merged step beside the bench's measured step.
+14. grad    - the gradient engines of solver/lane_diff.py, on the card
+              with no fallback.  Per engine (lane: K4 SIG / K5 TR and
+              merged: K1 / K2 on phase 4's n=24 P3 case, merged packed:
+              K1pk / K2pk on n=32 P1, lane_u: K4 TRAC SEL / K5 SEL on
+              phase 7's scrambled case) one backward of A and one of B'
+              (each the other kernel between mass weights) on random
+              float32 lane fields against the plain versions' (the
+              kernel tolerance below), and the adjoint identity <A x, y>
+              = <x, A^T y> through the kernels (relative mismatch <
+              1e-4).  The merged engine's vp gradient on the n=24 P3 case
+              (one shot, 16 receivers, 100 steps, segment 10, observed
+              data from vp * 1.02) against the roll path's (autograd
+              through the einsum step on the roll exchange): cosine >=
+              0.9999; each path's gradient and forward-sweep seconds,
+              their ratio, peak memory; exactly 9 K1 and 9 K2 launches a
+              step (3 forward, 3 recomputed, 3 transposed; the first
+              step's ops on a zero state carry no gradient) and no other
+              kernel, and the profiler's count of device tile kernels on
+              a 20-step gradient.  cli.fwi (3D n=8 P1, merged, 3
+              iterations) reduces the misfit; cli.rtm (3D n=6 P1, areal,
+              merged) images the reflector within half a wavelength with
+              focus > 0.5 (tests/test_rtm.py's 3D bars).  The
+              bench/fwi_grad.py rows (roll, lane, merged, merged_pk,
+              lane_u at n=24 P1; cut to 40 steps, one shot, one timing
+              without warm-up: its defaults, 200 steps and 2 shots, take
+              six minutes, the roll path most of them).
 
 Tolerance of a kernel against its plain version: |k - p| <= rtol*|p| +
 atol*max|p| with rtol = 2e-4, atol = 2e-5.  The absolute floor is taken
@@ -263,6 +289,18 @@ LF_MIN_ORDER_3D = {1: 1.3, 2: 2.8, 3: 3.4, 4: 4.2}
 # phase 13: the user's tools (the CLIs, the element-major wrappers, utils/)
 TOOLS_MAX_REL = 1e-4  # a CLI branch against its einsum path, rel. L2
 RESUME_MAX_REL = 1e-6  # resumed tail against the uninterrupted run
+# phase 14: gradients (solver/lane_diff.py; the einsum "roll" gradient)
+GRAD_STEPS = 100
+GRAD_SEGMENT = 10
+GRAD_RCV_LINE = ((0.1, 0.5, 0.9), (0.9, 0.5, 0.9))
+GRAD_VP_SCALE = 1.02  # observed data from vp * this
+GRAD_MIN_COSINE = 0.9999
+ADJOINT_MAX_REL = 1e-4  # <A x, y> against <x, A^T y>, float32 kernels
+FWI_CLI = ("--dim", "3", "--n", "8", "--degree", "1", "--iters", "3",
+           "--shots", "2", "--T", "0.6", "--grad-path", "merged")
+FWI_GRAD_STEPS = 40  # bench/fwi_grad.py at n=24 P1, one shot, one timing
+RTM_CLI = ("--dim", "3", "--n", "6", "--degree", "1", "--shots", "4",
+           "--receivers", "16", "--areal", "--grad-path", "merged")
 FULL_CLI = ("--dim", "3", "--n", "24", "--degree", "3")
 SMALL_CLI = ("--dim", "3", "--n", "6", "--degree", "2", "--T", "0.3",
              "--f0", "8")
@@ -2697,6 +2735,258 @@ def phase_tools(dev, case, run_k, out_k, bench_rec):
         tools_utils(tmp, case, run_k, out_k, bench_rec)
 
 
+def grad_rcv(case):
+    """The 16-receiver line of phase 14, in the case's element order."""
+    from seigen_tpu_torch.solver import build_receivers, line
+
+    dm, p = case[0], case[1]
+    return build_receivers(dm, line(*GRAD_RCV_LINE, 16), device=p.device)
+
+
+def grad_engine(case, engine, impl, packed=False, n_steps=GRAD_STEPS,
+                segment=GRAD_SEGMENT):
+    """A LaneDiffFwi on a bench case: its source as the one shot, the
+    16-receiver line at depth 0.9, the case's sponge; observed data unset."""
+    from seigen_tpu_torch.ops.structured_exchange import detect_structured
+    from seigen_tpu_torch.solver.lane_diff import LaneDiffFwi
+
+    dm, p, src, damp, dt, _ = case
+    return LaneDiffFwi(p, dm, detect_structured(dm), dt, n_steps, src,
+                       grad_rcv(case), None, damp=damp, segment=segment,
+                       engine=engine, impl=impl, packed=packed)
+
+
+def valid_rows(ldf):
+    """(npp,) bool: the node rows of the engine's layout (not padding)."""
+    import torch
+
+    d = ldf.runner.d
+    j = torch.arange(d.npp, device=ldf.device)
+    return (j % (d.npp // ldf._npar)) < d.n_p
+
+
+def grad_inputs(ldf, seed):
+    """Random float32 (sigma, u, ubar, ebar) lane fields, padding rows 0."""
+    import numpy as np
+    import torch
+
+    d = ldf.runner.d
+    rng = np.random.default_rng(seed)
+    keep = valid_rows(ldf)[None, :, None]
+
+    def field(C):
+        x = torch.as_tensor(rng.standard_normal((C, d.npp, ldf._L)),
+                            device=ldf.device).float()
+        return (x * keep).reshape(C * d.npp, -1).contiguous()
+
+    return field(d.n_sig), field(d.dim), field(d.dim), field(d.n_sig)
+
+
+def backward_of(op, x, cot):
+    """The gradient op's autograd backward hands x for the cotangent."""
+    import torch
+
+    x = x.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(op(x), x, cot)
+    return g
+
+
+def compare_grad_engine(tag, ldf_k, ldf_r, check, seed):
+    """Phase 14, 1-2: one A and one B backward with the kernels against
+    the plain versions (the backward of A is a B' launch between mass
+    weights and vice versa), and the adjoint identity <A x, y> = <x, A^T
+    y> with the kernels.  Returns the worst adjoint mismatch."""
+    sig, u, ubar, ebar = grad_inputs(ldf_k, seed)
+    ka, kb = ldf_k.ops, ldf_r.ops
+    names = ("merged_vel", "merged_stress") if ldf_k.engine == "merged" \
+        else ("lane_vel", "lane_stress")
+    # A's backward launches the stress kernel, B's the velocity kernel
+    check(names[1], f"{tag} A backward",
+          backward_of(ka.A, sig, ubar), backward_of(kb.A, sig, ubar))
+    check(names[0], f"{tag} B backward",
+          backward_of(ka.B, u, ebar), backward_of(kb.B, u, ebar))
+    worst = 0.0
+    for label, op, x, y in (("A", ka.A, sig, ubar), ("B", ka.B, u, ebar)):
+        lhs = float((op(x).double() * y.double()).sum())
+        rhs = float((x.double() * backward_of(op, x, y).double()).sum())
+        rel = abs(lhs - rhs) / max(abs(lhs), abs(rhs))
+        worst = max(worst, rel)
+        log(f"  {tag} <{label} x, y> {lhs:.6e}, <x, {label}^T y> "
+            f"{rhs:.6e}: relative mismatch {rel:.3e}")
+        if not rel < ADJOINT_MAX_REL:
+            raise AssertionError(f"{tag} {label}: adjoint identity off "
+                                 f"({rel:.3e})")
+    return worst
+
+
+def full_width_gradient(case, smi):
+    """Phase 14, 3: the merged engine's vp gradient at full width against
+    the roll path's (einsum autograd on the structured roll exchange), the
+    wall seconds of each gradient and forward sweep, peak memory, and the
+    K1/K2 launches per gradient step (the wrapper counts, and the
+    profiler's device kernels on a shorter run)."""
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.ops.structured_exchange import \
+        make_structured_ops
+    from seigen_tpu_torch.solver.adjoint import make_fwi_gradient, \
+        run_segmented, theta_of_params, with_material
+    from seigen_tpu_torch.utils.profiling import device_profile
+
+    _, p, src, damp, dt, st0 = case
+    ldf = grad_engine(case, "merged", "kernel")
+    vp0 = theta_of_params(p)["vp"].detach()
+    ldf.observed = ldf.synth({"vp": vp0 * GRAD_VP_SCALE})
+    theta = {"vp": vp0}
+    vg = ldf.vg_factory(None)
+    vg(theta)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    v_m, g_m = vg(theta)
+    torch.cuda.synchronize()
+    t_grad = time.perf_counter() - t0
+    launches = read_counts()
+    peak_m = torch.cuda.max_memory_allocated()
+    n = GRAD_STEPS
+    expect_counts("merged gradient", launches, merged_vel=9 * n - 3,
+                  merged_stress=9 * n - 2)
+    t0 = time.perf_counter()
+    ldf.synth(theta)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+
+    vo, so = make_structured_ops(ldf.runner.ex)
+    vg_roll, _ = make_fwi_gradient(
+        p, st0, dt, n, src, grad_rcv(case),
+        ldf.observed[0], fields=("vp",), damp=damp, segment=GRAD_SEGMENT,
+        vel_op=vo, stress_op=so)
+    torch.cuda.synchronize()  # no warm-up: the roll path builds nothing
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    v_r, g_r = vg_roll(theta)
+    torch.cuda.synchronize()
+    t_grad_r = time.perf_counter() - t0
+    peak_r = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        run_segmented(with_material(p, **theta), st0, dt, n, src=src,
+                      damp=damp, receivers=grad_rcv(case), vel_op=vo,
+                      stress_op=so)
+        torch.cuda.synchronize()
+        t_fwd_r = time.perf_counter() - t0
+    a = g_r["vp"].double().cpu().numpy()
+    b = g_m["vp"].double().cpu().numpy()
+    cos = float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b)))
+    rel = float(np.linalg.norm(a - b) / np.linalg.norm(a))
+    log(f"[grad] merged vs roll vp gradient at n=24 P3 ({n} steps, segment "
+        f"{GRAD_SEGMENT}, one shot): cosine {cos:.8f}, rel L2 {rel:.3e}; "
+        f"misfit {v_m:.6e} vs {v_r:.6e}")
+    for name, tg, tf, pk in (("merged", t_grad, t_fwd, peak_m),
+                             ("roll", t_grad_r, t_fwd_r, peak_r)):
+        log(f"[grad] {name}: gradient {tg:.3f} s, forward sweep {tf:.3f} s,"
+            f" ratio {tg / tf:.2f}, peak memory {pk / 2**30:.3f} GiB "
+            f"({smi})")
+    log(f"[grad] merged gradient launches {launches['merged_vel']} K1 + "
+        f"{launches['merged_stress']} K2 over {n} steps: "
+        f"{launches['merged_vel'] / n:.2f} + "
+        f"{launches['merged_stress'] / n:.2f} a step")
+    if not cos >= GRAD_MIN_COSINE:
+        raise AssertionError(f"merged vp gradient cosine {cos} against "
+                             f"roll < {GRAD_MIN_COSINE}")
+    del ldf, vg, vg_roll
+
+    # the profiler's count of device tile kernels on a 20-step gradient
+    short = grad_engine(case, "merged", "kernel", n_steps=20)
+    short.observed = np.zeros((1, 20, 16, 3), np.float32)
+    vg_s = short.vg_factory(None)
+    vg_s(theta)
+    with device_profile() as prof:
+        vg_s(theta)
+        torch.cuda.synchronize()
+    tiles = sum(e.count for e in prof.key_averages()
+                if "merged_tile_kernel" in e.key)
+    log(f"[grad] profiler: {tiles} merged tile kernel launches over a 20-"
+        f"step gradient ({tiles / 20:.2f} a step; wrapper count "
+        f"{(9 * 20 - 3) + (9 * 20 - 2)})" if tiles else
+        "[grad] profiler: no device kernels recorded (not measured)")
+
+
+def grad_clis(tmp):
+    """Phase 14, 4: cli.fwi (merged) reduces the misfit; cli.rtm (3D,
+    areal, merged) meets tests/test_rtm.py's 3D bars."""
+    import contextlib
+    import io
+    import os
+
+    from seigen_tpu_torch.cli import fwi, rtm
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = fwi.main(list(FWI_CLI))
+    out = buf.getvalue().strip().splitlines()
+    s = json.loads(out[-1])
+    log(f"[grad] cli.fwi {' '.join(FWI_CLI)}: exit {rc}, E {s['E']}, "
+        f"{s['n_steps']} steps, misfit {s['misfit_first']:.4e} -> "
+        f"{s['misfit_last']:.4e}, model error {s['model_err_init']:.4f} -> "
+        f"{s['model_err_final']:.4f} ({time.perf_counter() - t0:.1f} s)")
+    if rc != 0 or not s["misfit_last"] < s["misfit_first"]:
+        raise AssertionError(f"cli.fwi: the misfit did not fall: {s}")
+    js = os.path.join(tmp, "rtm.json")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = rtm.main(list(RTM_CLI) + ["--json", js])
+    with open(js) as f:
+        r = json.load(f)
+    half = r["vmax"] / r["f0"] / 2
+    log(f"[grad] cli.rtm {' '.join(RTM_CLI)}: exit {rc}, E {r['E']}, z_error "
+        f"{r['z_error']:.4f} (bar {half:.4f}), focus {r['focus']:.3f} (bar "
+        f"0.5) ({time.perf_counter() - t0:.1f} s)")
+    if rc != 0 or not (r["z_error"] < half and r["focus"] > 0.5):
+        raise AssertionError(f"cli.rtm misses the 3D bars: {r}")
+
+
+def phase_gradients(dev, case, scase, smi):
+    """Phase 14 (see the module docstring)."""
+    import tempfile
+
+    import torch
+
+    from seigen_tpu_torch.bench import fwi_grad, throughput
+
+    check = Check()  # kept apart from the main path's worst errors
+    t0 = time.perf_counter()
+    pcase = throughput.setup_case(n=32, degree=1, device=dev)
+    worst = 0.0
+    for tag, c, engine, packed in (
+            ("lane n=24 P3", case, "lane", False),
+            ("merged n=24 P3", case, "merged", False),
+            ("merged packed n=32 P1", pcase, "merged", True),
+            ("lane_u scrambled n=24 P3", scase, "lane_u", False)):
+        ldf_k = grad_engine(c, engine, "kernel", packed=packed)
+        ldf_r = grad_engine(c, engine, "reference", packed=packed)
+        worst = max(worst, compare_grad_engine(tag, ldf_k, ldf_r, check,
+                                               seed=len(tag)))
+        del ldf_k, ldf_r
+        torch.cuda.empty_cache()
+    del pcase
+    log(f"[grad] backward kernels agree, adjoint identity within "
+        f"{worst:.3e} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    full_width_gradient(case, smi)
+    torch.cuda.empty_cache()
+    log(f"[grad] full width {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        grad_clis(tmp)
+    t0 = time.perf_counter()
+    fwi_grad.run(n_steps=FWI_GRAD_STEPS, repeats=1, shots=1, warmup=False,
+                 paths=fwi_grad.PATHS, log=log)
+    log(f"[grad] fwi_grad rows {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -2878,7 +3168,12 @@ def main() -> int:
     # 13. tools: the CLIs, the element-major wrappers, utils/, roofline
     t0 = time.perf_counter()
     phase_tools(dev, case, run_k, out_k, bench["kernel"])
-    log(f"[tools] phase {time.perf_counter() - t0:.1f} s; total "
+    log(f"[tools] phase {time.perf_counter() - t0:.1f} s")
+
+    # 14. gradients: the energy-conjugation engines over the kernels
+    t0 = time.perf_counter()
+    phase_gradients(dev, case, scase, smi)
+    log(f"[grad] phase {time.perf_counter() - t0:.1f} s; total "
         f"{time.perf_counter() - t_all:.1f} s")
 
     sources = dict(KERNELS)

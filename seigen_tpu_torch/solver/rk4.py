@@ -19,7 +19,7 @@ from ..ops.elastic import ElasticParams
 from ..ops.upwind import UpwindData, apply_coupled_upwind
 from .receivers import ReceiverData, sample
 from .source import SourceData, ricker
-from .timestep import State, numpy_dtype
+from .timestep import State, numpy_dtype, scan_steps
 
 
 def _gather(p: ElasticParams, field: torch.Tensor) -> torch.Tensor:
@@ -131,22 +131,28 @@ def run_rk4_visco(p: ElasticParams, w: UpwindData, v, state0: State,
                   dt: float, n_steps: int, xi0: torch.Tensor | None = None,
                   src: SourceData | None = None,
                   damp: torch.Tensor | None = None,
-                  receivers: ReceiverData | None = None):
+                  receivers: ReceiverData | None = None,
+                  segment: int | None = None):
     """Viscoelastic run; returns (final State, final xi, seismograms tensor
     (n_steps, R, dim) or None).  Step k starts at t = k*dt in the run
-    dtype."""
+    dtype.
+
+    ``segment`` (must divide n_steps) runs the steps in checkpointed
+    chunks (timestep.scan_steps) — what reverse mode needs at scale, since
+    the carry includes the (E, n_p, n_sig, L) memory variables (Q-FWI
+    gradients, solver/adjoint.py make_visco_fwi_gradient)."""
     step = make_rk4_step_visco(p, w, v, dt, src=src, damp=damp)
     npdt = numpy_dtype(p.dtype)
     dt_ = npdt(dt)
     if xi0 is None:
         xi0 = torch.zeros(state0.s.shape + (v.L,), dtype=state0.s.dtype,
                           device=state0.s.device)
-    state, xi, seis = state0, xi0, []
-    for n in range(n_steps):
-        state, xi = step(state, xi, npdt(n) * dt_)
-        if receivers is not None:
-            seis.append(sample(receivers, state.u))
-    return state, xi, (torch.stack(seis) if seis else None)
+    record = (None if receivers is None
+              else lambda c: sample(receivers, c[0].u))
+    (state, xi), seis = scan_steps(
+        lambda c, t: step(c[0], c[1], t), (state0, xi0),
+        [npdt(n) * dt_ for n in range(n_steps)], record, segment)
+    return state, xi, seis
 
 
 def run_rk4(p: ElasticParams, w: UpwindData, state0: State, dt: float,
@@ -159,9 +165,6 @@ def run_rk4(p: ElasticParams, w: UpwindData, state0: State, dt: float,
     step = make_rk4_step(p, w, dt, src=src, damp=damp)
     npdt = numpy_dtype(p.dtype)
     dt_ = npdt(dt)
-    state, seis = state0, []
-    for n in range(n_steps):
-        state = step(state, npdt(n) * dt_)
-        if receivers is not None:
-            seis.append(sample(receivers, state.u))
-    return state, (torch.stack(seis) if seis else None)
+    return scan_steps(step, state0, [npdt(n) * dt_ for n in range(n_steps)],
+                      None if receivers is None
+                      else lambda st: sample(receivers, st.u))

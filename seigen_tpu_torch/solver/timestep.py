@@ -186,6 +186,42 @@ def staggered_init(p: ElasticParams, u0: torch.Tensor, s0: torch.Tensor,
     return State(u=u0, s=s)
 
 
+def scan_steps(step, carry, times, record=None, segment: int | None = None):
+    """carry <- step(carry, t) for each t of ``times``; returns (final
+    carry, stacked ``record(carry)`` after each step, or None).
+
+    ``segment`` (must divide len(times)) runs the steps in chunks under
+    ``torch.utils.checkpoint``: reverse mode then keeps one carry per chunk
+    and recomputes a chunk's steps during its backward, O(segment +
+    n_steps/segment) stored states instead of O(n_steps) — the JAX
+    package's ``jax.checkpoint``-ed scan of scans.  ``carry`` is a tuple of
+    tensors (or of dataclasses of them); ``step`` returns the same
+    structure."""
+    n = len(times)
+
+    def chunk(c, ts):
+        ys = []
+        for t in ts:
+            c = step(c, t)
+            if record is not None:
+                ys.append(record(c))
+        return c, (torch.stack(ys) if ys else None)
+
+    if not segment or segment >= n:
+        return chunk(carry, times)
+    if n % segment:
+        raise ValueError(f"segment {segment} must divide n_steps {n}")
+    from torch.utils.checkpoint import checkpoint
+
+    ys = []
+    for k0 in range(0, n, segment):
+        carry, y = checkpoint(chunk, carry, times[k0 : k0 + segment],
+                              use_reentrant=False, preserve_rng_state=False)
+        if y is not None:
+            ys.append(y)
+    return carry, (torch.cat(ys) if ys else None)
+
+
 def run(
     p: ElasticParams,
     state0: State,
@@ -199,6 +235,7 @@ def run(
     vel_op=apply_vel_op,
     stress_op=apply_stress_op,
     record_pressure: bool = False,
+    segment: int | None = None,
 ):
     """Run n_steps; returns (final State, seismograms tensor or None).
 
@@ -207,23 +244,23 @@ def run(
     full step.
     ``step0``: global index of the first step (keeps time-dependent
     sources in phase on resume).  Step k starts at t = k*dt, computed in
-    the run dtype.
+    the run dtype.  ``segment``: checkpointed chunks (``scan_steps``).
     """
     step = make_step(p, dt, order=order, src=src, damp=damp, vel_op=vel_op,
                      stress_op=stress_op)
     npdt = numpy_dtype(p.dtype)
     dt_ = npdt(dt)
-    state = state0
-    seis = []
-    for n in range(step0, step0 + n_steps):
-        state = step(state, npdt(n) * dt_)
-        if receivers is not None:
-            rec = sample(receivers, state.u)
-            if record_pressure:
-                pr = -state.s[..., : p.dim].mean(dim=-1, keepdim=True)
-                rec = torch.cat([rec, sample(receivers, pr)], dim=-1)
-            seis.append(rec)
-    return state, (torch.stack(seis) if seis else None)
+
+    def record(state):
+        rec = sample(receivers, state.u)
+        if record_pressure:
+            pr = -state.s[..., : p.dim].mean(dim=-1, keepdim=True)
+            rec = torch.cat([rec, sample(receivers, pr)], dim=-1)
+        return rec
+
+    return scan_steps(step, state0,
+                      [npdt(n) * dt_ for n in range(step0, step0 + n_steps)],
+                      None if receivers is None else record, segment)
 
 
 def cfl_dt(h_min: float, vp_max: float, degree: int, cfl: float = 0.5) -> float:

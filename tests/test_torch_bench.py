@@ -309,15 +309,24 @@ def test_merged_ab_family_tables():
 def test_entry_points_default_to_the_card():
     """The port's entry points run on the card unless the caller asks for
     the CPU (the tests pass device="cpu")."""
+    from seigen_tpu_torch.bench import fwi_grad
     from seigen_tpu_torch.bench.sweep import run_sweep
+    from seigen_tpu_torch.cli import fwi, rtm
     from seigen_tpu_torch.ops import build_params, build_upwind_data
     from seigen_tpu_torch.solver import build_receivers, build_sources
+    from seigen_tpu_torch.solver.fwi import lowpass_taps
+    from seigen_tpu_torch.solver.lane_diff import LaneDiffFwi
     from seigen_tpu_torch.utils import load_checkpoint
 
     for fn in (build_params, build_sources, build_receivers,
                tbench.setup_case, build_upwind_data, load_checkpoint,
-               run_sweep):
+               run_sweep, fwi_grad.run, lowpass_taps):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    # the gradient engine follows its parameters' device (the card's by
+    # default); the programs take the card unless --cpu
+    assert inspect.signature(LaneDiffFwi).parameters["impl"].default is None
+    for cli in (fwi, rtm):
+        assert cli.build_parser().parse_args([]).cpu is False
 
 
 def test_port_never_imports_jax():
@@ -339,7 +348,13 @@ def test_port_never_imports_jax():
             "seigen_tpu_torch.cli.eigenmode2d, "
             "seigen_tpu_torch.cli.eigenmode3d, "
             "seigen_tpu_torch.cli.topography, "
-            "seigen_tpu_torch.cli.precision_study; "
+            "seigen_tpu_torch.cli.precision_study, "
+            "seigen_tpu_torch.cli.fwi, seigen_tpu_torch.cli.rtm, "
+            "seigen_tpu_torch.solver.adjoint, "
+            "seigen_tpu_torch.solver.lane_diff, "
+            "seigen_tpu_torch.solver.fwi, seigen_tpu_torch.solver.shots, "
+            "seigen_tpu_torch.solver.imaging, "
+            "seigen_tpu_torch.bench.fwi_grad; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'seigen_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -19,6 +19,7 @@ versions) against the JAX package.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -177,8 +178,10 @@ def test_plain_op_matches_jax(op_case, name):
                                                (cu_t, cfg_ut))),
     }[name]
     plan_j, plan_t = args[1] or ((), ())
-    ref = getattr(jpk, name)(dj, *(jnp.asarray(x[k]) for k in args[0]),
-                             *plan_j, block=8, interpret=True)
+    # jitted: one compile in place of the eager per-op compiles
+    ref = jax.jit(lambda *a: getattr(jpk, name)(
+        dj, *a, *plan_j, block=8, interpret=True))(
+        *(jnp.asarray(x[k]) for k in args[0]))
     targs = (*(torch.as_tensor(x[k]) for k in args[0]), *plan_t)
     got = getattr(lk, name + "_ref")(dt, *targs)
     _close(got, ref)

@@ -10,6 +10,7 @@ row (rtol 1e-10, atol 1e-12: f64 roundoff of differently ordered sums).
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -46,6 +47,12 @@ def _one_torch_thread():
 
 RTOL, ATOL = 1e-10, 1e-12
 DT, C3 = 0.013, 0.013**3 / 24.0
+# the JAX side runs under jax.jit (one compile in place of the eager
+# per-op compiles, the arrays as arguments) where its outputs are bitwise
+# the eager ones; in these variants XLA's fusion reorders a sum (1e-14
+# apart), so they run eagerly
+EAGER_ONLY = {("vel", "inject1"), ("vel", "inject2"), ("stress", "plain"),
+              ("stress", "inject1"), ("stress", "inject2")}
 
 
 @pytest.fixture(scope="module")
@@ -117,9 +124,14 @@ def test_merged_op_matches_jax(case, op, variant):
         tkw = dict(inject=[(torch.as_tensor(S[i]), rs[i]) for i in range(g)])
     jf, tf = ((vel_merged, vel_merged_ref) if op == "vel"
               else (stress_merged, stress_merged_ref))
-    j_out, j_tr = jf(jr.plan, jd, jnp.asarray(x[0]),
-                     jnp.asarray(data["trs"]), jr.mask, interpret=True,
-                     **jkw)
+    arrays = {k: jkw.pop(k) for k in ("axpy", "inject") if k in jkw}
+
+    def jfn(a, t, kw):
+        return jf(jr.plan, jd, a, t, jr.mask, interpret=True, **kw, **jkw)
+
+    if (op, variant) not in EAGER_ONLY:  # one compile, not one per op
+        jfn = jax.jit(jfn)
+    j_out, j_tr = jfn(jnp.asarray(x[0]), jnp.asarray(data["trs"]), arrays)
     t_out, t_tr = tf(tr.plan, td, torch.as_tensor(x[0]),
                      torch.as_tensor(data["trs"]), tr.mask, **tkw)
     np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), rtol=RTOL,

@@ -400,17 +400,22 @@ def test_packed_v2_ops_match_jax(dim):
     ax_s = (rows(dt_.n_sig, dt_.n_p, 4), rows(dt_.n_sig, dt_.n_p, 4))
     assert ftq == p_t.n_faces * p_t.n_fp
     T = torch.as_tensor
+    J = jax.jit  # one compile in place of the eager per-op compiles
     cases = [
-        (lambda: jvel2(dj, sig, tr, block=B, interpret=True),
+        (lambda: J(lambda a, t: jvel2(dj, a, t, block=B, interpret=True))(
+            sig, tr),
          lambda: vel2_op_ref(dt_, T(sig), T(tr))),
-        (lambda: jvel2(dj, sig, tr, block=B, interpret=True, axpy=ax_u,
-                       dt=DT, c3=C3),
+        (lambda: J(lambda a, t, ax: jvel2(dj, a, t, block=B, interpret=True,
+                                          axpy=ax, dt=DT, c3=C3))(
+            sig, tr, ax_u),
          lambda: vel2_op_ref(dt_, T(sig), T(tr), axpy=tuple(map(T, ax_u)),
                              dt=DT, c3=C3)),
-        (lambda: jstress2(dj, u, tr, block=B, interpret=True),
+        (lambda: J(lambda a, t: jstress2(dj, a, t, block=B,
+                                         interpret=True))(u, tr),
          lambda: stress2_op_ref(dt_, T(u), T(tr))),
-        (lambda: jstress2(dj, u, tr, block=B, interpret=True, axpy=ax_s,
-                          dt=DT, c3=C3),
+        (lambda: J(lambda a, t, ax: jstress2(dj, a, t, block=B,
+                                             interpret=True, axpy=ax, dt=DT,
+                                             c3=C3))(u, tr, ax_s),
          lambda: stress2_op_ref(dt_, T(u), T(tr), axpy=tuple(map(T, ax_s)),
                                 dt=DT, c3=C3)),
     ]
@@ -444,9 +449,9 @@ def test_pack_probe_matches_jax():
     np.testing.assert_array_equal(tprobe.unpack_state(sig_p, 4, 6, E),
                                   jprobe.unpack_state(sig_p, 4, 6, E))
 
-    j_out = jprobe.packed_vel_op(
-        (j_drr, j_lift, _, j_gexp, j_geo, j_off), jnp.asarray(sig_p),
-        jnp.asarray(tr_p), block=E // 2, interpret=True)
+    j_out = jax.jit(lambda a, t: jprobe.packed_vel_op(
+        (j_drr, j_lift, _, j_gexp, j_geo, j_off), a, t, block=E // 2,
+        interpret=True))(jnp.asarray(sig_p), jnp.asarray(tr_p))
     t_out = tprobe.packed_vel_op(d, torch.as_tensor(sig_p),
                                  torch.as_tensor(tr_p))
     for got, want in zip(t_out, j_out):

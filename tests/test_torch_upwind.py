@@ -23,6 +23,7 @@ ordered sums).
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -228,9 +229,11 @@ def test_upwind_rhs_matches_jax_kernel(rhs_case, n_inj):
              for g in range(n_inj)]
     t_inj = [(torch.as_tensor(x["Su"][g]), torch.as_tensor(x["Ss"][g]), rs[g])
              for g in range(n_inj)]
-    ref = jrhs(jr.plan, jr.d, jr.uwg, jnp.asarray(x["u"]),
-               jnp.asarray(x["s"]), jnp.asarray(x["trs"]), jr.mask,
-               interpret=True, inject=j_inj)
+    # jitted: one compile in place of the eager per-op compiles
+    ref = jax.jit(lambda u, s, t, inj: jrhs(
+        jr.plan, jr.d, jr.uwg, u, s, t, jr.mask, interpret=True,
+        inject=inj))(jnp.asarray(x["u"]), jnp.asarray(x["s"]),
+                     jnp.asarray(x["trs"]), j_inj)
     got = upwind_rhs_merged_ref(
         tr.plan, tr.d, tr.uwg, torch.as_tensor(x["u"]),
         torch.as_tensor(x["s"]), torch.as_tensor(x["trs"]), tr.mask,
