@@ -231,6 +231,34 @@ Phases, each printing its own lines; any failure exits non-zero:
               lane_u at n=24 P1; cut to 40 steps, one shot, one timing
               without warm-up: its defaults, 200 steps and 2 shots, take
               six minutes, the roll path most of them).
+15. sharded - the slab-sharded paths of parallel/ (one process a rank,
+              halo planes over torch.distributed).  Every K1/K2 variant
+              (as phase 3) on a one-rank halo plan (Grest halo lanes on
+              both sides of every class's trace lanes) of phase 3's meshes
+              at 3D P3/P2 and 2D P3/P2 and, packed, K1pk/K2pk at 3D and 2D
+              P1: one launch and the interior launch then the boundary
+              launch, each against the plain version (own trace lanes),
+              the pair bitwise equal to the one launch; K3 on halo plans
+              at 3D P3 and 2D P2 with 0-2 source groups.  The same checks
+              at n=24 P3 on the main path's halo plan before the times.
+              At one rank on the n=24 P3 case, 10 steps from phase 4's
+              state: ShardedFusedRunner with fill off (bitwise phase 4's
+              MergedLaneRunner run, 3 + 3 launches a step), local, skip,
+              ppermute (3 + 3) and ppermute with the overlap split (6 K1
+              + 6 K2 a step), ShardedLaneRunner (LF4,
+              3 K4 SIG + 3 K5 TR a step) against LaneMajorRunner, and
+              ShardedUpwindRunner with Q = 30/20 (4 K3 a step) against
+              UpwindLaneRunner, each relative L2 < 1e-4; the split pair's
+              and K3's times beside one launch, the plain version and the
+              bound; the benches of every one-rank fill mode beside phase
+              5's merged, lane_sharded beside lane (LF4), and
+              fused_sharded_pk beside merged_pk at n=32 P1.  Two ranks
+              (NCCL with two cards, else gloo on the one card, staged
+              through pinned host memory; the line names which ran) on
+              the n=24 P3 case: the global state against phase 4's
+              (relative L2 < 1e-4), the launches, DOF-updates/s and the
+              halo bytes a step; the same run with the split bitwise
+              equal to it.
 
 Tolerance of a kernel against its plain version: |k - p| <= rtol*|p| +
 atol*max|p| with rtol = 2e-4, atol = 2e-5.  The absolute floor is taken
@@ -379,6 +407,11 @@ PACKED_MODES = {  # packed P1 instantiation -> (kernel, replaced TPU kernel)
     "fused_stress2[pk]": ("fused_stress2",
                           "seigen_tpu/ops/fused_kernels.py:759"),
 }
+# phase 15: the sharded paths' kernel modes (halo trace lanes; K1/K2 as
+# the interior and boundary launches of the overlap split) -> kernel
+SHARDED_MODES = {"merged_vel[split]": "merged_vel",
+                 "merged_stress[split]": "merged_stress",
+                 "upwind_rhs[halo]": "upwind_rhs"}
 # the launches_pk counts
 PK_COUNTS = ("merged_vel_pk", "merged_stress_pk", "fused_vel2_pk",
              "fused_stress2_pk")
@@ -536,17 +569,18 @@ def variant_inputs(runner, seed):
     d, plan = runner.d, runner.plan
     rng = np.random.default_rng(seed)
 
-    def field(C, used, rows):
-        a = rng.standard_normal((C, d.n_par, rows // d.n_par, plan.Ls)
+    def field(C, used, rows, L=plan.Ls):
+        a = rng.standard_normal((C, d.n_par, rows // d.n_par, L)
                                 ).astype(np.float32)
         a[:, :, used:] = 0.0
-        return torch.as_tensor(a.reshape(C * rows, plan.Ls),
-                               device=runner.device)
+        return torch.as_tensor(a.reshape(C * rows, L), device=runner.device)
 
     return {
         "sig": [field(d.n_sig, d.n_p, d.npp) for _ in range(3)],
         "u": [field(d.dim, d.n_p, d.npp) for _ in range(3)],
-        "trs": field(d.nf, d.dim * d.n_fp, plan.rtf),
+        # the producer traces lie on the plan's trace lanes (a slab's halo
+        # lanes too)
+        "trs": field(d.nf, d.dim * d.n_fp, plan.rtf, plan.Lt),
         "Su": [field(d.dim, d.n_p, d.npp) for _ in range(2)],
         "Ss": [field(d.n_sig, d.n_p, d.npp) for _ in range(2)],
     }
@@ -650,15 +684,14 @@ def upwind_inputs(runner, seed):
     d, plan = runner.d, runner.plan
     rng = np.random.default_rng(seed)
 
-    def field(C, used, rows):
-        a = rng.standard_normal((C, rows, plan.Ls)).astype(np.float32)
+    def field(C, used, rows, L=plan.Ls):
+        a = rng.standard_normal((C, rows, L)).astype(np.float32)
         a[:, used:] = 0.0
-        return torch.as_tensor(a.reshape(C * rows, plan.Ls),
-                               device=runner.device)
+        return torch.as_tensor(a.reshape(C * rows, L), device=runner.device)
 
     return {"u": field(d.dim, d.n_p, d.npp),
             "s": field(d.n_sig, d.n_p, d.npp),
-            "trs": field(d.nf, 2 * d.dim * d.n_fp, plan.rtf),
+            "trs": field(d.nf, 2 * d.dim * d.n_fp, plan.rtf, plan.Lt),
             "inj": [(field(d.dim, d.n_p, d.npp),
                      field(d.n_sig, d.n_p, d.npp), (0.7, -1.3)[g])
                     for g in range(2)]}
@@ -669,7 +702,7 @@ def upwind_args(runner, x):
             runner.mask)
 
 
-def compare_upwind(runner, check, tag, seed, variants):
+def compare_upwind(runner, check, tag, seed, variants, kname="upwind_rhs"):
     """K3 variants ("plainN": N dense source groups) vs the plain version."""
     import torch
 
@@ -682,7 +715,7 @@ def compare_upwind(runner, check, tag, seed, variants):
         ref = uk.upwind_rhs_merged_ref(*upwind_args(runner, x), inject=inj)
         torch.cuda.synchronize()
         for part, g, r in zip(("du", "ds", "traces"), got, ref):
-            check("upwind_rhs", f"{tag} {variant} {part}", g, r)
+            check(kname, f"{tag} {variant} {part}", g, r)
     return x
 
 
@@ -2987,6 +3020,385 @@ def phase_gradients(dev, case, scase, smi):
     log(f"[grad] fwi_grad rows {time.perf_counter() - t0:.1f} s")
 
 
+def own_lanes(plan, tr):
+    """The own trace lanes of a (rows, Lt) trace array (a halo plan's halo
+    lanes are the fill's: the kernel does not write them)."""
+    return tr.view(tr.shape[0], plan.m, plan.NCt)[
+        :, :, plan.h0 : plan.h0 + plan.NC]
+
+
+def small_case(dim, degree, dev, rho_seed=None):
+    """(dm, p, ex, damp) of phase 3's free-top box_mesh(5, 3, 4) (3D) or
+    rect_mesh(14, 10) (2D), sponge-damped along x; with ``rho_seed`` a
+    density per element uniform in [1, 1.5) (numpy-seeded)."""
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.mesh import box_mesh, build_discrete, rect_mesh
+    from seigen_tpu_torch.ops import Material, build_params
+    from seigen_tpu_torch.ops.structured_exchange import detect_structured
+    from seigen_tpu_torch.solver.damping import absorbing_bc_fn, sponge_mask
+
+    topo = box_mesh(5, 3, 4) if dim == 3 else rect_mesh(14, 10)
+    dm = build_discrete(topo, degree, bc_fn=absorbing_bc_fn(
+        ((0.0, 1.0),) * dim, free_sides=[(dim - 1, "hi")]))
+    rho = 1.0 if rho_seed is None else np.random.default_rng(
+        rho_seed).uniform(1.0, 1.5, dm.num_elements)
+    p = build_params(dm, Material(rho, 2.0, 1.0), dtype=torch.float32,
+                     device=dev)
+    damp = torch.as_tensor(sponge_mask(dm, [(0, "lo"), (0, "hi")],
+                                       width=0.3), device=dev).float()
+    return dm, p, detect_structured(dm), damp
+
+
+def small_sharded_runner(dim, degree, dev, packed=False):
+    """A one-rank kernel ShardedFusedRunner with halo lanes (fill
+    "ppermute") and the overlap split on phase 3's meshes (packed: P1 with
+    a random density per element, as phase 11)."""
+    from seigen_tpu_torch.parallel import ShardedFusedRunner
+
+    dm, p, ex, damp = small_case(dim, degree, dev,
+                                 240 + dim if packed else None)
+    return ShardedFusedRunner(p, ex, 0.01, 1, damp=damp,
+                              fill_mode="ppermute", overlap=True,
+                              impl="kernel", packed=packed)
+
+
+def small_halo_k3(dev, check):
+    """K3 on halo plans (one-rank ShardedUpwindRunner, fill "ppermute") on
+    phase 3's meshes at 3D P3 and 2D P2, 0-2 source groups, against its
+    plain version on the own trace lanes."""
+    import torch
+
+    from seigen_tpu_torch.bench.throughput import BENCH_MAT
+    from seigen_tpu_torch.ops import build_upwind_data
+    from seigen_tpu_torch.ops import upwind_kernels as uk
+    from seigen_tpu_torch.parallel import ShardedUpwindRunner
+
+    for dim, degree in ((3, 3), (2, 2)):
+        dm, p, ex, damp = small_case(dim, degree, dev)
+        w = build_upwind_data(dm, BENCH_MAT, device=dev)
+        r = ShardedUpwindRunner(p, ex, w, 0.01, 1, damp=damp,
+                                fill_mode="ppermute", impl="kernel")
+        x = upwind_inputs(r, 80 + dim)
+        for g in range(3):
+            inj = x["inj"][:g]
+            got = uk.UPWIND_KERNEL(*upwind_args(r, x), inject=inj)
+            ref = uk.upwind_rhs_merged_ref(*upwind_args(r, x), inject=inj)
+            torch.cuda.synchronize()
+            tag = f"halo {dim}D P{degree} {g} groups"
+            check("upwind_rhs[halo]", f"{tag} du", got[0], ref[0])
+            check("upwind_rhs[halo]", f"{tag} ds", got[1], ref[1])
+            check("upwind_rhs[halo]", f"{tag} traces",
+                  own_lanes(r.plan, got[2]), own_lanes(r.plan, ref[2]))
+
+
+def compare_split(runner, check, tag, seed):
+    """Every K1/K2 variant on the halo plan: one launch, and the interior
+    launch then the boundary launch into the same outputs, each against
+    the plain version; the pair bitwise equal to the one launch."""
+    import torch
+
+    plan = runner.plan
+    lo, hi = runner._split
+    x = variant_inputs(runner, seed)
+    for op, variant in VARIANTS:
+        kern, plain, args, kw = variant_call(runner, x, op, variant)
+        full = kern(*args, **kw)
+        part = kern(*args, lanes=(lo, hi, 0), **kw)
+        part = kern(*args, lanes=(lo, hi, 1), out=part, **kw)
+        ref = plain(*args, **kw)
+        torch.cuda.synchronize()
+        kname = ("merged_vel" if op == "vel" else "merged_stress") + "[split]"
+        check(kname, f"{tag} {op} {variant} out", full[0], ref[0])
+        check(kname, f"{tag} {op} {variant} traces",
+              own_lanes(plan, full[1]), own_lanes(plan, ref[1]))
+        check(kname, f"{tag} {op} {variant} split out", part[0], ref[0])
+        check(kname, f"{tag} {op} {variant} split traces",
+              own_lanes(plan, part[1]), own_lanes(plan, ref[1]))
+        if not (torch.equal(full[0], part[0]) and torch.equal(
+                own_lanes(plan, full[1]), own_lanes(plan, part[1]))):
+            raise AssertionError(f"{tag} {op} {variant}: the split launches "
+                                 "differ from one launch")
+    return x
+
+
+def sharded_upwind_runner(case, visco=False):
+    """A one-rank kernel ShardedUpwindRunner (halo lanes) on a case, with
+    upwind_runner's material and Q."""
+    from seigen_tpu_torch.bench.throughput import BENCH_MAT
+    from seigen_tpu_torch.ops import build_upwind_data, build_visco
+    from seigen_tpu_torch.ops.structured_exchange import detect_structured
+    from seigen_tpu_torch.parallel import ShardedUpwindRunner
+
+    dm, p, src, damp, dt, _ = case
+    f0 = src.f0[0].item() if src is not None else 1.0
+    v = build_visco(p, 30.0, 20.0, 0.25 * f0, 2.5 * f0, L=3) if visco \
+        else None
+    w = build_upwind_data(dm, BENCH_MAT, dtype=p.dtype, device=p.device)
+    return ShardedUpwindRunner(p, detect_structured(dm), w, dt, 1, src=src,
+                               damp=damp, visco=v, fill_mode="ppermute",
+                               impl="kernel")
+
+
+def seeded_state(dm, dev):
+    """Phase 4's numpy-seeded random float32 state."""
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.solver.timestep import State
+
+    E, n_p = dm.num_elements, dm.re.n_p
+    rng = np.random.default_rng(7)
+    return State(
+        u=torch.as_tensor(rng.standard_normal((E, n_p, 3)), device=dev
+                          ).float(),
+        s=torch.as_tensor(rng.standard_normal((E, n_p, 6)), device=dev
+                          ).float())
+
+
+def sharded_rank(comm, path):
+    """One rank of phase 15's multi-rank run: ShardedFusedRunner (kernels)
+    on the n=24 P3 case from phase 4's state for RUNNER_STEPS steps, then
+    the same with the overlap split, then the fused_sharded bench on the
+    first runner; rank 0 writes the global state and a JSON record next
+    to ``path``."""
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.bench import throughput
+    from seigen_tpu_torch.ops.structured_exchange import detect_structured
+    from seigen_tpu_torch.parallel import ShardedFusedRunner
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = comm.device
+    case = throughput.setup_case(n=24, degree=3, device=dev)
+    dm, p, src, damp, dt, state0 = case
+    r = ShardedFusedRunner(p, detect_structured(dm), dt, comm.world,
+                           src=src, damp=damp, impl="kernel", comm=comm)
+    st = seeded_state(dm, dev)
+    reset_counts()
+    out, _ = r.run(st, RUNNER_STEPS)
+    torch.cuda.synchronize(dev)
+    counts = read_counts()
+    split = ShardedFusedRunner(p, detect_structured(dm), dt, comm.world,
+                               src=src, damp=damp, impl="kernel", comm=comm,
+                               overlap=True)
+    out_s, _ = split.run(st, RUNNER_STEPS)
+    bitwise = torch.equal(out.u, out_s.u) and torch.equal(out.s, out_s.s)
+    del split, out_s
+    res = throughput.measure(p, src, damp, dt, state0, dm,
+                             n_steps=BENCH_STEPS, runner=r)
+    if comm.rank == 0:
+        np.savez(path, u=out.u.cpu().numpy(), s=out.s.cpu().numpy())
+        with open(path + ".json", "w") as f:
+            json.dump({"counts": counts, "split_bitwise": bitwise,
+                       "rate": res.dof_updates_per_sec,
+                       "ms_step": 1e3 * res.seconds / res.n_steps,
+                       "halo_bytes_per_step": r.halo_bytes_per_step(),
+                       "backend": comm.backend}, f)
+
+
+def sharded_bench(runner, impl, case, tag, **extra):
+    """The bench record of a sharded runner already built on ``case``."""
+    from seigen_tpu_torch.bench import throughput
+
+    dm, p, src, damp, dt, state0 = case
+    res = throughput.measure(p, src, damp, dt, state0, dm,
+                             n_steps=BENCH_STEPS, runner=runner)
+    rec = throughput.report(res, impl, "kernel", p.device)
+    rec["detail"].update(
+        shards=runner.P, fill_mode=getattr(runner, "fill_mode", "ppermute"),
+        overlap=getattr(runner, "_split", None) is not None,
+        halo_bytes_per_step=runner.halo_bytes_per_step(), **extra)
+    print(json.dumps(rec), flush=True)
+    log(f"[sharded] bench {tag}: {rec['value']:.4e} DOF-updates/s, "
+        f"{1e3 * res.seconds / res.n_steps:.4f} ms a step")
+    return rec
+
+
+def phase_sharded(dev, case, st, out_k, check, merged_rec):
+    """Phase 15 (see the module docstring); returns (launches, (kernel
+    ms, plain ms), bounds) of the halo-plan kernels."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.bench import throughput
+    from seigen_tpu_torch.ops import upwind_kernels as uk
+    from seigen_tpu_torch.ops.structured_exchange import detect_structured
+    from seigen_tpu_torch.parallel import ShardedFusedRunner, \
+        ShardedLaneRunner
+    from seigen_tpu_torch.parallel.comm import spawn
+    from seigen_tpu_torch.solver.lane_major import LaneMajorRunner
+
+    t0 = time.perf_counter()
+    # the kernels on halo plans and their lane ranges, small meshes
+    for dim, degree in ((3, 3), (3, 2), (2, 3), (2, 2)):
+        r = small_sharded_runner(dim, degree, dev)
+        log(f"[sharded] {dim}D P{degree}: NC {r.plan.NC}, NCt "
+            f"{r.plan.NCt}, h0 {r.plan.h0}, split {r._split}")
+        compare_split(r, check, f"halo {dim}D P{degree}",
+                      seed=50 + 10 * dim + degree)
+    for dim in (3, 2):
+        r = small_sharded_runner(dim, 1, dev, packed=True)
+        log(f"[sharded] packed {dim}D P1: NC {r.plan.NC}, split {r._split}")
+        compare_split(r, check, f"halo pk {dim}D P1", seed=70 + dim)
+    small_halo_k3(dev, check)
+    log(f"[sharded] halo-plan kernels agree ({time.perf_counter() - t0:.1f}"
+        " s)")
+
+    # one rank at full width: the fill modes and the split
+    dm, p, src, damp, dt, _ = case
+    ex = detect_structured(dm)
+    runs = {}
+    for mode, overlap in (("off", False), ("local", False), ("skip", False),
+                          ("ppermute", False), ("ppermute", True)):
+        tag = mode + (", split" if overlap else "")
+        r = ShardedFusedRunner(p, ex, dt, 1, src=src, damp=damp,
+                               fill_mode=mode, overlap=overlap,
+                               impl="kernel")
+        reset_counts()
+        out, _ = r.run(st, RUNNER_STEPS)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        k = 3 * RUNNER_STEPS * (2 if r._split else 1)
+        log(f"[sharded] 1 rank, fill {tag}: split {r._split}, "
+            f"{k // RUNNER_STEPS} K1 + {k // RUNNER_STEPS} K2 a step")
+        expect_counts(f"sharded {tag}", counts, merged_vel=k,
+                      merged_stress=k)
+        if mode == "off":
+            if not (torch.equal(out.u, out_k.u)
+                    and torch.equal(out.s, out_k.s)):
+                raise AssertionError("fill off: not bitwise the "
+                                     "MergedLaneRunner run")
+            log("[sharded] fill off: bitwise equal to MergedLaneRunner")
+        else:
+            compare_states(f"sharded {tag}", out, out_k,
+                           "vs MergedLaneRunner")
+        runs[tag] = r
+        if tag == "ppermute, split":
+            launches = {"merged_vel[split]": counts["merged_vel"],
+                        "merged_stress[split]": counts["merged_stress"]}
+
+    # lane and upwind (Q) at one rank against their one-device runners
+    lk_run = LaneMajorRunner(p, ex, dt, src=src, damp=damp, impl="kernel")
+    ls_run = ShardedLaneRunner(p, ex, dt, 1, src=src, damp=damp,
+                               impl="kernel")
+    ref, _ = lk_run.run(st, RUNNER_STEPS)
+    reset_counts()
+    out, _ = ls_run.run(st, RUNNER_STEPS)
+    torch.cuda.synchronize()
+    expect_counts("sharded lane", read_counts(),
+                  lane_vel=3 * RUNNER_STEPS, lane_stress=3 * RUNNER_STEPS)
+    compare_states("sharded lane", out, ref, "vs LaneMajorRunner")
+    up_ref = upwind_runner(case, "kernel", visco=True)
+    up_sh = sharded_upwind_runner(case, visco=True)
+    ref, _ = up_ref.run(st, RUNNER_STEPS)
+    reset_counts()
+    out, _ = up_sh.run(st, RUNNER_STEPS)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts("sharded upwind Q", counts, upwind_rhs=4 * RUNNER_STEPS)
+    compare_states("sharded upwind Q", out, ref, "vs UpwindLaneRunner")
+    launches["upwind_rhs[halo]"] = counts["upwind_rhs"]
+
+    # the halo-plan kernels at n=24 P3: every variant, one launch and the
+    # split pair, against the plain version; then their times (the split
+    # pair, one launch, the plain version); K3 on the halo plan likewise
+    times, bounds = {}, {}
+    r = runs["ppermute, split"]
+    lo, hi = r._split
+    x = compare_split(r, check, "halo n=24 P3", seed=24)
+    for op in ("vel", "stress"):
+        kern, plain, args, kw = variant_call(r, x, op, "plain")
+        kname = f"merged_{op}[split]"
+
+        def pair():
+            o = kern(*args, lanes=(lo, hi, 0))
+            return kern(*args, lanes=(lo, hi, 1), out=o)
+
+        t_pair, t_one = time_ms(pair), time_ms(lambda: kern(*args))
+        times[kname] = (t_pair, time_ms(lambda: plain(*args)))
+        bounds[kname] = bound(r.d, r.plan, kname.split("[")[0])
+        log(f"[sharded] {kname} at n=24 P3: interior + boundary "
+            f"{t_pair:.4f} ms, one launch on the halo plan {t_one:.4f} ms, "
+            f"bound {bounds[kname][0]:.4f} ms; plain {times[kname][1]:.4f} "
+            "ms")
+    xu = upwind_inputs(up_sh, 31)
+    ua = upwind_args(up_sh, xu)
+    got, ref = uk.UPWIND_KERNEL(*ua), uk.upwind_rhs_merged_ref(*ua)
+    torch.cuda.synchronize()
+    check("upwind_rhs[halo]", "halo n=24 P3 du", got[0], ref[0])
+    check("upwind_rhs[halo]", "halo n=24 P3 ds", got[1], ref[1])
+    check("upwind_rhs[halo]", "halo n=24 P3 traces",
+          own_lanes(up_sh.plan, got[2]), own_lanes(up_sh.plan, ref[2]))
+    del got, ref
+    times["upwind_rhs[halo]"] = (time_ms(lambda: uk.UPWIND_KERNEL(*ua)),
+                                 time_ms(lambda: uk.upwind_rhs_merged_ref(
+                                     *ua)))
+    bounds["upwind_rhs[halo]"] = bound(up_sh.d, up_sh.plan, "upwind_rhs")
+    log(f"[sharded] upwind_rhs[halo] at n=24 P3: "
+        f"{times['upwind_rhs[halo]'][0]:.4f} ms, bound "
+        f"{bounds['upwind_rhs[halo]'][0]:.4f} ms")
+    del lk_run, ls_run, up_ref, up_sh, x, xu
+
+    # the benches: one shard beside merged (phase 5), lane_sharded beside
+    # lane (LF4), fused_sharded_pk beside merged_pk at n=32 P1
+    log(f"[sharded] bench merged (phase 5): {merged_rec['value']:.4e} "
+        "DOF-updates/s")
+    for tag, rr in runs.items():
+        sharded_bench(rr, "fused_sharded", case, tag)
+    runs.clear()
+    lane_rec = throughput.main(n=24, degree=3, n_steps=BENCH_STEPS,
+                               impl="lane", case=case)
+    print(json.dumps(lane_rec), flush=True)
+    log(f"[sharded] bench lane LF4: {lane_rec['value']:.4e} DOF-updates/s")
+    sharded_bench(ShardedLaneRunner(p, ex, dt, 1, src=src, damp=damp,
+                                    impl="kernel"), "lane_sharded", case,
+                  "lane_sharded LF4")
+    pk = throughput.setup_case(n=32, degree=1, device=dev)
+    pk_rec = throughput.main(n=32, degree=1, n_steps=BENCH_STEPS,
+                             impl="merged_pk", case=pk)
+    print(json.dumps(pk_rec), flush=True)
+    log(f"[sharded] bench merged_pk n=32 P1: {pk_rec['value']:.4e}")
+    dm1, p1, src1, damp1, dt1, _ = pk
+    for mode in ("off", "ppermute"):
+        sharded_bench(ShardedFusedRunner(p1, detect_structured(dm1), dt1, 1,
+                                         src=src1, damp=damp1, packed=True,
+                                         fill_mode=mode, impl="kernel"),
+                      "fused_sharded_pk", pk,
+                      f"fused_sharded_pk n=32 P1, fill {mode}")
+    del pk
+
+    # two ranks: NCCL with two cards, else gloo on the one card
+    n_dev = torch.cuda.device_count()
+    backend = "nccl" if n_dev >= 2 else "gloo"
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "two.npz")
+        spawn(sharded_rank, 2, device="cuda", backend=backend, args=(path,))
+        got = np.load(path)
+        with open(path + ".json") as f:
+            rec = json.load(f)
+    out2 = type(out_k)(u=torch.as_tensor(got["u"], device=dev),
+                       s=torch.as_tensor(got["s"], device=dev))
+    log(f"[sharded] 2 ranks ({backend}, {n_dev} card(s)): rank 0 "
+        f"launches K1 {rec['counts']['merged_vel']} "
+        f"K2 {rec['counts']['merged_stress']} in {RUNNER_STEPS} steps, "
+        f"{rec['rate']:.4e} DOF-updates/s, {rec['ms_step']:.4f} ms a step, "
+        f"halo {rec['halo_bytes_per_step']} B a step a rank "
+        f"({time.perf_counter() - t1:.1f} s)")
+    compare_states("sharded 2 ranks", out2, out_k, "vs MergedLaneRunner")
+    if not rec["split_bitwise"]:
+        raise AssertionError("2 ranks: the split run is not bitwise the "
+                             "unsplit one")
+    log("[sharded] 2 ranks: the split run is bitwise the unsplit one")
+    return launches, times, bounds
+
+
 def main() -> int:
     try:
         import torch
@@ -3173,7 +3585,15 @@ def main() -> int:
     # 14. gradients: the energy-conjugation engines over the kernels
     t0 = time.perf_counter()
     phase_gradients(dev, case, scase, smi)
-    log(f"[grad] phase {time.perf_counter() - t0:.1f} s; total "
+    log(f"[grad] phase {time.perf_counter() - t0:.1f} s")
+
+    # 15. sharded: the slab-sharded runners (parallel/), halo plans
+    t0 = time.perf_counter()
+    for have, new in zip((launches, times, bounds),
+                         phase_sharded(dev, case, st, out_k, check,
+                                       bench["kernel"])):
+        have.update(new)
+    log(f"[sharded] phase {time.perf_counter() - t0:.1f} s; total "
         f"{time.perf_counter() - t_all:.1f} s")
 
     sources = dict(KERNELS)
@@ -3182,6 +3602,8 @@ def main() -> int:
     # the packed layout runs the packed tile kernel
     sources.update({m: ("seigen_tpu_torch/csrc/merged_tile.cuh", replaces)
                     for m, (_, replaces) in PACKED_MODES.items()})
+    sources.update({m: (KERNELS[k][0], KERNELS[k][1])
+                    for m, k in SHARDED_MODES.items()})
     kernels = [{"name": k, "route": "cuda", "source": src_file,
                 "replaces": replaces, "launches": launches[k],
                 "max_abs_err": check.worst[k], "ms": times[k][0],

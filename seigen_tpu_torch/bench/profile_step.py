@@ -14,6 +14,8 @@
     python -m seigen_tpu_torch.bench.profile_step --impl cpml
     python -m seigen_tpu_torch.bench.profile_step --impl pallas
     python -m seigen_tpu_torch.bench.profile_step --kernel-impl reference
+    python -m seigen_tpu_torch.bench.profile_step --impl fused_sharded \
+        --ranks 2             # rank 0 of 2 NCCL ranks, one card each
 
 On the bench case (``throughput.setup_case``, n=24 P3 by default; impls
 "lane_u" and "upwind_lane_u" on its scrambled variant), from a zero state
@@ -35,8 +37,10 @@ card whatever ``--kernel-impl`` says):
 - peak device memory of one run (``max_memory_allocated``);
 - copy bandwidth: a 1 GiB device-to-device copy, read + write bytes.
 
-Prints one JSON line with the GPU's name and power limit.  Needs a CUDA
-device.
+Prints one JSON line with the GPU's name and power limit.  With
+``--ranks N`` a sharded impl runs on N NCCL ranks, one card each (the
+shard count as ``throughput --ranks``), and rank 0 prints its own
+profile; NCCL's kernels are the group "nccl".  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -56,12 +60,14 @@ from .pml_ab import sides_for
 from .throughput import (
     IMPLS,
     SCRAMBLED_IMPLS,
+    SHARDED_IMPLS,
     add_upwind_u_arguments,
     add_vti_argument,
     gpu_name_and_power_limit,
     make_runner,
     scheme_name,
     setup_case,
+    sharded_ranks,
     upwind_u_options,
 )
 
@@ -100,8 +106,9 @@ def kernel_group(name: str) -> str:
     (VEL and V2; K11 too) or K9 (V2) on the packed P1 layout (the suffix
     "[pk]"); ``lane_vel_tile_kernel`` is K4, ``lane_stress_tile_kernel``
     K5; ``lane_upwind_tile_kernel<DIM, NP, NFP, AXPY>`` is K7 (AXPY) or
-    K6; ``upwind_tile_kernel`` is K3 —, and K10; PyTorch's gather/index (the
-    lane runners' trace exchanges), elementwise, copy and matmul kernels as
+    K6; ``upwind_tile_kernel`` is K3 —, and K10; NCCL's kernels (the
+    sharded runners' exchanges) and PyTorch's gather/index (the lane
+    runners' trace exchanges), elementwise, copy and matmul kernels as
     groups; anything else as "other"."""
     if "lane_stress_tile_kernel" in name:
         return "lane_stress"
@@ -119,6 +126,8 @@ def kernel_group(name: str) -> str:
         return "upwind_rhs"
     if "trace_exchange_kernel" in name:
         return "trace_exchange"
+    if name.startswith("nccl"):
+        return "nccl"
     if "gather" in name or "index" in name.lower():
         return "pytorch gather/index"
     if "elementwise_kernel" in name:
@@ -141,7 +150,11 @@ def _device_events(prof):
 
 def profile(impl="upwind_lane", kernel_impl="kernel", n=24, degree=3,
             steps=50, profile_steps=10, device="cuda", order=4, vti=False,
-            **upwind_u) -> dict:
+            comm=None, **upwind_u) -> dict:
+    """The profile record (see the module docstring); ``comm``: this
+    rank's Comm for a sharded impl (default: one rank)."""
+    if comm is not None:
+        device = comm.device
     if torch.device(device).type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError("the step profile measures a CUDA device; none "
                            "is available")
@@ -167,7 +180,7 @@ def profile(impl="upwind_lane", kernel_impl="kernel", n=24, degree=3,
                          stress_op=stress)
     else:
         runner = make_runner(impl, dm, p, src, damp, dt, kernel_impl,
-                             order=order, vti=vti, **upwind_u)
+                             order=order, vti=vti, comm=comm, **upwind_u)
         ulm, slm = runner.to_lm_state(state0)
 
         def run(n):
@@ -222,6 +235,7 @@ def profile(impl="upwind_lane", kernel_impl="kernel", n=24, degree=3,
         "vti": bool(vti),
         **upwind_u,
         "case": {"n": n, "degree": degree, "elements": dm.num_elements},
+        "ranks": 1 if comm is None else comm.world,
         "gpu": name,
         "power_limit": limit,
         "wall_ms_per_step": wall * 1e3,
@@ -237,6 +251,12 @@ def profile(impl="upwind_lane", kernel_impl="kernel", n=24, degree=3,
     }
 
 
+def _rank_profile(comm, args, kw):
+    rec = profile(*args, comm=comm, **kw)
+    if comm.rank == 0:
+        print(json.dumps(rec), flush=True)
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--impl", default="upwind_lane",
@@ -249,10 +269,19 @@ if __name__ == "__main__":
     ap.add_argument("--profile-steps", type=int, default=10)
     ap.add_argument("--order", type=int, default=4, choices=(2, 4),
                     help="LF order of the lane and lane_u runners")
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="sharded impls: spawn this many NCCL ranks")
     add_vti_argument(ap)
     add_upwind_u_arguments(ap)
     a = ap.parse_args()
-    opts = upwind_u_options(a)
-    print(json.dumps(profile(a.impl, a.kernel_impl, a.n, a.degree, a.steps,
-                             a.profile_steps, order=a.order, vti=a.vti,
-                             **opts)))
+    args = (a.impl, a.kernel_impl, a.n, a.degree, a.steps, a.profile_steps)
+    kw = dict(order=a.order, vti=a.vti, **upwind_u_options(a))
+    if a.ranks > 1:
+        if a.impl not in SHARDED_IMPLS:
+            raise SystemExit(f"--ranks needs a sharded impl {SHARDED_IMPLS}")
+        from ..parallel.comm import spawn
+
+        spawn(_rank_profile, sharded_ranks(a.n, a.ranks), device="cuda",
+              backend="nccl", args=(args, kw))
+    else:
+        print(json.dumps(profile(*args, **kw)))

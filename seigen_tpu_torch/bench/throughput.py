@@ -27,10 +27,18 @@ E * n_p * (dim + n_sig).  The timed region is the runner's ``run_lm`` over
     python -m seigen_tpu_torch.bench.throughput --impl lane_u --vti
     python -m seigen_tpu_torch.bench.throughput --impl upwind_lane
     python -m seigen_tpu_torch.bench.throughput --impl upwind_lane_u
+    python -m seigen_tpu_torch.bench.throughput --impl fused_sharded \
+        [--fill-mode off|local|skip|ppermute] [--overlap] [--ranks 4]
+    python -m seigen_tpu_torch.bench.throughput --impl lane_sharded
     python -m seigen_tpu_torch.bench.throughput --kernel-impl reference
 
-prints one JSON line.  The measurement needs a CUDA device and refuses to
-run without one.
+prints one JSON line.  With ``--ranks N`` (N > 1) a sharded impl runs on
+N NCCL ranks, one card each, and its line also gives the cost of one halo
+exchange of the fused fill's planes (``exchange_us``): by the port's
+route (``Comm.ring_exchange_start``: batch_isend_irecv of 4 ops) and, as
+a yardstick, by one ``all_to_all_single`` moving the same planes, host
+and wall microseconds a call over 300 calls.  The measurement needs a
+CUDA device and refuses to run without one.
 """
 
 from __future__ import annotations
@@ -62,7 +70,10 @@ from ..solver.timestep import State, cfl_dt
 # elastic parameters and the Godunov impedances stay consistent
 BENCH_MAT = Material(rho=1.0, vp=2.0, vs=1.0)
 IMPLS = ("merged", "upwind_lane", "lane", "lane_u", "upwind_lane_u",
-         "fused", "merged_pk")
+         "fused", "merged_pk", "fused_sharded", "fused_sharded_pk",
+         "lane_sharded")
+# the slab-sharded runners (parallel/): n_shards = the ranks of the run
+SHARDED_IMPLS = ("fused_sharded", "fused_sharded_pk", "lane_sharded")
 SCRAMBLED_IMPLS = ("lane_u", "upwind_lane_u")  # run on the scrambled case
 RK4_IMPLS = ("upwind_lane", "upwind_lane_u")
 # central flux: these take a stiffness
@@ -146,7 +157,8 @@ def _sync(device):
 
 
 def make_runner(impl, dm, p, src, damp, dt, kernel_impl=None, visco=None,
-                order=4, vti=False, **upwind_u):
+                order=4, vti=False, comm=None, fill_mode="auto",
+                overlap=False, **upwind_u):
     """The bench's lane runner: "merged" (LF4, MergedLaneRunner),
     "merged_pk" (the same with packed=True: P1 only), "fused"
     (LF4, FusedLaneRunner: K8/K9 and the K10 exchange), "lane"
@@ -156,7 +168,11 @@ def make_runner(impl, dm, p, src, damp, dt, kernel_impl=None, visco=None,
     (Godunov RK4, UnstructuredUpwindRunner in Morton order; ``upwind_u``:
     its ``fused_axpy``/``panel_emit``).  The upwind runners take the bench
     material's impedances and ``visco`` (optional ViscoData); ``order``
-    does not apply to them.  ``vti``: the stress operators of the four
+    does not apply to them.  "fused_sharded" (ShardedFusedRunner, LF4;
+    ``fill_mode``, ``overlap``), "fused_sharded_pk" (the same packed: P1
+    only) and "lane_sharded" (ShardedLaneRunner, LF ``order``) run one
+    slab a rank of ``comm`` (default: this process's ranks; n_shards must
+    divide G0).  ``vti``: the stress operators of the four
     LF runners take ``bench_stiffness``.  kernel_impl: "kernel" (CUDA
     kernels) or "reference" (their plain PyTorch versions); default by
     device."""
@@ -177,6 +193,21 @@ def make_runner(impl, dm, p, src, damp, dt, kernel_impl=None, visco=None,
     ex = detect_structured(dm)
     if ex is None:
         raise ValueError(f"{impl} impl requires a structured mesh")
+    if impl in SHARDED_IMPLS:
+        from ..parallel import ShardedFusedRunner, ShardedLaneRunner
+        from ..parallel.comm import current
+
+        comm = comm or current(p.device)
+        if impl == "lane_sharded":
+            return ShardedLaneRunner(p, ex, dt, comm.world, order=order,
+                                     src=src, damp=damp, impl=kernel_impl,
+                                     stiffness=stiffness, comm=comm)
+        if order != 4:
+            raise ValueError(f"the {impl} runner is LF4 only")
+        return ShardedFusedRunner(
+            p, ex, dt, comm.world, src=src, damp=damp, impl=kernel_impl,
+            stiffness=stiffness, packed=(impl == "fused_sharded_pk"),
+            fill_mode=fill_mode, overlap=overlap, comm=comm)
     if impl in ("merged", "merged_pk"):
         # merged_pk forces the packed layout; plain "merged" stays unpacked
         # at every degree, so the two compare at P1
@@ -196,11 +227,13 @@ def make_runner(impl, dm, p, src, damp, dt, kernel_impl=None, visco=None,
 
 def measure(p, src, damp, dt, state0, dm, n_steps: int = 50,
             impl: str = "merged", kernel_impl: str | None = None,
-            order: int = 4, vti: bool = False, **upwind_u) -> BenchResult:
-    """Time ``n_steps`` of a lane runner (see make_runner), best of 3 after
-    a warm-up."""
-    runner = make_runner(impl, dm, p, src, damp, dt, kernel_impl,
-                         order=order, vti=vti, **upwind_u)
+            order: int = 4, vti: bool = False, runner=None,
+            **upwind_u) -> BenchResult:
+    """Time ``n_steps`` of a lane runner (see make_runner; or ``runner``),
+    best of 3 after a warm-up.  A sharded runner times its slab; the ring's
+    halo exchanges keep the ranks in step."""
+    runner = runner or make_runner(impl, dm, p, src, damp, dt, kernel_impl,
+                                   order=order, vti=vti, **upwind_u)
     ulm, slm = runner.to_lm_state(state0)
     runner.run_lm(ulm, slm, n_steps)  # warm-up
     _sync(p.device)
@@ -295,21 +328,94 @@ def upwind_u_options(a) -> dict:
 def main(n: int = 24, degree: int = 3, n_steps: int = 100,
          impl: str = "merged", device: str = "cuda",
          kernel_impl: str = "kernel", case=None, order: int = 4,
-         vti: bool = False, **upwind_u) -> dict:
+         vti: bool = False, comm=None, fill_mode: str = "auto",
+         overlap: bool = False, **upwind_u) -> dict:
     """Measure a lane runner (``impl``, see measure) on the CUDA device;
     returns the JSON record.  ``case``: a ``setup_case`` result to reuse
-    (impls "lane_u" and "upwind_lane_u" build the scrambled case)."""
+    (impls "lane_u" and "upwind_lane_u" build the scrambled case).  The
+    sharded impls run on ``comm``'s ranks (see make_runner) and add the
+    shard count, the fill mode, the overlap and the bytes a rank sends a
+    step to the record, and on several ranks the exchange's cost
+    (``exchange_us``)."""
     if torch.device(device).type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError("the throughput bench measures a CUDA device; "
                            "none is available")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if comm is not None:
+        device = comm.device
     dm, p, src, damp, dt, state0 = case or setup_case(
         n=n, degree=degree, device=device,
         scramble=(impl in SCRAMBLED_IMPLS))
+    runner = make_runner(impl, dm, p, src, damp, dt, kernel_impl,
+                         order=order, vti=vti, comm=comm,
+                         fill_mode=fill_mode, overlap=overlap, **upwind_u)
     res = measure(p, src, damp, dt, state0, dm, n_steps=n_steps, impl=impl,
-                  kernel_impl=kernel_impl, order=order, vti=vti, **upwind_u)
-    return report(res, impl, kernel_impl, device, order, vti=vti, **upwind_u)
+                  kernel_impl=kernel_impl, order=order, vti=vti,
+                  runner=runner, **upwind_u)
+    out = report(res, impl, kernel_impl, device, order, vti=vti, **upwind_u)
+    if impl in SHARDED_IMPLS:
+        out["detail"].update(
+            shards=runner.P, backend_p2p=runner.comm.backend,
+            fill_mode=getattr(runner, "fill_mode", "ppermute"),
+            overlap=getattr(runner, "_split", None) is not None,
+            halo_bytes_per_step=runner.halo_bytes_per_step())
+        if runner.P > 1 and hasattr(runner, "_halo_idx"):
+            out["detail"]["exchange_us"] = exchange_us(runner)
+    return out
+
+
+def exchange_us(runner, reps: int = 300) -> dict:
+    """Host and wall microseconds a call of one halo exchange of a
+    multi-rank ShardedFusedRunner's fill planes: by the port's route
+    (``ring_exchange``) and by one ``all_to_all_single`` moving the same
+    planes (its chunks land in rank order: the yardstick reads its time,
+    not its placement)."""
+    import torch.distributed as dist
+
+    comm, n_first = runner.comm, runner._n_first
+    planes = torch.randn(len(runner._halo_idx[0]), device=comm.device)
+    got = torch.empty_like(planes)
+    W, L, R = comm.world, comm.left, comm.right
+    n_last = planes.numel() - n_first
+    ins, outs = [0] * W, [0] * W
+    ins[L] += n_first
+    ins[R] += n_last
+    outs[R] += n_first
+    outs[L] += n_last
+    routes = {
+        "ring_exchange": lambda: comm.ring_exchange_start(
+            planes[:n_first], planes[n_first:],
+            into=(got[n_first:], got[:n_first])).wait(),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            got, planes, outs, ins)}
+    out = {}
+    for name, fn in routes.items():
+        for _ in range(20):
+            fn()
+        _sync(comm.device)
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t1 = time.perf_counter()
+        _sync(comm.device)
+        t2 = time.perf_counter()
+        out[name] = {"host_us": 1e6 * (t1 - t0) / reps,
+                     "wall_us": 1e6 * (t2 - t0) / reps}
+    return out
+
+
+def sharded_ranks(G0: int, ranks: int) -> int:
+    """The shard count of a sharded bench on ``ranks`` ranks: the largest
+    divisor of G0 that is at most ``ranks``."""
+    return max(k for k in range(1, ranks + 1) if G0 % k == 0)
+
+
+def _rank_main(comm, kw):
+    out = main(comm=comm, **kw)
+    if comm.rank == 0:
+        print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":
@@ -324,8 +430,26 @@ if __name__ == "__main__":
                     help="LF order of the lane and lane_u runners")
     add_vti_argument(ap)
     add_upwind_u_arguments(ap)
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="sharded impls: spawn this many NCCL ranks (one "
+                    "card each; the shard count is the largest divisor of "
+                    "G0 = n up to it)")
+    ap.add_argument("--fill-mode", default="auto",
+                    choices=("auto", "off", "ppermute", "local", "skip"),
+                    help="fused_sharded(_pk): the halo fill (one shard: "
+                    "any; several: ppermute)")
+    ap.add_argument("--overlap", action="store_true",
+                    help="fused_sharded(_pk): the interior/boundary split, "
+                    "not one launch an operator")
     a = ap.parse_args()
-    opts = upwind_u_options(a)
-    print(json.dumps(main(n=a.n, degree=a.degree, n_steps=a.steps,
-                          impl=a.impl, kernel_impl=a.kernel_impl,
-                          order=a.order, vti=a.vti, **opts)))
+    kw = dict(n=a.n, degree=a.degree, n_steps=a.steps, impl=a.impl,
+              kernel_impl=a.kernel_impl, order=a.order, vti=a.vti,
+              fill_mode=a.fill_mode, overlap=a.overlap,
+              **upwind_u_options(a))
+    if a.ranks > 1:
+        from ..parallel.comm import spawn
+
+        spawn(_rank_main, sharded_ranks(a.n, a.ranks), device="cuda",
+              backend="nccl", args=(kw,))
+    else:
+        print(json.dumps(main(**kw)))

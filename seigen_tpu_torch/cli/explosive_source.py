@@ -21,8 +21,19 @@ take their CUDA kernels on the card and their plain versions on the CPU.
 ``--scheme upwind-rk4`` runs UpwindLaneRunner (structured meshes, K3) or
 UnstructuredUpwindRunner (K6/K7; also forced by ``--impl lane_u``), or with
 ``--impl einsum`` the einsum RK4; ``--qp/--qs`` add viscoelastic memory
-variables, which ride the checkpoints.  The sharded paths (``--shards``,
-``--dist-impl``) are not ported yet.
+variables, which ride the checkpoints.
+
+``--shards N`` runs the slab-sharded LF paths on N ranks that the CLI
+spawns itself (NCCL, one card a rank; gloo with ``--cpu``):
+``--dist-impl auto`` takes ShardedFusedRunner (LF4, packed P1 where it
+applies, ``--vti``) and else ShardedLaneRunner (LF2/LF4), both on a
+structured mesh with N | G0 (parallel/); ``fused`` and ``lane`` ask for
+one of them.  Rank 0 writes the seismograms, checkpoints, VTK and report.
+The unstructured (``lane_u``) and general sharded paths are not ported
+yet (ROADMAP.md, Slice E2).
+
+    python -m seigen_tpu_torch.cli.explosive_source --dim 3 --n 24 \
+        --degree 3 --shards 2
 """
 
 from __future__ import annotations
@@ -77,12 +88,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="layered + salt-body heterogeneous model")
     ap.add_argument("--receivers", type=int, default=16)
     ap.add_argument("--shards", type=int, default=0,
-                    help="mesh-sharded run over this many devices (not "
-                         "ported yet: exits non-zero)")
+                    help="mesh-sharded run on this many ranks (one card "
+                         "each; gloo CPU processes with --cpu)")
     ap.add_argument("--dist-impl",
                     choices=["auto", "fused", "lane", "lane_u", "general"],
-                    default=None,
-                    help="sharded backend (not ported yet: exits non-zero)")
+                    default="auto",
+                    help="sharded backend (lane_u and general: not "
+                         "ported yet)")
     ap.add_argument("--f64", action="store_true")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (plain operator versions)")
@@ -467,16 +479,79 @@ def make_advance(args, c: Case, cpu: bool):
     return advance, visco
 
 
-def time_loop(args, c: Case, timer: RegionTimer, cpu: bool):
+def refuse_unported_shards(args):
+    """Exit non-zero for a ``--shards`` run whose sharded path is not
+    ported (the general and unstructured ones, Slice E2) or does not
+    exist (C-PML)."""
+    if args.pml is not None:
+        raise SystemExit("--pml has no sharded path")
+    if args.scheme != "lf":
+        raise SystemExit(f"--shards with --scheme {args.scheme} takes the "
+                         "general sharded path, not ported yet "
+                         "(ROADMAP.md, Slice E2)")
+    if args.dist_impl in ("lane_u", "general"):
+        raise SystemExit(f"--dist-impl {args.dist_impl}: not ported yet "
+                         "(ROADMAP.md, Slice E2)")
+
+
+def make_sharded_advance(args, c: Case, comm):
+    """``advance`` of a ``--shards`` run on this rank (the chunk's global
+    State and seismograms on every rank), as the JAX script picks its
+    sharded runner."""
+    from ..parallel import ShardedFusedRunner, ShardedLaneRunner
+
+    ex = detect_structured(c.dm)
+    eligible = ex is not None and ex.grid[0] % args.shards == 0
+    kw = dict(src=c.src, damp=c.damp, receivers=c.rcv, comm=comm)
+    runner = None
+    if eligible and args.dist_impl in ("auto", "fused") and args.order == 4:
+        try:
+            runner = ShardedFusedRunner(c.p, ex, c.dt, args.shards,
+                                        stiffness=c.aniso_C, packed="auto",
+                                        **kw)
+            name = "fused"
+        except ValueError:
+            if args.dist_impl == "fused":
+                raise
+    if runner is None and c.aniso_C is not None:
+        raise SystemExit(
+            "--vti with --shards needs the fused DD pipeline "
+            f"(mesh grid={None if ex is None else ex.grid}, "
+            f"shards={args.shards})")
+    if runner is None and eligible and args.dist_impl in ("auto", "lane"):
+        runner = ShardedLaneRunner(c.p, ex, c.dt, args.shards,
+                                   order=args.order, **kw)
+        name = "lane"
+    if runner is None:
+        raise SystemExit(
+            f"--dist-impl {args.dist_impl} needs a structured mesh with "
+            f"shards | G0 (got grid={None if ex is None else ex.grid}); "
+            "the general sharded path is not ported yet (ROADMAP.md, "
+            "Slice E2)")
+    if comm.rank == 0:
+        print(f"sharded path: {name} (slab x{args.shards}, "
+              f"{comm.backend or 'one rank'})")
+
+    def advance(st, xi, n0, k):
+        fin, ys = runner.run(st, k, step0=n0)
+        return fin, None, ys
+
+    return advance, None
+
+
+def time_loop(args, c: Case, timer: RegionTimer, cpu: bool, comm=None):
     """Steps step0..n_steps in chunks of ``--vtk-every`` /
     ``--checkpoint-every``: snapshots and checkpoints between chunks, the
     seismograms brought to the host once a chunk.  Returns (final State,
-    seismogram chunks)."""
+    seismogram chunks).  ``comm``: a rank of a ``--shards`` run (every rank
+    steps the same chunks; rank 0 writes)."""
     dm, dim = c.dm, c.dm.dim
-    advance, visco = make_advance(args, c, cpu)
-    pvd = PVDWriter(args.vtk, dm) if args.vtk else None
+    advance, visco = (make_advance(args, c, cpu) if comm is None
+                      else make_sharded_advance(args, c, comm))
+    write = comm is None or comm.rank == 0
+    pvd = PVDWriter(args.vtk, dm) if args.vtk and write else None
     chunk = min(args.checkpoint_every if args.checkpoint else c.n_steps,
-                args.vtk_every if pvd else c.n_steps, c.n_steps)
+                args.vtk_every if args.vtk else c.n_steps, c.n_steps)
     st, xi = c.st, None
     if visco is not None:
         xi = c.extras.get("xi")
@@ -494,8 +569,8 @@ def time_loop(args, c: Case, timer: RegionTimer, cpu: bool):
             n += k
             if pvd and (n % args.vtk_every == 0 or n == c.n_steps):
                 pvd.write(n * c.dt, _vtk_fields(st, dim))
-            if args.checkpoint and (n % args.checkpoint_every == 0
-                                    or n == c.n_steps):
+            if write and args.checkpoint and (
+                    n % args.checkpoint_every == 0 or n == c.n_steps):
                 save_checkpoint(args.checkpoint, st, n,
                                 {"dt": c.dt, "T": args.T},
                                 extras=None if xi is None else {"xi": xi})
@@ -504,21 +579,54 @@ def time_loop(args, c: Case, timer: RegionTimer, cpu: bool):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.shards or args.dist_impl is not None:
-        raise SystemExit("--shards/--dist-impl: the sharded paths are not "
-                         "ported yet (ROADMAP.md Queue 1 item 26)")
-    dev = pick_device(args.cpu)
+    if args.shards:
+        refuse_unported_shards(args)
+        pick_device(args.cpu)
+        from ..parallel.comm import init, spawn
+
+        if args.shards == 1:
+            return _rank_main(init(0, 1, None, "", "cpu" if args.cpu
+                                   else "cuda"), args)
+        try:
+            spawn(_rank_entry, args.shards,
+                  device="cpu" if args.cpu else "cuda",
+                  backend="gloo" if args.cpu else "nccl", args=(args,))
+        except Exception as e:  # a rank failed: its error is printed
+            print(f"sharded run failed: {e}", file=sys.stderr)
+            return 1
+        return 0
+    return _rank_main(None, args)
+
+
+def _rank_entry(comm, args):
+    rc = _rank_main(comm, args)
+    if rc:
+        raise SystemExit(rc)
+
+
+def _rank_main(comm, args) -> int:
+    """The run itself; with ``comm`` one rank of a ``--shards`` run (a
+    rank whose wavefield is not finite exits 1)."""
+    dev = pick_device(args.cpu) if comm is None else comm.device
+    rank0 = comm is None or comm.rank == 0
     timer = RegionTimer()
     with timer.region("setup"):
         c = setup(args, dev, run_dtype(args.f64))
     dm = c.dm
     E, n_p, dim = dm.num_elements, dm.re.n_p, dm.dim
     dof = E * n_p * (dim + n_sig_for(dim))
-    print(f"E={E} dof={dof} dt={c.dt:.3e} steps={c.n_steps} f0={c.f0:.1f}")
+    if rank0:
+        print(f"E={E} dof={dof} dt={c.dt:.3e} steps={c.n_steps} "
+              f"f0={c.f0:.1f}")
     if args.pml is not None:
         st, seis_chunks = run_pml(args, c, timer, args.cpu)
     else:
-        st, seis_chunks = time_loop(args, c, timer, args.cpu)
+        st, seis_chunks = time_loop(args, c, timer, args.cpu, comm=comm)
+    if not rank0:
+        umax = float(st.u.abs().max())
+        if not np.isfinite(umax):
+            raise SystemExit(1)
+        return 0
 
     seis = np.concatenate(seis_chunks, axis=0) if seis_chunks else None
     if args.out and seis is not None:

@@ -15,6 +15,17 @@
 // and the neighbour trace is read at lane t2*NC + j + s, rows f2*rtf +
 // c*n_fp + pi[k].
 //
+// A slab of a sharded run (seigen_tpu_torch/parallel/fused_sharded.py, the
+// JAX package's parallel/fused_sharded.py) keeps its traces on wider
+// per-class trace lanes: NCt = NC + 2*h0, the own lanes from h0 = Grest on,
+// the neighbour slabs' boundary planes in the h0 halo lanes each side, so
+// the read is at trace lane t2*NCt + h0 + j + s (clamped into those NCt
+// lanes) and the emission at u*NCt + h0 + j; the kernels never write the
+// halo lanes.  A launch may cover a lane range of every class (j_lo, j_hi,
+// or with inv the lanes outside it): the interior lanes, which read no
+// halo lane, launch before the halo exchange ends and the boundary lanes
+// after it, into the same outputs — bitwise one launch.
+//
 // What bounds it on the H100.  Per lane and operator the arithmetic is a
 // few thousand FP32 FMAs (Dr and LIFT products at P3), the compulsory
 // device-memory traffic ~2 KB (field in, traces in, geo, field and traces
@@ -151,7 +162,7 @@
 // MergedArgs in seigen_tpu_torch/ops/merged_kernels.py.
 struct MergedArgs {
   const float* field;  // sigma (n_sig*npp, Ls) for K1; u (dim*npp, Ls) for K2
-  const float* trs;    // merged: producer face-major traces (nf*rtf, Ls);
+  const float* trs;    // merged: producer face-major traces (nf*rtf, Lt);
                        // v2: consumer-ordered traces (dim*ftpp, Ls)
   const float* geo;    // (G_ROWS, Ls) geo sections (FusedOpData layout)
   const float* mask;   // (8, Ls): row f != 0 -> face f takes the own trace
@@ -168,10 +179,16 @@ struct MergedArgs {
                        // j*dim + r = Dr_r[., j], dim*n_p + q = LIFT[., q],
                        // n_p padded to a multiple of 4
   float* out;          // (C*npp, Ls) operator output
-  float* trout;        // traces of out: merged (nf*rtf, Ls) face-major,
+  float* trout;        // traces of out: merged (nf*rtf, Lt) face-major,
                        // v2 (dim*ftpp, Ls) component-major
   long long Ls;        // lanes = m * NC
+  long long Lt;        // trace lanes = m * NCt (v2: Ls)
   int NC;              // lanes per class
+  int NCt;             // trace lanes per class: h0 halo lanes, the NC own
+                       // lanes, then the right halo (v2, unsharded: NC)
+  int h0;              // the first own lane of a class's trace lanes
+  int j_lo, j_hi;      // the launch covers lanes [j_lo, j_hi) of every
+  int inv;             // class, or with inv = 1 the lanes outside them
   int npp;             // node rows per component (n_p rounded up to 8)
   int rtf;             // merged: trace rows per face (n_par * rtq);
                        // v2: trace rows per component (ftpp)
@@ -229,8 +246,7 @@ int launch_tile(const MergedArgs& a, cudaStream_t stream) {
       merged_tile_kernel<DIM, NP, NFP, VEL, ANISO, V2>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, LY::BYTES);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((unsigned)((a.NC + LY::T - 1) / LY::T),
-                  (unsigned)(a.Ls / a.NC));
+  const dim3 grid(tile::range_tiles<LY::T>(a), (unsigned)(a.Ls / a.NC));
   merged_tile_kernel<DIM, NP, NFP, VEL, ANISO, V2>
       <<<grid, LY::THREADS, LY::BYTES, stream>>>(a);
   return (int)cudaGetLastError();
@@ -245,8 +261,7 @@ int launch_tile_pk(const MergedArgs& a, cudaStream_t stream) {
       merged_tile_pk_kernel<DIM, NP, NFP, VEL, V2>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, LY::BYTES);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((unsigned)((a.NC + LY::T - 1) / LY::T),
-                  (unsigned)(a.Ls / a.NC), 2);
+  const dim3 grid(tile::range_tiles<LY::T>(a), (unsigned)(a.Ls / a.NC), 2);
   merged_tile_pk_kernel<DIM, NP, NFP, VEL, V2>
       <<<grid, LY::THREADS, LY::BYTES, stream>>>(a);
   return (int)cudaGetLastError();

@@ -167,29 +167,49 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // The block's tile: class t, first lane j0 of the class, nvalid live lanes
-// (the last tile of a class is ragged); the thread's lane l and node group
+// (the last tile of a range is ragged); the thread's lane l and node group
 // ig (threadIdx.x = ig*T + l).  Packed (NPAR = 2): blockIdx = (tile,
 // packed class u, parity par), and the class is the original t = 2u + par.
+// The tiles of a launch cover the lanes [j_lo, j_hi) of every class, or
+// with inv the lanes [0, j_lo) and then [j_hi, NC): the interior and the
+// boundary launches of a slab's overlap schedule (one launch: 0, NC, 0).
 struct Tile {
   int t, j0, nvalid, l, ig;
-  int par;          // the element's parity (0 unpacked)
-  long long lane0;  // u*NC + j0 (unpacked u = t)
-  bool live;        // l < nvalid
+  int par;           // the element's parity (0 unpacked)
+  long long lane0;   // u*NC + j0 (unpacked u = t)
+  long long tlane0;  // its trace lane u*NCt + h0 + j0 (merged layout)
+  bool live;         // l < nvalid
 };
+
+// Tiles of T lanes a class that a launch over a.j_lo, a.j_hi, a.inv takes.
+template <int T, class Args>
+__host__ __device__ __forceinline__ unsigned range_tiles(const Args& a) {
+  return a.inv ? (unsigned)((a.j_lo + T - 1) / T + (a.NC - a.j_hi + T - 1) / T)
+               : (unsigned)((a.j_hi - a.j_lo + T - 1) / T);
+}
 
 template <class LY, class Args>
 __device__ __forceinline__ Tile make_tile(const Args& a) {
   Tile tl;
   tl.par = LY::NPAR == 1 ? 0 : (int)blockIdx.z;
   tl.t = (int)blockIdx.y * LY::NPAR + tl.par;
-  tl.j0 = (int)blockIdx.x * LY::T;
-  tl.nvalid = min(LY::T, a.NC - tl.j0);
+  const int nl = (a.j_lo + LY::T - 1) / LY::T, b = (int)blockIdx.x;
+  int end = a.j_hi;
+  if (!a.inv) {
+    tl.j0 = a.j_lo + b * LY::T;
+  } else if (b < nl) {
+    tl.j0 = b * LY::T, end = a.j_lo;
+  } else {
+    tl.j0 = a.j_hi + (b - nl) * LY::T, end = a.NC;
+  }
+  tl.nvalid = min(LY::T, end - tl.j0);
   tl.l = (int)threadIdx.x % LY::T;
   tl.ig = (int)threadIdx.x / LY::T;
   // the class index as an int, sign-extended: a zero-extended blockIdx.y
   // moves the registers of K1/K2/K9 at several shapes
-  tl.lane0 =
-      (long long)(LY::NPAR == 1 ? tl.t : (int)blockIdx.y) * a.NC + tl.j0;
+  const int u = LY::NPAR == 1 ? tl.t : (int)blockIdx.y;
+  tl.lane0 = (long long)u * a.NC + tl.j0;
+  tl.tlane0 = (long long)u * a.NCt + a.h0 + tl.j0;
   tl.live = tl.l < tl.nvalid;
   return tl;
 }
@@ -242,10 +262,11 @@ __device__ __forceinline__ const float* in_src(const Args& a, int r, int h) {
 // copy); the input field's live rows and the geo rows (16 bytes a copy
 // when the tile is whole and its rows are 16-byte aligned, else 4 bytes,
 // lanes past nvalid loading the last live lane); and the neighbour's trace
-// rows f2*rtf + c*NFP + pi[k] at lanes t2*NC + j0 + s + l, clamped into
-// the class t2 (16 bytes a copy where the face's shift s keeps the
-// segment aligned and inside the class, else 4 bytes; packed: the
-// parity block t2 % 2 of the producer face at lanes (t2 / 2)*NC + ...),
+// rows f2*rtf + c*NFP + pi[k] at trace lanes t2*NCt + h0 + j0 + s + l,
+// clamped into the trace lanes of the class t2, its halo included (16
+// bytes a copy where the face's shift s keeps the segment aligned and
+// inside them, else 4 bytes; packed: the parity block t2 % 2 of the
+// producer face at lanes (t2 / 2)*NCt + ...),
 // or with V2 the lane's own rows c*rtf + q of the exchanged traces (as the
 // input; packed: the parity's rows c*rtf + par*NFT + q).
 // Consecutive threads copy consecutive lanes.
@@ -261,7 +282,7 @@ __device__ __forceinline__ void stage(const Args& a, const Tile& tl,
     cp_async16(sm + LY::OFF_A + 4 * e, a.tab + 4 * e);
   const long long Ls = a.Ls;
   const bool vec =
-      tl.nvalid == T && ((Ls | a.NC) & 3) == 0 &&
+      tl.nvalid == T && ((Ls | a.NC | tl.j0) & 3) == 0 &&
       (((uintptr_t)a.field | (uintptr_t)a.geo | (uintptr_t)a.mask) & 15) ==
           0;
   if (vec) {
@@ -283,7 +304,8 @@ __device__ __forceinline__ void stage(const Args& a, const Tile& tl,
       cp_async4(sm + LY::OFF_GEO + r * T + tl.l,
                 geo_row<LY>(a, r, tl.par) + own);
   }
-  const bool vec_tr = vec && ((uintptr_t)a.trs & 15) == 0;
+  const bool vec_tr = vec && ((uintptr_t)a.trs & 15) == 0 &&
+                      ((a.Lt | a.NCt | a.h0) & 3) == 0;
   if constexpr (LY::V2) {
     float* dst = sm + LY::OFF_NB;
     const int hq = LY::NPAR == 1 ? 0 : tl.par * NFT;
@@ -305,25 +327,28 @@ __device__ __forceinline__ void stage(const Args& a, const Tile& tl,
     for (int f = 0; f < LY::NF; ++f) {
       const int* pe = a.plan + (tl.t * LY::NF + f) * (3 + NFP);
       const int s = pe[2];
+      const long long Lt = a.Lt;
       const float* base =
-          a.trs + ((long long)pe[1] * a.rtf + (pe[0] % LY::NPAR) * a.rtq) * Ls +
-          (long long)(pe[0] / LY::NPAR) * a.NC;
+          a.trs + ((long long)pe[1] * a.rtf + (pe[0] % LY::NPAR) * a.rtq) * Lt +
+          (long long)(pe[0] / LY::NPAR) * a.NCt + a.h0;
       float* dst = sm + LY::OFF_NB + f * NFP * T;
-      if (vec_tr && (s & 3) == 0 && tl.j0 + s >= 0 && tl.j0 + s + T <= a.NC) {
+      const int jlo = -a.h0, jhi = a.NCt - a.h0;  // the class's trace lanes
+      if (vec_tr && (s & 3) == 0 && tl.j0 + s >= jlo &&
+          tl.j0 + s + T <= jhi) {
         // the whole segment lies in the class, 16-byte aligned
         for (int e = threadIdx.x; e < LY::DIM * NFP * Q; e += LY::THREADS) {
           const int r = e / Q, l4 = (e % Q) * 4, c = r / NFP, k = r % NFP;
           cp_async16(dst + (c * NFT + k) * T + l4,
-                     base + (long long)(c * NFP + pe[3 + k]) * Ls + tl.j0 +
+                     base + (long long)(c * NFP + pe[3 + k]) * Lt + tl.j0 +
                          s + l4);
         }
       } else {
         int jn = tl.j0 + tl.l + s;
-        jn = jn < 0 ? 0 : (jn >= a.NC ? a.NC - 1 : jn);
+        jn = jn < jlo ? jlo : (jn >= jhi ? jhi - 1 : jn);
         for (int r = tl.ig; r < LY::DIM * NFP; r += NG) {
           const int c = r / NFP, k = r % NFP;
           cp_async4(dst + (c * NFT + k) * T + tl.l,
-                    base + (long long)(c * NFP + pe[3 + k]) * Ls + jn);
+                    base + (long long)(c * NFP + pe[3 + k]) * Lt + jn);
         }
       }
     }
@@ -412,8 +437,9 @@ __device__ __forceinline__ void store_tile(const Args& a, const Tile& tl,
 
 // The traces of the output (pad rows 0): the velocity itself (K1) or the
 // traction n . sigma (K2) at face node q = f*NFP + k, face-major at rows
-// f*rtf + c*NFP + k (packed: f*rtf + par*rtq + c*NFP + k, the pad rows of
-// the parity's block), or with V2 component-major at rows c*rtf + q
+// f*rtf + c*NFP + k of the lane's trace lane (packed: f*rtf + par*rtq +
+// c*NFP + k, the pad rows of the parity's block; a class's halo lanes are
+// not written), or with V2 component-major at rows c*rtf + q
 // (packed: c*rtf + par*NFT + q; the pad rows NPAR*NFT..rtf-1, which follow
 // parity 1's rows, are parity 0's to write, so the two never race).
 template <class LY, class Args>
@@ -424,7 +450,9 @@ __device__ __forceinline__ void emit(const Args& a, const Tile& tl,
   const float* s_out = sm + LY::OFF_IN + tl.l;
   const float* s_geo = sm + LY::OFF_GEO + tl.l;
   const int* s_fn = reinterpret_cast<const int*>(sm + LY::OFF_INT);
-  const long long Ls = a.Ls, L = tl.lane0 + tl.l;
+  // V2 traces lie on the state lanes, merged ones on the trace lanes
+  const long long Ls = LY::V2 ? a.Ls : a.Lt,
+                  L = (LY::V2 ? tl.lane0 : tl.tlane0) + tl.l;
   // row distance of the components of one face node
   const size_t cs = (size_t)(LY::V2 ? a.rtf : NFP) * Ls;
   const int hq = LY::NPAR == 1 ? 0 : tl.par * LY::NFT;

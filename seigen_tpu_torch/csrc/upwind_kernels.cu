@@ -7,7 +7,9 @@
 // devices (per-class pallas_calls, lane blocks and their windows, one-hot
 // MXU permutation and expansion matmuls, bf16 three-pass dots) are gone.
 // One launch covers all classes, and the neighbour's (velocity, traction)
-// payload trace is read at lane t2*NC + j + s, rows f2*rtf + c*n_fp + pi[k]
+// payload trace is read at trace lane t2*NCt + h0 + j + s (a slab's halo
+// lanes included: NCt = NC + 2*h0 on a sharded plan, NC and h0 = 0
+// otherwise), rows f2*rtf + c*n_fp + pi[k]
 // (velocity, sign +1) and f2*rtf + (dim + c)*n_fp + pi[k] (traction, sign
 // -1).
 //
@@ -64,7 +66,7 @@
 struct UpwindArgs {
   const float* u;       // (dim*npp, Ls) velocity
   const float* s;       // (n_sig*npp, Ls) stress (Voigt)
-  const float* trs;     // (nf*rtf, Ls) producer payload traces (u, t rows)
+  const float* trs;     // (nf*rtf, Lt) producer payload traces (u, t rows)
   const float* geo;     // (G_ROWS, Ls) geo sections (FusedOpData layout)
   const float* uwg;     // (40, Ls) impedance / ghost rows (UW_OFF)
   const float* mask;    // (8, Ls): row f != 0 -> face f takes the own trace
@@ -81,9 +83,12 @@ struct UpwindArgs {
                         // padded to a multiple of 4
   float* du;            // (dim*npp, Ls)
   float* ds;            // (n_sig*npp, Ls) elastic stress rate
-  float* trout;         // (nf*rtf, Ls) payload traces of (du, ds)
+  float* trout;         // (nf*rtf, Lt) payload traces of (du, ds)
   long long Ls;         // lanes = m * NC
+  long long Lt;         // trace lanes = m * NCt
   int NC;               // lanes per class
+  int NCt;              // trace lanes per class (halo lanes included)
+  int h0;               // the first own lane of a class's trace lanes
   int npp;              // node rows per component (n_p rounded up to 8)
   int rtf;              // trace rows per face (roundup(2*dim*n_fp, 8))
   int o_ginv, o_nrm, o_scb, o_mat;
@@ -130,41 +135,42 @@ __device__ __forceinline__ const float* k3_geo_row(const UpwindArgs& a,
   return base + (long long)row * a.Ls;
 }
 
-// The neighbour's payload rows f2*rtf + c*NFP + pi[k] (c < 2*DIM) at lanes
-// t2*NC + j0 + s + l, clamped into the class t2, to NB rows c*NFT + f*NFP
-// + k: 16 bytes a copy where the face's shift keeps the segment aligned
-// and inside the class, else 4 bytes.  Consecutive threads copy
-// consecutive lanes.
+// The neighbour's payload rows f2*rtf + c*NFP + pi[k] (c < 2*DIM) at trace
+// lanes t2*NCt + h0 + j0 + s + l, clamped into the trace lanes of the
+// class t2, to NB rows c*NFT + f*NFP + k: 16 bytes a copy where the face's
+// shift keeps the segment aligned and inside them, else 4 bytes.
+// Consecutive threads copy consecutive lanes.
 template <class LY>
 __device__ __forceinline__ void k3_stage_payload(const UpwindArgs& a,
                                                  const uptile::Tile& tl,
                                                  float* sm, bool vec) {
   constexpr int T = LY::T, NG = LY::NG, NFP = LY::NFP, NFT = LY::NFT;
   constexpr int PAY = 2 * LY::DIM, Q = T / 4;
-  const long long Ls = a.Ls;
-  const int t = (int)blockIdx.y;
-  const bool vec_tr = vec && ((uintptr_t)a.trs & 15) == 0;
+  const long long Lt = a.Lt;
+  const int t = (int)blockIdx.y, jlo = -a.h0, jhi = a.NCt - a.h0;
+  const bool vec_tr = vec && ((uintptr_t)a.trs & 15) == 0 &&
+                      ((a.Lt | a.NCt | a.h0) & 3) == 0;
 #pragma unroll
   for (int f = 0; f < LY::NF; ++f) {
     const int* pe = a.plan + (t * LY::NF + f) * (3 + NFP);
     const int s = pe[2];
-    const float* base =
-        a.trs + (long long)pe[1] * a.rtf * Ls + (long long)pe[0] * a.NC;
+    const float* base = a.trs + (long long)pe[1] * a.rtf * Lt +
+                        (long long)pe[0] * a.NCt + a.h0;
     float* dst = sm + LY::OFF_NB + f * NFP * T;
-    if (vec_tr && (s & 3) == 0 && tl.j0 + s >= 0 && tl.j0 + s + T <= a.NC) {
+    if (vec_tr && (s & 3) == 0 && tl.j0 + s >= jlo && tl.j0 + s + T <= jhi) {
       for (int e = threadIdx.x; e < PAY * NFP * Q; e += LY::THREADS) {
         const int r = e / Q, l4 = (e % Q) * 4, c = r / NFP, k = r % NFP;
         tile::cp_async16(dst + (c * NFT + k) * T + l4,
-                         base + (long long)(c * NFP + pe[3 + k]) * Ls +
+                         base + (long long)(c * NFP + pe[3 + k]) * Lt +
                              tl.j0 + s + l4);
       }
     } else {
       long long jn = tl.j0 + tl.l + s;
-      jn = jn < 0 ? 0 : (jn >= a.NC ? a.NC - 1 : jn);
+      jn = jn < jlo ? jlo : (jn >= jhi ? jhi - 1 : jn);
       for (int r = tl.ig; r < PAY * NFP; r += NG) {
         const int c = r / NFP, k = r % NFP;
         tile::cp_async4(dst + (c * NFT + k) * T + tl.l,
-                        base + (long long)(c * NFP + pe[3 + k]) * Ls + jn);
+                        base + (long long)(c * NFP + pe[3 + k]) * Lt + jn);
       }
     }
   }
@@ -213,14 +219,16 @@ __device__ __forceinline__ void k3_finish(const UpwindArgs& a,
 }
 
 // The payload traces of the output from the output tile: rows f*rtf +
-// c*NFP + k = du_c, f*rtf + (DIM + c)*NFP + k = n . ds, pad rows 0.
+// c*NFP + k = du_c, f*rtf + (DIM + c)*NFP + k = n . ds, pad rows 0, at the
+// lane's trace lane (a class's halo lanes are not written).
 template <class LY>
 __device__ __forceinline__ void k3_emit(const UpwindArgs& a,
                                         const uptile::Tile& tl,
                                         const float* sm) {
   constexpr int DIM = LY::DIM, NFP = LY::NFP;
   if (!tl.live) return;
-  const long long Ls = a.Ls, L = tl.lane0 + tl.l;
+  const long long Ls = a.Lt,
+                  L = (long long)blockIdx.y * a.NCt + a.h0 + tl.j0 + tl.l;
   for (int q = tl.ig; q < LY::NFT; q += LY::NG) {
     float uq[DIM], tq[DIM];
     uptile::face_values<LY>(tl, sm, q, uq, tq);
@@ -295,7 +303,8 @@ int seigen_upwind_args_size() { return (int)sizeof(UpwindArgs); }
 int seigen_upwind_rhs(const UpwindArgs* a, int dim, int n_p, int n_fp,
                       void* stream) {
   if (a->tab == nullptr || a->fnodes == nullptr || a->plan == nullptr ||
-      a->NC < 1 || a->Ls % a->NC != 0 || a->n_inj < 0 || a->n_inj > 2)
+      a->NC < 1 || a->Ls % a->NC != 0 || a->n_inj < 0 || a->n_inj > 2 ||
+      a->h0 < 0 || a->NCt < a->NC + a->h0 || a->Lt != a->Ls / a->NC * a->NCt)
     return -2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SEIGEN_LAUNCH(D, P, F) return launch<D, P, F>(*a, s)

@@ -169,8 +169,8 @@ def from_lm(y: torch.Tensor, m: int, rows_pad: int, C: int) -> torch.Tensor:
 
 def permute_lanes(d: LaneOpData, old_of_new: torch.Tensor) -> LaneOpData:
     """The same data with its lanes (elements) reordered: new lane j holds
-    old element old_of_new[j]."""
-    return dataclasses.replace(d, **{
+    old element old_of_new[j] (a subset: the lanes of a slab)."""
+    return dataclasses.replace(d, E=len(old_of_new), **{
         k: getattr(d, k)[:, old_of_new].contiguous() for k in LANE_FIELDS})
 
 

@@ -9,8 +9,14 @@ traces never exist in device memory.
 
 Layout (both the plain version and the kernel):
   state arrays (C*npp, Ls), Ls = m*NC — class-major lanes, no padding;
-  trace arrays (nf*rtf, Ls), face-major rows f*rtf + c*n_fp + k, rows
-  dim*n_fp..rtf of each face block are zero.
+  trace arrays (nf*rtf, Lt), face-major rows f*rtf + c*n_fp + k, rows
+  dim*n_fp..rtf of each face block are zero; Lt = m*NCt, the own lanes of
+  class t at t*NCt + h0 + j.  On one device NCt = NC and h0 = 0 (Lt =
+  Ls).  A slab of a sharded run (``build_merged_plan(G0loc=, halo=True)``,
+  parallel/fused_sharded.py) reserves h0 = Grest halo lanes on each side
+  of every class's trace lanes (NCt = NC + 2*Grest): a link whose shift
+  leaves the slab along axis 0 reads the neighbour slab's plane there, as
+  the JAX package's halo trace layout does.
 The packed P1 layout (operator data with n_par = 2, ops/fused_kernels.py)
 pairs the original classes (2u, 2u+1) onto packed class u, so Ls =
 (m/2)*NC: state rows c*npp + par*4 + i, and each face block of the traces
@@ -74,6 +80,8 @@ class MergedPlan:
     nf: int
     n_fp: int
     NC: int
+    NCt: int  # trace lanes per class (NC, or NC + 2*h0 on a slab)
+    h0: int  # the first own lane of a class's trace lanes
     pay: int  # payload components per face (LF: dim; upwind: 2*dim)
     rtf: int  # trace rows per face = n_par * rtq
     rtq: int  # rows of one parity's face block, roundup(pay*n_fp, 8)
@@ -85,16 +93,30 @@ class MergedPlan:
     def Ls(self):
         return self.m * self.NC
 
+    @property
+    def Lt(self):
+        return self.m * self.NCt
+
+    def trace_lanes(self, lanes):
+        """State lanes -> the trace lanes of the same elements."""
+        return lanes // self.NC * self.NCt + self.h0 + lanes % self.NC
+
 
 def build_merged_plan(ex: StructuredExchange, d: FusedOpData,
-                      pay: int | None = None,
-                      n_par: int = 1) -> MergedPlan | None:
+                      pay: int | None = None, n_par: int = 1,
+                      G0loc: int | None = None,
+                      halo: bool = False) -> MergedPlan | None:
     """The merged-operator plan, or None when the mesh's neighbour lanes
     are not a fixed flat shift per (class, face) (periodic meshes, ambiguous
     wrap shifts) or, with ``n_par`` = 2 (the packed P1 layout), when the
     class count is odd.  ``pay``: trace payload components per face
     (default d.dim, the LF operators; the upwind Riemann operator carries
-    2*dim, velocity AND traction rows)."""
+    2*dim, velocity AND traction rows).  ``G0loc``: supercells of the
+    outer grid axis on the lanes (a slab of a sharded run; default all);
+    ``halo``: reserve Grest halo lanes on both sides of every class's
+    trace lanes, where links that leave the slab along axis 0 read (the
+    JAX package's ``build_merged_plan(G0loc=, halo=)``).  The flat shifts
+    do not change: axis 0's stride is Grest on the slab too."""
     from ..solver.lane_fused import _canonical_shift, _flat_strides, \
         derive_pairing
 
@@ -104,8 +126,11 @@ def build_merged_plan(ex: StructuredExchange, d: FusedOpData,
         return None
     nf, nfp = ex.n_faces, ex.n_fp
     m = ex.m // n_par
-    NC = int(np.prod(ex.grid))
-    Ls = m * NC
+    Grest = int(np.prod(ex.grid[1:]))
+    NC = (ex.grid[0] if G0loc is None else G0loc) * Grest
+    h0 = Grest if halo else 0
+    NCt = NC + 2 * h0
+    Ls, Lt = m * NC, m * NCt
     pay = d.dim if pay is None else pay
     rtq = _rup(pay * nfp, 8)
     rtf = n_par * rtq
@@ -129,17 +154,90 @@ def build_merged_plan(ex: StructuredExchange, d: FusedOpData,
         u, par = divmod(t, n_par)
         for f in range(nf):
             tn = t2[t, f]
-            lane = (tn // n_par) * NC + np.clip(j + shift[t, f], 0, NC - 1)
+            lane = ((tn // n_par) * NCt + h0
+                    + np.clip(j + shift[t, f], -h0, NCt - h0 - 1))
             row = f2[t, f] * rtf + (tn % n_par) * rtq + pi[t, f]
             gather[par, f, :, u * NC : (u + 1) * NC] = (
-                row[:, None] * Ls + lane[None, :])
+                row[:, None] * Lt + lane[None, :])
     dev = d.geo.device
     return MergedPlan(
-        m=m, nf=nf, n_fp=nfp, NC=NC, pay=pay, rtf=rtf, rtq=rtq, n_par=n_par,
+        m=m, nf=nf, n_fp=nfp, NC=NC, NCt=NCt, h0=h0, pay=pay, rtf=rtf,
+        rtq=rtq, n_par=n_par,
         table=torch.as_tensor(table, device=dev).to(torch.int32).contiguous(),
         gather=torch.as_tensor(gather.reshape(n_par * nf * nfp, Ls),
                                device=dev),
     )
+
+
+def to_trace_lanes(plan: MergedPlan, x):
+    """(rows, Ls) state-lane rows -> (rows, Lt) trace-lane rows, the halo
+    lanes 0 (x itself when the plan has none)."""
+    if plan.NCt == plan.NC:
+        return x
+    out = x.new_zeros((x.shape[0], plan.m, plan.NCt))
+    out[:, :, plan.h0 : plan.h0 + plan.NC] = x.reshape(
+        x.shape[0], plan.m, plan.NC)
+    return out.reshape(x.shape[0], plan.Lt)
+
+
+def boundary_lanes(plan: MergedPlan):
+    """Per class on the lanes (kL, kR): how many own lanes at each slab
+    edge have a link that reads a halo lane.  The lanes between them read
+    only lanes a halo fill never writes, so they may take the traces
+    before the fill (the overlap schedule of parallel/fused_sharded.py).
+    A class whose halo readers are not two edge runs is all boundary,
+    (NC, 0).  With one lane a block this is the JAX package's
+    ``boundary_blocks``; no halo lanes: (0, 0) for every class."""
+    NC, h0 = plan.NC, plan.h0
+    if h0 == 0:
+        return tuple((0, 0) for _ in range(plan.m))
+    shift = plan.table[..., 2].cpu().numpy().reshape(plan.m, -1)
+    j = np.arange(NC)
+    out = []
+    for u in range(plan.m):
+        reads = j[:, None] + np.unique(shift[u])[None, :]
+        bnd = (((reads >= -h0) & (reads < 0))
+               | ((reads >= NC) & (reads < plan.NCt - h0))).any(axis=1)
+        kL = int(np.argmin(bnd)) if not bnd.all() else NC
+        kR = int(np.argmin(bnd[::-1])) if kL < NC else 0
+        if bnd[kL : NC - kR].any():
+            kL, kR = NC, 0
+        out.append((kL, kR))
+    return tuple(out)
+
+
+def split_lanes(plan: MergedPlan):
+    """The interior lane range [lo, hi) of every class for the two-launch
+    overlap schedule (the widest boundary runs over the classes), or None
+    when the plan has no halo or no class has an interior."""
+    b = boundary_lanes(plan)
+    lo = max(kL for kL, _ in b)
+    hi = plan.NC - max(kR for _, kR in b)
+    return (lo, hi) if plan.h0 and lo < hi else None
+
+
+def _lane_sets(plan: MergedPlan, lanes, device):
+    """Boolean state-lane (Ls,) and trace-lane (Lt,) masks of a launch's
+    lane selection (j_lo, j_hi, inv)."""
+    lo, hi, inv = lanes
+    j = torch.arange(plan.NC, device=device)
+    keep = ((j >= lo) & (j < hi)) != bool(inv)
+    kt = torch.zeros((plan.m, plan.NCt), dtype=torch.bool, device=device)
+    kt[:, plan.h0 : plan.h0 + plan.NC] = keep
+    return keep.repeat(plan.m), kt.reshape(-1)
+
+
+def _take_lanes(plan: MergedPlan, res, tr, lanes, out):
+    """The plain version's lane selection: the selected lanes of (res, tr)
+    written into ``out`` (new zero buffers when None)."""
+    if lanes is None and out is None:
+        return res, tr
+    o, ot = out if out is not None else (torch.zeros_like(res),
+                                         torch.zeros_like(tr))
+    ks, kt = _lane_sets(plan, lanes or (0, plan.NC, 0), res.device)
+    o[:, ks] = res[:, ks]
+    ot[:, kt] = tr[:, kt]
+    return o, ot
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +289,7 @@ def _neighbour(plan: MergedPlan, trs, signs, own, sel):
     0..C-1: signs[c] * producer rows at the neighbour lanes; own rows where
     ``sel`` (boundary)."""
     flat = trs.reshape(-1)
-    nb = torch.stack([signs[c] * flat[plan.gather + c * plan.n_fp * plan.Ls]
+    nb = torch.stack([signs[c] * flat[plan.gather + c * plan.n_fp * plan.Lt]
                       for c in range(own.shape[0])])
     return torch.where(sel, own, nb)
 
@@ -263,13 +361,17 @@ def vel_body(d: FusedOpData, sig_lm, neighbour, emit, axpy=None, dt=0.0,
 
 
 def vel_merged_ref(plan: MergedPlan, d: FusedOpData, sig_lm, trs, mask,
-                   axpy=None, dt=0.0, c3=0.0, inject=None):
-    """Plain version of K1 (see vel_merged)."""
+                   axpy=None, dt=0.0, c3=0.0, inject=None, lanes=None,
+                   out=None):
+    """Plain version of K1 (see vel_merged): every lane is computed, the
+    selected ones are kept."""
     sel = _own_mask(d, mask)
-    return vel_body(
+    res, tr = vel_body(
         d, sig_lm,
         lambda t_own: _neighbour(plan, trs, (-1.0,) * d.dim, t_own, sel),
-        lambda tr: _emit(plan, d, tr), axpy, dt, c3, inject)
+        lambda tr: to_trace_lanes(plan, _emit(plan, d, tr)), axpy, dt, c3,
+        inject)
+    return _take_lanes(plan, res, tr, lanes, out)
 
 
 def _hooke(dim, lam, mu, gd):
@@ -345,13 +447,16 @@ def stress_body(d: FusedOpData, u_lm, neighbour, emit, axpy=None, dt=0.0,
 
 
 def stress_merged_ref(plan: MergedPlan, d: FusedOpData, u_lm, trs, mask,
-                      axpy=None, dt=0.0, c3=0.0, inject=None):
+                      axpy=None, dt=0.0, c3=0.0, inject=None, lanes=None,
+                      out=None):
     """Plain version of K2 (see stress_merged)."""
     sel = _own_mask(d, mask)
-    return stress_body(
+    res, tr = stress_body(
         d, u_lm,
         lambda own: _neighbour(plan, trs, (1.0,) * d.dim, own, sel),
-        lambda tr: _emit(plan, d, tr), axpy, dt, c3, inject)
+        lambda tr: to_trace_lanes(plan, _emit(plan, d, tr)), axpy, dt, c3,
+        inject)
+    return _take_lanes(plan, res, tr, lanes, out)
 
 
 # ---------------------------------------------------------------------------
@@ -368,8 +473,10 @@ class MergedArgs(ctypes.Structure):
     _fields_ = [(n, _P) for n in (
         "field", "trs", "geo", "mask", "ax0", "ax1", "damp", "inj0", "inj1",
         "plan", "fnodes", "tab", "out", "trout")] + [
-        ("Ls", ctypes.c_longlong)] + [(n, ctypes.c_int) for n in (
-            "NC", "npp", "rtf", "rtq", "n_par", "irho_par", "o_ginv",
+        (n, ctypes.c_longlong) for n in ("Ls", "Lt")] + [
+        (n, ctypes.c_int) for n in (
+            "NC", "NCt", "h0", "j_lo", "j_hi", "inv", "npp", "rtf", "rtq",
+            "n_par", "irho_par", "o_ginv",
             "o_nrm", "o_scb", "o_bfs", "o_dfs", "o_mat", "o_C", "axpy",
             "n_inj")] + [(n, ctypes.c_float) for n in (
                 "dt", "c3", "r0", "r1")]
@@ -377,12 +484,14 @@ class MergedArgs(ctypes.Structure):
 
 def check_operands(name, dev, Ls, checks):
     """Raise unless every (tensor, rows) operand is a contiguous float32
-    (rows, Ls) tensor on dev (rows None: any row count)."""
-    for x, rows in checks:
+    (rows, Ls) tensor on dev (rows None: any row count; a (tensor, rows,
+    lanes) entry has its own lane count)."""
+    for x, rows, *lanes in checks:
+        L = lanes[0] if lanes else Ls
         if x.device != dev or x.dtype != torch.float32:
             raise ValueError(f"{name}: expects float32 tensors on {dev}, "
                              f"got {x.dtype} on {x.device}")
-        if not x.is_contiguous() or x.dim() != 2 or x.shape[1] != Ls \
+        if not x.is_contiguous() or x.dim() != 2 or x.shape[1] != L \
                 or (rows is not None and x.shape[0] != rows):
             raise ValueError(f"{name}: bad operand {tuple(x.shape)}")
 
@@ -427,20 +536,25 @@ class MergedKernel:
         return LIBRARY.build_seconds
 
     def __call__(self, plan: MergedPlan, d: FusedOpData, field, trs, mask,
-                 axpy=None, damp=None, dt=0.0, c3=0.0, inject=None):
+                 axpy=None, damp=None, dt=0.0, c3=0.0, inject=None,
+                 lanes=None, out=None):
         return self.launch(d, field, trs, plan.nf * plan.rtf, plan.rtf,
                            plan=plan, mask=mask, axpy=axpy, damp=damp, dt=dt,
-                           c3=c3, inject=inject)
+                           c3=c3, inject=inject, lanes=lanes, out=out)
 
     def launch(self, d: FusedOpData, field, trs, tr_rows, rtf, plan=None,
                mask=None, axpy=None, damp=None, dt=0.0, c3=0.0, inject=None,
-               irho_par=1):
+               irho_par=1, lanes=None, out=None):
         """Check the operands and launch: traces in and out have tr_rows
         rows, ``rtf`` is the kernel's row stride of a trace block (merged:
         rows per face; v2: rows per component); ``plan`` and ``mask`` only
-        for the merged layout.  ``irho_par``: the row distance of the two
-        parities' 1/rho rows in the packed layout (FusedOpData: 1, the P1
-        pack probe's geo: 4)."""
+        for the merged layout, whose traces lie on the plan's trace lanes.
+        ``irho_par``: the row distance of the two parities' 1/rho rows in
+        the packed layout (FusedOpData: 1, the P1 pack probe's geo: 4).
+        ``lanes``: (j_lo, j_hi, inv), the launch computes the lanes [j_lo,
+        j_hi) of every class (inv: the others) and writes them into
+        ``out`` = (out, trout) when given (the other lanes keep their
+        values), else into new buffers (the other lanes unset)."""
         inject = list(inject or ())
         if len(inject) > 2:
             raise ValueError("the kernels take at most 2 dense source groups")
@@ -449,16 +563,26 @@ class MergedKernel:
             raise ValueError(f"{self.name}: the kernel takes CUDA tensors, "
                              f"got {dev}")
         Ls = field.shape[-1]
+        NC = plan.NC if plan is not None else Ls
+        Lt, NCt, h0 = ((plan.Lt, plan.NCt, plan.h0) if plan is not None
+                       else (Ls, Ls, 0))
+        j_lo, j_hi, inv = lanes if lanes is not None else (0, NC, 0)
+        if not 0 <= j_lo <= j_hi <= NC or (
+                (j_lo + NC - j_hi) if inv else (j_hi - j_lo)) == 0:
+            raise ValueError(f"{self.name}: empty or bad lane range "
+                             f"{(j_lo, j_hi, inv)} of {NC} lanes")
         if plan is not None and (Ls, d.n_par) != (plan.Ls, plan.n_par):
             raise ValueError(f"{self.name}: {Ls} lanes of {d.n_par} "
                              f"element(s), the plan has {plan.Ls} of "
                              f"{plan.n_par}")
         C_in, C_out = (d.n_sig, d.dim) if self.vel else (d.dim, d.n_sig)
-        checks = [(field, C_in * d.npp), (trs, tr_rows), (d.geo, None)]
+        checks = [(field, C_in * d.npp), (trs, tr_rows, Lt), (d.geo, None)]
         checks += [(mask, 8)] if plan is not None else []
         checks += [(x, C_out * d.npp) for x in (axpy or ())]
         checks += [(damp, d.npp)] if damp is not None else []
         checks += [(s_g, C_out * d.npp) for s_g, _ in inject]
+        checks += ([(out[0], C_out * d.npp), (out[1], tr_rows, Lt)]
+                   if out is not None else [])
         check_operands(self.name, dev, Ls, checks)
         o = d.off
         # the C section switches a stress kernel to the general Hooke law;
@@ -470,8 +594,9 @@ class MergedKernel:
         if o_C >= 0 and d.n_par != 1:
             raise ValueError(f"{self.name}: the packed layout is isotropic "
                              "only")
-        out = torch.empty((C_out * d.npp, Ls), dtype=field.dtype, device=dev)
-        trout = torch.empty((tr_rows, Ls), dtype=field.dtype, device=dev)
+        out, trout = out if out is not None else (
+            torch.empty((C_out * d.npp, Ls), dtype=field.dtype, device=dev),
+            torch.empty((tr_rows, Lt), dtype=field.dtype, device=dev))
         ptr = (lambda x: None if x is None else x.data_ptr())
         kt = d.tables
         args = MergedArgs(
@@ -484,7 +609,8 @@ class MergedKernel:
             plan=ptr(plan.table) if plan is not None else None,
             fnodes=ptr(kt.fnodes), tab=ptr(kt.tile),
             out=ptr(out), trout=ptr(trout),
-            Ls=Ls, NC=plan.NC if plan is not None else Ls, npp=d.npp,
+            Ls=Ls, Lt=Lt, NC=NC, NCt=NCt, h0=h0, j_lo=j_lo, j_hi=j_hi,
+            inv=int(bool(inv)), npp=d.npp,
             rtf=rtf, rtq=plan.rtq if plan is not None else rtf,
             n_par=d.n_par, irho_par=irho_par, o_ginv=o[0], o_nrm=o[1],
             o_scb=o[2], o_bfs=o[3], o_dfs=o[4], o_mat=o[5],
@@ -516,15 +642,18 @@ def _on_cuda(x):
 
 
 def vel_merged(plan: MergedPlan, d: FusedOpData, sig_lm, trs, mask,
-               axpy=None, dt=0.0, c3=0.0, inject=None):
+               axpy=None, dt=0.0, c3=0.0, inject=None, lanes=None,
+               out=None):
     """Merged velocity operator (K1): consumes the PRODUCER traction trace
-    array trs ((nf*rtf, Ls), face-major) directly, state sig_lm
-    (n_sig*npp, Ls).  Returns (out (dim*npp, Ls), traces (nf*rtf, Ls)).
+    array trs ((nf*rtf, Lt), face-major) directly, state sig_lm
+    (n_sig*npp, Ls).  Returns (out (dim*npp, Ls), traces (nf*rtf, Lt)).
 
     axpy: None or (u, uh1) -> out = u + dt*uh1 + c3*du.
     inject: None or [(S_g (dim*npp, Ls), r_g float), ...] (at most 2) —
     kernel-fused point-source groups: out += r_g*S_g, with the emitted
     traces including the source (plain ops only).
+    lanes / out: a lane range and output buffers (see MergedKernel.launch):
+    the interior and boundary launches of a slab's overlap schedule.
 
     CUDA tensors launch K1; CPU tensors run vel_merged_ref.
     """
@@ -532,19 +661,21 @@ def vel_merged(plan: MergedPlan, d: FusedOpData, sig_lm, trs, mask,
         raise ValueError("inject is plain-op only")
     if _on_cuda(sig_lm):
         return VEL_KERNEL(plan, d, sig_lm, trs, mask, axpy=axpy, dt=dt,
-                          c3=c3, inject=inject)
+                          c3=c3, inject=inject, lanes=lanes, out=out)
     return vel_merged_ref(plan, d, sig_lm, trs, mask, axpy=axpy, dt=dt,
-                          c3=c3, inject=inject)
+                          c3=c3, inject=inject, lanes=lanes, out=out)
 
 
 def stress_merged(plan: MergedPlan, d: FusedOpData, u_lm, trs, mask,
-                  axpy=None, dt=0.0, c3=0.0, inject=None):
+                  axpy=None, dt=0.0, c3=0.0, inject=None, lanes=None,
+                  out=None):
     """Merged stress operator (K2): consumes PRODUCER velocity traces trs;
     axpy (s, sh1) additionally folds d.damp: out = damp*(s + dt*sh1 +
     c3*ds).  Emits traction traces.  inject: see vel_merged (S_g has
     n_sig*npp rows here).  Operator data built with ``stiffness``
     (d.off[6] >= 0) takes the general Hooke law over its ``C`` rows
-    instead of the isotropic (lambda, mu) one.
+    instead of the isotropic (lambda, mu) one.  lanes / out: see
+    vel_merged.
 
     CUDA tensors launch K2; CPU tensors run stress_merged_ref.
     """
@@ -553,6 +684,7 @@ def stress_merged(plan: MergedPlan, d: FusedOpData, u_lm, trs, mask,
     if _on_cuda(u_lm):
         damp = d.damp if axpy is not None else None
         return STRESS_KERNEL(plan, d, u_lm, trs, mask, axpy=axpy,
-                             damp=damp, dt=dt, c3=c3, inject=inject)
+                             damp=damp, dt=dt, c3=c3, inject=inject,
+                             lanes=lanes, out=out)
     return stress_merged_ref(plan, d, u_lm, trs, mask, axpy=axpy, dt=dt,
-                             c3=c3, inject=inject)
+                             c3=c3, inject=inject, lanes=lanes, out=out)

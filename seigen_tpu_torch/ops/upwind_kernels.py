@@ -47,6 +47,7 @@ from .merged_kernels import (
     _own_mask,
     _restrict,
     check_operands,
+    to_trace_lanes,
 )
 from .upwind import UpwindData
 
@@ -172,7 +173,7 @@ def upwind_rhs_merged_ref(plan: MergedPlan, d: FusedOpData, uwg, ulm, slm,
     tr_t = torch.stack([sum(nrm[k] * tr_s[V[c, k]] for k in range(dim))
                         for c in range(dim)])
     return (du.reshape(dim * npp, Ls), ds.reshape(d.n_sig * npp, Ls),
-            _emit(plan, d, torch.cat([tr_u, tr_t])))
+            to_trace_lanes(plan, _emit(plan, d, torch.cat([tr_u, tr_t]))))
 
 
 # ---------------------------------------------------------------------------
@@ -190,8 +191,10 @@ class UpwindArgs(ctypes.Structure):
         "u", "s", "trs", "geo", "uwg", "mask", "inj_u0", "inj_s0", "inj_u1",
         "inj_s1", "plan", "dr", "lift", "fnodes", "tab", "du", "ds",
         "trout")] + [
-        ("Ls", ctypes.c_longlong)] + [(n, ctypes.c_int) for n in (
-            "NC", "npp", "rtf", "o_ginv", "o_nrm", "o_scb", "o_mat",
+        (n, ctypes.c_longlong) for n in ("Ls", "Lt")] + [
+        (n, ctypes.c_int) for n in (
+            "NC", "NCt", "h0", "npp", "rtf", "o_ginv", "o_nrm", "o_scb",
+            "o_mat",
             "n_inj")] + [(n, ctypes.c_float) for n in ("r0", "r1")]
 
 
@@ -239,14 +242,14 @@ class UpwindKernel:
                              f"got {plan.pay}")
         Ls = plan.Ls
         checks = [(ulm, d.dim * d.npp), (slm, d.n_sig * d.npp),
-                  (trs, plan.nf * plan.rtf), (d.geo, None),
+                  (trs, plan.nf * plan.rtf, plan.Lt), (d.geo, None),
                   (uwg, UW_ROWS), (mask, 8)]
         for s_u, s_s, _ in inject:
             checks += [(s_u, d.dim * d.npp), (s_s, d.n_sig * d.npp)]
         check_operands(self.name, dev, Ls, checks)
         du = torch.empty((d.dim * d.npp, Ls), dtype=ulm.dtype, device=dev)
         ds = torch.empty((d.n_sig * d.npp, Ls), dtype=ulm.dtype, device=dev)
-        trout = torch.empty((plan.nf * plan.rtf, Ls), dtype=ulm.dtype,
+        trout = torch.empty((plan.nf * plan.rtf, plan.Lt), dtype=ulm.dtype,
                             device=dev)
         o = d.off
 
@@ -262,7 +265,8 @@ class UpwindKernel:
             fnodes=d.tables.fnodes.data_ptr(),
             tab=d.tables.tile.data_ptr(), du=du.data_ptr(),
             ds=ds.data_ptr(), trout=trout.data_ptr(),
-            Ls=Ls, NC=plan.NC, npp=d.npp, rtf=plan.rtf, o_ginv=o[0],
+            Ls=Ls, Lt=plan.Lt, NC=plan.NC, NCt=plan.NCt, h0=plan.h0,
+            npp=d.npp, rtf=plan.rtf, o_ginv=o[0],
             o_nrm=o[1], o_scb=o[2], o_mat=o[5], n_inj=len(inject),
             r0=float(inject[0][2]) if len(inject) > 0 else 0.0,
             r1=float(inject[1][2]) if len(inject) > 1 else 0.0,
@@ -287,8 +291,9 @@ def upwind_rhs_merged(plan: MergedPlan, d: FusedOpData, uwg, ulm, slm, trs,
     """Coupled Godunov RHS on lane-major state with in-kernel exchange (K3).
 
     ulm (dim*npp, Ls), slm (n_sig*npp, Ls), uwg (UW_ROWS, Ls) impedance/
-    ghost rows, trs (nf*rtf, Ls) face-major (u, t) payload traces of the
-    INPUT state (plan built with pay = 2*dim).  inject: None or
+    ghost rows, trs (nf*rtf, Lt) face-major (u, t) payload traces of the
+    INPUT state (plan built with pay = 2*dim; the traces lie on the plan's
+    trace lanes, a slab's halo included).  inject: None or
     [(Su_g, Ss_g, r_g float), ...] (at most 2) kernel-fused dense source
     groups, added before the output traces are emitted.  Returns (du,
     ds_el, traces of (du, ds_el)).

@@ -153,6 +153,7 @@ class LaneMajorRunner:
         self._old_of_new, self._new_of_old = old_of_new, new_of_old
         perm = torch.as_tensor(old_of_new, device=p.device)
         self.d = d = permute_lanes(d, perm)
+        self.E = E = d.E  # the lanes (a slab of a sharded run: fewer)
         self.ex_u, self.ex_s = self._make_exchanges()
 
         # general anisotropic Hooke rows (n_sig*8, E), lanes in the new

@@ -32,6 +32,7 @@ from ..ops.merged_kernels import (
     build_merged_plan,
     stress_merged,
     stress_merged_ref,
+    to_trace_lanes,
     vel_merged,
     vel_merged_ref,
 )
@@ -107,27 +108,32 @@ class MergedLaneRunner:
             raise ValueError("the packed layout is isotropic only")
         if packed and ex.m % 2:
             raise ValueError("the packed layout needs an even class count")
-        NC = self.NC = int(np.prod(ex.grid))
-        E = p.Ginv.shape[0]
-        old_of_new, new_of_old = class_major_perm(ex, E)
+        NC, old_of_new, new_of_old, cells = self._lanes(
+            ex, p.Ginv.shape[0])
+        self.NC = NC
         self._old_of_new, self._new_of_old = old_of_new, new_of_old
         self.n_par = 2 if packed else 1
         if packed:
             # lane L of packed class u holds classes 2u and 2u+1; the geo
             # and damp columns come out in that order
-            idx = np.arange(E).reshape(ex.m, NC)
+            idx = np.arange(len(old_of_new)).reshape(ex.m, NC)
             pairs = [old_of_new[idx[par::2].reshape(-1)] for par in (0, 1)]
             d = build_packed_fused_data(p, *pairs, damp=damp)
         else:
             pairs = [old_of_new]
             perm = torch.as_tensor(old_of_new, device=p.device)
-            if damp is not None:
-                damp = torch.as_tensor(damp, device=p.device)[perm]
-            d = build_fused_data(p, damp=damp, stiffness=stiffness)
+            d = build_fused_data(p, stiffness=stiffness)
             # lanes are class-major elements: permute the geo columns, the
-            # stiffness rows among them — stiffness went in in p's element
-            # order (damp was permuted above)
-            d = dataclasses.replace(d, geo=d.geo[:, perm].contiguous())
+            # stiffness rows among them (stiffness went in in p's element
+            # order), and place the damping rows of the lanes' elements
+            dn = None
+            if damp is not None:
+                dn = torch.zeros((d.npp, len(perm)), dtype=p.dtype,
+                                 device=p.device)
+                dn[: d.n_p] = torch.as_tensor(
+                    damp, device=p.device)[perm].T.to(p.dtype)
+            d = dataclasses.replace(d, geo=d.geo[:, perm].contiguous(),
+                                    damp=dn)
         self.d = d
         # the element of each (parity, lane), in p's order
         self._pairs = [torch.as_tensor(pe, device=p.device) for pe in pairs]
@@ -135,13 +141,13 @@ class MergedLaneRunner:
 
         # per-face boundary mask as lane rows (8, Ls): row par*4 + f of
         # packed class t // 2 (unpacked: row f of class t)
-        Ls = E // self.n_par
+        Ls = len(old_of_new) // self.n_par
         mk = np.ones((8, Ls), dtype=np.float64)
         for t in range(ex.m):
             u, par = divmod(t, self.n_par)
             for f in range(ex.n_faces):
-                mk[par * 4 + f, u * NC : (u + 1) * NC] = (
-                    ex.self_mask[t, f].reshape(-1))
+                mk[par * 4 + f, u * NC : (u + 1) * NC] = cells(
+                    ex.self_mask[t, f])
         self.mask = torch.as_tensor(mk, device=p.device).to(p.dtype)
 
         # face-node-expanded normals for the initial traction extraction,
@@ -151,6 +157,16 @@ class MergedLaneRunner:
             [p.normals[pe][:, rep, :].permute(2, 1, 0) for pe in self._pairs],
             dim=1).contiguous()
         self._rmat = d.drr[d.dim * d.npp : d.dim * d.npp + d.ftp]
+
+    def _lanes(self, ex, E):
+        """(NC, old_of_new, new_of_old, cells): lanes per class, the
+        element (p's order) of each class-major lane, the lane of each
+        element, and the map of a supercell-grid array to the lanes'
+        supercells.  One device holds the whole mesh; a slab of a sharded
+        run (parallel/fused_sharded.py) holds part of it."""
+        old_of_new, new_of_old = class_major_perm(ex, E)
+        return (int(np.prod(ex.grid)), old_of_new, new_of_old,
+                lambda g: g.reshape(-1))
 
     def _build_plan(self, ex, d, pay):
         plan = build_merged_plan(ex, d, pay=pay, n_par=d.n_par)
@@ -191,14 +207,16 @@ class MergedLaneRunner:
             elems=torch.as_tensor(self._slane(e_new), device=self.device),
             weights=w8)
 
-    def _build_sources(self, src):
+    def _build_sources(self, src, n_groups=None):
         """Sources grouped by wavelet.  With <= 2 groups (and
         ``_kernel_injection``) ``src_dense`` holds the dense (u, sigma)
         patterns per group of the kernel-fused injection and
         ``_src_groups`` the (f0, t0) of each; otherwise a group is (f0, t0,
-        lanes, u patch, sigma patch, velocity-trace patch, traction-trace
-        patch), amplitudes folded in, trace patches in the runner's trace
-        layout, and the stages scatter the patches."""
+        lanes, trace lanes, u patch, sigma patch, velocity-trace patch,
+        traction-trace patch), amplitudes folded in, trace patches in the
+        runner's trace layout, and the stages scatter the patches.
+        ``n_groups``: the group count that decides (default: src's; a
+        slab passes the whole run's)."""
         d, p = self.d, self.p
         self.src_dense = None
         self._src_groups = []
@@ -236,8 +254,9 @@ class MergedLaneRunner:
         for k in range(K):
             key = (round(float(f0a[k]), 12), round(float(t0a[k]), 12))
             groups.setdefault(key, []).append(k)
+        n_groups = len(groups) if n_groups is None else n_groups
 
-        if self._kernel_injection and len(groups) <= 2:
+        if self._kernel_injection and n_groups <= 2:
             # kernel-fused injection: out += r_g(t) * S_g inside the stage
             # operators, so the emitted traces carry the source too
             Ls = d.geo.shape[1]
@@ -270,8 +289,9 @@ class MergedLaneRunner:
             tru[:, par * ftq : (par + 1) * ftq, kk] = tq_u[..., kk]
             trt[:, par * ftq : (par + 1) * ftq, kk] = tq_t[..., kk]
         for (f0g, t0g), idx in groups.items():
+            lanes_g = torch.as_tensor(lanes[idx], device=self.device)
             self._src_groups.append((
-                f0g, t0g, torch.as_tensor(lanes[idx], device=self.device),
+                f0g, t0g, lanes_g, self._on_trace_lanes(lanes_g),
                 dev(vu[:, idx]), dev(vs[:, idx]),
                 self._place_traces(dev(tru[..., idx])),
                 self._place_traces(dev(trt[..., idx]))))
@@ -282,17 +302,19 @@ class MergedLaneRunner:
         the element of parity par on rows par*4 + i)."""
         d = self.d
         C = x.shape[2]
-        out = x.new_zeros((C, d.npp, x.shape[0] // self.n_par))
+        out = x.new_zeros((C, d.npp, len(self._pairs[0])))
         for par, pe in enumerate(self._pairs):
             out[:, par * 4 : par * 4 + d.n_p] = x[pe.to(x.device)].permute(
                 2, 1, 0)
         return out.reshape(C * d.npp, -1)
 
-    def _from_lm(self, y, C):
+    def _from_lm(self, y, C, pairs=None):
+        """(C*npp, L) lanes -> (E, n_p, C) standard, the lanes' elements
+        ``pairs`` per parity (default the runner's own)."""
         d = self.d
         y = y.reshape(C, d.npp, -1)
         out = y.new_empty((y.shape[-1] * self.n_par, d.n_p, C))
-        for par, pe in enumerate(self._pairs):
+        for par, pe in enumerate(pairs or self._pairs):
             out[pe.to(y.device)] = y[:, par * 4 : par * 4 + d.n_p].permute(
                 2, 1, 0)
         return out
@@ -317,7 +339,16 @@ class MergedLaneRunner:
     def traction_traces(self, slm):
         """Own-face traction traces of a lane-major stress field in the
         runner's trace layout — seeds the step carry."""
-        return self._place_traces(self._traction_rows(slm))
+        return self._on_trace_lanes(
+            self._place_traces(self._traction_rows(slm)))
+
+    def _on_trace_lanes(self, x):
+        """State lanes (an index vector) or a (rows, Ls) trace array ->
+        the same on the plan's trace lanes (a slab's halo lanes 0)."""
+        if self.plan is None or self.plan.NCt == self.plan.NC:
+            return x
+        return (self.plan.trace_lanes(x) if x.dim() == 1
+                else to_trace_lanes(self.plan, x))
 
     # --- step ---
     def _inject(self, field, tr, part, t):
@@ -327,11 +358,12 @@ class MergedLaneRunner:
         solver/lane_cpml.py).  One index_add per array and group, the
         wavelet value an argument computed on the host: copying it to the
         device would synchronise the stream every stage."""
-        for g, (_, _, lanes, *patches) in enumerate(self._src_groups):
+        for g, (_, _, lanes, tlanes, *patches) in enumerate(
+                self._src_groups):
             r = self._wavelet(t, g)
             field = inject_columns(field, lanes, patches[part], alpha=r)
             if tr is not None:
-                tr = inject_columns(tr, lanes, patches[2 + part], alpha=r)
+                tr = inject_columns(tr, tlanes, patches[2 + part], alpha=r)
         return field, tr
 
     def _wavelet(self, t, g):

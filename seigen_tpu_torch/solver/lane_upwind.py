@@ -91,7 +91,8 @@ class UpwindLaneRunner(MergedLaneRunner):
             dtr = np.ones((plan.nf, plan.rtf, plan.Ls))
             for q in range(plan.pay):
                 dtr[:, q * d.n_fp : (q + 1) * d.n_fp] = face
-            self.damp_tr = self._dev(dtr.reshape(plan.nf * plan.rtf, -1))
+            self.damp_tr = self._on_trace_lanes(
+                self._dev(dtr.reshape(plan.nf * plan.rtf, -1)))
 
         if visco is not None:
             self.yk = self._dev(host_f64(visco.y_kappa)[perm].T[:, None, :])
@@ -107,10 +108,11 @@ class UpwindLaneRunner(MergedLaneRunner):
                                ).to(self.dtype)
 
     # --- sources (payload trace patches) -------------------------------
-    def _build_sources(self, src):
+    def _build_sources(self, src, n_groups=None):
         """Dense per-wavelet-group patterns (<= 2 groups, elastic runs:
         kernel-fused injection) or per-element column patches of u, s and
-        the payload traces (viscoelastic runs, > 2 groups)."""
+        the payload traces (viscoelastic runs, > 2 groups).  ``n_groups``:
+        as MergedLaneRunner's."""
         d, p, plan = self.d, self.p, self.plan
         self.src_dense = None
         self._src_groups = []
@@ -139,7 +141,8 @@ class UpwindLaneRunner(MergedLaneRunner):
         # source must enter the RELAXED stress balance AFTER the anelastic
         # target is computed (solver/rk4.py), so it cannot be folded into
         # the operator that emits ds_el
-        if len(groups) <= 2 and self.visco is None:
+        n_groups = len(groups) if n_groups is None else n_groups
+        if n_groups <= 2 and self.visco is None:
             dense = []
             for (f0g, t0g), idx in groups.items():
                 Su = np.zeros((d.dim * d.npp, plan.Ls))
@@ -164,6 +167,7 @@ class UpwindLaneRunner(MergedLaneRunner):
         u_face = vec_u[:, fn].transpose(2, 0, 1)  # (dim, K, ftp)
         payload = np.concatenate([u_face, t_face]).transpose(0, 2, 1)
         self.src_elems = torch.as_tensor(e_new, device=self.device)
+        self.src_tlanes = self._on_trace_lanes(self.src_elems)
         self.src_vu, self.src_vs = self._dev(vu), self._dev(vs)
         self.src_trp = _emit(plan, d, self._dev(payload))
         self.src_f0, self.src_t0, self.src_amp = (
@@ -179,10 +183,11 @@ class UpwindLaneRunner(MergedLaneRunner):
 
     def _payload_place(self, u_rows, t_rows):
         """(dim, ftp, Ls) velocity rows (None: zero) and traction rows ->
-        (nf*rtf, Ls) face-major payload traces."""
+        (nf*rtf, Lt) face-major payload traces."""
         if u_rows is None:
             u_rows = torch.zeros_like(t_rows)
-        return _emit(self.plan, self.d, torch.cat([u_rows, t_rows]))
+        return self._on_trace_lanes(
+            _emit(self.plan, self.d, torch.cat([u_rows, t_rows])))
 
     # --- RK4 step --------------------------------------------------------
     def _add_columns(self, du, ds, trk, t):
@@ -192,7 +197,7 @@ class UpwindLaneRunner(MergedLaneRunner):
             device=self.device)[None, :]
         return (inject_columns(du, self.src_elems, self.src_vu * r),
                 inject_columns(ds, self.src_elems, self.src_vs * r),
-                inject_columns(trk, self.src_elems, self.src_trp * r))
+                inject_columns(trk, self.src_tlanes, self.src_trp * r))
 
     def _rhs(self, ulm, slm, tr, xi, t):
         """(du, ds, traces of (du, ds), dxi or None) at stage time t."""

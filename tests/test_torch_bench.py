@@ -242,6 +242,7 @@ def test_profile_groups_kernels_and_needs_cuda(monkeypatch):
         "at::native::CUDAFunctor_add<float>>": "pytorch elementwise",
         "sm80_xmma_gemm_f32f32_f32f32_f32_nn_n": "pytorch matmul",
         "CatArrayBatchedCopy_vectorized": "pytorch copy/cat",
+        "ncclDevKernel_SendRecv(ncclDevKernelArgsStorage<4096ul>)": "nccl",
         "memset": "other"}
     assert {n: ps.kernel_group(n) for n in names} == names
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -311,7 +312,9 @@ def test_entry_points_default_to_the_card():
     the CPU (the tests pass device="cpu")."""
     from seigen_tpu_torch.bench import fwi_grad
     from seigen_tpu_torch.bench.sweep import run_sweep
-    from seigen_tpu_torch.cli import fwi, rtm
+    from seigen_tpu_torch.cli import explosive_source, fwi, rtm
+    from seigen_tpu_torch.parallel import ShardedFusedRunner, \
+        ShardedLaneRunner, ShardedUpwindRunner, comm
     from seigen_tpu_torch.ops import build_params, build_upwind_data
     from seigen_tpu_torch.solver import build_receivers, build_sources
     from seigen_tpu_torch.solver.fwi import lowpass_taps
@@ -320,8 +323,18 @@ def test_entry_points_default_to_the_card():
 
     for fn in (build_params, build_sources, build_receivers,
                tbench.setup_case, build_upwind_data, load_checkpoint,
-               run_sweep, fwi_grad.run, lowpass_taps):
+               run_sweep, fwi_grad.run, lowpass_taps, comm.spawn, comm.init,
+               comm.current, tbench.main):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    # the sharded runners follow their parameters' device and take the
+    # process group's ranks; the sharded bench impls and --shards run on
+    # the card (NCCL) unless --cpu
+    for cls in (ShardedFusedRunner, ShardedLaneRunner, ShardedUpwindRunner):
+        sig = inspect.signature(cls).parameters
+        assert sig["impl"].default is None and sig["comm"].default is None
+    assert set(tbench.SHARDED_IMPLS) <= set(tbench.IMPLS)
+    a = explosive_source.build_parser().parse_args(["--shards", "2"])
+    assert (a.cpu, a.shards, a.dist_impl) == (False, 2, "auto")
     # the gradient engine follows its parameters' device (the card's by
     # default); the programs take the card unless --cpu
     assert inspect.signature(LaneDiffFwi).parameters["impl"].default is None
@@ -354,12 +367,37 @@ def test_port_never_imports_jax():
             "seigen_tpu_torch.solver.lane_diff, "
             "seigen_tpu_torch.solver.fwi, seigen_tpu_torch.solver.shots, "
             "seigen_tpu_torch.solver.imaging, "
-            "seigen_tpu_torch.bench.fwi_grad; "
+            "seigen_tpu_torch.bench.fwi_grad, seigen_tpu_torch.parallel, "
+            "seigen_tpu_torch.parallel.comm, "
+            "seigen_tpu_torch.parallel.fused_sharded, "
+            "seigen_tpu_torch.parallel.lane_sharded, "
+            "seigen_tpu_torch.parallel.upwind_sharded, "
+            "seigen_tpu_torch.parallel.dryrun, "
+            "seigen_tpu_torch.bench.profile_step; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'seigen_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, check=True)
     assert json.loads(out.stdout.strip().replace("'", '"')) == []
+
+
+def test_cli_shards_match_the_unsharded_run(tmp_path):
+    """explosive_source --shards 2 --cpu (two gloo ranks the CLI spawns,
+    ShardedFusedRunner) gives the unsharded run's seismograms, and a
+    sharded path that is not ported exits non-zero naming it."""
+    from seigen_tpu_torch.cli import explosive_source as es
+
+    base = ["--dim", "3", "--n", "4", "--degree", "2", "--T", "0.06",
+            "--cpu", "--f64", "--receivers", "5"]
+    one, two = tmp_path / "one.npz", tmp_path / "two.npz"
+    assert es.main(base + ["--out", str(one)]) == 0
+    assert es.main(base + ["--shards", "2", "--out", str(two)]) == 0
+    a, b = (np.load(f)["seismograms"] for f in (one, two))
+    assert a.shape == b.shape == (9, 5, 3) and np.abs(a).max() > 0
+    np.testing.assert_allclose(b, a, rtol=1e-10, atol=1e-10 * np.abs(a).max())
+    for flags in (["--dist-impl", "lane_u"], ["--scheme", "upwind-rk4"]):
+        with pytest.raises(SystemExit, match="E2"):
+            es.main(base + ["--shards", "2"] + flags)
 
 
 def test_sweep_picks_the_impl_from_the_case(monkeypatch):

@@ -12,6 +12,9 @@
 4. ``record_pressure`` (a last seismogram column, -tr(sigma)/dim) against
    the same JAX run, rtol 1e-10.  The 2D runner with pressure is held at
    1e-10 to the port's v2 and v1 runners in tests/test_torch_fused.py.
+5. The sharded slice: the port's ``ShardedFusedRunner`` on 3 gloo ranks
+   (parallel/, one supercell plane a rank) against the same JAX run, rtol
+   1e-10.
 """
 
 import jax.numpy as jnp
@@ -154,6 +157,33 @@ def test_runner_matches_einsum_run(torch_case, n_groups):
                                atol=1e-9)
     np.testing.assert_allclose(seis, seis_ref.numpy(), rtol=1e-10,
                                atol=1e-11)
+
+
+def test_sharded_runner_at_3_ranks_matches_jax(torch_case, jax_run,
+                                              tmp_path):
+    """The sharded slice end to end: the port's ShardedFusedRunner on 3
+    gloo ranks (one supercell plane each, every link along axis 0 through
+    the halo exchange) against the JAX MergedLaneRunner run above."""
+    from seigen_tpu_torch.parallel.comm import spawn
+    from seigen_tpu_torch.parallel.dryrun import run_fused
+
+    _, out_j, seis_j = jax_run
+    dm, p, damp, rcv, dt, st = torch_case
+    src = tsol.build_sources(
+        dm, [tsol.PointSource(position=(0.5, 0.5, 0.7), f0=4.0,
+                              radius=0.25)], dtype=torch.float64,
+        device="cpu")
+    out = tmp_path / "sharded.npz"
+    spawn(run_fused, 3, device="cpu", backend="gloo",
+          args=(str(out), p, tdetect(dm), dt, st, N_STEPS,
+                dict(src=src, damp=damp, receivers=rcv)))
+    got = np.load(out)
+    np.testing.assert_allclose(got["u"], np.asarray(out_j.u), rtol=1e-10,
+                               atol=1e-10)
+    np.testing.assert_allclose(got["s"], np.asarray(out_j.s), rtol=1e-10,
+                               atol=1e-10)
+    np.testing.assert_allclose(got["seis"], seis_j[..., :3], rtol=1e-10,
+                               atol=1e-12)
 
 
 def test_kernel_impl_refuses_cpu(torch_case):
