@@ -259,6 +259,27 @@ Phases, each printing its own lines; any failure exits non-zero:
               (relative L2 < 1e-4), the launches, DOF-updates/s and the
               halo bytes a step; the same run with the split bitwise
               equal to it.
+16. sharded_e2 - the rest of the sharded paths (parallel/: Morton blocks,
+              the general einsum path, the sharded gradients).  K4 TRAC
+              SEL and K5 SEL at the shapes of rank 0 of a 2-rank
+              ShardedUnstructuredRunner on the scrambled n=24 P3 case (its
+              lanes, select codes and panel rows) against their plain
+              versions, their times beside the plain versions and the
+              bound.  At one rank, 10 steps from phase 7's scrambled
+              state: ShardedUnstructuredRunner (3 K4 + 3 K5 a step)
+              against UnstructuredLaneRunner, relative L2 < 1e-4; the
+              lane_u_sharded bench beside lane_u.  Two ranks (NCCL with
+              two cards, else gloo on the one card): the same run
+              (relative L2 < 1e-4, rank 0's launches, DOF-updates/s, the
+              panel bytes a step a rank); run_distributed on tiny_case's
+              3D P2 case in float64 against timestep.run (rtol 1e-10);
+              the lane, merged, packed-P1 and lane_u domain-decomposed
+              gradients and shot-DP's vg_factory_sharded (merged, 2
+              shots) against the one-device LaneDiffFwi on phase 14's
+              cases (lane, merged: n=24 P3; packed: n=32 P1; lane_u: the
+              scrambled n=24 P3), 10 steps in segments of 5, shots at
+              the receiver line's depth with t0 = 0, observed data from vp
+              x 1.02: vp gradient cosine >= 0.9999, misfit within 1e-5.
 
 Tolerance of a kernel against its plain version: |k - p| <= rtol*|p| +
 atol*max|p| with rtol = 2e-4, atol = 2e-5.  The absolute floor is taken
@@ -412,6 +433,24 @@ PACKED_MODES = {  # packed P1 instantiation -> (kernel, replaced TPU kernel)
 SHARDED_MODES = {"merged_vel[split]": "merged_vel",
                  "merged_stress[split]": "merged_stress",
                  "upwind_rhs[halo]": "upwind_rhs"}
+# phase 16: K4 TRAC SEL / K5 SEL on a Morton block's lanes and panels
+# -> (kernel, replaced TPU kernel)
+SHARDED_E2_MODES = {
+    "lane_vel[SEL,shard]": ("lane_vel",
+                            "seigen_tpu/ops/pallas_kernels.py:373"),
+    "lane_stress[SEL,shard]": ("lane_stress",
+                               "seigen_tpu/ops/pallas_kernels.py:386")}
+DD_STEPS = 10
+DD_SEGMENT = 5
+E2_BENCH_STEPS = 20  # the 2-rank lane_u_sharded bench (gloo: ~30 ms a step)
+DD_VP_SCALE = 1.02  # observed data from vp * this
+DD_MIN_COSINE = 0.9999
+DD_VALUE_REL = 1e-5
+# phase 16's gradients: tag -> (bench case, engine, packed)
+DD_CASES = {"lane": ("case", "lane", False),
+            "merged": ("case", "merged", False),
+            "packed": ("pcase", "merged", True),
+            "lane_u": ("scase", "lane_u", False)}
 # the launches_pk counts
 PK_COUNTS = ("merged_vel_pk", "merged_stress_pk", "fused_vel2_pk",
              "fused_stress2_pk")
@@ -3141,15 +3180,16 @@ def sharded_upwind_runner(case, visco=False):
                                impl="kernel")
 
 
-def seeded_state(dm, dev):
-    """Phase 4's numpy-seeded random float32 state."""
+def seeded_state(dm, dev, seed=7):
+    """Phase 4's numpy-seeded random float32 state (seed 8: phase 7's on
+    the scrambled case)."""
     import numpy as np
     import torch
 
     from seigen_tpu_torch.solver.timestep import State
 
     E, n_p = dm.num_elements, dm.re.n_p
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(seed)
     return State(
         u=torch.as_tensor(rng.standard_normal((E, n_p, 3)), device=dev
                           ).float(),
@@ -3399,6 +3439,269 @@ def phase_sharded(dev, case, st, out_k, check, merged_rec):
     return launches, times, bounds
 
 
+def dd_shots(case, n_shots=1):
+    """Phase 16's shots on a bench case: blobs as the bench's source on
+    phase 14's receiver line (x from 0.4 to 0.6), t0 = 0, stacked."""
+    import numpy as np
+
+    from seigen_tpu_torch.solver import PointSource, build_sources
+    from seigen_tpu_torch.solver.shots import stack_shots
+
+    dm, p = case[0], case[1]
+    h = float(dm.h.min())
+    z = GRAD_RCV_LINE[0][2]
+    return stack_shots([build_sources(dm, [PointSource(
+        position=(float(x), 0.5, z), f0=0.25 / h, t0=0.0, radius=2 * h)],
+        device=p.device) for x in np.linspace(0.4, 0.6, n_shots)])
+
+
+def dd_engine(case, engine, packed, shots, comm=None):
+    """The kernel gradient engine of phase 16 on ``case``: LaneDiffFwi,
+    or with ``comm`` the domain-decomposed engine on its ranks."""
+    from seigen_tpu_torch.ops.structured_exchange import detect_structured
+    from seigen_tpu_torch.parallel import ShardedLaneDiffFwi, \
+        ShardedMergedDiffFwi, ShardedUnstructuredDiffFwi
+    from seigen_tpu_torch.solver.lane_diff import LaneDiffFwi
+
+    dm, p, _, damp, dt, _ = case
+    ex = None if engine == "lane_u" else detect_structured(dm)
+    args = (dt, DD_STEPS, shots, grad_rcv(case), None)
+    kw = dict(damp=damp, segment=DD_SEGMENT, impl="kernel")
+    if comm is None:
+        return LaneDiffFwi(p, dm, ex, *args, engine=engine, packed=packed,
+                           **kw)
+    if engine == "lane_u":
+        return ShardedUnstructuredDiffFwi(p, dm, *args, comm.world,
+                                          comm=comm, **kw)
+    if engine == "merged":
+        return ShardedMergedDiffFwi(p, dm, ex, *args, comm.world,
+                                    comm=comm, packed=packed, **kw)
+    return ShardedLaneDiffFwi(p, dm, ex, *args, comm.world, comm=comm, **kw)
+
+
+def dd_vp(case):
+    """The case's vp per element (the model a phase 16 gradient is taken
+    at)."""
+    import torch
+
+    p = case[1]
+    return torch.sqrt((p.lam + 2 * p.mu) * p.inv_rho)
+
+
+def dd_cases(dev, case=None, scase=None):
+    """{"case", "scase", "pcase"}: phase 16's bench cases (``case`` and
+    ``scase``: the ones already built)."""
+    from seigen_tpu_torch.bench import throughput
+
+    return {"case": case or throughput.setup_case(n=24, degree=3,
+                                                  device=dev),
+            "scase": scase or throughput.setup_case(n=24, degree=3,
+                                                    device=dev,
+                                                    scramble=True),
+            "pcase": throughput.setup_case(n=32, degree=1, device=dev)}
+
+
+def sharded_e2_rank(comm, tmp):
+    """One rank of phase 16's multi-rank runs; rank 0 writes every result
+    into ``tmp``: lane_u_sharded (state, launches, bench), the general
+    path, the domain-decomposed gradients (observed data from the files
+    the parent wrote) and shot-DP's."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.bench import throughput
+    from seigen_tpu_torch.parallel import ShardedUnstructuredRunner
+    from seigen_tpu_torch.parallel.dryrun import run_e2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = comm.device
+    out = {}
+    cases = dd_cases(dev)
+    sdm, sp, ssrc, sdamp, sdt, sst0 = cases["scase"]
+    r = ShardedUnstructuredRunner(sp, sdt, comm.world,
+                                  centroids=sdm.coords.mean(axis=1),
+                                  src=ssrc, damp=sdamp, impl="kernel",
+                                  comm=comm)
+    reset_counts()
+    st, _ = r.run(seeded_state(sdm, dev, seed=8), RUNNER_STEPS)
+    torch.cuda.synchronize(dev)
+    counts = read_counts()
+    res = throughput.measure(sp, ssrc, sdamp, sdt, sst0, sdm,
+                             n_steps=E2_BENCH_STEPS, runner=r)
+    out["lane_u_sharded"] = {
+        "counts": counts, "rate": res.dof_updates_per_sec,
+        "ms_step": 1e3 * res.seconds / res.n_steps,
+        "panel_bytes_per_step": r.halo_bytes_per_step(), "nb": r.nb,
+        "lanes": r.d.E, "backend": comm.backend}
+    if comm.rank == 0:
+        np.savez(os.path.join(tmp, "lane_u.npz"), u=st.u.cpu().numpy(),
+                 s=st.s.cpu().numpy())
+    del r, st
+    got, info = run_e2("general", comm, device=dev)
+    out["general"] = {"info": info}
+    if comm.rank == 0:
+        np.savez(os.path.join(tmp, "general.npz"), **got)
+    for tag, (cname, engine, packed) in DD_CASES.items():
+        t0 = time.perf_counter()
+        ldf = dd_engine(cases[cname], engine, packed,
+                        dd_shots(cases[cname]), comm)
+        ldf.observed = np.load(os.path.join(tmp, f"{tag}_obs.npy"))
+        v, g = ldf.vg_factory(None)({"vp": dd_vp(cases[cname])})
+        out[tag] = {"v": v, "seconds": time.perf_counter() - t0}
+        if comm.rank == 0:
+            np.save(os.path.join(tmp, f"{tag}_g.npy"),
+                    g["vp"].cpu().numpy())
+        del ldf
+    t0 = time.perf_counter()
+    ldf = dd_engine(cases["case"], "merged", False,
+                    dd_shots(cases["case"], 2))
+    ldf.observed = np.load(os.path.join(tmp, "shot_dp_obs.npy"))
+    v, g = ldf.vg_factory_sharded(comm)(None)({"vp": dd_vp(cases["case"])})
+    out["shot_dp"] = {"v": v, "seconds": time.perf_counter() - t0}
+    if comm.rank == 0:
+        np.save(os.path.join(tmp, "shot_dp_g.npy"), g["vp"].cpu().numpy())
+        with open(os.path.join(tmp, "e2.json"), "w") as f:
+            json.dump(out, f)
+
+
+def compare_gradient(tag, v, g, v_ref, g_ref):
+    """Phase 16's gradient bars: the misfit within DD_VALUE_REL, the vp
+    gradient's cosine against the one-device engine's >= DD_MIN_COSINE."""
+    import numpy as np
+
+    g, g_ref = (np.asarray(x, np.float64).ravel() for x in (g, g_ref))
+    cos = float(g @ g_ref / (np.linalg.norm(g) * np.linalg.norm(g_ref)))
+    rel = abs(v - v_ref) / abs(v_ref)
+    log(f"[sharded_e2] {tag}: misfit {v:.6e} (one device {v_ref:.6e}, rel "
+        f"{rel:.3e}), vp gradient cosine {cos:.8f}, |g| "
+        f"{np.abs(g_ref).max():.3e}")
+    if not (np.isfinite(g).all() and cos >= DD_MIN_COSINE
+            and rel <= DD_VALUE_REL and v_ref > 0):
+        raise AssertionError(f"{tag}: gradient off (cosine {cos}, misfit "
+                             f"rel {rel})")
+
+
+def phase_sharded_e2(dev, case, scase, sst, check):
+    """Phase 16 (see the module docstring); returns (launches, (kernel
+    ms, plain ms), bounds) of K4 TRAC SEL / K5 SEL on a Morton block."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from seigen_tpu_torch.bench import throughput
+    from seigen_tpu_torch.parallel import ShardedUnstructuredRunner
+    from seigen_tpu_torch.parallel.comm import Comm, spawn
+    from seigen_tpu_torch.parallel.dryrun import e2_close, run_e2
+    from seigen_tpu_torch.solver.lane_unstructured import \
+        UnstructuredLaneRunner
+
+    t0 = time.perf_counter()
+    sdm, sp, ssrc, sdamp, sdt, _ = scase
+    kw = dict(centroids=sdm.coords.mean(axis=1), src=ssrc, damp=sdamp,
+              impl="kernel")
+    # the kernels at rank 0's shapes of a 2-rank layout (host plan only)
+    r2 = ShardedUnstructuredRunner(sp, sdt, 2, comm=Comm(
+        rank=0, world=2, device=dev), **kw)
+    log(f"[sharded_e2] rank 0 of 2: {r2.d.E} lanes, {r2.nb} published "
+        f"columns a rank, panel {r2._rows_pad} x {r2.nb} "
+        f"({r2.halo_bytes_per_step()} B a step)")
+    x = lane_inputs(r2, 160)
+    times, bounds = {}, {}
+    for kname, (base, _) in SHARDED_E2_MODES.items():
+        mode = "SEL vel" if base == "lane_vel" else "SEL stress"
+        kern, plain = lane_call(r2, x, mode)
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        check(kname, f"shard 0 of 2 n=24 P3 {mode}", got, ref)
+        times[kname] = (time_ms(kern), time_ms(plain))
+        bounds[kname] = lane_bound(r2.d, mode)
+        log(f"[sharded_e2] {kname}: kernel {times[kname][0]:.4f} ms, plain "
+            f"{times[kname][1]:.4f} ms, bound {bounds[kname][0]:.4f} ms "
+            f"({bounds[kname][1]})")
+    del r2, x, got, ref
+
+    # one rank: the main path's run against the one-device runner
+    ref, _ = UnstructuredLaneRunner(sp, sdt, **kw).run(sst, RUNNER_STEPS)
+    r1 = ShardedUnstructuredRunner(sp, sdt, 1, **kw)
+    reset_counts()
+    out, _ = r1.run(sst, RUNNER_STEPS)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts("lane_u_sharded 1 rank", counts,
+                  lane_vel=3 * RUNNER_STEPS, lane_stress=3 * RUNNER_STEPS)
+    compare_states("lane_u_sharded 1 rank", out, ref,
+                   "vs UnstructuredLaneRunner")
+    launches = {k: counts[base] for k, (base, _) in SHARDED_E2_MODES.items()}
+    rec = throughput.main(n=24, degree=3, n_steps=BENCH_STEPS,
+                          impl="lane_u", case=scase)
+    print(json.dumps(rec), flush=True)
+    log(f"[sharded_e2] bench lane_u: {rec['value']:.4e} DOF-updates/s")
+    sharded_bench(r1, "lane_u_sharded", scase, "lane_u_sharded 1 rank")
+    del r1, out
+    log(f"[sharded_e2] one rank {time.perf_counter() - t0:.1f} s")
+
+    # the one-device references of the multi-rank runs
+    t1 = time.perf_counter()
+    cases = dd_cases(dev, case, scase)
+    n_dev = torch.cuda.device_count()
+    backend = "nccl" if n_dev >= 2 else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        refs = {}
+        for tag, (cname, engine, packed) in list(DD_CASES.items()) + [
+                ("shot_dp", ("case", "merged", False))]:
+            c = cases[cname]
+            ldf = dd_engine(c, engine, packed,
+                            dd_shots(c, 2 if tag == "shot_dp" else 1))
+            vp = dd_vp(c)
+            obs = ldf.synth({"vp": vp * DD_VP_SCALE})
+            np.save(os.path.join(tmp, f"{tag}_obs.npy"), obs)
+            ldf.observed = obs
+            v, g = ldf.vg_factory(None)({"vp": vp})
+            refs[tag] = (v, g["vp"].cpu().numpy())
+            del ldf
+        ref_general, _ = run_e2("general", None, device=dev)
+        log(f"[sharded_e2] one-device references "
+            f"{time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        spawn(sharded_e2_rank, 2, device="cuda", backend=backend,
+              args=(tmp,))
+        with open(os.path.join(tmp, "e2.json")) as f:
+            rec = json.load(f)
+        got = np.load(os.path.join(tmp, "lane_u.npz"))
+        out2 = type(ref)(u=torch.as_tensor(got["u"], device=dev),
+                         s=torch.as_tensor(got["s"], device=dev))
+        lu = rec["lane_u_sharded"]
+        log(f"[sharded_e2] 2 ranks ({backend}, {n_dev} card(s)), "
+            f"lane_u_sharded: rank 0 {lu['lanes']} lanes, launches K4 "
+            f"{lu['counts']['lane_vel']} K5 {lu['counts']['lane_stress']} "
+            f"in {RUNNER_STEPS} steps, {lu['rate']:.4e} DOF-updates/s, "
+            f"{lu['ms_step']:.4f} ms a step, panel {lu['nb']} columns, "
+            f"{lu['panel_bytes_per_step']} B a step a rank "
+            f"({time.perf_counter() - t1:.1f} s)")
+        expect_counts("lane_u_sharded 2 ranks (rank 0)", lu["counts"],
+                      lane_vel=3 * RUNNER_STEPS,
+                      lane_stress=3 * RUNNER_STEPS)
+        compare_states("lane_u_sharded 2 ranks", out2, ref,
+                       "vs UnstructuredLaneRunner")
+        err = e2_close(dict(np.load(os.path.join(tmp, "general.npz"))),
+                       ref_general)
+        log(f"[sharded_e2] general path, 2 ranks, f64: "
+            f"{rec['general']['info']}; max rel. diff vs timestep.run "
+            f"{err:.3e}")
+        for tag, (v_ref, g_ref) in refs.items():
+            g = np.load(os.path.join(tmp, f"{tag}_g.npy"))
+            kind = "shot-DP" if tag == "shot_dp" else "DD"
+            compare_gradient(f"{tag} {kind} gradient, 2 ranks "
+                             f"({rec[tag]['seconds']:.1f} s)",
+                             rec[tag]["v"], g, v_ref, g_ref)
+    del out2, ref
+    return launches, times, bounds
+
+
 def main() -> int:
     try:
         import torch
@@ -3593,7 +3896,14 @@ def main() -> int:
                          phase_sharded(dev, case, st, out_k, check,
                                        bench["kernel"])):
         have.update(new)
-    log(f"[sharded] phase {time.perf_counter() - t0:.1f} s; total "
+    log(f"[sharded] phase {time.perf_counter() - t0:.1f} s")
+
+    # 16. sharded_e2: Morton blocks, the general path, sharded gradients
+    t0 = time.perf_counter()
+    for have, new in zip((launches, times, bounds),
+                         phase_sharded_e2(dev, case, scase, sst, check)):
+        have.update(new)
+    log(f"[sharded_e2] phase {time.perf_counter() - t0:.1f} s; total "
         f"{time.perf_counter() - t_all:.1f} s")
 
     sources = dict(KERNELS)
@@ -3604,6 +3914,8 @@ def main() -> int:
                     for m, (_, replaces) in PACKED_MODES.items()})
     sources.update({m: (KERNELS[k][0], KERNELS[k][1])
                     for m, k in SHARDED_MODES.items()})
+    sources.update({m: (KERNELS[k][0], replaces)
+                    for m, (k, replaces) in SHARDED_E2_MODES.items()})
     kernels = [{"name": k, "route": "cuda", "source": src_file,
                 "replaces": replaces, "launches": launches[k],
                 "max_abs_err": check.worst[k], "ms": times[k][0],

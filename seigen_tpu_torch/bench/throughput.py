@@ -30,6 +30,8 @@ E * n_p * (dim + n_sig).  The timed region is the runner's ``run_lm`` over
     python -m seigen_tpu_torch.bench.throughput --impl fused_sharded \
         [--fill-mode off|local|skip|ppermute] [--overlap] [--ranks 4]
     python -m seigen_tpu_torch.bench.throughput --impl lane_sharded
+    python -m seigen_tpu_torch.bench.throughput --impl lane_u_sharded \
+        [--ranks 2]          # Morton blocks on the scrambled case
     python -m seigen_tpu_torch.bench.throughput --kernel-impl reference
 
 prints one JSON line.  With ``--ranks N`` (N > 1) a sharded impl runs on
@@ -71,10 +73,12 @@ from ..solver.timestep import State, cfl_dt
 BENCH_MAT = Material(rho=1.0, vp=2.0, vs=1.0)
 IMPLS = ("merged", "upwind_lane", "lane", "lane_u", "upwind_lane_u",
          "fused", "merged_pk", "fused_sharded", "fused_sharded_pk",
-         "lane_sharded")
-# the slab-sharded runners (parallel/): n_shards = the ranks of the run
-SHARDED_IMPLS = ("fused_sharded", "fused_sharded_pk", "lane_sharded")
-SCRAMBLED_IMPLS = ("lane_u", "upwind_lane_u")  # run on the scrambled case
+         "lane_sharded", "lane_u_sharded")
+# the sharded runners (parallel/): n_shards = the ranks of the run
+SHARDED_IMPLS = ("fused_sharded", "fused_sharded_pk", "lane_sharded",
+                 "lane_u_sharded")
+SCRAMBLED_IMPLS = ("lane_u", "upwind_lane_u",
+                   "lane_u_sharded")  # run on the scrambled case
 RK4_IMPLS = ("upwind_lane", "upwind_lane_u")
 # central flux: these take a stiffness
 VTI_IMPLS = ("merged", "lane", "lane_u", "fused")
@@ -172,7 +176,8 @@ def make_runner(impl, dm, p, src, damp, dt, kernel_impl=None, visco=None,
     ``fill_mode``, ``overlap``), "fused_sharded_pk" (the same packed: P1
     only) and "lane_sharded" (ShardedLaneRunner, LF ``order``) run one
     slab a rank of ``comm`` (default: this process's ranks; n_shards must
-    divide G0).  ``vti``: the stress operators of the four
+    divide G0); "lane_u_sharded" (ShardedUnstructuredRunner, LF
+    ``order``) one Morton block a rank.  ``vti``: the stress operators of the four
     LF runners take ``bench_stiffness``.  kernel_impl: "kernel" (CUDA
     kernels) or "reference" (their plain PyTorch versions); default by
     device."""
@@ -190,6 +195,15 @@ def make_runner(impl, dm, p, src, damp, dt, kernel_impl=None, visco=None,
         return UnstructuredUpwindRunner(
             p, w, dt, src=src, damp=damp, impl=kernel_impl, visco=visco,
             centroids=dm.coords.mean(axis=1), **upwind_u)
+    if impl == "lane_u_sharded":
+        from ..parallel import ShardedUnstructuredRunner
+        from ..parallel.comm import current
+
+        comm = comm or current(p.device)
+        return ShardedUnstructuredRunner(
+            p, dt, comm.world, order=order, src=src, damp=damp,
+            impl=kernel_impl, centroids=dm.coords.mean(axis=1),
+            stiffness=stiffness, comm=comm)
     ex = detect_structured(dm)
     if ex is None:
         raise ValueError(f"{impl} impl requires a structured mesh")
@@ -432,8 +446,8 @@ if __name__ == "__main__":
     add_upwind_u_arguments(ap)
     ap.add_argument("--ranks", type=int, default=1,
                     help="sharded impls: spawn this many NCCL ranks (one "
-                    "card each; the shard count is the largest divisor of "
-                    "G0 = n up to it)")
+                    "card each; the slab impls' shard count is the largest "
+                    "divisor of G0 = n up to it)")
     ap.add_argument("--fill-mode", default="auto",
                     choices=("auto", "off", "ppermute", "local", "skip"),
                     help="fused_sharded(_pk): the halo fill (one shard: "
@@ -449,7 +463,8 @@ if __name__ == "__main__":
     if a.ranks > 1:
         from ..parallel.comm import spawn
 
-        spawn(_rank_main, sharded_ranks(a.n, a.ranks), device="cuda",
-              backend="nccl", args=(kw,))
+        ranks = (a.ranks if a.impl == "lane_u_sharded"
+                 else sharded_ranks(a.n, a.ranks))
+        spawn(_rank_main, ranks, device="cuda", backend="nccl", args=(kw,))
     else:
         print(json.dumps(main(**kw)))

@@ -23,14 +23,16 @@ UnstructuredUpwindRunner (K6/K7; also forced by ``--impl lane_u``), or with
 ``--impl einsum`` the einsum RK4; ``--qp/--qs`` add viscoelastic memory
 variables, which ride the checkpoints.
 
-``--shards N`` runs the slab-sharded LF paths on N ranks that the CLI
-spawns itself (NCCL, one card a rank; gloo with ``--cpu``):
-``--dist-impl auto`` takes ShardedFusedRunner (LF4, packed P1 where it
-applies, ``--vti``) and else ShardedLaneRunner (LF2/LF4), both on a
-structured mesh with N | G0 (parallel/); ``fused`` and ``lane`` ask for
-one of them.  Rank 0 writes the seismograms, checkpoints, VTK and report.
-The unstructured (``lane_u``) and general sharded paths are not ported
-yet (ROADMAP.md, Slice E2).
+``--shards N`` runs the sharded LF paths on N ranks that the CLI spawns
+itself (NCCL, one card a rank; gloo with ``--cpu``), as the JAX script
+picks them: ``--dist-impl auto`` takes ShardedFusedRunner (LF4, packed P1
+where it applies, ``--vti``), else ShardedLaneRunner (LF2/LF4), both on a
+structured mesh with N | G0, else ShardedUnstructuredRunner (Morton
+blocks, K4/K5 SEL, any conforming mesh), else the general einsum path
+(parallel/dist_ops.py); ``fused``, ``lane``, ``lane_u`` and ``general``
+ask for one of them.  Rank 0 writes the seismograms, checkpoints, VTK and
+report.  ``--shards`` refuses ``--pml`` (no sharded path) and
+``--scheme upwind-rk4`` (the JAX script runs leapfrog there).
 
     python -m seigen_tpu_torch.cli.explosive_source --dim 3 --n 24 \
         --degree 3 --shards 2
@@ -93,8 +95,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dist-impl",
                     choices=["auto", "fused", "lane", "lane_u", "general"],
                     default="auto",
-                    help="sharded backend (lane_u and general: not "
-                         "ported yet)")
+                    help="sharded backend: fused (slab-sharded merged "
+                         "kernels), lane (slab-sharded lane kernels), "
+                         "lane_u (Morton blocks, all-gathered trace "
+                         "panels), general (einsum, permute halos); auto "
+                         "picks fused > lane > lane_u > general")
     ap.add_argument("--f64", action="store_true")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (plain operator versions)")
@@ -479,61 +484,86 @@ def make_advance(args, c: Case, cpu: bool):
     return advance, visco
 
 
-def refuse_unported_shards(args):
-    """Exit non-zero for a ``--shards`` run whose sharded path is not
-    ported (the general and unstructured ones, Slice E2) or does not
-    exist (C-PML)."""
+def refuse_shards(args):
+    """Exit non-zero for a ``--shards`` run that has no sharded path (the
+    C-PML), or whose JAX dispatch would run other physics than asked."""
     if args.pml is not None:
         raise SystemExit("--pml has no sharded path")
     if args.scheme != "lf":
-        raise SystemExit(f"--shards with --scheme {args.scheme} takes the "
-                         "general sharded path, not ported yet "
-                         "(ROADMAP.md, Slice E2)")
-    if args.dist_impl in ("lane_u", "general"):
-        raise SystemExit(f"--dist-impl {args.dist_impl}: not ported yet "
-                         "(ROADMAP.md, Slice E2)")
+        raise SystemExit(
+            f"--shards with --scheme {args.scheme}: the JAX script sends "
+            "this to the general sharded path, whose step is leapfrog, not "
+            "the RK4 that was asked for; refused (ROADMAP.md Queue 3)")
+    if args.dist_impl == "general" and args.vti is not None:
+        raise SystemExit("--dist-impl general is isotropic: --vti rides "
+                         "--dist-impl auto|fused|lane|lane_u")
 
 
 def make_sharded_advance(args, c: Case, comm):
     """``advance`` of a ``--shards`` run on this rank (the chunk's global
     State and seismograms on every rank), as the JAX script picks its
-    sharded runner."""
-    from ..parallel import ShardedFusedRunner, ShardedLaneRunner
+    sharded path: ``auto`` tries fused, then lane, then lane_u, then the
+    general einsum path; ``lane_u`` takes a per-element ``--vti``
+    stiffness into K5 SEL."""
+    from ..parallel import ShardedFusedRunner, ShardedLaneRunner, \
+        ShardedUnstructuredRunner
+    from ..parallel.dist_ops import run_distributed
 
     ex = detect_structured(c.dm)
     eligible = ex is not None and ex.grid[0] % args.shards == 0
     kw = dict(src=c.src, damp=c.damp, receivers=c.rcv, comm=comm)
     runner = None
-    if eligible and args.dist_impl in ("auto", "fused") and args.order == 4:
-        try:
-            runner = ShardedFusedRunner(c.p, ex, c.dt, args.shards,
-                                        stiffness=c.aniso_C, packed="auto",
-                                        **kw)
-            name = "fused"
-        except ValueError:
-            if args.dist_impl == "fused":
-                raise
-    if runner is None and c.aniso_C is not None:
-        raise SystemExit(
-            "--vti with --shards needs the fused DD pipeline "
-            f"(mesh grid={None if ex is None else ex.grid}, "
-            f"shards={args.shards})")
-    if runner is None and eligible and args.dist_impl in ("auto", "lane"):
-        runner = ShardedLaneRunner(c.p, ex, c.dt, args.shards,
-                                   order=args.order, **kw)
-        name = "lane"
+    if args.dist_impl in ("auto", "lane", "fused"):
+        if eligible and args.dist_impl in ("auto", "fused") and \
+                args.order == 4:
+            try:
+                runner = ShardedFusedRunner(c.p, ex, c.dt, args.shards,
+                                            stiffness=c.aniso_C,
+                                            packed="auto", **kw)
+                name = "fused (slab"
+            except ValueError:
+                if args.dist_impl == "fused":
+                    raise
+        if runner is None and c.aniso_C is not None:
+            raise SystemExit(
+                "--vti with --shards needs the fused DD pipeline "
+                f"(mesh grid={None if ex is None else ex.grid}, "
+                f"shards={args.shards})")
+        if runner is None and eligible and args.dist_impl in ("auto",
+                                                              "lane"):
+            runner = ShardedLaneRunner(c.p, ex, c.dt, args.shards,
+                                       order=args.order, **kw)
+            name = "lane (slab"
+        if runner is None and args.dist_impl in ("lane", "fused"):
+            raise SystemExit(
+                f"--dist-impl {args.dist_impl} needs a structured mesh "
+                "with shards | G0 "
+                f"(got grid={None if ex is None else ex.grid})")
+    if runner is None and args.dist_impl in ("auto", "lane_u"):
+        runner = ShardedUnstructuredRunner(
+            c.p, c.dt, args.shards, order=args.order,
+            centroids=np.asarray(c.dm.coords.mean(axis=1)),
+            stiffness=c.aniso_C, **kw)
+        name = "lane_u (Morton blocks"
     if runner is None:
-        raise SystemExit(
-            f"--dist-impl {args.dist_impl} needs a structured mesh with "
-            f"shards | G0 (got grid={None if ex is None else ex.grid}); "
-            "the general sharded path is not ported yet (ROADMAP.md, "
-            "Slice E2)")
+        name = "general (permute"
     if comm.rank == 0:
-        print(f"sharded path: {name} (slab x{args.shards}, "
+        print(f"sharded path: {name} x{args.shards}, "
               f"{comm.backend or 'one rank'})")
+    if runner is not None:
+        def advance(st, xi, n0, k):
+            fin, ys = runner.run(st, k, step0=n0)
+            return fin, None, ys
+
+        return advance, None
+    plan = None
 
     def advance(st, xi, n0, k):
-        fin, ys = runner.run(st, k, step0=n0)
+        nonlocal plan
+        fin, ys, plan = run_distributed(
+            c.dm, c.mat, st, c.dt, k, comm=comm, order=args.order,
+            sources=c.src, damp=c.damp, receivers=c.rcv, dtype=c.p.dtype,
+            step0=n0, plan=plan)
         return fin, None, ys
 
     return advance, None
@@ -580,7 +610,7 @@ def time_loop(args, c: Case, timer: RegionTimer, cpu: bool, comm=None):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.shards:
-        refuse_unported_shards(args)
+        refuse_shards(args)
         pick_device(args.cpu)
         from ..parallel.comm import init, spawn
 

@@ -14,7 +14,16 @@ card; their plain versions with ``--cpu``).
     python -m seigen_tpu_torch.cli.fwi --dim 3 --n 24 --degree 1 --salt \\
         --iters 12 --shots 4 --bands 4,8 --T 1.4 --grad-path merged
 
-``--grad-shards`` and ``--dd-shards`` (several devices) are not ported yet.
+``--grad-shards N`` lays the shots over N ranks (shot data parallelism:
+``LaneDiffFwi.vg_factory_sharded``) and ``--dd-shards N`` decomposes each
+shot's domain over N ranks (parallel/: ``--grad-path lane`` the slab-sharded
+lane operators, ``merged`` the slab-sharded merged ones, ``lane_u`` Morton
+blocks), both with the lane engines only and not together.  The CLI spawns
+the ranks itself (NCCL, one card a rank; gloo with ``--cpu``); every rank
+runs the same inversion and gets the same sums, rank 0 prints and writes.
+
+    python -m seigen_tpu_torch.cli.fwi --n 8 --degree 1 --iters 3 \
+        --grad-path merged --dd-shards 2
 """
 
 from __future__ import annotations
@@ -28,10 +37,6 @@ import numpy as np
 import torch
 
 from . import pick_device, run_dtype
-
-NOT_PORTED = ("--grad-shards/--dd-shards: the multi-device gradient paths "
-              "are not ported yet (ROADMAP.md Queue 1 item 26)")
-
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -84,11 +89,15 @@ def build_parser() -> argparse.ArgumentParser:
                          "kernels (solver/lane_diff.py); lane_u works on "
                          "any conforming mesh")
     ap.add_argument("--grad-shards", type=int, default=0,
-                    help="shot-parallel gradients over several devices "
-                         "(not ported yet: exits non-zero)")
+                    help="with --grad-path lane/merged/lane_u: lay the "
+                         "shots over this many ranks (shot-parallel "
+                         "gradients summed over the ranks)")
     ap.add_argument("--dd-shards", type=int, default=0,
-                    help="domain-decomposed gradients over several devices "
-                         "(not ported yet: exits non-zero)")
+                    help="domain-decompose each shot's forward and adjoint "
+                         "sweeps over this many ranks (--grad-path lane: "
+                         "slab-sharded lane ops; merged: slab-sharded "
+                         "merged ops; lane_u: Morton-block unstructured "
+                         "ops)")
     ap.add_argument("--inv-checkpoint", type=str, default=None,
                     help="inversion-state npz written every iteration; with "
                          "--inv-resume a killed inversion continues bitwise")
@@ -291,7 +300,7 @@ def invert_q(args, c, dtype, dev, t_setup) -> int:
     return 0 if misfits[-1] < misfits[0] else 1
 
 
-def estimate_source(args, ldf):
+def estimate_source(args, ldf, log=print):
     """Per-shot (amp, f0, t0) recovery by Adam on source_vg_factory from a
     perturbed wavelet, in the background model; installs the recovered
     wavelet in the engine and returns the report."""
@@ -324,22 +333,92 @@ def estimate_source(args, ldf):
     rep = {"src_misfit_first": v_first, "src_misfit_last": v,
            "wav_err_init": relerr(wav), "wav_err_final": relerr(wav_rec),
            "src_wall_s": time.perf_counter() - t_src}
-    print(f"source estimation: misfit {v_first:.3e} -> {v:.3e}, wavelet "
-          f"rel-err {rep['wav_err_init']:.3f} -> {rep['wav_err_final']:.3f}",
-          flush=True)
+    log(f"source estimation: misfit {v_first:.3e} -> {v:.3e}, wavelet "
+        f"rel-err {rep['wav_err_init']:.3f} -> {rep['wav_err_final']:.3f}",
+        flush=True)
     return rep
+
+
+def refuse_shards(args):
+    """Exit non-zero for a sharded gradient the script does not run."""
+    if args.grad_shards and args.dd_shards:
+        raise SystemExit("--grad-shards (shot-DP) and --dd-shards (domain "
+                         "decomposition) are exclusive")
+    if args.grad_path == "roll" or args.invert_q:
+        raise SystemExit("--grad-shards/--dd-shards need --grad-path "
+                         "lane/merged/lane_u (and no --invert-q)")
+    if args.dd_shards and args.est_source:
+        raise SystemExit("--est-source runs on one device (no "
+                         "--dd-shards)")
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    shards = max(args.grad_shards, args.dd_shards)
     if args.grad_shards or args.dd_shards:
-        raise SystemExit(NOT_PORTED)
-    dev = pick_device(args.cpu)
+        refuse_shards(args)
+    if shards <= 1:
+        return _rank_main(None, args)
+    pick_device(args.cpu)
+    from ..parallel.comm import spawn
+
+    try:
+        spawn(_rank_entry, shards, device="cpu" if args.cpu else "cuda",
+              backend="gloo" if args.cpu else "nccl", args=(args,))
+    except Exception as e:  # a rank failed: its error is printed
+        print(f"sharded inversion failed: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _rank_entry(comm, args):
+    rc = _rank_main(comm, args)
+    if rc:
+        raise SystemExit(rc)
+
+
+def _engine(args, c, comm):
+    """(gradient engine, its name): LaneDiffFwi, or with --dd-shards the
+    domain-decomposed engine of --grad-path on ``comm``'s ranks."""
+    from ..solver.lane_diff import LaneDiffFwi
+
+    dm, p0, dt, n_steps = c["dm"], c["p0"], c["dt"], c["n_steps"]
+    kw = dict(damp=c["damp"], segment=args.segment)
+    if args.dd_shards > 1:
+        from ..parallel import ShardedLaneDiffFwi, ShardedMergedDiffFwi, \
+            ShardedUnstructuredDiffFwi
+
+        args_ = (dt, n_steps, c["shots"], c["rcv"], None, args.dd_shards)
+        if args.grad_path == "lane_u":
+            ldf = ShardedUnstructuredDiffFwi(p0, dm, *args_, comm=comm, **kw)
+        else:
+            cls = (ShardedLaneDiffFwi if args.grad_path == "lane"
+                   else ShardedMergedDiffFwi)
+            ldf = cls(p0, dm, c["ex"], *args_, comm=comm, **kw)
+        return ldf, f"{args.grad_path}_diff_dd{args.dd_shards}"
+    ldf = LaneDiffFwi(p0, dm, c["ex"], dt, n_steps, c["shots"], c["rcv"],
+                      None, engine=args.grad_path, **kw)
+    name = f"{args.grad_path}_diff"
+    if args.grad_shards > 1:
+        name += f"_shot_dp{args.grad_shards}"
+    return ldf, name
+
+
+def _rank_main(comm, args) -> int:
+    """The inversion; with ``comm`` one rank of a sharded run (only rank 0
+    prints and writes; the others return 0 unless their model is not
+    finite)."""
+    rank0 = comm is None or comm.rank == 0
+    dev = pick_device(args.cpu) if comm is None else comm.device
     dtype = run_dtype(args.f64)
     t_setup = time.perf_counter()
     c = setup(args, dev, dtype)
     if args.invert_q:
         return invert_q(args, c, dtype, dev, t_setup)
+
+    def say(*a, **kw):
+        if rank0:
+            print(*a, **kw)
 
     from ..ops.structured_exchange import detect_structured, \
         make_structured_ops
@@ -352,25 +431,20 @@ def main(argv=None) -> int:
     shots, rcv, damp = c["shots"], c["rcv"], c["damp"]
     vp_true = torch.as_tensor(c["vp_true"], device=dev).to(dtype)
     st0 = zero_state(dm, dtype, dev)
-    ex = detect_structured(dm)
+    ex = c["ex"] = detect_structured(dm)
     vel_op = stress_op = ldf = None
     if args.grad_path in ("lane", "merged", "lane_u"):
         if ex is None and args.grad_path != "lane_u":
             raise SystemExit("--grad-path lane/merged needs a structured "
                              "mesh (lane_u works on any)")
-        from ..solver.lane_diff import LaneDiffFwi
-
-        ldf = LaneDiffFwi(p0, dm, ex, dt, n_steps, shots, rcv, None,
-                          damp=damp, segment=args.segment,
-                          engine=args.grad_path)
-        grad_ops = f"{args.grad_path}_diff"
+        ldf, grad_ops = _engine(args, c, comm)
     elif ex is not None:
         vel_op, stress_op = make_structured_ops(ex)
         grad_ops = "roll"
     else:
         grad_ops = "einsum"
-    print(f"E={E} steps={n_steps} shots={args.shots} f0={c['f0']:.1f} "
-          f"grad_ops={grad_ops}")
+    say(f"E={E} steps={n_steps} shots={args.shots} f0={c['f0']:.1f} "
+        f"grad_ops={grad_ops}")
 
     # observed data from the true model
     if ldf is not None:
@@ -382,15 +456,15 @@ def main(argv=None) -> int:
                 with_material(p0, vp=vp_true), st0, dt, n_steps, shots,
                 receivers=rcv, damp=damp, segment=args.segment,
                 vel_op=vel_op, stress_op=stress_op, batch=args.batch)
-    print(f"setup+observed: {time.perf_counter() - t_setup:.1f} s",
-          flush=True)
+    say(f"setup+observed: {time.perf_counter() - t_setup:.1f} s",
+        flush=True)
 
     wav_report = None
     if args.est_source:
         if ldf is None:
             raise SystemExit("--est-source needs --grad-path lane/merged/"
                              "lane_u")
-        wav_report = estimate_source(args, ldf)
+        wav_report = estimate_source(args, ldf, say)
 
     precond = None
     if args.precond == "illum":
@@ -401,8 +475,8 @@ def main(argv=None) -> int:
         illum = ldf.illumination()  # in the starting model p0
         precond = 1.0 / (illum + 0.01 * illum.max())
         precond = precond / precond.mean()
-        print(f"illumination precond: {time.perf_counter() - t_il:.1f} s "
-              f"(I range {illum.min():.3e}..{illum.max():.3e})", flush=True)
+        say(f"illumination precond: {time.perf_counter() - t_il:.1f} s "
+            f"(I range {illum.min():.3e}..{illum.max():.3e})", flush=True)
 
     bands = None
     if args.bands:
@@ -410,15 +484,18 @@ def main(argv=None) -> int:
     lr = args.lr if args.lr is not None else 0.01
     lo = float(vp_true.min()) - 0.3
     hi = float(vp_true.max()) + 0.3
+    vg_factory = None
+    if ldf is not None:
+        vg_factory = (ldf.vg_factory_sharded(comm) if args.grad_shards > 1
+                      else ldf.vg_factory)
     res = invert(
         p0, st0, dt, n_steps, shots, rcv, observed,
         fields=("vp",), optimizer=args.optimizer, lr=lr, iters=args.iters,
         bands=bands, smooth_iters=args.smooth, bounds={"vp": (lo, hi)},
         damp=damp, segment=args.segment, vel_op=vel_op, stress_op=stress_op,
-        batch=args.batch,
-        vg_factory=None if ldf is None else ldf.vg_factory,
-        precond=precond, checkpoint_path=args.inv_checkpoint,
-        resume=args.inv_resume, log=lambda s: print(s, flush=True))
+        batch=args.batch, vg_factory=vg_factory, precond=precond,
+        checkpoint_path=args.inv_checkpoint, resume=args.inv_resume,
+        checkpoint_save=rank0, log=lambda s: say(s, flush=True))
 
     vp0 = theta_of_params(p0)["vp"].detach()
     vp = res.theta["vp"].detach()
@@ -438,6 +515,9 @@ def main(argv=None) -> int:
     }
     if wav_report is not None:
         summary.update(wav_report)
+    ok = res.misfits[-1] < res.misfits[0] or err < err0
+    if not rank0:
+        return 0 if np.isfinite(err) else 1
     print(json.dumps(summary))
     if args.out:
         np.savez_compressed(
@@ -445,7 +525,7 @@ def main(argv=None) -> int:
             vp_init=vp0.cpu().numpy(), vp_final=vp.cpu().numpy(),
             misfits=np.asarray(res.misfits), centroids=c["cent"])
         print(f"model -> {args.out}")
-    return 0 if (res.misfits[-1] < res.misfits[0] or err < err0) else 1
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -195,17 +195,21 @@ def _phys_grad(p: ElasticParams, field: torch.Tensor) -> torch.Tensor:
 
 
 def _traces(p: ElasticParams, field: torch.Tensor,
-            traces: torch.Tensor | None = None):
+            traces: torch.Tensor | None = None,
+            pool: torch.Tensor | None = None):
     """Own and neighbour face traces: each (E, n_faces, n_fp, C).
 
     ``traces`` bypasses the gather with precomputed neighbour traces
     (E, nf*nfp, C) — the structured roll exchange
-    (ops/structured_exchange.py)."""
+    (ops/structured_exchange.py).  ``pool`` replaces the gather's source:
+    in a sharded run it is [local flat nodes | halo ghosts] and ``p.nbr``
+    indexes it (parallel/partition.py)."""
     fn = torch.as_tensor(np.array(p.fnodes), device=field.device)
     own = field[:, fn]  # (E, n_faces, n_fp, C)
     if traces is not None:
         return own, traces.reshape(own.shape)
-    flat = field.reshape((-1,) + field.shape[2:])
+    flat = pool if pool is not None else field.reshape(
+        (-1,) + field.shape[2:])
     nbr = flat[p.nbr]  # (E, n_faces, n_fp, C)
     return own, nbr
 
@@ -218,9 +222,11 @@ def _lift(p: ElasticParams, face_flux: torch.Tensor) -> torch.Tensor:
 
 
 def apply_vel_op(p: ElasticParams, sigma: torch.Tensor,
-                 traces: torch.Tensor | None = None) -> torch.Tensor:
+                 traces: torch.Tensor | None = None, *,
+                 pool: torch.Tensor | None = None) -> torch.Tensor:
     """A_u(sigma) = Minv * Lu(sigma): discrete (1/rho) div(sigma).
-    ``traces``: precomputed neighbour traces (see ``_traces``)."""
+    ``traces``: precomputed neighbour traces, ``pool``: the gather's
+    source (see ``_traces``)."""
     V = voigt_map(p.dim)
     grad = _phys_grad(p, sigma)  # (E, dim, n_p, n_sig)
     # div(sigma)_c = d_d sigma_{cd}
@@ -232,7 +238,7 @@ def apply_vel_op(p: ElasticParams, sigma: torch.Tensor,
         dim=-1,
     )  # (E, n_p, dim)
 
-    own, nbr = _traces(p, sigma, traces)
+    own, nbr = _traces(p, sigma, traces, pool)
     nrm = p.normals[:, :, None, :]  # (E, n_faces, 1, dim)
     # tractions t_c = n_d sigma_{cd}
     t_own = torch.stack(
@@ -269,15 +275,17 @@ def _hooke(dim, lam, mu, gd):
 
 
 def apply_stress_op(p: ElasticParams, u: torch.Tensor,
-                    traces: torch.Tensor | None = None) -> torch.Tensor:
+                    traces: torch.Tensor | None = None, *,
+                    pool: torch.Tensor | None = None) -> torch.Tensor:
     """A_s(u) = Minv * Ls(u): discrete Hooke's law applied to sym grad(u).
-    ``traces``: precomputed neighbour traces (see ``_traces``)."""
+    ``traces``: precomputed neighbour traces, ``pool``: the gather's
+    source (see ``_traces``)."""
     grad = _phys_grad(p, u)  # (E, dim, n_p, dim): grad[:, d, :, c] = du_c/dx_d
     vol = torch.stack(
         _hooke(p.dim, p.lam[:, None], p.mu[:, None],
                lambda c, d: grad[:, d, :, c]), dim=-1)
 
-    own, nbr = _traces(p, u, traces)
+    own, nbr = _traces(p, u, traces, pool)
     du = 0.5 * nbr + p.delta_u[:, :, None, None] * own  # (E, nf, nfp, dim)
     nrm = p.normals[:, :, None, :]
     # face Hooke on the symmetrised (n (x) du)

@@ -264,9 +264,15 @@ def build_cmat(stiffness, d: LaneOpData, old_of_new=None) -> torch.Tensor:
     old_of_new[lane] (identity when None); rows n_sig..7 of each section
     are zero.  ``stiffness``: (n_sig, n_sig) or (E, n_sig, n_sig)."""
     n_sig, E = d.n_sig, d.E
-    C = stiffness_array(stiffness, E, n_sig)
-    if old_of_new is not None:
-        C = C[np.asarray(old_of_new)]
+    if isinstance(stiffness, torch.Tensor):
+        stiffness = stiffness.detach().cpu().numpy()
+    st = np.asarray(stiffness, dtype=np.float64)
+    if st.ndim == 3:  # per element of the mesh; d may hold a shard of it
+        C = stiffness_array(st, st.shape[0], n_sig)
+        if old_of_new is not None:
+            C = C[np.asarray(old_of_new)]
+    else:
+        C = stiffness_array(st, E, n_sig)
     cm = np.zeros((n_sig * 8, E), dtype=np.float64)
     for c in range(n_sig):
         cm[c * 8 : c * 8 + n_sig] = C[:, c, :].T

@@ -1,5 +1,5 @@
-"""Ranks and their point-to-point traffic: the port's ``shard_map`` +
-``lax.ppermute``.
+"""Ranks and their traffic: the port's ``shard_map``, ``lax.ppermute``,
+``all_gather`` and ``psum``.
 
 The JAX package runs a sharded solver as one SPMD program over a device
 mesh and moves halo planes with ``jax.lax.ppermute``.  Here a sharded run
@@ -110,6 +110,36 @@ class Comm:
         dist.all_gather(out, xs)
         return [o.to(x.device) for o in out]
 
+    def all_reduce_sum(self, x):
+        """The sum of every rank's ``x`` (the same shape on each), on
+        every rank: JAX's ``psum``.  ``x`` itself is left as it is."""
+        if self.world == 1:
+            return x
+        y = self._host(x.contiguous()) if self._staged else x.clone()
+        dist.all_reduce(y)
+        return y.to(x.device)
+
+    def permute(self, x, pairs):
+        """One round of JAX's ``lax.ppermute`` over ``(src, dst)`` pairs:
+        this rank sends ``x`` to every dst it is the src of and returns
+        what its src sent it, or zeros where no pair ends here.  Every
+        rank calls it with the same pairs; each rank is the src and the
+        dst of at most one pair (a matching, as ``partition.make_plan``'s
+        edge colouring gives)."""
+        dst = [d for s, d in pairs if s == self.rank]
+        src = [s for s, d in pairs if d == self.rank]
+        if len(dst) > 1 or len(src) > 1:
+            raise ValueError(f"rank {self.rank} appears twice in {pairs}")
+        if self.world == 1 or not (dst or src):
+            return x.clone() if src else torch.zeros_like(x)
+        xs = self._host(x.contiguous())
+        got = torch.zeros_like(xs)
+        ops = ([dist.P2POp(dist.isend, xs, dst[0])] if dst else []) + (
+            [dist.P2POp(dist.irecv, got, src[0])] if src else [])
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+        return got.to(x.device)
+
 
 @dataclass
 class Exchange:
@@ -156,6 +186,10 @@ def init(rank: int, world: int, backend: str, init_method: str,
     if world > 1:
         dist.init_process_group(backend, init_method=init_method, rank=rank,
                                 world_size=world)
+        if backend == "nccl":
+            # NCCL wants every rank in a group's first collective; a
+            # ``permute`` round may leave a rank out
+            dist.barrier(device_ids=[dev.index])
     return Comm(rank=rank, world=world,
                 backend=backend if world > 1 else None, device=dev)
 

@@ -163,6 +163,7 @@ def invert(
     log=None,
     checkpoint_path: str | None = None,
     resume: bool = False,
+    checkpoint_save: bool = True,
     checkpoint_every: int = 1,
 ) -> FwiResult:
     """Multi-stage FWI: for each band (low -> full), minimize the
@@ -184,7 +185,8 @@ def invert(
     ``misfits``, ``band_log``, ``theta_keys``, ``theta_<field>``); the
     optimizer state is torch's own ``state_dict`` (``opt_state`` and
     ``opt_<param>_<name>``), which does not interchange with optax's
-    leaves.
+    leaves.  ``checkpoint_save=False`` reads a resume but never writes
+    (the ranks of a sharded inversion but the one that writes).
 
     ``precond``: per-element (E,) positive weights multiplied into every
     gradient field before smoothing (e.g. 1/(I + eps) from
@@ -355,7 +357,8 @@ def invert(
                     log(f"band={fc} iter={it} misfit={float(value):.4e}")
                 if ck is not None and (it + 1 == iters
                                        or (it + 1) % checkpoint_every == 0):
-                    save_ck(band_idx, it, opt)
+                    if checkpoint_save:
+                        save_ck(band_idx, it, opt)
         for k in theta:
             theta[k].grad = None
         band_log.append({"fc": fc, "misfit_end": misfits[-1]})

@@ -40,8 +40,9 @@ with each operator transpose riding the kernels.  Tensors that do not
 require grad stay out of the graph: inverting vp alone saves only the
 strain-trace rows that lam multiplies (npp, L) per stress application.
 ``segment`` (torch.utils.checkpoint chunks) bounds the stored steps.
-The shot-parallel and domain-decomposed engines are not ported yet
-(ROADMAP item 26).
+``vg_factory_sharded`` lays the shots over the ranks of a process group
+(shot data parallelism); parallel/dd_diff_base.py decomposes the domain of
+each shot instead.
 """
 
 from __future__ import annotations
@@ -195,7 +196,8 @@ def make_conjugated_ops(runner, w) -> ConjugatedOps:
 
         def b_prim(u):
             tr = torch.matmul(r._rmat, u.reshape(d.dim, d.npp, -1))
-            return r._stress_op(r.plan, d, u, r._place_traces(tr),
+            return r._stress_op(r.plan, d, u,
+                                r._on_trace_lanes(r._place_traces(tr)),
                                 r.mask)[0]
     else:
         a_prim, b_prim = runner._vel, runner._stress
@@ -264,16 +266,15 @@ class LaneDiffFwi:
         for k, v in (theta_defaults or {}).items():
             self._theta0[k] = self._tensor(v)
 
-        pf = _material_free(p0)
+        if packed and aniso:
+            raise ValueError("the packed layout is isotropic only")
+        self._E_mesh = p0.Ginv.shape[0]
+        self.runner = r = self._make_runner(
+            engine, _material_free(p0), dm, ex, dt, order=order, damp=damp,
+            receivers=receivers, impl=impl, packed=packed)
+        # the runner's elements (all of them, or a shard's)
+        self.E = len(r._old_of_new)
         if engine == "merged":
-            from .lane_merged import MergedLaneRunner
-
-            if packed and aniso:
-                raise ValueError("the packed layout is isotropic only")
-            self.runner = r = MergedLaneRunner(
-                pf, ex, dt, damp=damp, receivers=receivers, impl=impl,
-                packed=packed)
-            self.E = r.p.Ginv.shape[0]
             self._L = r.mask.shape[1]
             e_new = np.arange(self.E)
             lanes = r._slane(e_new)
@@ -284,21 +285,7 @@ class LaneDiffFwi:
             self._damp = (None if dmp is None else
                           (dmp.repeat(r.d.dim, 1), dmp.repeat(r.d.n_sig, 1)))
         else:
-            if engine == "lane_u":
-                # the conjugation identity is a property of the conforming
-                # mesh's bilinear form, not of the structured exchange
-                from .lane_unstructured import UnstructuredLaneRunner
-
-                self.runner = r = UnstructuredLaneRunner(
-                    pf, dt, order=order, damp=damp, receivers=receivers,
-                    impl=impl, centroids=np.asarray(dm.coords.mean(axis=1)))
-            else:
-                from .lane_major import LaneMajorRunner
-
-                self.runner = r = LaneMajorRunner(
-                    pf, ex, dt, order=order, damp=damp, receivers=receivers,
-                    impl=impl)
-            self.E = self._L = r.E
+            self._L = r.E
             lanes = np.arange(self.E)
             self._npar = 1
             pars = np.zeros(self.E, np.int64)
@@ -340,6 +327,10 @@ class LaneDiffFwi:
             elems = elems[None]
         self.n_shots, K = elems.shape
         e_new = r._new_of_old[elems]  # (S, K) class-major index
+        # a shard's runner holds some of the elements: the others' entries
+        # inject nothing (zero vectors at lane 0)
+        own = e_new >= 0
+        e_new = np.where(own, e_new, 0)
         src_lanes = self._lanes_np[e_new]
         base = self._pars_np[e_new] * self._hp  # (S, K) parity row offset
         s_i = np.arange(self.n_shots)[:, None]
@@ -347,6 +338,7 @@ class LaneDiffFwi:
 
         def lane_vecs(v, C):
             v = v.detach().cpu().numpy().astype(np.float64)  # (S, K, n_p, C)
+            v = v * own[:, :, None, None]
             out = np.zeros((self.n_shots, C * d.npp, K))
             for c in range(C):
                 for jj in range(d.n_p):
@@ -361,6 +353,29 @@ class LaneDiffFwi:
             "t0": self._tensor(fields["t0"]),
             "amp": self._tensor(fields["amp"]),
         }
+
+    @staticmethod
+    def _make_runner(engine, pf, dm, ex, dt, order, damp, receivers, impl,
+                     packed):
+        """The engine's material-free runner on one device."""
+        if engine == "merged":
+            from .lane_merged import MergedLaneRunner
+
+            return MergedLaneRunner(pf, ex, dt, damp=damp,
+                                    receivers=receivers, impl=impl,
+                                    packed=packed)
+        if engine == "lane_u":
+            # the conjugation identity is a property of the conforming
+            # mesh's bilinear form, not of the structured exchange
+            from .lane_unstructured import UnstructuredLaneRunner
+
+            return UnstructuredLaneRunner(
+                pf, dt, order=order, damp=damp, receivers=receivers,
+                impl=impl, centroids=np.asarray(dm.coords.mean(axis=1)))
+        from .lane_major import LaneMajorRunner
+
+        return LaneMajorRunner(pf, ex, dt, order=order, damp=damp,
+                               receivers=receivers, impl=impl)
 
     def _tensor(self, x) -> torch.Tensor:
         """x (numpy or tensor) on the engine's device and dtype."""
@@ -525,9 +540,15 @@ class LaneDiffFwi:
                                                               keepdim=True))
             tot += acc.double()
         vals = tot.reshape(-1)[self._mflat].reshape(self.E, -1).sum(dim=1)
-        out = np.zeros(self.E, np.float64)
-        out[self._perm.cpu().numpy()] = vals.cpu().numpy()
-        return out
+        out = torch.zeros(self._E_mesh, dtype=torch.float64,
+                          device=self.device)
+        out[self._perm] = vals
+        return self._sum_ranks(out).cpu().numpy()
+
+    def _sum_ranks(self, x):
+        """A per-element array this engine filled at its own elements ->
+        the whole mesh's (one device: as it is)."""
+        return x
 
     @torch.no_grad()
     def synth(self, theta: dict):
@@ -538,25 +559,59 @@ class LaneDiffFwi:
                          for k in range(self.n_shots)])
 
     # --- public: vg plug for solver.fwi.invert ------------------------
+    def _vg_shots(self, theta, shots, obs, taps):
+        """(misfit, {field: grad}) summed over the shots ``shots``."""
+        th = self._theta(theta)
+        tot_v, tot_g = 0.0, None
+        for k in shots:
+            src_k = self._shot(k)
+            v, g = value_and_grad(
+                lambda t: self._loss_one(t, src_k, obs[k], taps), th)
+            tot_v += v
+            tot_g = g if tot_g is None else {
+                kk: tot_g[kk] + g[kk] for kk in g}
+        return tot_v, tot_g
+
     def vg_factory(self, taps):
         """taps (or None) -> vg(theta) = (misfit float, {field: grad}) over
         all shots, one shot after the other; ``observed`` is low-passed
         here to match the synthetic filtering."""
         obs = self._obs(taps)
+        return lambda theta: self._vg_shots(theta, range(self.n_shots),
+                                            obs, taps)
 
-        def vg(theta):
-            th = self._theta(theta)
-            tot_v, tot_g = 0.0, None
-            for k in range(self.n_shots):
-                src_k = self._shot(k)
-                v, g = value_and_grad(
-                    lambda t: self._loss_one(t, src_k, obs[k], taps), th)
-                tot_v += v
-                tot_g = g if tot_g is None else {
-                    kk: tot_g[kk] + g[kk] for kk in g}
-            return tot_v, tot_g
+    def vg_factory_sharded(self, comm=None):
+        """Shot data parallelism: ``taps -> vg(theta)`` as ``vg_factory``'s,
+        with rank r of ``comm`` (default: the process group's) running its
+        contiguous n_shots/P shots and the misfit and gradient summed over
+        the ranks (JAX's psum over the "shot" axis).  Every rank builds the
+        same engine and gets the same sums; n_shots must be a multiple of
+        the rank count."""
+        from ..parallel.comm import current
 
-        return vg
+        comm = comm if comm is not None else current(self.device)
+        P = comm.world
+        if self.n_shots % P:
+            raise ValueError(f"n_shots {self.n_shots} not divisible by "
+                             f"{P} ranks")
+        if self.observed is None:
+            raise ValueError("observed data not set")
+        per = self.n_shots // P
+        mine = range(comm.rank * per, (comm.rank + 1) * per)
+
+        def factory(taps):
+            obs = self._obs(taps)
+
+            def vg(theta):
+                v, g = self._vg_shots(theta, mine, obs, taps)
+                v = comm.all_reduce_sum(torch.tensor(
+                    v, dtype=torch.float64, device=self.device))
+                return float(v), {k: comm.all_reduce_sum(x)
+                                  for k, x in g.items()}
+
+            return vg
+
+        return factory
 
     def source_vg_factory(self, taps=None, with_theta: bool = False):
         """Per-shot source-wavelet gradients (FWI source estimation) of the

@@ -27,7 +27,6 @@ from ..ops.unstructured_exchange import (
     make_unstructured_traction_exchange,
     permute_pairing,
 )
-from ..parallel.partition import morton_order
 from .lane_major import LaneMajorRunner
 
 
@@ -50,6 +49,9 @@ class UnstructuredLaneRunner(LaneMajorRunner):
         if self._centroids is None:
             ident = np.arange(E, dtype=np.int64)
             return ident, ident.copy()
+        # imported here: parallel/ builds its runners on this module
+        from ..parallel.partition import morton_order
+
         old_of_new = np.asarray(morton_order(self._centroids),
                                 dtype=np.int64)
         new_of_old = np.empty(E, dtype=np.int64)

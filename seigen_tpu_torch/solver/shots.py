@@ -1,9 +1,10 @@
 """Ensemble-of-shots batching: the forward solve over several sources.
 
-Port of ``seigen_tpu/solver/shots.py`` (the shot-axis data parallelism over
-several devices, ``shard_shots``, is not ported yet: ROADMAP item 26).
-Shots are independent seismic experiments sharing the mesh and the
-material; a stacked ``SourceData`` carries them on a leading shot axis.
+Port of ``seigen_tpu/solver/shots.py``.  Shots are independent seismic
+experiments sharing the mesh and the material; a stacked ``SourceData``
+carries them on a leading shot axis.  ``shard_shots`` gives each rank of a
+process group its contiguous share of the shots (data parallelism: no
+traffic while they run).
 ``run_shots`` solves them in one batched loop (``batch="vmap"``: the
 per-shot step under ``torch.func.vmap``, the state and the seismograms
 with a leading shot axis) or one shot after the other (``"map"``,
@@ -56,6 +57,22 @@ def stack_shots(shots: list[SourceData]) -> SourceData:
 def shot_at(shots: SourceData, i: int) -> SourceData:
     """Shot ``i`` of a stacked SourceData."""
     return SourceData(**{f: getattr(shots, f)[i] for f in _FIELDS})
+
+
+def shard_shots(shots: SourceData, comm=None) -> SourceData:
+    """The contiguous n_shots/P shots of rank r of ``comm`` (default: the
+    process group's), P its rank count: the port's layout of the shot
+    axis over a "shot" mesh axis.  n_shots must be a multiple of P."""
+    from ..parallel.comm import current
+
+    comm = comm if comm is not None else current(shots.elems.device)
+    S, P = shots.elems.shape[0], comm.world
+    if S % P:
+        raise ValueError(f"n_shots {S} not divisible by {P} ranks")
+    k = S // P
+    return SourceData(**{f: getattr(shots, f)[comm.rank * k :
+                                              (comm.rank + 1) * k]
+                         for f in _FIELDS})
 
 
 def run_shots(

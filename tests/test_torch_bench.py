@@ -314,7 +314,9 @@ def test_entry_points_default_to_the_card():
     from seigen_tpu_torch.bench.sweep import run_sweep
     from seigen_tpu_torch.cli import explosive_source, fwi, rtm
     from seigen_tpu_torch.parallel import ShardedFusedRunner, \
-        ShardedLaneRunner, ShardedUpwindRunner, comm
+        ShardedLaneDiffFwi, ShardedLaneRunner, ShardedMergedDiffFwi, \
+        ShardedUnstructuredDiffFwi, ShardedUnstructuredRunner, \
+        ShardedUpwindRunner, comm, run_distributed
     from seigen_tpu_torch.ops import build_params, build_upwind_data
     from seigen_tpu_torch.solver import build_receivers, build_sources
     from seigen_tpu_torch.solver.fwi import lowpass_taps
@@ -329,12 +331,20 @@ def test_entry_points_default_to_the_card():
     # the sharded runners follow their parameters' device and take the
     # process group's ranks; the sharded bench impls and --shards run on
     # the card (NCCL) unless --cpu
-    for cls in (ShardedFusedRunner, ShardedLaneRunner, ShardedUpwindRunner):
+    for cls in (ShardedFusedRunner, ShardedLaneRunner, ShardedUpwindRunner,
+                ShardedUnstructuredRunner, ShardedLaneDiffFwi,
+                ShardedMergedDiffFwi, ShardedUnstructuredDiffFwi):
         sig = inspect.signature(cls).parameters
         assert sig["impl"].default is None and sig["comm"].default is None
+    # the general path runs on its state's device and the process group
+    assert inspect.signature(run_distributed).parameters[
+        "comm"].default is None
     assert set(tbench.SHARDED_IMPLS) <= set(tbench.IMPLS)
     a = explosive_source.build_parser().parse_args(["--shards", "2"])
     assert (a.cpu, a.shards, a.dist_impl) == (False, 2, "auto")
+    for flag in ("--grad-shards", "--dd-shards"):
+        a = fwi.build_parser().parse_args([flag, "2"])
+        assert a.cpu is False
     # the gradient engine follows its parameters' device (the card's by
     # default); the programs take the card unless --cpu
     assert inspect.signature(LaneDiffFwi).parameters["impl"].default is None
@@ -373,6 +383,13 @@ def test_port_never_imports_jax():
             "seigen_tpu_torch.parallel.lane_sharded, "
             "seigen_tpu_torch.parallel.upwind_sharded, "
             "seigen_tpu_torch.parallel.dryrun, "
+            "seigen_tpu_torch.parallel.partition, "
+            "seigen_tpu_torch.parallel.dist_ops, "
+            "seigen_tpu_torch.parallel.unstructured_sharded, "
+            "seigen_tpu_torch.parallel.dd_diff_base, "
+            "seigen_tpu_torch.parallel.lane_diff_sharded, "
+            "seigen_tpu_torch.parallel.merged_diff_sharded, "
+            "seigen_tpu_torch.parallel.unstructured_diff_sharded, "
             "seigen_tpu_torch.bench.profile_step; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'seigen_tpu')))")
@@ -382,21 +399,30 @@ def test_port_never_imports_jax():
 
 
 def test_cli_shards_match_the_unsharded_run(tmp_path):
-    """explosive_source --shards 2 --cpu (two gloo ranks the CLI spawns,
-    ShardedFusedRunner) gives the unsharded run's seismograms, and a
-    sharded path that is not ported exits non-zero naming it."""
+    """explosive_source --shards 2 --cpu (two gloo ranks the CLI spawns:
+    ShardedFusedRunner by default, ShardedUnstructuredRunner with
+    --dist-impl lane_u, the einsum path with general) gives the unsharded
+    run's seismograms; the sharded runs the CLI refuses exit non-zero
+    saying why."""
     from seigen_tpu_torch.cli import explosive_source as es
 
     base = ["--dim", "3", "--n", "4", "--degree", "2", "--T", "0.06",
             "--cpu", "--f64", "--receivers", "5"]
-    one, two = tmp_path / "one.npz", tmp_path / "two.npz"
+    one = tmp_path / "one.npz"
     assert es.main(base + ["--out", str(one)]) == 0
-    assert es.main(base + ["--shards", "2", "--out", str(two)]) == 0
-    a, b = (np.load(f)["seismograms"] for f in (one, two))
-    assert a.shape == b.shape == (9, 5, 3) and np.abs(a).max() > 0
-    np.testing.assert_allclose(b, a, rtol=1e-10, atol=1e-10 * np.abs(a).max())
-    for flags in (["--dist-impl", "lane_u"], ["--scheme", "upwind-rk4"]):
-        with pytest.raises(SystemExit, match="E2"):
+    a = np.load(one)["seismograms"]
+    assert a.shape == (9, 5, 3) and np.abs(a).max() > 0
+    for impl in ("auto", "lane_u", "general"):
+        two = tmp_path / f"{impl}.npz"
+        assert es.main(base + ["--shards", "2", "--dist-impl", impl,
+                               "--out", str(two)]) == 0
+        np.testing.assert_allclose(np.load(two)["seismograms"], a,
+                                   rtol=1e-10, atol=1e-10 * np.abs(a).max())
+    for flags, why in ((["--scheme", "upwind-rk4"], "leapfrog"),
+                       (["--pml", "0.2"], "no sharded path"),
+                       (["--dist-impl", "general", "--vti", "0.1,0,0"],
+                        "isotropic")):
+        with pytest.raises(SystemExit, match=why):
             es.main(base + ["--shards", "2"] + flags)
 
 

@@ -139,10 +139,11 @@ def test_gmsh_layered_vtk_matches_jax_script(tmp_path, monkeypatch):
 
 
 def test_refusals(tmp_path, monkeypatch):
+    # --shards with --scheme upwind-rk4: the JAX script runs leapfrog
     with pytest.raises(SystemExit) as e:
         explosive_source.main(BASE + ["--cpu", "--shards", "2",
-                                      "--dist-impl", "general"])
-    assert "Slice E2" in str(e.value.code)
+                                      "--scheme", "upwind-rk4"])
+    assert "leapfrog" in str(e.value.code)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for mod in (explosive_source, eigenmode2d, eigenmode3d, topography,
                 precision_study):

@@ -307,9 +307,32 @@ def test_fwi_cli_checkpoint_and_refusals(tmp_path, capsys):
     assert rc == 0 and (tmp_path / "inv.npz").exists()
     rc, s2 = run_main(fwi_cli, argv + ["--inv-resume"], capsys)
     assert rc == 0 and s2["misfit_last"] == s["misfit_last"]
-    for flag in ("--grad-shards", "--dd-shards"):
-        with pytest.raises(SystemExit, match="item 26"):
-            fwi_cli.main(FWI_TINY + [flag, "2"])
+    for flags, why in ((["--grad-shards", "2", "--dd-shards", "2"],
+                        "exclusive"),
+                       (["--grad-path", "roll", "--dd-shards", "2"],
+                        "--grad-path"),
+                       (["--grad-path", "lane", "--dd-shards", "2",
+                         "--est-source"], "one device")):
+        with pytest.raises(SystemExit, match=why):
+            fwi_cli.main(FWI_TINY + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--grad-path", "lane", "--grad-shards", "2"],
+    ["--grad-path", "merged", "--dd-shards", "2"],
+], ids=["grad-shards", "dd-shards"])
+def test_fwi_cli_shards_match_the_unsharded_run(flags, tmp_path):
+    """fwi --grad-shards 2 / --dd-shards 2 --cpu (two gloo ranks the CLI
+    spawns; rank 0 writes) inverts as the unsharded run does: the same
+    misfit history and final model."""
+    argv = FWI_TINY + ["--shots", "2", "--T", "0.3"] + flags[:2]
+    one, two = tmp_path / "one.npz", tmp_path / "two.npz"
+    assert fwi_cli.main(argv + ["--out", str(one)]) == 0
+    assert fwi_cli.main(argv + flags[2:] + ["--out", str(two)]) == 0
+    a, b = np.load(one), np.load(two)
+    assert np.abs(a["misfits"]).min() > 0
+    for k in ("misfits", "vp_final"):
+        np.testing.assert_allclose(b[k], a[k], rtol=1e-9, err_msg=k)
 
 
 @pytest.mark.parametrize("extra", [
