@@ -19,7 +19,9 @@ Phases, each printing its own lines; any failure exits non-zero:
               and K7 at the eight element shapes and K1pk, K2pk, K8pk and
               K9pk (the packed K1, K2, K8 and K9; K11 is K8pk's 3D P1
               instantiation) at 2D and 3D P1 — each must report a 0 B
-              stack frame and no spills.
+              stack frame and no spills.  Then the host mesh-setup library
+              (mesh/native, g++): its seconds; it must be available, since
+              every later phase's setup takes it.
 3. kernels  - every K1/K2 variant (vel plain/axpy/inject with 1 and 2
               groups; stress plain/axpy/axpy+damp/inject with 1 and 2
               groups) against its plain PyTorch version on the card in
@@ -280,6 +282,21 @@ Phases, each printing its own lines; any failure exits non-zero:
               scrambled n=24 P3), 10 steps in segments of 5, shots at
               the receiver line's depth with t0 = 0, observed data from vp
               x 1.02: vp gradient cosine >= 0.9999, misfit within 1e-5.
+17. native  - the host mesh-setup library (mesh/native: the JAX package's
+              C++ source) against the NumPy setup, each forced by
+              replacing ``native.available``.  build_discrete of the
+              explosive-source case at n=24 P3 (in turns NumPy, native,
+              native, NumPy) and at n=40 P3 (E = 384 000), the seconds of
+              each: nbr, bc and coords exactly equal, Ginv, detJ, normals,
+              Fscale and h within rtol 1e-12 and an absolute 1e-14 times
+              the field's largest magnitude; morton_order and
+              make_plan(dm, 4) on the scrambled n=24 P3 case, both paths,
+              seconds, every array and round_perms identical; setup_case
+              at n=24 P3 both ways in the same turns, the seconds to the
+              first merged step, then 10 MergedLaneRunner steps (3 + 3
+              K1/K2 launches a step) from one seeded state on the first
+              case of each: relative L2 native against NumPy < 1e-6
+              (float32 state, geometry in ulps).
 
 Tolerance of a kernel against its plain version: |k - p| <= rtol*|p| +
 atol*max|p| with rtol = 2e-4, atol = 2e-5.  The absolute floor is taken
@@ -303,6 +320,7 @@ JSON line describing the kernels, and as the last line
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -451,6 +469,13 @@ DD_CASES = {"lane": ("case", "lane", False),
             "merged": ("case", "merged", False),
             "packed": ("pcase", "merged", True),
             "lane_u": ("scase", "lane_u", False)}
+# phase 17: the native mesh-setup library against the NumPy setup
+NATIVE_SIZES = (24, 40)  # build_discrete at n=24 P3 and n=40 P3 (E = 384k)
+# tests/test_native.py's bounds, atol times the field's largest magnitude
+NATIVE_RTOL, NATIVE_ATOL = 1e-12, 1e-14
+NATIVE_GEOMETRY = ("Ginv", "detJ", "normals", "Fscale", "h")
+NATIVE_MAX_REL = 1e-6  # 10 merged steps, native case vs NumPy case, f32
+NATIVE_SHARDS = 4
 # the launches_pk counts
 PK_COUNTS = ("merged_vel_pk", "merged_stress_pk", "fused_vel2_pk",
              "fused_stress2_pk")
@@ -3702,6 +3727,165 @@ def phase_sharded_e2(dev, case, scase, sst, check):
     return launches, times, bounds
 
 
+@contextlib.contextmanager
+def numpy_setup():
+    """The NumPy setup path for the block: ``native.available`` replaced,
+    as tests/test_native.py forces it."""
+    from seigen_tpu_torch.mesh import native
+
+    keep = native.available
+    native.available = lambda: False
+    try:
+        yield
+    finally:
+        native.available = keep
+
+
+def timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def fmt_secs(secs):
+    return ", ".join(f"{t:.4f}" for t in secs)
+
+
+def compare_meshes(tag, dm_nat, dm_np):
+    """Integer maps and coordinates exactly equal, the geometry within
+    |native - NumPy| <= NATIVE_RTOL |NumPy| + NATIVE_ATOL max|NumPy| (the
+    absolute floor scales with the field: an entry that cancels to zero
+    keeps a rounding error of the field's size, ~n at n cells an edge);
+    returns the worst abs difference per field, and its share of the
+    bound."""
+    import numpy as np
+
+    for name in ("nbr", "bc", "coords"):
+        if not np.array_equal(getattr(dm_nat, name), getattr(dm_np, name)):
+            raise AssertionError(f"[native] {tag}: {name} differs")
+    worst = {}
+    for name in NATIVE_GEOMETRY:
+        a, b = getattr(dm_nat, name), getattr(dm_np, name)
+        err = np.abs(a - b)
+        tol = NATIVE_RTOL * np.abs(b) + NATIVE_ATOL * np.abs(b).max()
+        worst[name] = (float(err.max()), float((err / tol).max()))
+    if any(ratio > 1.0 for _, ratio in worst.values()):
+        raise AssertionError(f"[native] {tag}: geometry beyond rtol "
+                             f"{NATIVE_RTOL}, atol {NATIVE_ATOL} x max: "
+                             f"{worst}")
+    return worst
+
+
+def native_meshes():
+    """(a) build_discrete at n=24 and n=40 P3 on both paths, seconds."""
+    from seigen_tpu_torch.mesh import box_mesh, build_discrete
+    from seigen_tpu_torch.solver.damping import absorbing_bc_fn
+
+    bc_fn = absorbing_bc_fn(((0.0, 1.0),) * 3, free_sides=[(2, "hi")])
+    for n in NATIVE_SIZES:
+        topo, t_mesh = timed(lambda: box_mesh(n, n, n))
+
+        def build(numpy):
+            with numpy_setup() if numpy else contextlib.nullcontext():
+                return timed(lambda: build_discrete(topo, 3, bc_fn=bc_fn))
+
+        # in turns at n=24 (NumPy, native, native, NumPy); once each above
+        turns = (True, False, False, True) if n == 24 else (True, False)
+        runs = [(numpy, *build(numpy)) for numpy in turns]
+        secs = {k: [t for numpy, _, t in runs if numpy == (k == "numpy")]
+                for k in ("numpy", "native")}
+        worst = compare_meshes(f"n={n} P3", runs[1][1], runs[0][1])
+        E = runs[0][1].num_elements
+        log(f"[native] build_discrete n={n} P3 (E {E}): NumPy "
+            f"{fmt_secs(secs['numpy'])} s, native {fmt_secs(secs['native'])}"
+            f" s (native / NumPy {min(secs['native']) / min(secs['numpy']):.3f}"
+            f"); box_mesh {t_mesh:.4f} s; nbr, bc, coords equal; worst "
+            f"(|native - NumPy|, share of the bound) {worst}")
+
+
+def native_plans(sdm):
+    """(b) morton_order and make_plan on the scrambled case, both paths."""
+    import numpy as np
+
+    from seigen_tpu_torch.parallel.partition import make_plan, morton_order
+
+    cent = sdm.coords.mean(axis=1)
+    perm, t_nat = timed(lambda: morton_order(cent))
+    with numpy_setup():
+        perm_np, t_np = timed(lambda: morton_order(cent))
+    if not np.array_equal(perm, perm_np):
+        raise AssertionError("[native] morton_order differs")
+    log(f"[native] morton_order on the scrambled n=24 P3 case "
+        f"(E {sdm.num_elements}): NumPy {t_np:.4f} s, native {t_nat:.4f} "
+        f"s; equal")
+    plan, t_nat = timed(lambda: make_plan(sdm, NATIVE_SHARDS))
+    with numpy_setup():
+        plan_np, t_np = timed(lambda: make_plan(sdm, NATIVE_SHARDS))
+    for f in dataclasses.fields(plan):
+        a, b = getattr(plan, f.name), getattr(plan_np, f.name)
+        same = (np.array_equal(a, b) if isinstance(a, np.ndarray)
+                else a == b)
+        if not same:
+            raise AssertionError(f"[native] make_plan {f.name} differs")
+    log(f"[native] make_plan(dm, {NATIVE_SHARDS}) on it: NumPy {t_np:.4f} "
+        f"s, native {t_nat:.4f} s; every field equal (K {plan.n_rounds}, "
+        f"H {plan.halo_max}, round_perms {plan.round_perms})")
+
+
+def native_main_path(dev):
+    """(c) setup_case at n=24 P3 both ways, in turns (NumPy, native,
+    native, NumPy), the seconds to the first merged step; on the first case
+    of each, 10 steps from one seeded state."""
+    import torch
+
+    from seigen_tpu_torch.bench import throughput
+    from seigen_tpu_torch.ops.structured_exchange import detect_structured
+    from seigen_tpu_torch.solver.lane_merged import MergedLaneRunner
+
+    outs, secs = {}, {"numpy": [], "native": []}
+    for label in ("numpy", "native", "native", "numpy"):
+        with numpy_setup() if label == "numpy" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            case = throughput.setup_case(n=24, degree=3, device=dev)
+            torch.cuda.synchronize()
+            t_setup = time.perf_counter() - t0
+            dm, p, src, damp, dt, state0 = case
+            runner = MergedLaneRunner(p, detect_structured(dm), dt, src=src,
+                                      damp=damp, impl="kernel")
+            runner.run(state0, 1)
+            torch.cuda.synchronize()
+            secs[label].append((t_setup, time.perf_counter() - t0))
+        if label in outs:
+            continue
+        reset_counts()
+        outs[label], _ = runner.run(seeded_state(dm, dev), RUNNER_STEPS)
+        torch.cuda.synchronize()
+        expect_counts(f"[native] {label} case", read_counts(),
+                      merged_vel=3 * RUNNER_STEPS,
+                      merged_stress=3 * RUNNER_STEPS)
+    for label, runs in secs.items():
+        log(f"[native] setup_case n=24 P3 ({label}): "
+            f"{fmt_secs(t for t, _ in runs)} s, first merged step done "
+            f"{fmt_secs(t for _, t in runs)} s after the start")
+    log(f"[native] {RUNNER_STEPS} steps on each case: 3 + 3 K1/K2 launches "
+        f"a step")
+    for name in ("u", "s"):
+        a, b = getattr(outs["native"], name), getattr(outs["numpy"], name)
+        rel = ((a - b).norm() / b.norm()).item()
+        finite = bool(torch.isfinite(a).all())
+        log(f"[native] {name}: rel L2 native case vs NumPy case {rel:.3e}, "
+            f"finite {finite}")
+        if not (finite and rel < NATIVE_MAX_REL):
+            raise AssertionError(f"[native] state {name} off: rel {rel}")
+
+
+def phase_native(dev, scase):
+    """Phase 17: the native mesh-setup library on the setup path."""
+    native_meshes()
+    native_plans(scase[0])
+    native_main_path(dev)
+
+
 def main() -> int:
     try:
         import torch
@@ -3716,6 +3900,7 @@ def main() -> int:
         import numpy as np
 
         from seigen_tpu_torch.bench import throughput
+        from seigen_tpu_torch.mesh import native
         from seigen_tpu_torch.ops import lane_kernels as lk
         from seigen_tpu_torch.ops import lane_upwind_kernels as luk
         from seigen_tpu_torch.ops import merged_kernels as mk
@@ -3750,6 +3935,11 @@ def main() -> int:
             if "registers" in ln or "spill" in ln or "Compiling" in ln:
                 log(f"  ptxas: {ln.strip()}")
     check_ptxas()
+    if not native.available():  # the host mesh library, on every setup
+        raise RuntimeError(f"[build] the native mesh library is not "
+                           f"available:\n{native.build_log()}")
+    log(f"[build] {native.SRC.name}: g++ "
+        f"{native.LIBRARY.build_seconds:.3f} s ({native.LIBRARY.path.name})")
     log(f"[build] phase {wall:.1f} s")
 
     # 3. kernels vs plain versions on small meshes
@@ -3903,7 +4093,12 @@ def main() -> int:
     for have, new in zip((launches, times, bounds),
                          phase_sharded_e2(dev, case, scase, sst, check)):
         have.update(new)
-    log(f"[sharded_e2] phase {time.perf_counter() - t0:.1f} s; total "
+    log(f"[sharded_e2] phase {time.perf_counter() - t0:.1f} s")
+
+    # 17. native: the C++ mesh-setup library against the NumPy setup
+    t0 = time.perf_counter()
+    phase_native(dev, scase)
+    log(f"[native] phase {time.perf_counter() - t0:.1f} s; total "
         f"{time.perf_counter() - t_all:.1f} s")
 
     sources = dict(KERNELS)

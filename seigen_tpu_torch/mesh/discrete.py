@@ -14,10 +14,12 @@ by (sorted canonical face-vertex ids, barycentric coordinates in that sorted
 order), and identical keys are paired.  Periodic boundaries fall out of the
 same mechanism via canonical vertex identification.
 
-This is the NumPy path of ``seigen_tpu/mesh/discrete.py``.  The JAX
-package also has a ctypes C++ twin (``mesh/native``) for large-mesh setup
-speed; the port does not carry it yet, so both setup stages below always run
-in NumPy.
+A C++ twin of the pairing and the geometric factors lives in
+``mesh/native`` (the JAX package's source, built at first use) for
+large-mesh setup speed; ``build_discrete`` takes it whenever
+``native.available()``, as ``seigen_tpu/mesh/discrete.py`` does.  The NumPy
+versions below (``pair_rows_numpy``, ``geometric_factors_numpy``) are its
+oracle.
 """
 
 from __future__ import annotations
@@ -78,7 +80,23 @@ class DiscreteMesh:
 
 
 def _pair_rows(flat_keys: np.ndarray) -> np.ndarray:
-    """partner[i] = j with identical key row (self if unmatched)."""
+    """partner[i] = j with identical key row (self if unmatched).
+
+    Uses the native C++ sort-and-match when available (large meshes);
+    ``pair_rows_numpy`` is the oracle.
+    """
+    from . import native
+
+    if native.available():
+        partner, mult = native.pair_face_nodes(flat_keys)
+        if mult > 2:
+            raise ValueError("non-manifold mesh: a face node matched >2 sides")
+        return partner
+    return pair_rows_numpy(flat_keys)
+
+
+def pair_rows_numpy(flat_keys: np.ndarray) -> np.ndarray:
+    """The NumPy pairing: np.unique over the key rows."""
     _, inv, counts = np.unique(
         flat_keys, axis=0, return_inverse=True, return_counts=True
     )
@@ -94,6 +112,50 @@ def _pair_rows(flat_keys: np.ndarray) -> np.ndarray:
     a, b = order[starts], order[starts + 1]
     partner[a], partner[b] = b, a
     return partner
+
+
+def geometric_factors_numpy(verts: np.ndarray, cells: np.ndarray,
+                            face_vertices: np.ndarray):
+    """Affine-simplex geometry in NumPy (LAPACK det and inverse).
+
+    Returns (Ginv (E, dim, dim), detJ (E,), normals (E, nf, dim),
+    Fscale (E, nf), h (E,)), as ``native.geometric_factors`` does.
+    """
+    from math import factorial
+
+    E, dim = cells.shape[0], verts.shape[1]
+    n_faces = dim + 1
+    J = np.transpose(verts[cells[:, 1:]] - verts[cells[:, :1]],
+                     (0, 2, 1))
+    detJ = np.linalg.det(J)
+    assert np.all(detJ > 0), "cells must be positively oriented"
+    Ginv = np.linalg.inv(J)  # (E, dim, dim): rows are d xi_r / d x
+
+    # --- face normals, surface Jacobians ---
+    normals = np.zeros((E, n_faces, dim))
+    sJ = np.zeros((E, n_faces))
+    for f in range(n_faces):
+        pv = verts[cells[:, face_vertices[f]]]  # (E, dim, dim)
+        opp = verts[cells[:, f]]  # opposite vertex
+        if dim == 2:
+            t = pv[:, 1] - pv[:, 0]
+            sJ[:, f] = np.linalg.norm(t, axis=1)
+            n = np.stack([t[:, 1], -t[:, 0]], axis=1)
+        else:
+            c = np.cross(pv[:, 1] - pv[:, 0], pv[:, 2] - pv[:, 0])
+            sJ[:, f] = np.linalg.norm(c, axis=1)
+            n = c
+        n = n / np.linalg.norm(n, axis=1, keepdims=True)
+        flip = np.einsum("ed,ed->e", n, pv[:, 0] - opp) < 0
+        n[flip] *= -1.0
+        normals[:, f] = n
+    Fscale = sJ / detJ[:, None]
+
+    # characteristic size: min altitude = dim * vol / max face area
+    vol = detJ / factorial(dim)
+    farea = sJ / factorial(dim - 1)
+    h = dim * vol / farea.max(axis=1)
+    return Ginv, detJ, normals, Fscale, h
 
 
 def _canonical_vertex_ids(topo: MeshTopology) -> np.ndarray:
@@ -147,38 +209,17 @@ def build_discrete(
     coords = np.einsum("pk,ekd->epd", bary_nodes, verts[cells])
 
     # --- geometric factors (affine simplices) ---
-    J = np.transpose(verts[cells[:, 1:]] - verts[cells[:, :1]],
-                     (0, 2, 1))
-    detJ = np.linalg.det(J)
-    assert np.all(detJ > 0), "cells must be positively oriented"
-    Ginv = np.linalg.inv(J)  # (E, dim, dim): rows are d xi_r / d x
+    # native C++ single-pass twin when available (closed-form adjugate
+    # inverse; it differs from LAPACK's only in rounding)
+    from . import native
 
-    # --- face normals, surface Jacobians ---
-    normals = np.zeros((E, n_faces, dim))
-    sJ = np.zeros((E, n_faces))
-    for f in range(n_faces):
-        pv = verts[cells[:, re.face_vertices[f]]]  # (E, dim, dim)
-        opp = verts[cells[:, f]]  # opposite vertex
-        if dim == 2:
-            t = pv[:, 1] - pv[:, 0]
-            sJ[:, f] = np.linalg.norm(t, axis=1)
-            n = np.stack([t[:, 1], -t[:, 0]], axis=1)
-        else:
-            c = np.cross(pv[:, 1] - pv[:, 0], pv[:, 2] - pv[:, 0])
-            sJ[:, f] = np.linalg.norm(c, axis=1)
-            n = c
-        n = n / np.linalg.norm(n, axis=1, keepdims=True)
-        flip = np.einsum("ed,ed->e", n, pv[:, 0] - opp) < 0
-        n[flip] *= -1.0
-        normals[:, f] = n
-    Fscale = sJ / detJ[:, None]
-
-    # characteristic size: min altitude = dim * vol / max face area
-    from math import factorial
-
-    vol = detJ / factorial(dim)
-    farea = sJ / factorial(dim - 1)
-    h = dim * vol / farea.max(axis=1)
+    if native.available():
+        Ginv, detJ, normals, Fscale, h = native.geometric_factors(
+            verts, cells, np.asarray(re.face_vertices))
+        assert np.all(detJ > 0), "cells must be positively oriented"
+    else:
+        Ginv, detJ, normals, Fscale, h = geometric_factors_numpy(
+            verts, cells, np.asarray(re.face_vertices))
 
     # --- face-node pairing via geometric keys ---
     canon = _canonical_vertex_ids(topo)

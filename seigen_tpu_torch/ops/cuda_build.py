@@ -19,14 +19,14 @@ import ctypes
 import hashlib
 import os
 import shutil
-import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from ..build_cache import BUILD_DIR, build_into
+
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
-BUILD_DIR = PKG_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -69,23 +69,16 @@ class CudaLibrary:
         return h.hexdigest()[:16]
 
     def build(self) -> Path:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         out = BUILD_DIR / f"lib{self.name}-{self._digest()}.so"
-        if out.is_file():
-            self.build_seconds = 0.0
+        self.build_seconds, rc, log = build_into(
+            out, lambda tmp: [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                              *(str(s) for s in self.sources)])
+        if log is None:
             return out
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in self.sources)]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        self.build_seconds = time.perf_counter() - t0
-        log = res.stdout + res.stderr
         out.with_suffix(".ptxas.txt").write_text(log)
-        if res.returncode != 0:
+        if rc != 0:
             raise RuntimeError(
-                f"nvcc failed ({res.returncode}) for {self.name}:\n{log}")
-        os.replace(tmp, out)
+                f"nvcc failed ({rc}) for {self.name}:\n{log}")
         return out
 
     def load(self) -> ctypes.CDLL:

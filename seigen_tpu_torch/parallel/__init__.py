@@ -12,7 +12,15 @@ over ``make_plan``).  The domain-decomposed FWI gradients:
 ``ShardedUnstructuredDiffFwi`` (dd_diff_base.py).
 """
 
-from .dist_ops import make_sharded_run, run_distributed
+from .dist_ops import (
+    make_sharded_run,
+    run_distributed,
+    shard_params,
+    shard_receivers,
+    shard_sources,
+    shard_state,
+    unshard_field,
+)
 from .fused_sharded import ShardedFusedRunner
 from .lane_diff_sharded import ShardedLaneDiffFwi
 from .lane_sharded import ShardedLaneRunner
@@ -35,4 +43,9 @@ __all__ = [
     "make_sharded_run",
     "morton_order",
     "run_distributed",
+    "shard_params",
+    "shard_receivers",
+    "shard_sources",
+    "shard_state",
+    "unshard_field",
 ]

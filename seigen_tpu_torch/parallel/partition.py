@@ -1,8 +1,10 @@
 """Mesh partitioning and the halo-exchange plan of the general sharded
 path, computed once on the host.
 
-Port of ``seigen_tpu/parallel/partition.py`` (its NumPy branches; the port
-has no ``mesh/native`` C++ twin):
+Port of ``seigen_tpu/parallel/partition.py``.  The Morton sort and the
+halo needs take the ``mesh/native`` C++ path whenever
+``native.available()``, as the JAX package does; ``morton_argsort_numpy``
+and ``halo_needs_numpy`` are their oracles:
 
   1. Elements are ordered along a Morton space-filling curve and split
      into P equal contiguous blocks, padded with inert self-connected
@@ -25,19 +27,46 @@ import numpy as np
 
 
 def morton_order(points: np.ndarray, bits: int = 16) -> np.ndarray:
-    """Permutation sorting points along a Morton (Z-order) curve."""
+    """Permutation sorting points along a Morton (Z-order) curve.
+
+    Uses the native C++ path when available; ``morton_argsort_numpy`` is
+    the oracle (the two agree exactly).
+    """
     p = points - points.min(axis=0)
     scale = p.max(axis=0)
     scale[scale == 0] = 1.0
     q = np.minimum((p / scale * (2**bits - 1)).astype(np.uint64), 2**bits - 1)
-    dim = points.shape[1]
-    code = np.zeros(len(points), dtype=np.uint64)
+
+    from ..mesh import native
+
+    if native.available():
+        return native.morton_argsort(q.astype(np.uint32), bits=bits)
+    return morton_argsort_numpy(q, bits)
+
+
+def morton_argsort_numpy(q: np.ndarray, bits: int = 16) -> np.ndarray:
+    """(n, dim) uint64 quantized coords -> Morton-order permutation, by a
+    NumPy bit interleave and a stable argsort."""
+    dim = q.shape[1]
+    code = np.zeros(len(q), dtype=np.uint64)
     for b in range(bits):
         for d in range(dim):
             code |= ((q[:, d] >> np.uint64(b)) & np.uint64(1)) << np.uint64(
                 b * dim + d
             )
     return np.argsort(code, kind="stable")
+
+
+def halo_needs_numpy(gids: np.ndarray, src: np.ndarray, dst: np.ndarray,
+                     P: int) -> dict:
+    """Directed cross-shard needs {(src, dst): sorted unique gids}, by a
+    lexsort and a np.unique per pair."""
+    order = np.lexsort((gids, src, dst))
+    gids, src, dst = gids[order], src[order], dst[order]
+    key = dst * P + src
+    bounds = np.r_[0, np.nonzero(np.diff(key))[0] + 1, len(key)]
+    return {(int(src[a]), int(dst[a])): np.unique(gids[a:b])
+            for a, b in zip(bounds[:-1], bounds[1:])}
 
 
 def _edge_color(pairs: list[tuple[int, int]]) -> list[int]:
@@ -108,12 +137,12 @@ def make_plan(dm, n_shards: int) -> Plan:
         gids = nbr_full[ce]
         src = owner[ce]
         dst = np.broadcast_to(my_shard, nbr_full.shape)[ce]
-        order = np.lexsort((gids, src, dst))
-        gids, src, dst = gids[order], src[order], dst[order]
-        key = dst * P + src
-        bounds = np.r_[0, np.nonzero(np.diff(key))[0] + 1, len(key)]
-        for a, b in zip(bounds[:-1], bounds[1:]):
-            needs[(int(src[a]), int(dst[a]))] = np.unique(gids[a:b])
+        from ..mesh import native
+
+        if native.available():
+            needs = native.halo_needs(gids, src, dst, P)
+        else:
+            needs = halo_needs_numpy(gids, src, dst, P)
 
     # undirected pairs, edge-coloured into rounds
     und = sorted({tuple(sorted(k)) for k in needs})

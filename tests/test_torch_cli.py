@@ -108,14 +108,16 @@ def test_runner_impls_match_einsum(tmp_path, impl):
            _port(tmp_path, "einsum", args + ["--impl", "einsum"]))
 
 
-def test_gmsh_layered_vtk_matches_jax_script(tmp_path, monkeypatch):
+@pytest.mark.parametrize("path", ["native", "numpy"])
+def test_gmsh_layered_vtk_matches_jax_script(tmp_path, monkeypatch, path):
     """--mesh with named Gmsh groups for the BCs, --layered, --vtk: the
     seismograms of JAX's script with the same flags, and one snapshot per
     --vtk-every steps.  The end receivers lie on element edges, where the
-    element is picked by the roundoff of Ginv: the JAX run takes its NumPy
-    geometry, as the port does (its native C++ factors differ in the last
-    bits and pick other elements there; ROADMAP.md item 11a)."""
+    element is picked by the roundoff of Ginv, so both packages take the
+    same geometry: both their native C++ factors (the same source and
+    flags: bitwise equal) or both their NumPy ones."""
     import seigen_tpu.mesh.native as jnative
+    import seigen_tpu_torch.mesh.native as tnative
     from seigen_tpu.mesh import rect_mesh
     from test_gmsh import _boundary_edges, _write_msh_v2
 
@@ -129,9 +131,11 @@ def test_gmsh_layered_vtk_matches_jax_script(tmp_path, monkeypatch):
     args = ["--mesh", msh, "--bc-free", "surface", "--bc-absorb", "sides",
             "--layered", "--degree", "1", "--T", "0.1", "--impl", "einsum"]
     vtk = tmp_path / "vtk" / "run.pvd"
+    if path == "numpy":
+        monkeypatch.setattr(jnative, "available", lambda: False)
+        monkeypatch.setattr(tnative, "available", lambda: False)
     got = _port(tmp_path, "port", args + ["--vtk", str(vtk),
                                           "--vtk-every", "5"])
-    monkeypatch.setattr(jnative, "available", lambda: False)
     _close(got, _jax_script(tmp_path, "jax", args, monkeypatch))
     n_vtu = len(list(vtk.parent.glob("run_*.vtu")))
     assert n_vtu == -(-len(got) // 5)

@@ -73,9 +73,9 @@ def test_params_from_numpy_equals_build_params(case):
         a, b = getattr(p_c, f.name), getattr(p_t, f.name)
         if isinstance(b, torch.Tensor):
             assert a.dtype == b.dtype, f.name
-            # rtol: the JAX mesh geometry may come from its native C++ path
-            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-13,
-                                       atol=1e-15, err_msg=f.name)
+            # exact: both packages take the same mesh geometry (native)
+            np.testing.assert_array_equal(a.numpy(), b.numpy(),
+                                          err_msg=f.name)
         else:
             assert a == b, f.name
 

@@ -1,10 +1,11 @@
 """Port host setup vs the JAX package: reference tables, meshes, lane plan.
 
-The port carries the NumPy setup code over as copies; these tests hold the
-copies to the reference arrays (exact for the tables and integer maps,
-rtol 1e-13 for the mesh geometry, where the JAX package may take its native
-C++ path).  Both packages' mesh objects are pure NumPy, so the tests need
-no device.
+The port carries the NumPy setup code over as copies, and builds the JAX
+package's native C++ mesh library from a copy of its source with its
+flags; these tests hold the copies to the reference arrays, exactly: the
+tables, the integer maps and the mesh geometry (each package on its
+default path, both native or both NumPy).  Both packages' mesh objects
+are pure NumPy, so the tests need no device.
 """
 
 import numpy as np
@@ -67,8 +68,8 @@ def test_build_discrete_matches(which):
                                       getattr(a.topology, name))
     assert b.topology.structure == a.topology.structure
     for name in ("coords", "Ginv", "detJ", "Fscale", "normals", "h"):
-        np.testing.assert_allclose(getattr(b, name), getattr(a, name),
-                                   rtol=1e-13, atol=1e-15, err_msg=name)
+        np.testing.assert_array_equal(getattr(b, name), getattr(a, name),
+                                      err_msg=name)
     np.testing.assert_array_equal(b.nbr, a.nbr)
     np.testing.assert_array_equal(b.bc, a.bc)
 

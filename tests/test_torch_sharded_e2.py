@@ -83,14 +83,12 @@ def test_ranks_match_one_device(e2, name):
 # --- the host plans against the JAX package's -------------------------------
 
 
-def _jax_dm(dim, degree, scramble, monkeypatch):
-    """JAX's DiscreteMesh of tiny_case's mesh (its NumPy geometry: the
-    port has no native twin)."""
+def _jax_dm(dim, degree, scramble):
+    """JAX's DiscreteMesh of tiny_case's mesh (each package on its default
+    path: both native, or both NumPy where no g++ is found)."""
     import seigen_tpu.mesh as jmesh
     import seigen_tpu.solver as jsol
-    from seigen_tpu.mesh import native as jnative
 
-    monkeypatch.setattr(jnative, "available", lambda: False)
     topo = (jmesh.box_mesh(4, 3, 3) if dim == 3 else jmesh.rect_mesh(8, 4))
     if scramble:
         perm = np.random.default_rng(0).permutation(topo.num_cells)
@@ -102,10 +100,15 @@ def _jax_dm(dim, degree, scramble, monkeypatch):
 
 @pytest.mark.parametrize("P", [2, 3, 4])
 @pytest.mark.parametrize("dim", [3, 2])
-def test_make_plan_matches_jax(dim, P, monkeypatch):
+def test_make_plan_matches_jax(dim, P):
+    import seigen_tpu.parallel as jpar
+    import seigen_tpu_torch.parallel as tpar
     from seigen_tpu.parallel.partition import make_plan as jax_plan
 
-    jp = jax_plan(_jax_dm(dim, 2, dim == 3, monkeypatch), P)
+    # every public name of the JAX package's parallel/ (shard_params,
+    # shard_state, shard_sources, shard_receivers, unshard_field, ...)
+    assert all(n in tpar.__all__ and hasattr(tpar, n) for n in jpar.__all__)
+    jp = jax_plan(_jax_dm(dim, 2, dim == 3), P)
     tp = make_plan(tiny_case(dim, 2, scramble=(dim == 3))[0], P)
     for f in dataclasses.fields(jp):
         a, b = getattr(tp, f.name), getattr(jp, f.name)
@@ -127,7 +130,7 @@ def _addressed(take, E_r, E_loc, nb, gather_cols, r):
 
 
 @pytest.mark.parametrize("P", [2, 5])  # 216 elements: 5 leaves 40 last
-def test_unstructured_host_plan_matches_jax(P, monkeypatch):
+def test_unstructured_host_plan_matches_jax(P):
     import jax
     import jax.numpy as jnp
 
@@ -135,7 +138,7 @@ def test_unstructured_host_plan_matches_jax(P, monkeypatch):
     from seigen_tpu.parallel.unstructured_sharded import \
         ShardedUnstructuredRunner as JR
 
-    dm_j = _jax_dm(3, 2, True, monkeypatch)
+    dm_j = _jax_dm(3, 2, True)
     p_j = jops.build_params(dm_j, jops.Material(1.0, 2.0, 1.0),
                             dtype=jnp.float64)
     cent = np.asarray(dm_j.coords.mean(axis=1))
@@ -170,7 +173,7 @@ def test_unstructured_host_plan_matches_jax(P, monkeypatch):
 # --- the whole slice against JAX --------------------------------------------
 
 
-def test_general_path_matches_jax(e2, monkeypatch):
+def test_general_path_matches_jax(e2):
     """The port's 2-rank run of the general path (tiny 2D P1 case, f64)
     against JAX's run_distributed on 2 virtual devices."""
     import jax
@@ -180,7 +183,7 @@ def test_general_path_matches_jax(e2, monkeypatch):
     import seigen_tpu.solver as jsol
     from seigen_tpu.parallel import run_distributed
 
-    dm_j = _jax_dm(2, 1, False, monkeypatch)
+    dm_j = _jax_dm(2, 1, False)
     E, n_p = dm_j.num_elements, dm_j.re.n_p
     rng = np.random.default_rng(7)
     mat = jops.Material(1.0 + 0.2 * rng.random(E), 2.0, 1.0)
